@@ -1,0 +1,75 @@
+"""Load flax parameters into a port model.
+
+``params_from_jax(flat, model)`` takes the ``/``-joined flax leaves as numpy
+arrays (``{"cross/ws": ..., "deep/Dense_0/Dense_0/kernel": ...}``) and loads
+them into the port model's state dict:
+
+* dense kernels ``[in, out]`` become ``nn.Linear`` weights ``[out, in]``;
+* an f32 embedding leaf wider than the model's E is a packed
+  ``table || moments || staging`` row (``SparseEmbeddingTrainer`` with
+  ``packed_tables=True``); its first E columns are the table;
+* the uint8 packed quantized table ``unified_q`` passes through unchanged;
+* ``bias``, ``dense_factors`` and ``dense_linear`` are created by every
+  DCN-v2 tree but never read by it, so they are dropped.
+
+Any other leaf the port does not know raises, as does a port parameter that
+no leaf fills.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+UNREAD_LEAVES = frozenset({"bias", "dense_factors", "dense_linear"})
+
+# (flax path pattern, port key template, transform)
+_RULES = (
+    (r"(\w+)/Dense_(\d+)/Dense_0/kernel", r"\1.layers.\2.linear.weight", "transpose"),
+    (r"(\w+)/Dense_(\d+)/Dense_0/bias", r"\1.layers.\2.linear.bias", None),
+    (r"(\w+)/kernel", r"\1.weight", "transpose"),
+    (r"(\w+)/bias", r"\1.bias", None),
+    (r"(\w+)/embedding", r"\1.embedding", "table_columns"),
+    (r"cross/(ws|bs)", r"cross.\1", None),
+    (r"unified_q", "unified_q", None),
+)
+
+
+def _port_key(path: str):
+    for pattern, template, transform in _RULES:
+        match = re.fullmatch(pattern, path)
+        if match:
+            return match.expand(template), transform
+    raise KeyError(f"no port counterpart for flax leaf {path!r}")
+
+
+def params_from_jax(flat: Mapping[str, np.ndarray], model: nn.Module) -> nn.Module:
+    """Load ``flat`` into ``model`` (on whatever device it lives); return it."""
+    state = model.state_dict()
+    loaded: Dict[str, torch.Tensor] = {}
+    for path, value in flat.items():
+        if path in UNREAD_LEAVES:
+            continue
+        key, transform = _port_key(path)
+        if key not in state:
+            raise KeyError(f"flax leaf {path!r} maps to {key!r}, which the model lacks")
+        want = state[key]
+        array = np.asarray(value)
+        if transform == "transpose":
+            array = array.T
+        elif transform == "table_columns" and array.ndim == 2 and array.shape[1] > want.shape[1]:
+            array = array[:, :want.shape[1]]
+        tensor = torch.from_numpy(np.array(array, order="C"))  # a writable copy
+        if tuple(tensor.shape) != tuple(want.shape) or tensor.dtype != want.dtype:
+            raise ValueError(f"flax leaf {path!r} is {tuple(array.shape)} {array.dtype}; "
+                             f"{key!r} wants {tuple(want.shape)} {want.dtype}")
+        loaded[key] = tensor
+    missing = sorted(set(state) - set(loaded))
+    if missing:
+        raise KeyError(f"no flax leaf for {missing}")
+    model.load_state_dict(loaded)
+    return model

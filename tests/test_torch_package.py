@@ -1,0 +1,153 @@
+"""The port as a package: what it imports, where it runs, and its small
+modules (feature columns, embedding, MLP) against the JAX package's."""
+
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import traverse_util
+
+from pytorchrec_tpu import feature_column as jfc
+from pytorchrec_tpu.ops.embedding import Embedding as JaxEmbedding
+from pytorchrec_tpu.ops.mlp import MLP as JaxMLP
+from pytorchrec_tpu_torch import feature_column as tfc
+from pytorchrec_tpu_torch.models import DCNv2
+from pytorchrec_tpu_torch.ops.embedding import Embedding
+from pytorchrec_tpu_torch.ops.mlp import MLP
+from pytorchrec_tpu_torch.training import Trainer
+from pytorchrec_tpu_torch.utils import params_from_jax, resolve_device
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "pytorchrec_tpu_torch"
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages([str(PORT)], "pytorchrec_tpu_torch."))
+
+
+def test_importing_every_port_module_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for name in ['pytorchrec_tpu_torch'] + {_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'pytorchrec_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    run = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert run.returncode == 0, run.stderr
+    assert run.stdout.startswith("ok")
+
+
+def test_no_port_source_names_jax_or_the_jax_package():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|pytorchrec_tpu)\b",
+                         re.MULTILINE)
+    sources = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [str(p.relative_to(ROOT)) for p in sources if pattern.search(p.read_text())]
+    assert not offenders
+    assert (PORT / "csrc" / "cross.cu").exists()
+
+
+def _small_model(device):
+    return DCNv2(sparse_columns=[tfc.CategoricalColumnWithIdentity("c_0", 10)],
+                 dense_columns=[tfc.NumericColumn("d_0")], emb_size=2,
+                 num_cross_layers=1, layers=(4,), device=device,
+                 generator=torch.Generator().manual_seed(0))
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    """No device means the card; with no card that is an error, never the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = _small_model("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(model, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _small_model(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert Trainer(model, device="cpu").device == torch.device("cpu")
+
+
+def test_numeric_column_modes_match_jax():
+    values = np.random.default_rng(0).normal(3.0, 2.0, size=50).astype(np.float32)
+    for mode in ("NOP", "MAX_MIN", "Z_SCORE"):
+        jcol = jfc.NumericColumn.from_array("x", values, getattr(jfc.NormalizationMode, mode))
+        tcol = tfc.NumericColumn.from_array("x", values, getattr(tfc.NormalizationMode, mode))
+        batch = {"x": values}
+        got = tcol.get_feature_data(batch)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(jcol.get_feature_data(batch)),
+                                   rtol=1e-6, atol=1e-7)
+    assert tfc.NumericColumn("x").get_feature_data({}) is None
+
+
+def test_categorical_and_crossed_columns_match_jax():
+    rng = np.random.default_rng(1)
+    a, b = rng.integers(0, 7, 20).astype(np.int32), rng.integers(2, 5, 20).astype(np.int32)
+    jcols = [jfc.CategoricalColumnWithIdentity.from_array(n, v) for n, v in (("a", a), ("b", b))]
+    tcols = [tfc.CategoricalColumnWithIdentity.from_array(n, v) for n, v in (("a", a), ("b", b))]
+    for jc, tc in zip(jcols, tcols):
+        assert (jc.category_num, jc.get_info("min_value"), jc.get_info("max_value")) == (
+            tc.category_num, tc.get_info("min_value"), tc.get_info("max_value"))
+    batch = {"a": a, "b": b}
+    jcross, tcross = jfc.CrossedColumn(jcols), tfc.CrossedColumn(tcols)
+    assert (tcross.feature_name, tcross.category_num, tcross.coefs) == (
+        jcross.feature_name, jcross.category_num, jcross.coefs)
+    got = tcross.get_feature_data(batch)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jcross.get_feature_data(batch)))
+    assert tcross.get_feature_data({"a": a}) is None
+    with pytest.raises(ValueError):
+        tfc.CrossedColumn(tcols[:1])
+
+
+def test_embedding_gather_matches_flax():
+    rng = np.random.default_rng(2)
+    table = rng.normal(size=(30, 5)).astype(np.float32)
+    ids = rng.integers(0, 30, size=(4, 3)).astype(np.int32)
+    want = JaxEmbedding(30, 5).apply({"params": {"embedding": jnp.asarray(table)}},
+                                     jnp.asarray(ids))
+    emb = Embedding(30, 5, device="cpu", generator=torch.Generator().manual_seed(0))
+    assert 0.005 < float(emb.embedding.detach().std()) < 0.02  # normal(0, 0.01) init
+    emb.load_state_dict({"embedding": torch.from_numpy(table)})
+    got = emb(tfc.base.as_int(ids))
+    np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("activation", ["relu", "gelu", "tanh", "sigmoid", "identity"])
+def test_mlp_matches_flax(activation):
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(6, 7)).astype(np.float32)
+    jax_mlp = JaxMLP((5, 3), activation=activation)
+    variables = jax_mlp.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    want = np.asarray(jax_mlp.apply(variables, jnp.asarray(x)))
+    flat = traverse_util.flatten_dict(variables["params"], sep="/")
+
+    holder = torch.nn.Module()
+    holder.deep = MLP(7, (5, 3), activation=activation, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    params_from_jax({f"deep/{k}": np.asarray(v) for k, v in flat.items()}, holder)
+    with torch.no_grad():
+        got = holder.deep(torch.from_numpy(x), train=False)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-7)
+
+
+def test_dropout_only_when_training():
+    mlp = MLP(4, (64,), activation="identity", dropout=0.5, device="cpu",
+              generator=torch.Generator().manual_seed(0))
+    x = torch.ones(8, 4)
+    with torch.no_grad():
+        assert torch.equal(mlp(x), mlp(x))  # serving: no dropout
+        assert (mlp(x, train=True) == 0).any()
