@@ -6,9 +6,11 @@
 Phases; any failure ends the run with a non-zero exit and no result line:
 
 1. card: the card's name and power limit (nvidia-smi) and torch's name for it;
-2. build: every CUDA kernel of the serving path, from ``pytorchrec_tpu_torch/csrc``;
-3. kernel against plain: each kernel's wrapper on the card at the shapes the
-   serving path gives it, held against its plain PyTorch version;
+2. build: every CUDA kernel of the serving and training paths (cross,
+   seg_scan, scatter), from ``pytorchrec_tpu_torch/csrc``, one nvcc each,
+   all at once;
+3. kernel against plain: the cross kernel's wrapper on the card at the shapes
+   the serving path gives it, held against its plain PyTorch version;
 4. serving: DCN-v2 at the full Criteo width (26 sparse fields of 100k ids,
    E=16, 13 dense fields, 3 cross layers, MLP 256-128; ``bench.py``'s
    config), weights made from ``--seed`` in the flax leaf layout and loaded
@@ -16,15 +18,35 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    rows and one candidate request [256, 100], once with the f32 table (the
    packed ``table || moments`` leaf) and once with the int8 packed byte-row
    table. Launch counts are zeroed just before and read just after; each
-   request must launch each kernel once, give finite scores of the right
+   request must launch the cross kernel once, give finite scores of the right
    shape and agree with the same model run with the plain cross network on
    the card and, for the 1000-row request, on the CPU. One more 1-row and
    one more 32768-row request run under torch.profiler, which prints the
    device time by kernel and copy against the request's wall time;
-5. timings: each kernel's time at 1, 4096 and 32768 rows beside its plain
-   version, a cuBLAS yardstick and the card's bound, and a
-   ``{"kernels": [...]}`` line with those at the largest shape.
+5. cross timings: the cross kernel's time at 1, 4096 and 32768 rows beside
+   its plain version, a cuBLAS yardstick and the card's bound;
+6. training kernels against plain, on the card: the segmented scan at the
+   packed update's shape (851,968 rows of E=16, ids drawn as ``bench.py``
+   draws them), a Zipf-skewed case with segments of 10k+ rows and 1 and
+   1000 rows; the scatter-set into a [2.6M, 64] f32 table (bit-exact); the
+   cross network's gradient through its autograd Function against autograd
+   through the plain version at B=4096; then each kernel's time beside its
+   plain version, a PyTorch yardstick where one exists, and its bound;
+7. training: the same model under ``SparseEmbeddingTrainer(packed_tables=
+   True)`` (lazy Adam on packed ``table || m || v`` rows, dense Adam, BCE),
+   weights from ``--seed`` loaded through ``params_from_jax``, 25
+   ``train_step``s on device-resident batches of 32768 rows made as
+   ``bench.py``'s ``make_host_batch``, then ``fit_steps`` and the trained
+   model's ``make_serving_fn``. Launch counts are zeroed just before and read
+   just after: every step launches each of the three kernels once. Losses
+   must be finite and the packed buffer never reallocated. It prints ms/step
+   and examples/s (CUDA events over the last 20 steps), a torch.profiler
+   breakdown of one more step and the peak device memory;
+8. card against CPU: the same model and weights, 2 steps at batch 1024 on the
+   card and on the CPU (plain versions), compared loss by loss and in the
+   dense parameters and touched packed rows afterwards;
 
+then a ``{"kernels": [...]}`` line with every kernel at its main-path shape.
 The last line is ``{"ok": true, "device": {...}}``. Needs one CUDA card; no
 JAX and nothing of the JAX package is imported.
 """
@@ -44,8 +66,13 @@ from pytorchrec_tpu_torch.feature_column import CategoricalColumnWithIdentity, N
 from pytorchrec_tpu_torch.models import DCNv2
 from pytorchrec_tpu_torch.ops.kernels.build import build
 from pytorchrec_tpu_torch.ops.kernels.cross import cross_network, cross_network_plain
+from pytorchrec_tpu_torch.ops.kernels.scatter import scatter_set_rows, scatter_set_rows_plain
+from pytorchrec_tpu_torch.ops.kernels.seg_scan import (
+    segmented_sum_scan,
+    segmented_sum_scan_plain,
+)
 from pytorchrec_tpu_torch.ops.quantized_packed import packed_q_width
-from pytorchrec_tpu_torch.training import Trainer
+from pytorchrec_tpu_torch.training import SparseEmbeddingTrainer, Trainer
 from pytorchrec_tpu_torch.utils import params_from_jax
 
 # bench.py's Criteo-shaped DCN-v2
@@ -60,6 +87,15 @@ REQUEST_ROWS = (1, 1000, 4096, 32768)
 CANDIDATES = (256, 100)  # [B, N] candidate request
 REPEATS = 5  # timed repeats of each request
 PROFILED_SHAPES = ((1,), (REQUEST_ROWS[-1],))  # one more request each, under torch.profiler
+
+# training (bench.py): batch, steps timed after warm-up, packed row width
+TRAIN_BATCH = 32768
+TRAIN_WARMUP, TRAIN_TIMED = 5, 20
+PACKED_W = 64  # table || m || v || staging at E=16
+TABLE = "unified_emb/embedding"
+CPU_BATCH, CPU_STEPS = 1024, 2  # card against CPU
+LABEL = CategoricalColumnWithIdentity(feature_name="label", category_num=2)
+KERNELS = (cross_network, segmented_sum_scan, scatter_set_rows)
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
@@ -157,7 +193,7 @@ def make_model(table: str, device, seed: int) -> DCNv2:
               for i in range(N_SPARSE)]
     dense = [NumericColumn(feature_name=f"d_{i}") for i in range(N_DENSE)]
     quantized = table == "int8"
-    return DCNv2(sparse_columns=sparse, dense_columns=dense, emb_size=EMB,
+    return DCNv2(sparse_columns=sparse, dense_columns=dense, label_column=LABEL, emb_size=EMB,
                  num_cross_layers=CROSS_LAYERS, layers=MLP_UNITS, unified_embedding=True,
                  quantized_embedding=quantized, table_packed=quantized, device=device,
                  generator=torch.Generator(device=device).manual_seed(seed))
@@ -192,19 +228,21 @@ class PlainCross(torch.nn.Module):
         return cross_network_plain(flat, self.inner.ws, self.inner.bs).reshape(x0.shape)
 
 
-def profile_request(serve, req: dict, label: str, top: int = 6) -> None:
-    """Where one request's time goes: torch.profiler's device time by kernel
-    or copy, against the request's host-clocked wall time."""
+def profile_call(fn, label: str, kernels=(cross_network,), top: int = 6) -> None:
+    """Where one call's time goes: torch.profiler's device time by kernel or
+    copy, against the call's host-clocked wall time. Each of ``kernels`` must
+    launch once."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    before = cross_network.launches
+    before = [k.launches for k in kernels]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        serve(req)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    if cross_network.launches != before + 1:
-        raise AssertionError(f"{label}: profiled request launched the cross kernel "
-                             f"{cross_network.launches - before} times, want 1")
+    for kernel, count in zip(kernels, before):
+        if kernel.launches != count + 1:
+            raise AssertionError(f"{label}: profiled call launched {kernel.__name__} "
+                                 f"{kernel.launches - count} times, want 1")
     # the device's own events (kernels, copies); CPU ops repeat their kernels' time
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
@@ -213,8 +251,13 @@ def profile_request(serve, req: dict, label: str, top: int = 6) -> None:
         return
     print(f"{label} profile: wall {wall_ms:.3f} ms, device busy {device_ms:.3f} ms "
           f"({100 * device_ms / wall_ms:.1f}%)")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    for e in ranked[:top]:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<3d} {e.key[:90]}")
+    if ranked[top:]:
+        rest = ranked[top:]
+        print(f"    {sum(e.self_device_time_total for e in rest) / 1e3:8.3f} ms  "
+              f"x{sum(e.count for e in rest):<3d} the {len(rest)} other kinds")
 
 
 def serve_table(table: str, requests: list, seed: int) -> None:
@@ -257,7 +300,7 @@ def serve_table(table: str, requests: list, seed: int) -> None:
 
     for name, req, shape in requests:
         if shape in PROFILED_SHAPES:
-            profile_request(serve, req, f"[{table}] {name}")
+            profile_call(lambda: serve(req), f"[{table}] {name}")
 
     kernel_cross = model.cross
     model.cross = PlainCross(kernel_cross)
@@ -314,6 +357,246 @@ def time_cross(rng: np.random.Generator, batch: int) -> dict:
     return timing
 
 
+def make_train_batch(rng: np.random.Generator, rows: int = TRAIN_BATCH) -> dict:
+    """``bench.py``'s ``make_host_batch`` at ``rows`` rows."""
+    batch = {f"c_{i}": rng.integers(0, VOCAB, size=rows).astype(np.int32)
+             for i in range(N_SPARSE)}
+    for i in range(N_DENSE):
+        batch[f"d_{i}"] = rng.normal(size=rows).astype(np.float32)
+    batch["label"] = rng.integers(0, 2, size=rows).astype(np.int32)
+    return batch
+
+
+def unified_ids(fields: dict) -> np.ndarray:
+    """Ids in the unified table, row after row, as the trainer flattens them."""
+    return np.stack([fields[f"c_{i}"].astype(np.int64) + i * VOCAB for i in range(N_SPARSE)],
+                    axis=1).reshape(-1)
+
+
+def segments(ids: np.ndarray):
+    """(sorted ids, is_start, is_last) as the packed update derives them."""
+    ordered = np.sort(ids)
+    differs = ordered[1:] != ordered[:-1]
+    return ordered, np.concatenate([[True], differs]), np.concatenate([differs, [True]])
+
+
+def scan_input(ids: np.ndarray, gen: torch.Generator):
+    """The update's scan operands for these ids: grads N(0, 1) in the staging
+    columns [48, 64) of [n, 64] rows (a strided slice, as on the path) and
+    the heads of the sorted ids."""
+    _, heads, _ = segments(ids)
+    wide = torch.randn((ids.shape[0], PACKED_W), device="cuda", generator=gen)
+    return wide[:, 3 * EMB:4 * EMB], torch.from_numpy(heads).cuda()
+
+
+def check_seg_scan(rng: np.random.Generator, gen: torch.Generator):
+    """Phase 6, scan: kernel against plain at the main-path shape, with Zipf
+    skew and at 1 and 1000 rows; returns the main-path error and inputs."""
+    main_ids = unified_ids(make_train_batch(rng))
+    # per-field Zipf(2) ids: each field's hottest id fills ~20k rows
+    hot = {f"c_{i}": np.minimum(rng.zipf(2.0, TRAIN_BATCH), VOCAB) - 1 for i in range(N_SPARSE)}
+    cases = [("bench ids", main_ids, 1e-5), ("zipf(2) ids", unified_ids(hot), 1e-4),
+             ("1 row", main_ids[:1], 1e-5), ("1000 rows", main_ids[:1000], 1e-5)]
+    main = None
+    for name, ids, atol in cases:
+        x, heads = scan_input(ids, gen)
+        got = segmented_sum_scan(x, heads)
+        want = segmented_sum_scan_plain(x, heads)
+        torch.cuda.synchronize()
+        err = close(got, want, rtol=1e-5, atol=atol)
+        longest = int(np.max(np.diff(np.flatnonzero(np.append(segments(ids)[1], True)))))
+        print(f"segmented_sum_scan kernel vs plain  {name:12s} n={ids.shape[0]:7d} E={EMB} "
+              f"longest segment {longest:6d}: max abs err {err:.3e} (atol {atol})")
+        if main is None:
+            main = (err, x, heads)
+    return main
+
+
+def time_seg_scan(x: torch.Tensor, heads: torch.Tensor) -> dict:
+    """Kernel and plain version (CUDA events, median of 3 interleaved rounds)
+    and the bound: read x and the flags once, write the result once."""
+    runs = {"ms": [], "plain_ms": []}
+    for _ in range(3):
+        runs["ms"].append(time_cuda(lambda: segmented_sum_scan(x, heads)))
+        runs["plain_ms"].append(time_cuda(lambda: segmented_sum_scan_plain(x, heads), iters=10))
+    n, e = x.shape
+    nbytes = 2 * n * e * 4 + n
+    ops_ms, bytes_ms = 1e3 * n * e / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES_S
+    timing = {k: float(np.median(v)) for k, v in runs.items()}
+    timing.update(library_ms=None, bound_ms=max(ops_ms, bytes_ms),
+                  bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+    print(f"segmented_sum_scan at n={n} E={e}: kernel {timing['ms']:.4f} ms, plain "
+          f"{timing['plain_ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms "
+          f"({nbytes / 1e6:.1f} MB); no single PyTorch call computes it; rounds {runs}")
+    return timing
+
+
+def check_and_time_scatter(rng: np.random.Generator, gen: torch.Generator):
+    """Phase 6, scatter: the update's last-of-segment rows into a [2.6M, 64]
+    f32 table, bit-exact against plain; then kernel, plain (which filters the
+    ids inside), ``index_copy_`` of the surviving rows (filtered beforehand,
+    untimed) and the bound for this data."""
+    vocab_rows = N_SPARSE * VOCAB
+    ordered, _, last = segments(unified_ids(make_train_batch(rng)))
+    n = ordered.shape[0]
+    safe = torch.from_numpy(np.where(last, ordered, vocab_rows + np.arange(n)).astype(np.int32))
+    safe = safe.cuda()
+    table = torch.randn((vocab_rows, PACKED_W), device="cuda", generator=gen)
+    rows = torch.randn((n, PACKED_W), device="cuda", generator=gen)
+    want = scatter_set_rows_plain(table.clone(), rows, safe)
+    scatter_set_rows(table, rows, safe)
+    torch.cuda.synchronize()
+    if not torch.equal(table, want):
+        raise AssertionError("scatter_set_rows kernel differs from its plain version")
+    del want
+    kept = int(last.sum())
+    print(f"scatter_set_rows kernel vs plain  n={n} ({kept} rows kept) into "
+          f"[{vocab_rows}, {PACKED_W}] f32: bit-exact")
+    keep = safe < vocab_rows
+    kept_ids, kept_rows = safe[keep].long(), rows[keep]
+    runs = {"ms": [], "plain_ms": [], "library_ms": []}
+    for _ in range(3):
+        runs["ms"].append(time_cuda(lambda: scatter_set_rows(table, rows, safe)))
+        runs["plain_ms"].append(time_cuda(lambda: scatter_set_rows_plain(table, rows, safe)))
+        runs["library_ms"].append(time_cuda(lambda: table.index_copy_(0, kept_ids, kept_rows)))
+    nbytes = 2 * kept * PACKED_W * 4 + 4 * n
+    timing = {k: float(np.median(v)) for k, v in runs.items()}
+    timing.update(bound_ms=1e3 * nbytes / PEAK_BYTES_S, bound_by="bytes")
+    print(f"scatter_set_rows at n={n}, {kept} kept: kernel {timing['ms']:.4f} ms, plain "
+          f"{timing['plain_ms']:.4f} ms, index_copy_ {timing['library_ms']:.4f} ms, bound "
+          f"{timing['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB); rounds {runs}")
+    return 0.0, timing
+
+
+def check_cross_grad(rng: np.random.Generator, gen: torch.Generator) -> float:
+    """Phase 6, gradient: dx0, dws, dbs through the Function (kernel forward)
+    against autograd through the plain version, on the card, at B=4096; then
+    the forward+backward time of both at B=32768."""
+    worst = 0.0
+    for batch in (4096, TRAIN_BATCH):
+        arrays = cross_inputs(rng, batch, DIM, "cuda")
+        upstream = torch.randn((batch, DIM), device="cuda", generator=gen)
+
+        def grads(fn):
+            leaves = [a.detach().clone().requires_grad_() for a in arrays]
+            out = fn(*leaves)
+            out.backward(upstream)
+            return [t.grad for t in leaves]
+
+        if batch == 4096:
+            before = cross_network.launches
+            got = grads(cross_network)
+            if cross_network.launches != before + 1:
+                raise AssertionError("the cross Function did not launch the kernel")
+            for name, a, b in zip(("dx0", "dws", "dbs"), got, grads(cross_network_plain)):
+                err = close(a, b)
+                worst = max(worst, err)
+                print(f"cross_network gradient (kernel Function vs plain autograd) B={batch} "
+                      f"{name}: max abs err {err:.3e}")
+        else:
+            kernel_ms = time_cuda(lambda: grads(cross_network), iters=10)
+            plain_ms = time_cuda(lambda: grads(cross_network_plain), iters=10)
+            print(f"cross_network forward+backward at B={batch}: Function (kernel forward, "
+                  f"torch backward) {kernel_ms:.4f} ms, plain autograd {plain_ms:.4f} ms")
+    return worst
+
+
+def make_trainer(device: str, leaves: dict, sample: dict, seed: int) -> SparseEmbeddingTrainer:
+    """bench.py's training set-up: packed f32 table, lazy Adam on it, dense
+    Adam, BCE, lr 1e-3; weights from ``leaves`` (flax layout)."""
+    trainer = SparseEmbeddingTrainer(make_model("f32", device, seed), device=device,
+                                     packed_tables=True)
+    trainer.compile(optimizer="adam", lr=1e-3, loss="bce")
+    trainer.init_state(sample, seed=seed)
+    return params_from_jax(leaves, trainer)
+
+
+def train(leaves: dict, rng: np.random.Generator, seed: int) -> dict:
+    """Phase 7: the main training path, launch counts from zero."""
+    host = [make_train_batch(rng) for _ in range(4)]
+    trainer = make_trainer("cuda", leaves, host[0], seed)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()} for b in host]
+    packed = trainer.state.packed[TABLE]
+    address = packed.data_ptr()
+    print(f"[train] packed table {tuple(packed.shape)} f32, {packed.nbytes / 1e6:.1f} MB")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    for kernel in KERNELS:
+        kernel.launches = 0
+    losses = []
+    for step in range(TRAIN_WARMUP + TRAIN_TIMED):
+        if step == TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            start.record()
+            t0 = time.perf_counter()
+        losses.append(trainer.train_step(batches[step % len(batches)]))
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / TRAIN_TIMED
+    launches = {k.__name__: k.launches for k in KERNELS}
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    if any(count != steps for count in launches.values()):
+        raise AssertionError(f"{steps} train steps launched {launches}; want {steps} each")
+    losses = torch.stack(losses).cpu()
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"non-finite losses {losses.tolist()}")
+    if trainer.state.packed[TABLE].data_ptr() != address:
+        raise AssertionError("the packed table was reallocated")
+    ms = start.elapsed_time(end) / TRAIN_TIMED
+    print(f"[train] {steps} train_steps, launches {launches}; losses {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f}")
+    print(f"[train] {ms:.3f} ms/step (CUDA events over {TRAIN_TIMED} steps), "
+          f"{TRAIN_BATCH / (ms / 1e3):.0f} examples/s; host clock {host_ms:.3f} ms/step")
+    print(f"[train] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    before = [k.launches for k in KERNELS]
+    history = trainer.fit_steps(iter(batches), steps=4, log_every=2)
+    if [k.launches - b for k, b in zip(KERNELS, before)] != [4, 4, 4] or \
+            len(history.history["loss"]) != 2 or not np.isfinite(history.history["loss"]).all():
+        raise AssertionError(f"fit_steps: history {history.history}, launches "
+                             f"{[k.launches - b for k, b in zip(KERNELS, before)]}")
+    print(f"[train] fit_steps(4, log_every=2): loss {history.history['loss']}")
+    profile_call(lambda: trainer.train_step(batches[0]), "[train] one step", KERNELS, top=24)
+    if trainer.state.packed[TABLE].data_ptr() != address:
+        raise AssertionError("the packed table was reallocated")
+
+    before = cross_network.launches
+    request = {k: v[:1000] for k, v in host[1].items() if k != "label"}
+    scores = trainer.make_serving_fn()(request)
+    torch.cuda.synchronize()
+    if tuple(scores.shape) != (1000,) or not torch.isfinite(scores).all() or \
+            cross_network.launches != before + 1:
+        raise AssertionError("serving from the trained state failed")
+    print(f"[train] make_serving_fn on the trained state: 1000 finite scores, mean "
+          f"{float(scores.mean()):.6f}")
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def card_against_cpu(leaves: dict, rng: np.random.Generator, seed: int) -> None:
+    """Phase 8: 2 steps at batch 1024 on the card and on the CPU (plain
+    versions) from the same state: losses rtol 1e-5, then the dense
+    parameters and the touched packed rows rtol 1e-4 / atol 1e-6."""
+    host = [make_train_batch(rng, CPU_BATCH) for _ in range(CPU_STEPS)]
+    touched = torch.from_numpy(np.unique(np.concatenate([unified_ids(b) for b in host])))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        trainer = make_trainer(device, leaves, host[0], seed)
+        losses = torch.stack([trainer.train_step(b) for b in host]).cpu()
+        dense = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()
+                 if k != "unified_emb.embedding"}
+        runs[device] = losses, dense, trainer.state.packed[TABLE][touched.to(device)].cpu()
+        del trainer
+    (card_loss, card_dense, card_rows), (cpu_loss, cpu_dense, cpu_rows) = runs["cuda"], runs["cpu"]
+    errs = [close(card_loss, cpu_loss, rtol=1e-5, atol=0.0)]
+    errs += [close(card_dense[k], cpu_dense[k]) for k in cpu_dense]
+    errs.append(close(card_rows, cpu_rows))
+    print(f"card vs CPU, {CPU_STEPS} steps at batch {CPU_BATCH}: losses {card_loss.tolist()} / "
+          f"{cpu_loss.tolist()}; max abs err: loss {errs[0]:.3e}, dense params "
+          f"{max(errs[1:-1]):.3e}, {touched.shape[0]} touched packed rows {errs[-1]:.3e}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -332,41 +615,69 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    paths = build("cross")
+    paths = build("cross", "seg_scan", "scatter")
     print(f"built {', '.join(str(p.name) for p in paths.values())} in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernel against plain (these launches are not the main path's)
     max_err = check_cross(rng)
 
-    # 4. serving: the main path, with launch counts from zero
+    # 4. serving: the serving path, with launch counts from zero
     requests = make_requests(rng)
     torch.cuda.reset_peak_memory_stats()
     cross_network.launches = 0
     for table in ("f32", "int8"):
         serve_table(table, requests, args.seed)
-    launches = cross_network.launches
+    serving_launches = cross_network.launches
     served = 2 * ((1 + REPEATS) * len(requests) + len(PROFILED_SHAPES))
-    if launches != served:
-        raise AssertionError(f"cross kernel launched {launches} times for {served} requests")
-    print(f"serving: {served} requests, cross_network launches {launches}; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if serving_launches != served:
+        raise AssertionError(f"cross kernel launched {serving_launches} times for {served} "
+                             f"requests")
+    print(f"serving: {served} requests, cross_network launches {serving_launches}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
-    # 5. timings at the smallest, a middle and the largest request; the
-    # kernels line reports the largest, the main path's throughput end
+    # 5. cross timings at the smallest and a middle request; the largest,
+    # the training batch, goes into the kernels line
     for batch in (REQUEST_ROWS[0], REQUEST_ROWS[2]):
         time_cross(rng, batch)
-    batch = REQUEST_ROWS[-1]
-    entry = {
-        "name": "cross_network",
-        "route": "cuda",
-        "source": "pytorchrec_tpu_torch/csrc/cross.cu",
-        "replaces": "pytorchrec_tpu/ops/kernels/cross.py:50",
-        "launches": launches,
-        "max_abs_err": max_err,
-        **time_cross(rng, batch),
-        "shape": f"B={batch} D={DIM} L={CROSS_LAYERS} f32",
-    }
-    print(json.dumps({"kernels": [entry]}))
+    cross_timing = time_cross(rng, TRAIN_BATCH)
+
+    # 6. training kernels against plain, and their times (not the main path's launches)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    scan_err, scan_x, scan_heads = check_seg_scan(rng, gen)
+    scan_timing = time_seg_scan(scan_x, scan_heads)
+    del scan_x, scan_heads
+    scatter_err, scatter_timing = check_and_time_scatter(rng, gen)
+    grad_err = check_cross_grad(rng, gen)
+    torch.cuda.empty_cache()
+
+    # 7. training: the main path, with launch counts from zero
+    leaves = flax_leaves(np.random.default_rng(args.seed + 3), "f32")
+    launches = train(leaves, rng, args.seed)
+    torch.cuda.empty_cache()
+
+    # 8. card against CPU
+    card_against_cpu(leaves, rng, args.seed)
+
+    n_scan = TRAIN_BATCH * N_SPARSE
+    entries = [
+        {"name": "cross_network", "route": "cuda",
+         "source": "pytorchrec_tpu_torch/csrc/cross.cu",
+         "replaces": "pytorchrec_tpu/ops/kernels/cross.py:50",
+         "launches": launches["cross_network"], "max_abs_err": max_err, **cross_timing,
+         "shape": f"B={TRAIN_BATCH} D={DIM} L={CROSS_LAYERS} f32",
+         "serving_launches": serving_launches, "grad_max_abs_err": grad_err},
+        {"name": "segmented_sum_scan", "route": "cuda",
+         "source": "pytorchrec_tpu_torch/csrc/seg_scan.cu",
+         "replaces": "pytorchrec_tpu/ops/kernels/seg_scan.py:108",
+         "launches": launches["segmented_sum_scan"], "max_abs_err": scan_err, **scan_timing,
+         "shape": f"n={n_scan} E={EMB} f32, row stride {PACKED_W}"},
+        {"name": "scatter_set_rows", "route": "cuda",
+         "source": "pytorchrec_tpu_torch/csrc/scatter.cu",
+         "replaces": "pytorchrec_tpu/ops/kernels/dma_scatter.py:117",
+         "launches": launches["scatter_set_rows"], "max_abs_err": scatter_err, **scatter_timing,
+         "shape": f"n={n_scan} rows of {PACKED_W} f32 into [{N_SPARSE * VOCAB}, {PACKED_W}]"},
+    ]
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,0 +1,45 @@
+"""Loss functions (port of ``pytorchrec_tpu/loss/losses.py``): BCE and MSE.
+
+Each takes ``(prediction, target)`` and a reduction (``mean``, ``sum`` or
+``none``). The ranking and multi-task losses (bpr, top1, softmax, esmm)
+come with the task slices.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+
+def _reduce(values: torch.Tensor, reduction: str) -> torch.Tensor:
+    if reduction == "mean":
+        return values.mean()
+    if reduction == "sum":
+        return values.sum()
+    if reduction == "none":
+        return values
+    raise ValueError(f"unknown reduction {reduction!r}")
+
+
+def mse_loss(prediction: torch.Tensor, target: torch.Tensor,
+             reduction: str = "mean") -> torch.Tensor:
+    return _reduce(torch.square(prediction - target), reduction)
+
+
+def bce_loss(prediction: torch.Tensor, target: torch.Tensor,
+             reduction: str = "mean") -> torch.Tensor:
+    """Binary cross entropy on logits, in the stable log-sigmoid form
+    ``-(t * logsigmoid(p) + (1 - t) * logsigmoid(-p))``."""
+    return _reduce(-(target * F.logsigmoid(prediction)
+                     + (1.0 - target) * F.logsigmoid(-prediction)), reduction)
+
+
+LOSSES = {"bce": bce_loss, "mse": mse_loss}
+
+
+def get_loss(loss_name: str) -> Callable:
+    if loss_name not in LOSSES:
+        raise NotImplementedError(f"loss {loss_name!r} is not ported yet; ported: {sorted(LOSSES)}")
+    return LOSSES[loss_name]

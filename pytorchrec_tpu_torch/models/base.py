@@ -37,5 +37,7 @@ def label_target(label_column, batch: Batch) -> Optional[torch.Tensor]:
 class RecModel(nn.Module):
     """Base class for all rec models: ``forward(batch, train) -> (pred, target)``."""
 
-    def forward(self, batch: Batch, train: bool = False) -> Prediction:  # pragma: no cover
+    def forward(self, batch: Batch, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Prediction:  # pragma: no cover
+        """``generator`` feeds dropout when ``train`` is True."""
         raise NotImplementedError

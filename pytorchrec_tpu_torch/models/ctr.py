@@ -9,6 +9,13 @@ parameter names, so converted weights load 1:1 (``utils/convert.py``):
   u8 (``ops/quantized_packed.py``), with ``scale_col_groups`` scales a row.
 
 Fields arriving ``[B]`` are broadcast against candidate fields ``[B, N]``.
+
+Rows injection (the sparse trainer's protocol): ``sharded_table_specs(batch)``
+names the unified f32 table, its ids ``[..., F_sparse]`` and the batch key
+``ROWS_KEY``; when the batch carries rows under that key, the model reads
+them in place of its own gather, so the trainer can gather packed rows once
+and take the loss's gradient with respect to the rows themselves.
+
 The linear term (``bias``, ``dense_factors``, ``dense_linear``, the
 ``lin_*`` tables) and the classic unpacked ``q``/``scale`` leaves come with
 the LR/FM slice: DCN-v2 never reads them.
@@ -16,7 +23,7 @@ the LR/FM slice: DCN-v2 never reads them.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -53,6 +60,9 @@ def _gather_fields(batch: Batch, sparse_columns, dense_columns) -> Tuple[list, l
 
 
 class _CTRBase(RecModel):
+    # batch key of trainer-gathered rows of the unified table
+    ROWS_KEY = "__rows__unified"
+
     def __init__(
         self,
         sparse_columns: Sequence[CategoricalColumnWithIdentity] = (),
@@ -116,18 +126,22 @@ class _CTRBase(RecModel):
         """Stack per-field ids with their offsets -> [..., F_sparse]."""
         return torch.stack([ids + off for ids, off in zip(sparse, self._offsets)], dim=-1)
 
-    def _unified_vectors(self, sparse) -> torch.Tensor:
-        """[..., F_sparse, E] from the unified table (f32 or packed quantized)."""
+    def _unified_vectors(self, sparse, batch: Optional[Batch] = None) -> torch.Tensor:
+        """[..., F_sparse, E] from the unified table (f32 or packed quantized),
+        or the rows the trainer injected under ``ROWS_KEY``."""
         ids = self._unified_ids(sparse)
+        rows = batch.get(self.ROWS_KEY) if batch is not None else None
+        if rows is not None:
+            return rows.reshape(*ids.shape, self.emb_size)
         if self.quantized_embedding:
             return packed_gather_dequant(self.unified_q, ids, self.emb_size,
                                          self.table_bits, self.scale_col_groups)
         return self.unified_emb(ids)
 
-    def _embedded_concat(self, sparse) -> torch.Tensor:
+    def _embedded_concat(self, sparse, batch: Optional[Batch] = None) -> torch.Tensor:
         """All sparse-field embeddings concatenated: [..., F_sparse * E]."""
         if self.unified_embedding:
-            vectors = self._unified_vectors(sparse)
+            vectors = self._unified_vectors(sparse, batch)
             return vectors.reshape(*vectors.shape[:-2], -1)
         return torch.cat([emb(ids) for emb, ids in zip(self.field_embeddings, sparse)], dim=-1)
 
@@ -135,6 +149,31 @@ class _CTRBase(RecModel):
         if candidate_mode:
             return prediction, one_hot_first_target(prediction)
         return prediction, label_target(self.label_column, batch)
+
+    def _check_trainable_table(self) -> None:
+        if not self.unified_embedding:
+            raise NotImplementedError("sparse training of per-field tables is not ported yet; "
+                                      "use unified_embedding=True")
+        if self.quantized_embedding:
+            raise NotImplementedError("sparse training of quantized tables is not ported yet")
+
+    def sharded_table_specs(self, batch: Batch) -> Dict[str, dict]:
+        """Rows-injection protocol: the unified f32 table's flax path, its ids
+        ``[..., F_sparse]`` for ``batch`` and the batch key of its rows."""
+        self._check_trainable_table()
+        sparse, _, _ = _gather_fields(batch, self.sparse_columns, self.dense_columns)
+        return {"unified": {"path": "unified_emb/embedding", "ids": self._unified_ids(sparse),
+                            "rows_key": self.ROWS_KEY}}
+
+    def sparse_table_ids(self, batch: Batch) -> Dict[str, torch.Tensor]:
+        """Sparse-trainer protocol: table path -> the flat ids that gather from
+        it (field after field, as in the JAX package)."""
+        self._check_trainable_table()
+        fields = [(c.get_feature_data(batch), off)
+                  for c, off in zip(self.sparse_columns, self._offsets)]
+        parts = [(ids + off).reshape(-1) for ids, off in fields if ids is not None]
+        ids = torch.cat(parts) if parts else torch.zeros((0,), dtype=torch.int64)
+        return {"unified_emb/embedding": ids}
 
 
 class DCNv2(_CTRBase):
@@ -154,14 +193,15 @@ class DCNv2(_CTRBase):
         self.head = linear(dim + self.deep.out_features, 1, device=device,
                            generator=generator)
 
-    def forward(self, batch: Batch, train: bool = False) -> Prediction:
+    def forward(self, batch: Batch, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Prediction:
         sparse, dense, candidate_mode = _gather_fields(batch, self.sparse_columns,
                                                        self.dense_columns)
-        x0_parts = [self._embedded_concat(sparse)]
+        x0_parts = [self._embedded_concat(sparse, batch)]
         if dense:
             x0_parts.append(torch.stack(dense, dim=-1))
         x0 = torch.cat(x0_parts, dim=-1)
         cross_out = self.cross(x0)
-        deep_out = self.deep(x0, train=train)
+        deep_out = self.deep(x0, train=train, generator=generator)
         prediction = self.head(torch.cat([cross_out, deep_out], dim=-1))[..., 0]
         return self._finish(prediction, candidate_mode, batch)

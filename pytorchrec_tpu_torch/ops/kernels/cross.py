@@ -15,6 +15,14 @@ D <= 512. It is bound by operations: ``2*B*D^2*L`` f32 FMA-operations,
 ``cross_network`` dispatches by device (``ops/kernels/__init__.py``): a CUDA
 tensor launches the kernel and raises if the launch fails; a CPU tensor runs
 ``cross_network_plain``. ``cross_network.launches`` counts kernel launches.
+
+Gradient. When grad mode is on and an input requires grad, the forward runs
+inside ``CrossNetworkFunction`` (a ``torch.autograd.Function``), whose
+backward is the JAX package's custom-VJP formula
+(``pytorchrec_tpu/ops/kernels/cross.py`` ``bwd``) in plain torch: the layer
+inputs are recomputed, then the layers are walked back. The JAX package has
+no backward kernel either (XLA runs it), so its products go to
+``torch.mm``/``torch.addmm``.
 """
 
 from __future__ import annotations
@@ -93,15 +101,65 @@ def _launch(x0: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor) -> torch.Tenso
     return out
 
 
-def cross_network(x0: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor) -> torch.Tensor:
-    """Fused cross network: ``x0 [B, D]``, ``ws [L, D, D]``, ``bs [L, D]`` ->
-    ``x_L [B, D]``. ``L == 0`` is the identity and launches nothing."""
-    _check(x0, ws, bs)
-    if ws.shape[0] == 0:
-        return x0
+def _forward(x0: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor) -> torch.Tensor:
     if launches_kernel(x0, ws, bs):
         return _launch(x0, ws, bs)
     return cross_network_plain(x0, ws, bs)
+
+
+def cross_network_backward(x0: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor,
+                           g: torch.Tensor):
+    """``(dx0, dws, dbs)`` for the upstream gradient ``g = dL/dx_L``.
+
+    With ``u_l = x_l W_l + b_l``: ``dW_l = x_l^T (g_l * x0)``,
+    ``db_l = sum_rows(g_l * x0)``, ``dx0 += g_l * u_l`` and
+    ``g_{l-1} = (g_l * x0) W_l^T + g_l``; ``x_0`` is ``x0``, so the walked-back
+    ``g`` lands on ``dx0`` at the end. ``u_l`` is kept from the recompute, so
+    the backward runs 3 products a layer."""
+    xs, us = [], []
+    xl = x0
+    for layer in range(ws.shape[0]):
+        u = torch.addmm(bs[layer], xl, ws[layer])
+        xs.append(xl)
+        us.append(u)
+        xl = x0 * u + xl
+    dx0 = torch.zeros_like(x0)
+    dws, dbs = [None] * len(xs), [None] * len(xs)
+    for layer in reversed(range(len(xs))):
+        gx0 = g * x0
+        dws[layer] = torch.mm(xs[layer].t(), gx0)
+        dbs[layer] = gx0.sum(dim=0)
+        dx0 = dx0 + g * us[layer]
+        g = torch.mm(gx0, ws[layer].t()) + g
+    return dx0 + g, torch.stack(dws), torch.stack(dbs)
+
+
+class CrossNetworkFunction(torch.autograd.Function):
+    """The kernel (or, on the CPU, the plain version) forward with the
+    closed-form backward of ``cross_network_backward``."""
+
+    @staticmethod
+    def forward(ctx, x0, ws, bs):
+        ctx.save_for_backward(x0, ws, bs)
+        return _forward(x0, ws, bs)
+
+    @staticmethod
+    def backward(ctx, g):
+        x0, ws, bs = ctx.saved_tensors
+        return cross_network_backward(x0, ws, bs, g.contiguous())
+
+
+def cross_network(x0: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor) -> torch.Tensor:
+    """Fused cross network: ``x0 [B, D]``, ``ws [L, D, D]``, ``bs [L, D]`` ->
+    ``x_L [B, D]``. ``L == 0`` is the identity and launches nothing. The
+    result carries a gradient when grad mode is on and an input requires
+    one."""
+    _check(x0, ws, bs)
+    if ws.shape[0] == 0:
+        return x0
+    if torch.is_grad_enabled() and (x0.requires_grad or ws.requires_grad or bs.requires_grad):
+        return CrossNetworkFunction.apply(x0, ws, bs)
+    return _forward(x0, ws, bs)
 
 
 cross_network.launches = 0

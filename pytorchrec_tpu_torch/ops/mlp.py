@@ -3,7 +3,9 @@
 Dense = Linear -> activation -> Dropout, MLP = stack of Dense. ``nn.Linear``
 keeps its weight as ``[out, in]``; the flax kernel is ``[in, out]``, so the
 converter (``utils/convert.py``) transposes it. Dropout acts only when
-``train=True``: serving never drops.
+``train=True`` (serving never drops) and draws its mask from the
+``torch.Generator`` the caller passes (the trainer's), as flax draws from
+the ``dropout`` key; kept values scale by ``1 / (1 - rate)``, as in flax.
 """
 
 from __future__ import annotations
@@ -45,6 +47,15 @@ def linear(in_features: int, out_features: int, use_bias: bool = True,
     return layer
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Zero each value with probability ``rate``, scale the rest by
+    ``1 / (1 - rate)``; the mask comes from ``generator`` (None = torch's
+    default generator for the device)."""
+    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator).bool()
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
 class Dense(nn.Module):
     def __init__(self, in_features: int, features: int, activation: str = "relu",
                  dropout: float = 0.0, use_bias: bool = True, device=None,
@@ -54,10 +65,11 @@ class Dense(nn.Module):
         self.activation = get_activation(activation)
         self.dropout = dropout
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.activation(self.linear(x))
         if self.dropout > 0.0 and train:
-            x = F.dropout(x, self.dropout, training=True)
+            x = dropout(x, self.dropout, generator)
         return x
 
 
@@ -74,7 +86,8 @@ class MLP(nn.Module):
         self.layers = nn.ModuleList(layers)
         self.out_features = in_features
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x, train=train)
+            x = layer(x, train=train, generator=generator)
         return x

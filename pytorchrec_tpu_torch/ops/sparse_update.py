@@ -1,17 +1,33 @@
-"""Packed-row helpers of ``pytorchrec_tpu/ops/sparse_update.py``.
+"""Packed-row layout and the packed row-sparse update (port of
+``pytorchrec_tpu/ops/sparse_update.py``).
 
-Serving needs only the layout: the byte views of f32 columns and the table
-columns of a packed ``table || moments || staging`` row. The row-sparse
-updates themselves are ported with the training slices.
+A packed f32 table keeps everything a row's optimizer needs in one row:
+
+    [0, E)          the embedding row
+    [E, E + C')     the optimizer's moments: m || v (adam), acc (adagrad,
+                    E columns) or one acc column (rowwise_adagrad)
+    [.., W)         zero columns, where the update stages each occurrence's
+                    grad (at [C, C + E), C = E + C'), padded to a multiple
+                    of 64 columns
+
+so the forward gather of packed rows also fetches the moments, and the
+update moves each touched row once (``packed_sparse_update``). The reference
+package chose the 64-column multiple for its own hardware; the port keeps it
+so that packed leaves convert without reshaping.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-# Packed rows are padded to a multiple of 64 columns; the reference package
-# chose that width for its own hardware, and the port keeps it so that packed
-# leaves convert without reshaping.
+from pytorchrec_tpu_torch.ops.kernels.scatter import scatter_set_rows
+from pytorchrec_tpu_torch.ops.kernels.seg_scan import segmented_sum_scan
+
+# columns of table || moments, by table optimizer
+PACKED_COLS = {"adam": lambda e: 3 * e, "adagrad": lambda e: 2 * e,
+               "rowwise_adagrad": lambda e: e + 1}
+
 _FAST_WIDTH = 64
 
 
@@ -26,6 +42,98 @@ def bytes_to_f32(b: torch.Tensor) -> torch.Tensor:
     return b.contiguous().view(torch.float32)
 
 
+def packed_width(emb_dim: int, optimizer: str) -> int:
+    """Packed row width: table || moments columns plus E staging columns,
+    rounded up to a multiple of 64."""
+    need = PACKED_COLS[optimizer](emb_dim) + emb_dim
+    return -(-need // _FAST_WIDTH) * _FAST_WIDTH
+
+
+def pack_table(table: torch.Tensor, optimizer: str) -> torch.Tensor:
+    """[V, E] f32 table -> [V, W] packed rows: the table columns, then zeros
+    (zero-initialised moments and staging)."""
+    v, e = table.shape
+    packed = table.new_zeros((v, packed_width(e, optimizer)))
+    packed[:, :e] = table
+    return packed
+
+
 def unpack_table(packed: torch.Tensor, emb_dim: int) -> torch.Tensor:
-    """[V, W] packed row -> the [V, emb_dim] table columns."""
+    """[V, W] packed row -> the [V, emb_dim] table columns (a strided view)."""
     return packed[:, :emb_dim]
+
+
+def _bias_correction(beta: float, step: int) -> float:
+    """``1 - beta**step`` in f32, as the JAX update computes it from its f32
+    step counter."""
+    return float(np.float32(1.0) - np.float32(beta) ** np.float32(step))
+
+
+def packed_sparse_update(
+    packed: torch.Tensor,   # [V, W] table || moments || staging rows (pack_table)
+    rows: torch.Tensor,     # [n, W] the forward gather of packed at ids
+    ids: torch.Tensor,      # [n] int32 per-occurrence ids (duplicates allowed)
+    dvec: torch.Tensor,     # [n, E] per-occurrence row grads
+    step: int,              # global step, 1-based (adam's bias correction)
+    lr: float,
+    optimizer: str = "adam",
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+) -> torch.Tensor:
+    """Row-sparse lazy update of a packed table, in place; returns ``packed``.
+
+    Same passes and arithmetic as the JAX function: stage each occurrence's
+    grad in the row's padding columns, permute the staged rows into id order
+    with one stable sort (equal ids keep their occurrence order, as under
+    ``jax.lax.sort``), sum duplicate ids' grads with the segmented scan
+    (each segment's last row holds the total; table and moments are the
+    same along a segment, since they came from one row), run the optimizer
+    on every row, and scatter-set each segment's last row into the table.
+    Other slots route to ``V + slot`` and drop. Untouched rows keep their
+    moments (lazy Adam); Adam's bias correction uses the global ``step``.
+
+    The JAX function returns a new table and relies on the caller donating
+    the old one; the port writes into ``packed`` itself, so the trainer's
+    buffer is never reallocated. ``rows`` must be the pre-update gather of
+    this step."""
+    if optimizer not in PACKED_COLS:
+        raise ValueError(f"unknown table optimizer {optimizer!r}; available {sorted(PACKED_COLS)}")
+    n, e = dvec.shape
+    w = packed.shape[1]
+    c = PACKED_COLS[optimizer](e)
+    if w < c + e:
+        raise ValueError(f"packed width {w} < {c} table||moment columns + {e} staging columns")
+    if n == 0:
+        return packed
+
+    sorted_ids, order = torch.sort(ids, stable=True)
+    staged = torch.cat([rows[:, :c], dvec.to(rows.dtype), rows.new_zeros((n, w - c - e))], dim=1)
+    moved = staged.index_select(0, order)
+    differs = sorted_ids[1:] != sorted_ids[:-1]
+    one = torch.ones((1,), dtype=torch.bool, device=ids.device)
+    is_start = torch.cat([one, differs])
+    is_last = torch.cat([differs, one])
+    g = segmented_sum_scan(moved[:, c:c + e], is_start)
+    t_old = moved[:, :e]
+
+    if optimizer == "adam":
+        m_old, v_old = moved[:, e:2 * e], moved[:, 2 * e:3 * e]
+        new_m = b1 * m_old + (1.0 - b1) * g
+        new_v = b2 * v_old + (1.0 - b2) * torch.square(g)
+        delta = lr * (new_m / _bias_correction(b1, step)) / (
+            torch.sqrt(new_v / _bias_correction(b2, step)) + eps)
+        pieces = [t_old - delta, new_m, new_v]
+    elif optimizer == "adagrad":
+        new_acc = moved[:, e:2 * e] + torch.square(g)
+        delta = lr * g / (torch.sqrt(new_acc) + 1e-10)
+        pieces = [t_old - delta, new_acc]
+    else:  # rowwise_adagrad
+        new_acc = moved[:, e] + torch.mean(torch.square(g), dim=-1)
+        delta = lr * g / (torch.sqrt(new_acc)[:, None] + eps)
+        pieces = [t_old - delta, new_acc[:, None]]
+
+    new_packed = torch.cat([*pieces, packed.new_zeros((n, w - c))], dim=1)
+    slot = torch.arange(n, dtype=torch.int32, device=ids.device)
+    safe_ids = torch.where(is_last, sorted_ids, packed.shape[0] + slot).to(torch.int32)
+    return scatter_set_rows(packed, new_packed, safe_ids)

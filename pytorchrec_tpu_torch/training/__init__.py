@@ -1,3 +1,6 @@
+from pytorchrec_tpu_torch.training.callbacks import History
+from pytorchrec_tpu_torch.training.sparse_trainer import SparseEmbeddingTrainer
+from pytorchrec_tpu_torch.training.state import SparseTrainState, TrainState
 from pytorchrec_tpu_torch.training.trainer import Trainer
 
-__all__ = ["Trainer"]
+__all__ = ["History", "SparseEmbeddingTrainer", "SparseTrainState", "TrainState", "Trainer"]

@@ -1,0 +1,33 @@
+"""Train state (port of ``pytorchrec_tpu/training/state.py``).
+
+The JAX package threads one immutable pytree (params, optimizer state, step,
+PRNG key) through a jitted step. In the port the parameters live in the
+model (an ``nn.Module``) and are updated in place; the state holds what the
+model does not: the dense optimizer, the generator of dropout masks, the
+step counter and, for packed tables, the packed
+``table || moments || staging`` buffers.
+
+``step`` starts at 0 and counts finished train steps, as JAX's
+``state.step``; a step's packed update takes ``step + 1`` (1-based, for
+Adam's bias correction).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict
+
+import torch
+
+
+@dataclass
+class TrainState:
+    optimizer: torch.optim.Optimizer  # over the dense parameters
+    rng: torch.Generator  # dropout masks; it drew the initial parameters first
+    step: int = 0
+
+
+@dataclass
+class SparseTrainState(TrainState):
+    # flax leaf path (``"unified_emb/embedding"``) -> [V, W] packed rows
+    packed: Dict[str, torch.Tensor] = field(default_factory=dict)

@@ -14,6 +14,13 @@ them into the port model's state dict:
 
 Any other leaf the port does not know raises, as does a port parameter that
 no leaf fills.
+
+``params_from_jax(flat, trainer)`` loads into a ``SparseEmbeddingTrainer``
+with packed tables instead, right after its ``init_state``: each packed leaf
+(``unified_emb/embedding``, ``[V, W]``) loads whole into the trainer's packed
+buffer, moments and staging columns included, in place; the dense leaves
+load into the model as above. The dense optimizer's state is then still
+empty, as optax's ``init`` leaves it.
 """
 
 from __future__ import annotations
@@ -47,16 +54,37 @@ def _port_key(path: str):
     raise KeyError(f"no port counterpart for flax leaf {path!r}")
 
 
-def params_from_jax(flat: Mapping[str, np.ndarray], model: nn.Module) -> nn.Module:
-    """Load ``flat`` into ``model`` (on whatever device it lives); return it."""
+def _load_packed(path: str, value, packed: torch.Tensor) -> None:
+    tensor = torch.from_numpy(np.array(value, order="C"))
+    if tuple(tensor.shape) != tuple(packed.shape) or tensor.dtype != packed.dtype:
+        raise ValueError(f"flax leaf {path!r} is {tuple(tensor.shape)} {tensor.dtype}; the packed "
+                         f"buffer is {tuple(packed.shape)} {packed.dtype}")
+    with torch.no_grad():
+        packed.copy_(tensor)
+
+
+def params_from_jax(flat: Mapping[str, np.ndarray], target):
+    """Load ``flat`` into ``target``, a model (on whatever device it lives)
+    or a packed ``SparseEmbeddingTrainer``; return ``target``."""
+    model = target if isinstance(target, nn.Module) else target.model
+    packed: Dict[str, torch.Tensor] = {}
+    if not isinstance(target, nn.Module):
+        if target.state is None or target.state.step != 0:
+            raise ValueError("load into a trainer right after init_state(), before any step")
+        packed = target.state.packed
     state = model.state_dict()
     loaded: Dict[str, torch.Tensor] = {}
+    filled = set()
     for path, value in flat.items():
         if path in UNREAD_LEAVES:
             continue
         key, transform = _port_key(path)
         if key not in state:
             raise KeyError(f"flax leaf {path!r} maps to {key!r}, which the model lacks")
+        if path in packed:
+            _load_packed(path, value, packed[path])  # the model's table is a view of it
+            filled.add(key)
+            continue
         want = state[key]
         array = np.asarray(value)
         if transform == "transpose":
@@ -68,8 +96,8 @@ def params_from_jax(flat: Mapping[str, np.ndarray], model: nn.Module) -> nn.Modu
             raise ValueError(f"flax leaf {path!r} is {tuple(array.shape)} {array.dtype}; "
                              f"{key!r} wants {tuple(want.shape)} {want.dtype}")
         loaded[key] = tensor
-    missing = sorted(set(state) - set(loaded))
+    missing = sorted(set(state) - set(loaded) - filled)
     if missing:
         raise KeyError(f"no flax leaf for {missing}")
-    model.load_state_dict(loaded)
-    return model
+    model.load_state_dict(loaded, strict=not filled)
+    return target

@@ -8,6 +8,7 @@ Tolerance rtol 1e-5 / atol 1e-7: the f32 sums of D terms run in another
 order in the two frameworks.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -105,3 +106,70 @@ def test_wrapper_rejects_bad_shapes(shapes):
     x0, ws, bs = (torch.zeros(s) for s in shapes)
     with pytest.raises(ValueError):
         cross_network(x0, ws, bs)
+
+
+GRAD_CASES = [(37, d, layers) for d in (29, 64) for layers in (1, 3)]
+
+
+def _upstream(batch, dim, seed):
+    return np.random.default_rng(seed).normal(size=(batch, dim)).astype(np.float32)
+
+
+def _assert_grads_close(got, want):
+    """rtol 1e-5; an element that cancels to near zero keeps the absolute
+    f32 error of its largest terms, so atol is 1e-6 of the tensor's largest
+    element (the grads here reach ~10)."""
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6 * float(np.abs(w).max()))
+
+
+def _port_grads(x0, ws, bs, g):
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x0, ws, bs)]
+    out = cross_network(*leaves)
+    assert out.grad_fn is not None
+    out.backward(torch.from_numpy(g))
+    return [t.grad.numpy() for t in leaves]
+
+
+@pytest.mark.parametrize("batch,dim,layers", GRAD_CASES)
+def test_function_grads_match_pallas_custom_vjp(batch, dim, layers):
+    """The Function's backward against ``jax.grad`` through the kernel's
+    custom VJP (interpret mode), for the upstream gradient ``g``."""
+    x0, ws, bs = _inputs(batch, dim, layers, seed=4)
+    g = _upstream(batch, dim, seed=5)
+
+    def loss(x0, ws, bs):
+        return jnp.sum(cross_network_pallas(x0, ws, bs, interpret=True) * g)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (x0, ws, bs)))
+    _assert_grads_close(_port_grads(x0, ws, bs, g), want)
+
+
+@pytest.mark.parametrize("batch,dim,layers", GRAD_CASES)
+def test_function_grads_match_autograd_of_the_xla_loop(batch, dim, layers):
+    """The same against ``jax.grad`` of the flax module's XLA layer loop."""
+    x0, ws, bs = _inputs(batch, dim, layers, seed=6)
+    g = _upstream(batch, dim, seed=7)
+    module = JaxCrossNetworkV2(num_layers=layers, use_pallas=False)
+
+    def loss(x0, ws, bs):
+        return jnp.sum(module.apply({"params": {"ws": ws, "bs": bs}}, x0) * g)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (x0, ws, bs)))
+    _assert_grads_close(_port_grads(x0, ws, bs, g), want)
+
+
+def test_grad_goes_through_the_function_only_when_needed():
+    x0, ws, bs = (torch.from_numpy(a) for a in _inputs(5, 6, 2, seed=8))
+    assert cross_network(x0, ws, bs).grad_fn is None
+    out = cross_network(x0, ws.requires_grad_(), bs)
+    assert type(out.grad_fn).__name__ == "CrossNetworkFunctionBackward"
+    with torch.no_grad():
+        assert cross_network(x0, ws, bs).grad_fn is None
+    # the plain version under autograd gives the same gradient
+    g = torch.from_numpy(_upstream(5, 6, seed=9))
+    plain_ws = ws.detach().clone().requires_grad_()
+    cross_network_plain(x0, plain_ws, bs).backward(g)
+    out.backward(g)
+    torch.testing.assert_close(ws.grad, plain_ws.grad, rtol=1e-5, atol=1e-7)

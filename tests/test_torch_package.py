@@ -15,9 +15,11 @@ import torch
 from flax import traverse_util
 
 from pytorchrec_tpu import feature_column as jfc
+from pytorchrec_tpu.loss import losses as jax_losses
 from pytorchrec_tpu.ops.embedding import Embedding as JaxEmbedding
 from pytorchrec_tpu.ops.mlp import MLP as JaxMLP
 from pytorchrec_tpu_torch import feature_column as tfc
+from pytorchrec_tpu_torch.loss import get_loss
 from pytorchrec_tpu_torch.models import DCNv2
 from pytorchrec_tpu_torch.ops.embedding import Embedding
 from pytorchrec_tpu_torch.ops.mlp import MLP
@@ -30,6 +32,14 @@ PORT = ROOT / "pytorchrec_tpu_torch"
 
 def _modules():
     return sorted(m.name for m in pkgutil.walk_packages([str(PORT)], "pytorchrec_tpu_torch."))
+
+
+def test_every_training_module_is_walked():
+    modules = set(_modules())
+    assert {"pytorchrec_tpu_torch.loss.losses", "pytorchrec_tpu_torch.optim.optimizers",
+            "pytorchrec_tpu_torch.training.state", "pytorchrec_tpu_torch.training.sparse_trainer",
+            "pytorchrec_tpu_torch.training.callbacks", "pytorchrec_tpu_torch.ops.kernels.seg_scan",
+            "pytorchrec_tpu_torch.ops.kernels.scatter"} <= modules
 
 
 def test_importing_every_port_module_loads_no_jax():
@@ -54,7 +64,8 @@ def test_no_port_source_names_jax_or_the_jax_package():
     sources = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     offenders = [str(p.relative_to(ROOT)) for p in sources if pattern.search(p.read_text())]
     assert not offenders
-    assert (PORT / "csrc" / "cross.cu").exists()
+    for kernel in ("cross", "seg_scan", "scatter"):
+        assert (PORT / "csrc" / f"{kernel}.cu").exists()
 
 
 def _small_model(device):
@@ -151,3 +162,37 @@ def test_dropout_only_when_training():
     with torch.no_grad():
         assert torch.equal(mlp(x), mlp(x))  # serving: no dropout
         assert (mlp(x, train=True) == 0).any()
+
+
+def test_dropout_draws_from_the_given_generator():
+    mlp = MLP(4, (4096,), activation="identity", dropout=0.25, device="cpu",
+              generator=torch.Generator().manual_seed(0))
+    x = torch.ones(2, 4)
+    with torch.no_grad():
+        want = mlp(x)  # serving: no dropout
+        a = mlp(x, train=True, generator=torch.Generator().manual_seed(5))
+        b = mlp(x, train=True, generator=torch.Generator().manual_seed(5))
+        c = mlp(x, train=True, generator=torch.Generator().manual_seed(6))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    kept = a != 0
+    assert 0.7 < float(kept.float().mean()) < 0.8
+    torch.testing.assert_close(a[kept], (want / 0.75)[kept])  # flax scales kept values
+
+
+@pytest.mark.parametrize("reduction", ["mean", "sum", "none"])
+@pytest.mark.parametrize("name", ["bce", "mse"])
+def test_losses_match_jax(name, reduction):
+    rng = np.random.default_rng(7)
+    prediction = (rng.normal(size=64) * 30).astype(np.float32)  # large logits: stable form
+    target = rng.integers(0, 2, 64).astype(np.float32)
+    want = getattr(jax_losses, f"{name}_loss")(jnp.asarray(prediction), jnp.asarray(target),
+                                                reduction=reduction)
+    got = get_loss(name)(torch.from_numpy(prediction), torch.from_numpy(target),
+                         reduction=reduction)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+def test_unported_losses_raise():
+    with pytest.raises(NotImplementedError):
+        get_loss("bpr")
