@@ -10,11 +10,13 @@ parameter names, so converted weights load 1:1 (``utils/convert.py``):
 
 Fields arriving ``[B]`` are broadcast against candidate fields ``[B, N]``.
 
-Rows injection (the sparse trainer's protocol): ``sharded_table_specs(batch)``
-names the unified f32 table, its ids ``[..., F_sparse]`` and the batch key
-``ROWS_KEY``; when the batch carries rows under that key, the model reads
-them in place of its own gather, so the trainer can gather packed rows once
-and take the loss's gradient with respect to the rows themselves.
+Rows injection: ``sharded_table_specs(batch)`` (the sparse trainer's
+protocol) names the unified f32 table, and ``quantized_table_spec(batch)``
+(the quantized trainer's) the unified packed quantized table, each with its
+ids ``[..., F_sparse]`` and the batch key ``ROWS_KEY``; when the batch
+carries rows under that key, the model reads them in place of its own
+gather, so the trainer can gather packed rows once and take the loss's
+gradient with respect to the rows themselves.
 
 The linear term (``bias``, ``dense_factors``, ``dense_linear``, the
 ``lin_*`` tables) and the classic unpacked ``q``/``scale`` leaves come with
@@ -62,6 +64,9 @@ def _gather_fields(batch: Batch, sparse_columns, dense_columns) -> Tuple[list, l
 class _CTRBase(RecModel):
     # batch key of trainer-gathered rows of the unified table
     ROWS_KEY = "__rows__unified"
+    # the CTR family trains its rowwise-Adagrad tables at the shared dense
+    # lr (``training/sparse_trainer.py::resolve_table_lr``)
+    table_lr_shared_ok = True
 
     def __init__(
         self,
@@ -150,17 +155,33 @@ class _CTRBase(RecModel):
             return prediction, one_hot_first_target(prediction)
         return prediction, label_target(self.label_column, batch)
 
-    def _check_trainable_table(self) -> None:
+    def _check_trainable_table(self, quantized: bool) -> None:
+        """The sparse trainer takes the unified f32 table, the quantized
+        trainer the unified quantized one."""
         if not self.unified_embedding:
             raise NotImplementedError("sparse training of per-field tables is not ported yet; "
                                       "use unified_embedding=True")
-        if self.quantized_embedding:
-            raise NotImplementedError("sparse training of quantized tables is not ported yet")
+        if self.quantized_embedding and not quantized:
+            raise ValueError("a quantized table trains under QuantizedEmbeddingTrainer")
+        if quantized and not self.quantized_embedding:
+            raise ValueError("QuantizedEmbeddingTrainer needs quantized_embedding=True")
+
+    def quantized_table_spec(self, batch: Batch) -> Dict[str, dict]:
+        """Quantized-trainer protocol: the unified quantized table's flax
+        path, its ids ``[..., F_sparse]`` for ``batch``, the batch key of its
+        rows and its format."""
+        self._check_trainable_table(quantized=True)
+        sparse, _, _ = _gather_fields(batch, self.sparse_columns, self.dense_columns)
+        return {"unified": {
+            "q": "unified_q", "scale": None if self.table_packed else "unified_scale",
+            "ids": self._unified_ids(sparse), "rows_key": self.ROWS_KEY,
+            "bits": self.table_bits, "col_groups": self.scale_col_groups,
+            "packed": self.table_packed, "emb_size": self.emb_size}}
 
     def sharded_table_specs(self, batch: Batch) -> Dict[str, dict]:
         """Rows-injection protocol: the unified f32 table's flax path, its ids
         ``[..., F_sparse]`` for ``batch`` and the batch key of its rows."""
-        self._check_trainable_table()
+        self._check_trainable_table(quantized=False)
         sparse, _, _ = _gather_fields(batch, self.sparse_columns, self.dense_columns)
         return {"unified": {"path": "unified_emb/embedding", "ids": self._unified_ids(sparse),
                             "rows_key": self.ROWS_KEY}}
@@ -168,7 +189,7 @@ class _CTRBase(RecModel):
     def sparse_table_ids(self, batch: Batch) -> Dict[str, torch.Tensor]:
         """Sparse-trainer protocol: table path -> the flat ids that gather from
         it (field after field, as in the JAX package)."""
-        self._check_trainable_table()
+        self._check_trainable_table(quantized=False)
         fields = [(c.get_feature_data(batch), off)
                   for c, off in zip(self.sparse_columns, self._offsets)]
         parts = [(ids + off).reshape(-1) for ids, off in fields if ids is not None]

@@ -1,18 +1,48 @@
-"""Row quantization, f32 rows <-> int8 (or nibble-packed int4) + f32 scale
-(port of the plain parts of ``pytorchrec_tpu/ops/kernels/quantize.py``).
+"""Row quantization, f32 rows <-> int8 (or nibble-packed int4) + f32 scale,
+and the int8 table update's requantize kernel (port of
+``pytorchrec_tpu/ops/kernels/quantize.py``).
 
-Serving reads quantized tables, so this slice needs only the plain torch
-functions: int4 packing, round-to-nearest quantization (table init) and
-dequantization. The TPU kernels of that module, ``quantize_rows_pallas``
-(stochastic rounding) and ``requantize_rows_pallas`` (the int8 table
-update), are ported with the training slices.
+Plain torch: int4 packing, quantization with round-to-nearest (table init)
+or stochastic rounding from given bits, dequantization, the id-keyed
+rounding bits and the per-step salt they take.
+
+Kernel. ``requantize_rows`` replaces ``_requantize_kernel`` (the
+``pl.pallas_call`` of ``requantize_rows_pallas``): over the permuted packed
+``q || scale || acc || ...`` byte rows of an int8 table (one scale a row) and
+the rows' summed grads it runs the rowwise-Adagrad step and the id-keyed
+stochastic requantization and returns the new byte rows. The kernel
+(``csrc/requantize.cu``) gives each row one warp. It is bound by bytes: it
+reads each row's ``q || scale || acc`` bytes, its grads and its id, and writes
+the whole new row, 187 MB at the main path's shape (851,968 rows of 128
+bytes, E=16), 0.056 ms on the H100 at 3.35 TB/s.
+
+``requantize_rows`` dispatches by device (``ops/kernels/__init__.py``): a
+CUDA tensor launches the kernel and raises if the launch fails; a CPU tensor
+runs ``requantize_rows_plain``. ``requantize_rows.launches`` counts kernel
+launches. The JAX package runs its kernel only when an environment variable
+asks for it, because it measured slower there than XLA's chain on its TPU;
+the port runs it on every int8 step on the card.
+
+Unsigned 32-bit arithmetic: torch has no full uint32 arithmetic, so hashes
+run in int64 holding values in ``[0, 2**32)`` and every product is split
+into 16-bit halves, so no intermediate leaves int64.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+import functools
+import zlib
+from typing import Optional, Tuple
 
 import torch
+
+from pytorchrec_tpu_torch.ops.kernels import launches_kernel
+from pytorchrec_tpu_torch.ops.kernels.build import library
+from pytorchrec_tpu_torch.ops.sparse_update import bytes_to_f32
+from pytorchrec_tpu_torch.utils.rng import fold_in, random_bits_u32
+
+_U32 = 0xFFFFFFFF
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
@@ -34,13 +64,15 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
     return out.reshape(*packed.shape[:-1], -1).to(torch.int8)
 
 
-def quantize_rows(rows: torch.Tensor, bits: int = 8,
+def quantize_rows(rows: torch.Tensor, rng_bits: Optional[torch.Tensor] = None, bits: int = 8,
                   col_groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Round-to-nearest quantization: [N, E] f32 -> ([N, E] int8 (bits=8) or
-    [N, E//2] packed (bits=4), f32 scale [N] or [N, G]).
+    """[N, E] f32 -> ([N, E] int8 (bits=8) or [N, E//2] packed (bits=4),
+    f32 scale [N] or [N, G]).
 
-    ``col_groups=G`` gives each row G column groups with an absmax scale of
-    their own. Ties round to even, as ``jnp.rint`` does."""
+    ``rng_bits`` (``[N, E]`` integers in ``[0, 2**32)``) selects stochastic
+    rounding, ``floor(x + (bits >> 8) * 2**-24)``; without it values round to
+    nearest, ties to even, as ``jnp.rint`` does. ``col_groups=G`` gives each
+    row G column groups with an absmax scale of their own."""
     if bits not in (8, 4):
         raise ValueError(f"bits must be 8 or 4, got {bits}")
     n, e = rows.shape
@@ -51,14 +83,27 @@ def quantize_rows(rows: torch.Tensor, bits: int = 8,
     qmax = 127.0 if bits == 8 else 7.0
     grouped = rows.reshape(n, col_groups, e // col_groups)
     absmax = grouped.abs().amax(dim=-1)                       # [N, G]
-    scale = torch.where(absmax > 0, absmax / qmax, torch.ones_like(absmax))
-    q = torch.round((grouped / scale[..., None]).reshape(n, e))
+    scale = torch.where(absmax > 0, _divide(absmax, qmax), torch.ones_like(absmax))
+    scaled = (grouped / scale[..., None]).reshape(n, e)
+    if rng_bits is None:
+        q = torch.round(scaled)
+    else:
+        u = ((rng_bits.to(torch.int64) & _U32) >> 8).to(torch.float32) * (1.0 / (1 << 24))
+        q = torch.floor(scaled + u)
     q = q.clamp(-qmax, qmax).to(torch.int8)
     if col_groups == 1:
         scale = scale[:, 0]
     if bits == 4:
         return pack_int4(q), scale
     return q, scale
+
+
+def _divide(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c``, correctly rounded on every device: on a CUDA tensor torch
+    divides by a host scalar as a product with its reciprocal, which can
+    differ in the last bit from the division the JAX package and the kernel
+    compute."""
+    return x / torch.full_like(x, c)
 
 
 def dequantize_rows(q: torch.Tensor, scale: torch.Tensor, bits: int = 8,
@@ -72,3 +117,152 @@ def dequantize_rows(q: torch.Tensor, scale: torch.Tensor, bits: int = 8,
     e = q.shape[-1]
     per_col = torch.repeat_interleave(scale, e // col_groups, dim=-1)  # [..., E]
     return q.to(torch.float32) * per_col
+
+
+def _mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2**32`` for ``x`` in ``[0, 2**32)`` (int64) and a uint32
+    constant, in 16-bit halves so that no product leaves int64."""
+    high = ((x >> 16) * c) & 0xFFFF
+    return ((high << 16) + (x & 0xFFFF) * c) & _U32
+
+
+def _mix_u32(x: torch.Tensor) -> torch.Tensor:
+    """The triple32-style finalizer of ``id_keyed_rounding_bits``."""
+    x = x ^ (x >> 17)
+    x = _mul_u32(x, 0xED5AD4BB)
+    x = x ^ (x >> 11)
+    x = _mul_u32(x, 0xAC4C1B51)
+    x = x ^ (x >> 15)
+    x = _mul_u32(x, 0x31848BAB)
+    return x ^ (x >> 14)
+
+
+def id_keyed_rounding_bits(ids: torch.Tensor, e: int, salt: int) -> torch.Tensor:
+    """Stochastic-rounding bits keyed by (row id, column, salt): ``ids [n]``
+    integers (taken mod 2**32), ``salt`` a uint32 -> ``[n, e]`` int64 values
+    in ``[0, 2**32)``. They depend on the global row id, never on the slot
+    or the device, so every layout rounds a row alike."""
+    idv = ids.to(torch.int64) & _U32
+    cols = torch.arange(e, dtype=torch.int64, device=ids.device)
+    x = (_mul_u32(idv, 0x9E3779B1)[:, None] + _mul_u32(cols, 0x85EBCA77)[None, :]) & _U32
+    return _mix_u32(x ^ (int(salt) & _U32))
+
+
+def table_rounding_salt(key, step: int, path: str) -> int:
+    """The per-(table, step) salt of ``id_keyed_rounding_bits``, from the
+    train state's key (numpy ``uint32[2]``, ``utils/rng.py``), the 1-based
+    step and the table's flax path: the JAX package's salt, bit for bit."""
+    base = random_bits_u32(fold_in(key, zlib.crc32(path.encode()) & 0x7FFFFFFF))
+    return base ^ ((int(step) * 0x9E3779B9) & _U32)
+
+
+def _sum_in_column_order(x: torch.Tensor) -> torch.Tensor:
+    """``[n, e] -> [n]`` row sums from column 0 up, in order: the order of
+    XLA's CPU reduction (so the mean of g^2 matches the JAX package's bit
+    for bit) and of the kernel."""
+    total = x[:, 0]
+    for c in range(1, x.shape[1]):
+        total = total + x[:, c]
+    return total
+
+
+def requantize_rows_chain(moved: torch.Tensor, g: torch.Tensor, rng_bits: torch.Tensor,
+                          lr: float, e: int, eps: float = 1e-6, bits: int = 8,
+                          col_groups: int = 1) -> torch.Tensor:
+    """Rowwise Adagrad and stochastic requantization of packed byte rows, any
+    format, as the JAX package's chain computes it: ``moved [n, W]`` u8
+    ``q || scale || acc || ...`` rows, ``g [n, e]`` f32 summed grads,
+    ``rng_bits [n, e]`` -> ``[n, W]`` u8 ``q' || scale' || acc'`` rows, zero
+    from the end of ``acc'`` on."""
+    n, w = moved.shape
+    qb = e if bits == 8 else e // 2
+    sb = qb + 4 * col_groups
+    scale_old = bytes_to_f32(moved[:, qb:sb])
+    acc_old = bytes_to_f32(moved[:, sb:sb + 4])[:, 0]
+    current = dequantize_rows(moved[:, :qb].contiguous().view(torch.int8),
+                              scale_old[:, 0] if col_groups == 1 else scale_old,
+                              bits=bits, col_groups=col_groups)
+    acc_new = acc_old + _divide(_sum_in_column_order(torch.square(g)), e)
+    new_rows = current - lr * g / (torch.sqrt(acc_new)[:, None] + eps)
+    q_new, s_new = quantize_rows(new_rows, rng_bits=rng_bits, bits=bits, col_groups=col_groups)
+    return torch.cat([q_new.view(torch.uint8),
+                      s_new.reshape(n, col_groups).view(torch.uint8),
+                      acc_new[:, None].view(torch.uint8),
+                      moved.new_zeros((n, w - sb - 4))], dim=1)
+
+
+def requantize_rows_plain(moved: torch.Tensor, g: torch.Tensor, ids: torch.Tensor, salt: int,
+                          lr: float, e: int, eps: float = 1e-6) -> torch.Tensor:
+    """The plain PyTorch version of the kernel: the chain at bits=8, one
+    scale a row, with the id-keyed bits of ``ids`` and ``salt``."""
+    return requantize_rows_chain(moved, g, id_keyed_rounding_bits(ids, e, salt), lr, e, eps)
+
+
+@functools.cache
+def _kernel():
+    lib = library("requantize")
+    lib.requantize_rows_launch.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_float,
+        ctypes.c_float, ctypes.c_void_p]
+    lib.requantize_rows_launch.restype = ctypes.c_int
+    lib.requantize_max_width.argtypes = []
+    lib.requantize_max_width.restype = ctypes.c_int
+    lib.requantize_error_string.argtypes = [ctypes.c_int]
+    lib.requantize_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(moved: torch.Tensor, g: torch.Tensor, ids: torch.Tensor, e: int) -> None:
+    if moved.dim() != 2 or tuple(g.shape) != (moved.shape[0], e) or \
+            tuple(ids.shape) != (moved.shape[0],):
+        raise ValueError(f"want moved [n, W], g [n, {e}], ids [n]; got {tuple(moved.shape)}, "
+                         f"{tuple(g.shape)}, {tuple(ids.shape)}")
+    if moved.dtype != torch.uint8 or g.dtype != torch.float32 or ids.dtype != torch.int32:
+        raise TypeError(f"want moved uint8, g float32, ids int32; got {moved.dtype}, "
+                        f"{g.dtype}, {ids.dtype}")
+    if e < 1 or e + 8 > moved.shape[1]:
+        raise ValueError(f"rows of {moved.shape[1]} bytes cannot hold {e} q bytes, a scale and "
+                         f"an accumulator")
+
+
+def _launch(moved: torch.Tensor, g: torch.Tensor, ids: torch.Tensor, salt: int, lr: float,
+            e: int, eps: float) -> torch.Tensor:
+    for name, t in (("moved", moved), ("g", g), ("ids", ids)):
+        if not t.is_contiguous():
+            raise ValueError(f"requantize_rows kernel takes contiguous tensors; {name} is not")
+        if t.device != moved.device:
+            raise ValueError(f"{name} is on {t.device}, moved on {moved.device}")
+    n, w = moved.shape
+    lib = _kernel()
+    if w % 4 or moved.data_ptr() % 4 or w > lib.requantize_max_width():
+        raise ValueError(f"requantize_rows kernel takes 4-byte aligned rows of at most "
+                         f"{lib.requantize_max_width()} bytes, a multiple of 4; got {w}")
+    out = torch.empty((n, w), dtype=torch.uint8, device=moved.device)
+    if n == 0:
+        return out
+    with torch.cuda.device(moved.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.requantize_rows_launch(moved.data_ptr(), g.data_ptr(), ids.data_ptr(),
+                                         out.data_ptr(), n, w, e, int(salt) & _U32, lr, eps,
+                                         stream)
+    if err != 0:
+        raise RuntimeError("requantize_rows kernel launch failed: "
+                           + lib.requantize_error_string(err).decode())
+    requantize_rows.launches += 1
+    return out
+
+
+def requantize_rows(moved: torch.Tensor, g: torch.Tensor, ids: torch.Tensor, salt: int,
+                    lr: float, e: int, eps: float = 1e-6) -> torch.Tensor:
+    """Rowwise Adagrad and id-keyed stochastic requantization of int8 packed
+    rows with one scale a row: ``moved [n, W]`` u8 permuted
+    ``q || scale || acc || ...`` rows, ``g [n, e]`` f32 summed grads,
+    ``ids [n]`` int32 global row ids, ``salt`` a uint32 -> a new ``[n, W]``
+    u8, ``q' || scale' || acc'`` then zeros. Needs ``e + 8 <= W``."""
+    _check(moved, g, ids, e)
+    if launches_kernel(moved, g, ids):
+        return _launch(moved, g, ids, salt, lr, e, eps)
+    return requantize_rows_plain(moved, g, ids, salt, lr, e, eps)
+
+
+requantize_rows.launches = 0

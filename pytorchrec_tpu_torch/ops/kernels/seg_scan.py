@@ -13,7 +13,9 @@ TPU kernel's grid runs in order and carries in VMEM; Hopper's blocks do
 not). It is bound by bytes: reading ``x`` and writing the result, 0.033 ms on
 the H100 at the update's shape (n = 851,968, E = 16). ``x`` may be a column
 slice of wider rows: the kernel takes the row stride, so the slice is not
-copied. It takes E <= 256.
+copied; the int8 update passes a strided f32 view of its byte rows, whose
+rows start 24 bytes in (the kernel's loads are scalar, so 4-byte alignment
+is enough). It takes E <= 256.
 
 ``segmented_sum_scan`` dispatches by device (``ops/kernels/__init__.py``): a
 CUDA tensor launches the kernel and raises if the launch fails; a CPU tensor
@@ -84,6 +86,8 @@ def _launch(x: torch.Tensor, is_start: torch.Tensor) -> torch.Tensor:
     if n > 1 and (x.stride(1) != 1 or x.stride(0) < e):
         raise ValueError(f"segmented_sum_scan kernel takes rows of E contiguous floats; "
                          f"x has strides {x.stride()}")
+    if x.data_ptr() % 4:
+        raise ValueError("segmented_sum_scan kernel takes 4-byte aligned rows")
     if not is_start.is_contiguous():
         raise ValueError("segmented_sum_scan kernel takes a contiguous is_start")
     if n >= 2**31:

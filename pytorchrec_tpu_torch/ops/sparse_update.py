@@ -38,8 +38,13 @@ def f32_to_bytes(x: torch.Tensor) -> torch.Tensor:
 
 def bytes_to_f32(b: torch.Tensor) -> torch.Tensor:
     """[..., 4k] uint8 -> [..., k] f32 (inverse bit view). A column slice of
-    a wider byte row is not contiguous, so it is copied first."""
-    return b.contiguous().view(torch.float32)
+    a wider byte row is copied first: it is not contiguous, or, when it holds
+    one row, it is contiguous but may start at a byte offset that is not a
+    multiple of 4, where no f32 view exists."""
+    b = b.contiguous()
+    if b.storage_offset() % 4:
+        b = b.clone()
+    return b.view(torch.float32)
 
 
 def packed_width(emb_dim: int, optimizer: str) -> int:

@@ -27,6 +27,7 @@ Unpacked tables, byte rows (``packed_bytes``) and bf16 storage
 
 from __future__ import annotations
 
+import logging
 from typing import Callable, Dict, Optional
 
 import torch
@@ -41,6 +42,31 @@ from pytorchrec_tpu_torch.ops.sparse_update import (
 from pytorchrec_tpu_torch.optim import build_optimizer
 from pytorchrec_tpu_torch.training.state import SparseTrainState
 from pytorchrec_tpu_torch.training.trainer import Batch, Trainer
+
+logger = logging.getLogger(__name__)
+
+
+def resolve_table_lr(model, override: Optional[float], lr: float, rowwise_tables: bool) -> float:
+    """The table optimizer's lr, as every sparse and quantized trainer
+    resolves it: an explicit ``table_lr`` override; else, for
+    rowwise-Adagrad-style tables (``rowwise_tables``), the model's
+    ``table_lr_hint``, or the shared ``lr`` where the model declares
+    ``table_lr_shared_ok`` (the CTR family), or the shared ``lr`` with a
+    warning (sequence models undertrain their rowwise tables at a dense
+    lr); else the shared ``lr``."""
+    if override is not None:
+        return float(override)
+    if rowwise_tables:
+        hint = getattr(model, "table_lr_hint", None)
+        if hint is not None:
+            return float(hint)
+        if not getattr(model, "table_lr_shared_ok", False):
+            logger.warning(
+                "rowwise-Adagrad-style tables on %s fall back to the shared dense lr (%g); "
+                "sequence models need an absolute table lr around 1-2e-2: pass table_lr= or "
+                "set table_lr_hint on the model", type(model).__name__, lr)
+    return lr
+
 
 def _module_path(path: str):
     """Flax leaf path ``"unified_emb/embedding"`` -> (``"unified_emb"``,
@@ -72,12 +98,11 @@ class SparseEmbeddingTrainer(Trainer):
         self._emb_dims: Dict[str, int] = {}
 
     def compile(self, *args, lr: float = 1e-3, **kwargs) -> None:
-        """As ``Trainer.compile``; the table optimizer takes ``table_lr`` when
-        given, else the shared ``lr`` (the JAX package's ``resolve_table_lr``
-        for f32 tables of the CTR family, which declares no table lr of its
-        own)."""
+        """As ``Trainer.compile``; the table optimizer's lr comes from
+        ``resolve_table_lr``."""
         super().compile(*args, lr=lr, **kwargs)
-        self._table_lr = lr if self._table_lr_override is None else float(self._table_lr_override)
+        self._table_lr = resolve_table_lr(self.model, self._table_lr_override, lr,
+                                          rowwise_tables=self.table_optimizer == "rowwise_adagrad")
 
     def _make_state(self, sample_batch: Batch, rng: torch.Generator) -> SparseTrainState:
         declared = set(self.model.sparse_table_ids(sample_batch))

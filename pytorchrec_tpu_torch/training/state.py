@@ -5,7 +5,8 @@ PRNG key) through a jitted step. In the port the parameters live in the
 model (an ``nn.Module``) and are updated in place; the state holds what the
 model does not: the dense optimizer, the generator of dropout masks, the
 step counter and, for packed tables, the packed
-``table || moments || staging`` buffers.
+``table || moments || staging`` (f32) or ``q || scale || acc || staging``
+(quantized) buffers.
 
 ``step`` starts at 0 and counts finished train steps, as JAX's
 ``state.step``; a step's packed update takes ``step + 1`` (1-based, for
@@ -15,8 +16,9 @@ Adam's bias correction).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 
@@ -31,3 +33,12 @@ class TrainState:
 class SparseTrainState(TrainState):
     # flax leaf path (``"unified_emb/embedding"``) -> [V, W] packed rows
     packed: Dict[str, torch.Tensor] = field(default_factory=dict)
+
+
+@dataclass
+class QuantizedTrainState(SparseTrainState):
+    # ``packed``: flax leaf path (``"unified_q"``) -> [V, W] u8 packed rows,
+    # the model's own buffer, not a copy.
+    # The JAX state's PRNG key (``split(PRNGKey(seed))[1]``), numpy uint32[2]:
+    # it salts each step's rounding bits (``utils/rng.py``)
+    rng_key: Optional[np.ndarray] = None

@@ -39,6 +39,8 @@ Batch = Dict[str, Any]
 class Trainer:
     """Owns one model on one device, its optimizer and its step counter."""
 
+    trains_quantized_tables = False
+
     def __init__(self, model: RecModel, device=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -87,12 +89,13 @@ class Trainer:
 
     def init_state(self, sample_batch: Batch, seed: int = 2020) -> TrainState:
         """Draw every parameter from ``torch.Generator(seed)`` and build the
-        optimizer; the same generator then draws the dropout masks. The step
+        optimizer; the same generator then draws the dropout masks (and, for
+        a quantized trainer, its table, which is a buffer). The step
         counter starts at 0. ``sample_batch`` names the tables a batch reads
         (the sparse trainer's protocol)."""
         self._assert_compiled()
-        if getattr(self.model, "quantized_embedding", False):
-            raise NotImplementedError("training quantized tables is not ported yet")
+        if getattr(self.model, "quantized_embedding", False) and not self.trains_quantized_tables:
+            raise ValueError("a quantized table trains under QuantizedEmbeddingTrainer")
         generator = torch.Generator(device=self.device).manual_seed(seed)
         with torch.no_grad():
             for param in self.model.parameters():

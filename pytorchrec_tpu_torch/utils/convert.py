@@ -15,12 +15,13 @@ them into the port model's state dict:
 Any other leaf the port does not know raises, as does a port parameter that
 no leaf fills.
 
-``params_from_jax(flat, trainer)`` loads into a ``SparseEmbeddingTrainer``
-with packed tables instead, right after its ``init_state``: each packed leaf
-(``unified_emb/embedding``, ``[V, W]``) loads whole into the trainer's packed
-buffer, moments and staging columns included, in place; the dense leaves
-load into the model as above. The dense optimizer's state is then still
-empty, as optax's ``init`` leaves it.
+``params_from_jax(flat, trainer)`` loads into a packed trainer instead
+(``SparseEmbeddingTrainer`` or ``QuantizedEmbeddingTrainer``), right after
+its ``init_state``: each packed leaf (``unified_emb/embedding`` ``[V, W]``
+f32, or ``unified_q`` ``[V, W]`` u8) loads whole into the trainer's packed
+buffer, moments, accumulator and staging columns included, in place; the
+dense leaves load into the model as above. The dense optimizer's state is
+then still empty, as optax's ``init`` leaves it.
 """
 
 from __future__ import annotations
@@ -65,7 +66,7 @@ def _load_packed(path: str, value, packed: torch.Tensor) -> None:
 
 def params_from_jax(flat: Mapping[str, np.ndarray], target):
     """Load ``flat`` into ``target``, a model (on whatever device it lives)
-    or a packed ``SparseEmbeddingTrainer``; return ``target``."""
+    or a packed trainer; return ``target``."""
     model = target if isinstance(target, nn.Module) else target.model
     packed: Dict[str, torch.Tensor] = {}
     if not isinstance(target, nn.Module):

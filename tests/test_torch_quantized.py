@@ -112,3 +112,24 @@ def test_f32_byte_views_match_jax():
     _exact(tsu.unpack_table(torch.from_numpy(packed), E),
            jsu.unpack_table(jnp.asarray(packed), E))
     assert tsu._FAST_WIDTH == jsu._FAST_WIDTH
+
+
+@pytest.mark.parametrize("bits,groups,e", [(4, 1, 4), (8, 1, 5), (8, 2, 6)])
+def test_one_row_at_an_unaligned_scale_offset_matches_jax(bits, groups, e):
+    """A single gathered row whose scale starts at a byte offset that is not
+    a multiple of 4 (int4 at E=4: byte 2) still reads back: its one-row
+    column slice is contiguous, so it is copied to an aligned start before
+    the f32 view."""
+    rows = (np.random.default_rng(e).normal(size=(5, e)) * 0.01).astype(np.float32)
+    q, scale = jq.quantize_rows_xla(jnp.asarray(rows), bits=bits, col_groups=groups)
+    table = np.array(jqp.pack_quantized_table(q, scale, jnp.ones((5,), jnp.float32), e, bits,
+                                              groups))
+    ids = np.array([[3]], np.int32)
+    want = jqp.packed_gather_dequant(jnp.asarray(table), jnp.asarray(ids), e, bits, groups)
+    got = tqp.packed_gather_dequant(torch.from_numpy(table), torch.from_numpy(ids).long(),
+                                    e, bits, groups)
+    _exact(got, want)
+    one, qb = torch.from_numpy(table)[3:4], tqp.q_row_bytes(e, bits)
+    _exact(tsu.bytes_to_f32(one[:, qb:qb + 4 * groups]),
+           np.asarray(jqp.unpack_quantized_table(jnp.asarray(table[3:4]), e, bits, groups)[1]
+                      ).reshape(1, -1))
