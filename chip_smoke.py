@@ -57,16 +57,41 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    configuration); every step launches each of the four kernels once, and
    the packed buffer stays the model's own ``unified_q``;
 11. int8 card against CPU: phase 8 for the int8 trainer;
+12. FM kernels against plain, on the card: the forward and the backward at
+   1, 1000 and 32768 rows and at the candidate request's [25600, 39, 16],
+   forward and backward through their autograd Function against autograd
+   through the plain version at B=4096, then each kernel's time beside its
+   plain version and its bound at [32768, 39, 16]; the segmented scan at
+   the linear table's shape (851,968 rows of E=1, row stride 64), checked
+   and timed;
+13. DeepFM serving at the same Criteo width (the FM over 39 field vectors of
+   E=16, deep MLP 256-128 over their 624 values, ``deep_head`` with no
+   bias), the requests of phase 4, with the f32 tables (both packed leaves,
+   sliced) and with the int8 table beside the f32 linear table; each request
+   launches the FM forward kernel once and its backward never, and agrees
+   with the same model run with the plain FM on the card and, for the
+   1000-row request, on the CPU;
+14. DeepFM f32 training: phase 7 for DeepFM, with two packed tables
+   (``unified_emb`` and ``unified_lin``, ``[2.6M, 64]`` each); every step
+   launches the FM forward and backward once each and the scan and the
+   scatter twice (once a table); then the linear table's own share of a
+   step (its gather and packed update, timed alone);
+15. DeepFM int8 training: phase 10 for DeepFM, the f32 linear table in the
+   dense Adam; every step launches each of the five kernels once;
+16. DeepFM card against CPU: phases 8 and 11 for DeepFM;
 
 then a ``{"kernels": [...]}`` line with every kernel at its main-path shape
-(``launches``: the int8 training run's; the f32 run's and serving's beside).
-The last line is ``{"ok": true, "device": {...}}``. Needs one CUDA card; no
-JAX and nothing of the JAX package is imported.
+(``launches``: for B1–B4 the DCN-v2 int8 training run's, for the FM kernels
+the DeepFM f32 training run's; the other paths' counts beside). Each path
+(serving, each training run) zeroes every launch count just before it and
+reads them just after. The last line is ``{"ok": true, "device": {...}}``.
+Needs one CUDA card; no JAX and nothing of the JAX package is imported.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -76,9 +101,16 @@ import numpy as np
 import torch
 
 from pytorchrec_tpu_torch.feature_column import CategoricalColumnWithIdentity, NumericColumn
-from pytorchrec_tpu_torch.models import DCNv2
+from pytorchrec_tpu_torch.models import DCNv2, DeepFM
+from pytorchrec_tpu_torch.models import ctr as ctr_module
 from pytorchrec_tpu_torch.ops.kernels.build import build
 from pytorchrec_tpu_torch.ops.kernels.cross import cross_network, cross_network_plain
+from pytorchrec_tpu_torch.ops.kernels.fm import (
+    fm_interaction,
+    fm_interaction_backward,
+    fm_interaction_backward_plain,
+    fm_interaction_plain,
+)
 from pytorchrec_tpu_torch.ops.kernels.quantize import (
     quantize_rows,
     requantize_rows,
@@ -97,6 +129,7 @@ from pytorchrec_tpu_torch.ops.quantized_packed import (
     packed_q_width,
     unpack_quantized_table,
 )
+from pytorchrec_tpu_torch.ops.sparse_update import packed_sparse_update
 from pytorchrec_tpu_torch.training import QuantizedEmbeddingTrainer, SparseEmbeddingTrainer, Trainer
 from pytorchrec_tpu_torch.utils import params_from_jax
 from pytorchrec_tpu_torch.utils.rng import prng_key, split
@@ -120,12 +153,30 @@ TRAIN_WARMUP, TRAIN_TIMED = 5, 20
 PACKED_W = 64  # f32 table || m || v || staging at E=16
 Q_W = packed_q_width(EMB, 8, 1)  # 128 bytes: int8 q || scale || acc || staging
 Q_BASE = packed_q_base(EMB, 8, 1)  # 24: the int8 rows' staging offset
-TABLES = {"f32": "unified_emb/embedding", "int8": "unified_q"}  # packed leaf of each trainer
+TABLES = {"f32": "unified_emb/embedding", "int8": "unified_q"}  # DCN-v2's packed leaf
+LIN = "unified_lin/embedding"  # DeepFM's linear table, packed [V, 64] under the f32 trainer
 CPU_BATCH, CPU_STEPS = 1024, 2  # card against CPU
 LABEL = CategoricalColumnWithIdentity(feature_name="label", category_num=2)
 TRAIN_LR = 1e-3
-KERNELS = {"f32": (cross_network, segmented_sum_scan, scatter_set_rows),
-           "int8": (cross_network, segmented_sum_scan, requantize_rows, scatter_set_rows)}
+
+# DeepFM at the same width: 39 field vectors of E=16 (26 sparse, then 13 dense)
+FM_FIELDS = N_SPARSE + N_DENSE
+DEEP_DIM = FM_FIELDS * EMB  # 624, the deep tower's input
+FM_SHAPES = ((1,), (1000,), (TRAIN_BATCH,), (CANDIDATES[0] * CANDIDATES[1],))  # rows
+
+ALL_KERNELS = (cross_network, segmented_sum_scan, requantize_rows, scatter_set_rows,
+               fm_interaction, fm_interaction_backward)
+FORWARD_KERNEL = {"dcnv2": cross_network, "deepfm": fm_interaction}  # one launch a request
+# kernel launches of one train step, by (model, table); every other kernel launches none
+PER_STEP = {
+    ("dcnv2", "f32"): {cross_network: 1, segmented_sum_scan: 1, scatter_set_rows: 1},
+    ("dcnv2", "int8"): {cross_network: 1, segmented_sum_scan: 1, requantize_rows: 1,
+                        scatter_set_rows: 1},
+    ("deepfm", "f32"): {fm_interaction: 1, fm_interaction_backward: 1, segmented_sum_scan: 2,
+                        scatter_set_rows: 2},
+    ("deepfm", "int8"): {fm_interaction: 1, fm_interaction_backward: 1, segmented_sum_scan: 1,
+                         requantize_rows: 1, scatter_set_rows: 1},
+}
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
@@ -133,6 +184,34 @@ PEAK_BYTES_S = 3.35e12
 
 # kernel against plain: f32 sums of D terms run in another order
 RTOL, ATOL = 1e-4, 1e-6
+# device clock cycles of spin queued ahead of each timed call (about 1 ms)
+HEADSTART_CYCLES = 2_000_000
+# the FM forward: within 1e-5 of its terms' magnitude (a difference of two
+# positive sums, each summed in another order); its backward rtol 1e-5
+FM_RTOL, FM_ATOL = 1e-5, 1e-7
+
+
+def counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    return {k: k.launches for k in ALL_KERNELS}
+
+
+def zero_counts() -> None:
+    for kernel in ALL_KERNELS:
+        kernel.launches = 0
+
+
+def check_launches(label: str, before: dict, want: dict) -> None:
+    """Raises unless each kernel launched ``want[kernel]`` times (0 where
+    absent) since ``before``."""
+    got = {k: k.launches - before[k] for k in ALL_KERNELS}
+    expected = {k: want.get(k, 0) for k in ALL_KERNELS}
+    if got != expected:
+        raise AssertionError(f"{label}: launches {names(got)}, want {names(expected)}")
+
+
+def names(launches: dict) -> dict:
+    return {k.__name__: n for k, n in launches.items()}
 
 
 def close(got: torch.Tensor, want: torch.Tensor, rtol: float = RTOL, atol: float = ATOL) -> float:
@@ -179,54 +258,90 @@ def check_cross(rng: np.random.Generator) -> float:
     return worst
 
 
+def normal_leaf(rng: np.random.Generator, *shape) -> np.ndarray:
+    """N(0, 0.01) f32, as the JAX package initialises every weight."""
+    return rng.standard_normal(shape, dtype=np.float32) * np.float32(0.01)
+
+
+def table_leaves(rng: np.random.Generator, table: str) -> dict:
+    """The unified field table's leaf: f32, the ``[V, 64]`` packed
+    ``table || m || v || pad`` rows of ``SparseEmbeddingTrainer(packed_tables=
+    True)``; int8, the ``q || scale || acc || pad`` u8 rows of
+    ``QuantizedEmbeddingTrainer(packed_tables=True)``."""
+    rows = normal_leaf(rng, N_SPARSE * VOCAB, EMB)
+    if table == "f32":
+        packed = np.zeros((rows.shape[0], PACKED_W), np.float32)
+        packed[:, :EMB] = rows
+        return {"unified_emb/embedding": packed}
+    absmax = np.abs(rows).max(axis=1)
+    scale = np.where(absmax > 0, absmax / np.float32(127.0), np.float32(1.0)).astype(np.float32)
+    q = np.clip(np.rint(rows / scale[:, None]), -127, 127).astype(np.int8)
+    packed = np.zeros((rows.shape[0], Q_W), np.uint8)
+    packed[:, :EMB] = q.view(np.uint8)
+    packed[:, EMB:EMB + 4] = scale[:, None].view(np.uint8)
+    return {"unified_q": packed}
+
+
 def flax_leaves(rng: np.random.Generator, table: str) -> dict:
     """Random DCN-v2 parameters in the flax leaf layout (``/``-joined paths),
     N(0, 0.01) as the JAX package initialises them."""
-    def normal(*shape):
-        return (rng.standard_normal(shape, dtype=np.float32) * np.float32(0.01))
-
     leaves = {
-        "cross/ws": normal(CROSS_LAYERS, DIM, DIM),
-        "cross/bs": normal(CROSS_LAYERS, DIM),
-        "deep/Dense_0/Dense_0/kernel": normal(DIM, MLP_UNITS[0]),
-        "deep/Dense_0/Dense_0/bias": normal(MLP_UNITS[0]),
-        "deep/Dense_1/Dense_0/kernel": normal(MLP_UNITS[0], MLP_UNITS[1]),
-        "deep/Dense_1/Dense_0/bias": normal(MLP_UNITS[1]),
-        "head/kernel": normal(DIM + MLP_UNITS[1], 1),
-        "head/bias": normal(1),
+        "cross/ws": normal_leaf(rng, CROSS_LAYERS, DIM, DIM),
+        "cross/bs": normal_leaf(rng, CROSS_LAYERS, DIM),
+        "deep/Dense_0/Dense_0/kernel": normal_leaf(rng, DIM, MLP_UNITS[0]),
+        "deep/Dense_0/Dense_0/bias": normal_leaf(rng, MLP_UNITS[0]),
+        "deep/Dense_1/Dense_0/kernel": normal_leaf(rng, MLP_UNITS[0], MLP_UNITS[1]),
+        "deep/Dense_1/Dense_0/bias": normal_leaf(rng, MLP_UNITS[1]),
+        "head/kernel": normal_leaf(rng, DIM + MLP_UNITS[1], 1),
+        "head/bias": normal_leaf(rng, 1),
         # created by every DCN-v2 tree, never read; the converter drops them
         "bias": np.zeros((), np.float32),
-        "dense_factors": normal(N_DENSE, EMB),
-        "dense_linear": normal(N_DENSE),
+        "dense_factors": normal_leaf(rng, N_DENSE, EMB),
+        "dense_linear": normal_leaf(rng, N_DENSE),
     }
-    rows = normal(N_SPARSE * VOCAB, EMB)
-    if table == "f32":
-        # SparseEmbeddingTrainer(packed_tables=True): [V, 64] table||m||v||pad
-        packed = np.zeros((rows.shape[0], 64), np.float32)
-        packed[:, :EMB] = rows
-        leaves["unified_emb/embedding"] = packed
-    else:
-        # QuantizedEmbeddingTrainer(packed_tables=True): q||scale||acc||pad u8 rows
-        absmax = np.abs(rows).max(axis=1)
-        scale = np.where(absmax > 0, absmax / np.float32(127.0), np.float32(1.0)).astype(np.float32)
-        q = np.clip(np.rint(rows / scale[:, None]), -127, 127).astype(np.int8)
-        width = packed_q_width(EMB, 8, 1)
-        packed = np.zeros((rows.shape[0], width), np.uint8)
-        packed[:, :EMB] = q.view(np.uint8)
-        packed[:, EMB:EMB + 4] = scale[:, None].view(np.uint8)
-        leaves["unified_q"] = packed
+    leaves.update(table_leaves(rng, table))
     return leaves
 
 
-def make_model(table: str, device, seed: int) -> DCNv2:
+def deepfm_leaves(rng: np.random.Generator, table: str) -> dict:
+    """Random DeepFM parameters in the flax leaf layout. The linear table is
+    the f32 trainer's packed ``[V, 64]`` leaf (``packed_width(1, "adam")``:
+    4 columns used) beside f32 field rows, and a plain ``[V, 1]`` leaf beside
+    int8 rows (the quantized trainer keeps it in the dense optimizer)."""
+    leaves = {
+        "deep/Dense_0/Dense_0/kernel": normal_leaf(rng, DEEP_DIM, MLP_UNITS[0]),
+        "deep/Dense_0/Dense_0/bias": normal_leaf(rng, MLP_UNITS[0]),
+        "deep/Dense_1/Dense_0/kernel": normal_leaf(rng, MLP_UNITS[0], MLP_UNITS[1]),
+        "deep/Dense_1/Dense_0/bias": normal_leaf(rng, MLP_UNITS[1]),
+        "deep_head/kernel": normal_leaf(rng, MLP_UNITS[1], 1),
+        "bias": np.zeros((), np.float32),
+        "dense_factors": normal_leaf(rng, N_DENSE, EMB),
+        "dense_linear": normal_leaf(rng, N_DENSE),
+    }
+    lin = normal_leaf(rng, N_SPARSE * VOCAB, 1)
+    if table == "f32":
+        packed = np.zeros((lin.shape[0], PACKED_W), np.float32)
+        packed[:, :1] = lin
+        lin = packed
+    leaves[LIN] = lin
+    leaves.update(table_leaves(rng, table))
+    return leaves
+
+
+def make_model(table: str, device, seed: int, model_name: str = "dcnv2"):
+    """DCN-v2 or DeepFM at ``bench.py``'s Criteo width, with the unified
+    table of ``table``."""
     sparse = [CategoricalColumnWithIdentity(feature_name=f"c_{i}", category_num=VOCAB)
               for i in range(N_SPARSE)]
     dense = [NumericColumn(feature_name=f"d_{i}") for i in range(N_DENSE)]
     quantized = table == "int8"
-    return DCNv2(sparse_columns=sparse, dense_columns=dense, label_column=LABEL, emb_size=EMB,
-                 num_cross_layers=CROSS_LAYERS, layers=MLP_UNITS, unified_embedding=True,
-                 quantized_embedding=quantized, table_packed=quantized, device=device,
-                 generator=torch.Generator(device=device).manual_seed(seed))
+    kwargs = dict(sparse_columns=sparse, dense_columns=dense, label_column=LABEL, emb_size=EMB,
+                  layers=MLP_UNITS, unified_embedding=True, quantized_embedding=quantized,
+                  table_packed=quantized, device=device,
+                  generator=torch.Generator(device=device).manual_seed(seed))
+    if model_name == "deepfm":
+        return DeepFM(**kwargs)
+    return DCNv2(num_cross_layers=CROSS_LAYERS, **kwargs)
 
 
 def make_requests(rng: np.random.Generator) -> list:
@@ -258,21 +373,42 @@ class PlainCross(torch.nn.Module):
         return cross_network_plain(flat, self.inner.ws, self.inner.bs).reshape(x0.shape)
 
 
-def profile_call(fn, label: str, kernels=(cross_network,), top: int = 6) -> None:
+def plain_fm(field_vectors: torch.Tensor) -> torch.Tensor:
+    """The models' ``fm_interaction`` with the plain version in place of the
+    kernel, for the reference scores."""
+    lead = field_vectors.shape[:-2]
+    return fm_interaction_plain(field_vectors.reshape(-1, FM_FIELDS, EMB)).reshape(lead)
+
+
+@contextlib.contextmanager
+def plain_forward(model):
+    """Inside: ``model`` runs the plain version in place of its forward
+    kernel (the same parameters and inputs)."""
+    if isinstance(model, DCNv2):
+        kernel_cross = model.cross
+        model.cross = PlainCross(kernel_cross)
+        yield
+        model.cross = kernel_cross
+    else:
+        kernel_fm = ctr_module.fm_interaction
+        ctr_module.fm_interaction = plain_fm
+        yield
+        ctr_module.fm_interaction = kernel_fm
+
+
+def profile_call(fn, label: str, launches=None, top: int = 6) -> None:
     """Where one call's time goes: torch.profiler's device time by kernel or
-    copy, against the call's host-clocked wall time. Each of ``kernels`` must
-    launch once."""
+    copy, against the call's host-clocked wall time. The call must launch
+    each kernel as often as ``launches`` says (default: the cross kernel
+    once) and no other."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    before = [k.launches for k in kernels]
+    before = counts()
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    for kernel, count in zip(kernels, before):
-        if kernel.launches != count + 1:
-            raise AssertionError(f"{label}: profiled call launched {kernel.__name__} "
-                                 f"{kernel.launches - count} times, want 1")
+    check_launches(f"{label}: profiled call", before, launches or {cross_network: 1})
     # the device's own events (kernels, copies); CPU ops repeat their kernels' time
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
@@ -290,66 +426,74 @@ def profile_call(fn, label: str, kernels=(cross_network,), top: int = 6) -> None
               f"x{sum(e.count for e in rest):<3d} the {len(rest)} other kinds")
 
 
-def serve_table(table: str, requests: list, seed: int) -> None:
-    """Phase 4 for one table format."""
+def serve_table(table: str, requests: list, seed: int, model_name: str = "dcnv2",
+                profiled=PROFILED_SHAPES) -> int:
+    """Phases 4 and 13 for one model and table format: every request must
+    launch the model's forward kernel once and no other kernel. Returns the
+    number of requests served."""
+    tag = f"[{table}]" if model_name == "dcnv2" else f"[{model_name} {table}]"
+    kernel = FORWARD_KERNEL[model_name]
     rng = np.random.default_rng(seed + (1 if table == "f32" else 2))
-    leaves = flax_leaves(rng, table)
-    model = params_from_jax(leaves, make_model(table, "cuda", seed))
+    leaves = (flax_leaves if model_name == "dcnv2" else deepfm_leaves)(rng, table)
+    model = params_from_jax(leaves, make_model(table, "cuda", seed, model_name))
     serve = Trainer(model).make_serving_fn()
     table_mb = (model.unified_emb.embedding if table == "f32" else model.unified_q).nbytes / 1e6
-    print(f"[{table}] table {table_mb:.1f} MB on the card")
+    print(f"{tag} field table {table_mb:.1f} MB on the card")
 
-    for _, req, _ in requests:  # warm-up: cuBLAS handles and heuristics
-        before = cross_network.launches
-        serve(req)
+    def request(label, req):
+        before = counts()
+        out = serve(req)
         torch.cuda.synchronize()
-        if cross_network.launches != before + 1:
-            raise AssertionError(f"[{table}] warm-up request launched the cross kernel "
-                                 f"{cross_network.launches - before} times")
+        check_launches(f"{tag} {label}", before, {kernel: 1})
+        return out
+
+    for name, req, _ in requests:  # warm-up: cuBLAS handles and heuristics
+        request(f"warm-up {name}", req)
 
     scores = {}
     for name, req, shape in requests:
         times = []
         for _ in range(REPEATS):
-            before = cross_network.launches
             t0 = time.perf_counter()
-            out = serve(req)
-            torch.cuda.synchronize()
+            out = request(name, req)
             times.append(time.perf_counter() - t0)
-            if cross_network.launches != before + 1:
-                raise AssertionError(f"[{table}] {name}: cross kernel launched "
-                                     f"{cross_network.launches - before} times, want 1")
         if tuple(out.shape) != shape or not torch.isfinite(out).all():
-            raise AssertionError(f"[{table}] {name}: scores {tuple(out.shape)}, want {shape}, "
+            raise AssertionError(f"{tag} {name}: scores {tuple(out.shape)}, want {shape}, "
                                  f"finite={bool(torch.isfinite(out).all())}")
         scores[name] = out
         ms = 1e3 * float(np.median(times))
         examples = int(np.prod(shape))
-        print(f"[{table}] {name:18s} median {ms:8.3f} ms  min {1e3 * min(times):8.3f} ms  "
+        print(f"{tag} {name:18s} median {ms:8.3f} ms  min {1e3 * min(times):8.3f} ms  "
               f"{examples / (ms / 1e3):12.0f} ex/s  (host clock, {REPEATS} requests)")
 
     for name, req, shape in requests:
-        if shape in PROFILED_SHAPES:
-            profile_call(lambda: serve(req), f"[{table}] {name}")
+        if shape in profiled:
+            profile_call(lambda: serve(req), f"{tag} {name}", {kernel: 1})
 
-    kernel_cross = model.cross
-    model.cross = PlainCross(kernel_cross)
-    for name, req, _ in requests:
-        err = close(scores[name], serve(req))
-        print(f"[{table}] {name:18s} kernel vs plain cross on the card: max abs err {err:.3e}")
-    model.cross = kernel_cross
+    with plain_forward(model):
+        for name, req, _ in requests:
+            err = close(scores[name], serve(req))
+            print(f"{tag} {name:18s} kernel vs plain {kernel.__name__} on the card: "
+                  f"max abs err {err:.3e}")
 
-    cpu_model = params_from_jax(leaves, make_model(table, "cpu", seed))
+    cpu_model = params_from_jax(leaves, make_model(table, "cpu", seed, model_name))
     name, req, _ = requests[1]
     want = Trainer(cpu_model, device="cpu").make_serving_fn()(req)
     err = close(scores[name].cpu(), want)
-    print(f"[{table}] {name:18s} card vs CPU (plain) port: max abs err {err:.3e}")
+    print(f"{tag} {name:18s} card vs CPU (plain) port: max abs err {err:.3e}")
+    return (1 + REPEATS) * len(requests) + sum(shape in profiled for _, _, shape in requests)
 
 
 def time_cuda(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Device ms a call: CUDA events around ``iters`` calls queued behind a
+    device-side spin of about 1 ms a call, so the host has enqueued them
+    before the first one starts and the events time the device, not the
+    host's enqueue (a call that synchronises inside waits the spin out)."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HEADSTART_CYCLES * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -635,13 +779,109 @@ def check_and_time_requantize(rng: np.random.Generator, gen: torch.Generator, se
     return errs[0], timing
 
 
-def make_trainer(table: str, device: str, leaves: dict, sample: dict, seed: int):
+def fm_close(got: torch.Tensor, want: torch.Tensor, v: torch.Tensor) -> float:
+    """FM forward, kernel against plain: max abs error; raises if any row is
+    off by more than FM_ATOL + FM_RTOL * 0.5 * sum_e[(sum_f v)^2 + sum_f v^2]."""
+    magnitude = 0.5 * (v.sum(dim=1).square() + v.square().sum(dim=1)).sum(dim=-1)
+    err = (got - want).abs()
+    if not bool((err <= FM_ATOL + FM_RTOL * magnitude).all()) or not torch.isfinite(got).all():
+        raise AssertionError(f"fm_interaction mismatch: max abs err {float(err.max()):.3e} "
+                             f"against a magnitude of {float(magnitude.max()):.3e}")
+    return float(err.max())
+
+
+def fm_inputs(gen: torch.Generator, rows: int):
+    """Field vectors as the DeepFM path builds them: 26 sparse rows and 13
+    dense value x factor vectors, all about N(0, 0.01); and an upstream
+    gradient N(0, 1)."""
+    v = torch.randn((rows, FM_FIELDS, EMB), device="cuda", generator=gen) * 0.01
+    g = torch.randn((rows,), device="cuda", generator=gen)
+    return v, g
+
+
+def check_and_time_fm(gen: torch.Generator) -> dict:
+    """Phase 12: both FM kernels against their plain versions at the rows
+    the DeepFM path gives them, forward and backward through the Function
+    against plain autograd at B=4096, then each kernel timed beside its
+    plain version (CUDA events, median of 3 interleaved rounds) with its
+    bound at the training batch. Returns the errors and timings."""
+    errs = {"fwd": 0.0, "bwd": 0.0, "grad": 0.0}
+    for (rows,) in FM_SHAPES:
+        v, g = fm_inputs(gen, rows)
+        fwd = fm_close(fm_interaction(v), fm_interaction_plain(v), v)
+        bwd = close(fm_interaction_backward(v, g), fm_interaction_backward_plain(v, g),
+                    rtol=FM_RTOL, atol=FM_ATOL)
+        torch.cuda.synchronize()
+        errs["fwd"], errs["bwd"] = max(errs["fwd"], fwd), max(errs["bwd"], bwd)
+        print(f"fm kernels vs plain  [{rows}, {FM_FIELDS}, {EMB}]: forward max abs err "
+              f"{fwd:.3e}, backward max abs err {bwd:.3e}")
+
+    v, g = fm_inputs(gen, 4096)
+    before = counts()
+    leaf = v.clone().requires_grad_()
+    out = fm_interaction(leaf)
+    out.backward(g)
+    torch.cuda.synchronize()
+    check_launches("fm Function forward + backward", before,
+                   {fm_interaction: 1, fm_interaction_backward: 1})
+    plain = v.clone().requires_grad_()
+    want = fm_interaction_plain(plain)
+    want.backward(g)
+    errs["grad"] = max(fm_close(out.detach(), want.detach(), v),
+                       close(leaf.grad, plain.grad, rtol=FM_RTOL, atol=FM_ATOL))
+    print(f"fm forward + backward through the Function vs plain autograd, B=4096: max abs err "
+          f"{errs['grad']:.3e}")
+
+    v, g = fm_inputs(gen, TRAIN_BATCH)
+    runs = {k: [] for k in ("fwd", "fwd_plain", "bwd", "bwd_plain")}
+    for _ in range(3):
+        runs["fwd"].append(time_cuda(lambda: fm_interaction(v)))
+        runs["fwd_plain"].append(time_cuda(lambda: fm_interaction_plain(v)))
+        runs["bwd"].append(time_cuda(lambda: fm_interaction_backward(v, g)))
+        runs["bwd_plain"].append(time_cuda(lambda: fm_interaction_backward_plain(v, g)))
+    values = TRAIN_BATCH * FM_FIELDS * EMB
+    timings = {}
+    for kind, nbytes in (("fwd", 4 * (values + TRAIN_BATCH)),
+                         ("bwd", 4 * (2 * values + TRAIN_BATCH))):
+        ops_ms, bytes_ms = 1e3 * 3 * values / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES_S
+        timings[kind] = {"ms": float(np.median(runs[kind])),
+                         "plain_ms": float(np.median(runs[f"{kind}_plain"])),
+                         "bound_ms": max(ops_ms, bytes_ms),
+                         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                         "library_ms": None}
+        print(f"fm {kind} at [{TRAIN_BATCH}, {FM_FIELDS}, {EMB}]: kernel "
+              f"{timings[kind]['ms']:.4f} ms, plain {timings[kind]['plain_ms']:.4f} ms, bound "
+              f"{timings[kind]['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB); no single PyTorch "
+              f"call computes it; rounds {runs[kind]} / plain {runs[kind + '_plain']}")
+    return errs, timings
+
+
+def check_and_time_lin_scan(rng: np.random.Generator, gen: torch.Generator) -> dict:
+    """Phase 12, B2 at the DeepFM linear table's shape: E=1 read through a
+    row stride of 64 (the staging column of ``[n, 64]`` packed rows under
+    Adam, column 3), kernel against plain at bench ids and at 1 and 1000
+    rows, then timed."""
+    ids = unified_ids(make_train_batch(rng))
+    _, heads, _ = segments(ids)
+    wide = torch.randn((ids.shape[0], PACKED_W), device="cuda", generator=gen)
+    x, heads = wide[:, 3:4], torch.from_numpy(heads).cuda()
+    for rows in (ids.shape[0], 1, 1000):
+        err = close(segmented_sum_scan(x[:rows], heads[:rows]),
+                    segmented_sum_scan_plain(x[:rows], heads[:rows]), rtol=1e-5, atol=1e-5)
+        print(f"segmented_sum_scan kernel vs plain  linear table n={rows:7d} E=1 row stride "
+              f"{x.stride(0)}: max abs err {err:.3e}")
+    return time_seg_scan(x, heads)
+
+
+def make_trainer(table: str, device: str, leaves: dict, sample: dict, seed: int,
+                 model_name: str = "dcnv2"):
     """bench.py's training set-up for ``table``: f32, packed ``table || m || v``
-    rows under lazy Adam (``SparseEmbeddingTrainer``); int8, packed
-    ``q || scale || acc`` rows under rowwise Adagrad with stochastic
-    requantization (``QuantizedEmbeddingTrainer``). Dense Adam, BCE, lr
-    1e-3; weights from ``leaves`` (flax layout)."""
-    model = make_model(table, device, seed)
+    rows under lazy Adam (``SparseEmbeddingTrainer``; DeepFM's linear table
+    too); int8, packed ``q || scale || acc`` rows under rowwise Adagrad with
+    stochastic requantization (``QuantizedEmbeddingTrainer``; DeepFM's f32
+    linear table in the dense optimizer). Dense Adam, BCE, lr 1e-3; weights
+    from ``leaves`` (flax layout)."""
+    model = make_model(table, device, seed, model_name)
     cls = SparseEmbeddingTrainer if table == "f32" else QuantizedEmbeddingTrainer
     trainer = cls(model, device=device, packed_tables=True)
     trainer.compile(optimizer="adam", lr=TRAIN_LR, loss="bce")
@@ -649,31 +889,55 @@ def make_trainer(table: str, device: str, leaves: dict, sample: dict, seed: int)
     return params_from_jax(leaves, trainer)
 
 
-def train(table: str, leaves: dict, rng: np.random.Generator, seed: int):
-    """Phases 7 and 10: one main training path, launch counts from zero.
-    Returns the launches and the ms/step."""
-    tag, path, kernels = f"[train {table}]", TABLES[table], KERNELS[table]
+def time_table_share(trainer, batch: dict, path: str) -> float:
+    """One packed f32 table's own share of a step: its gather at the batch's
+    ids and its packed update (lazy Adam), on a copy of its buffer with
+    N(0, 1e-3) grads; CUDA events, median of 3 rounds of 10. These launches
+    are not the main path's."""
+    spec = next(s for s in trainer.model.sharded_table_specs(batch).values() if s["path"] == path)
+    ids = spec["ids"].reshape(-1).to(torch.int32)
+    buffer = trainer.state.packed[path].clone()
+    dvec = torch.randn((ids.shape[0], trainer._emb_dims[path]), device="cuda") * 1e-3
+
+    def share():
+        rows = buffer.index_select(0, ids)
+        packed_sparse_update(buffer, rows, ids, dvec, 1, TRAIN_LR, "adam")
+
+    ms = float(np.median([time_cuda(share, iters=10, warmup=2) for _ in range(3)]))
+    del buffer
+    return ms
+
+
+def train(table: str, leaves: dict, rng: np.random.Generator, seed: int,
+          model_name: str = "dcnv2"):
+    """Phases 7, 10, 14 and 15: one main training path, every launch count
+    from zero. Returns the launches (by kernel name), the ms/step and, for
+    DeepFM's f32 tables, each table's own share of a step in ms."""
+    tag = f"[train {table}]" if model_name == "dcnv2" else f"[train {model_name} {table}]"
+    per_step = PER_STEP[(model_name, table)]
     host = [make_train_batch(rng) for _ in range(4)]
-    trainer = make_trainer(table, "cuda", leaves, host[0], seed)
+    trainer = make_trainer(table, "cuda", leaves, host[0], seed, model_name)
     batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()} for b in host]
-    packed = trainer.state.packed[path]
-    address = packed.data_ptr()
-    print(f"{tag} packed table {tuple(packed.shape)} {packed.dtype}, "
-          f"{packed.nbytes / 1e6:.1f} MB")
+    addresses = {path: packed.data_ptr() for path, packed in trainer.state.packed.items()}
+    for path, packed in trainer.state.packed.items():
+        print(f"{tag} packed table {path} {tuple(packed.shape)} {packed.dtype}, "
+              f"{packed.nbytes / 1e6:.1f} MB")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
-    def check_buffer():
-        if trainer.state.packed[path].data_ptr() != address:
-            raise AssertionError(f"{tag} the packed table was reallocated")
-        if table == "int8" and trainer.model.unified_q.data_ptr() != address:
+    def check_buffers():
+        for path, address in addresses.items():
+            if trainer.state.packed[path].data_ptr() != address:
+                raise AssertionError(f"{tag} the packed table {path} was reallocated")
+        if table == "int8" and trainer.model.unified_q.data_ptr() != addresses["unified_q"]:
             raise AssertionError(f"{tag} the packed table is not the model's unified_q")
 
-    for kernel in kernels:
-        kernel.launches = 0
+    zero_counts()
+    zero = counts()
     losses = []
-    for step in range(TRAIN_WARMUP + TRAIN_TIMED):
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    for step in range(steps):
         if step == TRAIN_WARMUP:
             torch.cuda.synchronize()
             start.record()
@@ -682,38 +946,34 @@ def train(table: str, leaves: dict, rng: np.random.Generator, seed: int):
     end.record()
     torch.cuda.synchronize()
     host_ms = 1e3 * (time.perf_counter() - t0) / TRAIN_TIMED
-    launches = {k.__name__: k.launches for k in kernels}
-    steps = TRAIN_WARMUP + TRAIN_TIMED
-    if any(count != steps for count in launches.values()):
-        raise AssertionError(f"{tag} {steps} train steps launched {launches}; want {steps} each")
+    check_launches(f"{tag} {steps} train steps", zero, {k: n * steps for k, n in per_step.items()})
     losses = torch.stack(losses).cpu()
     if not torch.isfinite(losses).all():
         raise AssertionError(f"{tag} non-finite losses {losses.tolist()}")
-    check_buffer()
+    check_buffers()
     ms = start.elapsed_time(end) / TRAIN_TIMED
-    print(f"{tag} {steps} train_steps, launches {launches}; losses {losses[0]:.6f} -> "
+    print(f"{tag} {steps} train_steps, launches {names(counts())}; losses {losses[0]:.6f} -> "
           f"{losses[-1]:.6f}")
     print(f"{tag} {ms:.3f} ms/step (CUDA events over {TRAIN_TIMED} steps), "
           f"{TRAIN_BATCH / (ms / 1e3):.0f} examples/s; host clock {host_ms:.3f} ms/step")
     print(f"{tag} peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
-    before = [k.launches for k in kernels]
+    before = counts()
     history = trainer.fit_steps(iter(batches), steps=4, log_every=2)
-    fit_launches = [k.launches - b for k, b in zip(kernels, before)]
-    if fit_launches != [4] * len(kernels) or len(history.history["loss"]) != 2 or \
-            not np.isfinite(history.history["loss"]).all():
-        raise AssertionError(f"{tag} fit_steps: history {history.history}, launches "
-                             f"{fit_launches}")
+    check_launches(f"{tag} fit_steps(4)", before, {k: 4 * n for k, n in per_step.items()})
+    if len(history.history["loss"]) != 2 or not np.isfinite(history.history["loss"]).all():
+        raise AssertionError(f"{tag} fit_steps: history {history.history}")
     print(f"{tag} fit_steps(4, log_every=2): loss {history.history['loss']}")
-    profile_call(lambda: trainer.train_step(batches[0]), f"{tag} one step", kernels, top=24)
-    check_buffer()
+    profile_call(lambda: trainer.train_step(batches[0]), f"{tag} one step", per_step, top=24)
+    check_buffers()
 
-    before = cross_network.launches
+    before = counts()
     request = {k: v[:1000] for k, v in host[1].items() if k != "label"}
     scores = trainer.make_serving_fn()(request)
     torch.cuda.synchronize()
-    if tuple(scores.shape) != (1000,) or not torch.isfinite(scores).all() or \
-            cross_network.launches != before + 1:
+    check_launches(f"{tag} serving from the trained state", before,
+                   {FORWARD_KERNEL[model_name]: 1})
+    if tuple(scores.shape) != (1000,) or not torch.isfinite(scores).all():
         raise AssertionError(f"{tag} serving from the trained state failed")
     print(f"{tag} make_serving_fn on the trained state: 1000 finite scores, mean "
           f"{float(scores.mean()):.6f}")
@@ -725,45 +985,60 @@ def train(table: str, leaves: dict, rng: np.random.Generator, seed: int):
                                  f"stayed 0")
         print(f"{tag} unpacked_quantized: acc > 0 on all {touched.shape[0]} touched rows, "
               f"{int((acc > 0).sum())} of {acc.numel()} rows")
-    return {k.__name__: k.launches for k in kernels}, ms
+    launches = names(counts())
+    shares = {}
+    if model_name == "deepfm" and table == "f32":
+        for path in trainer.state.packed:
+            shares[path] = time_table_share(trainer, batches[0], path)
+        print(f"{tag} each table's own share of a step (gather + packed update, timed "
+              f"alone): {shares} ms")
+    return launches, ms, shares
 
 
-def card_against_cpu(table: str, leaves: dict, rng: np.random.Generator, seed: int) -> None:
-    """Phases 8 and 11: 2 steps at batch 1024 on the card and on the CPU
+def card_against_cpu(table: str, leaves: dict, rng: np.random.Generator, seed: int,
+                     model_name: str = "dcnv2") -> None:
+    """Phases 8, 11 and 16: 2 steps at batch 1024 on the card and on the CPU
     (plain versions) from the same state: losses rtol 1e-5, dense parameters
-    rtol 1e-4 / atol 1e-6; the touched packed rows rtol 1e-4 / atol 1e-6 (f32),
-    or their scale and accumulator so and their q values off by at most one
-    in at most 0.1% of them (int8: f32 sums in another order move a value
-    over a rounding threshold)."""
-    path = TABLES[table]
-    key = path.replace("/", ".")
+    rtol 1e-4 / atol 1e-6 (DeepFM's int8 set-up keeps its linear table
+    there, whose card gradient sums by atomics in no fixed order); each
+    packed table's touched rows rtol 1e-4 / atol 1e-6 (f32), or their scale
+    and accumulator so and their q values off by at most one in at most 0.1%
+    of them (int8: f32 sums in another order move a value over a rounding
+    threshold)."""
+    tag = f"[{table}]" if model_name == "dcnv2" else f"[{model_name} {table}]"
     host = [make_train_batch(rng, CPU_BATCH) for _ in range(CPU_STEPS)]
     touched = torch.from_numpy(np.unique(np.concatenate([unified_ids(b) for b in host])))
     runs = {}
     for device in ("cuda", "cpu"):
-        trainer = make_trainer(table, device, leaves, host[0], seed)
+        trainer = make_trainer(table, device, leaves, host[0], seed, model_name)
         losses = torch.stack([trainer.train_step(b) for b in host]).cpu()
-        dense = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items() if k != key}
-        runs[device] = losses, dense, trainer.state.packed[path][touched.to(device)].cpu()
+        keys = {path.replace("/", ".") for path in trainer.state.packed}
+        dense = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()
+                 if k not in keys}
+        rows = {path: packed[touched.to(device)].cpu()
+                for path, packed in trainer.state.packed.items()}
+        runs[device] = losses, dense, rows
         del trainer
     (card_loss, card_dense, card_rows), (cpu_loss, cpu_dense, cpu_rows) = runs["cuda"], runs["cpu"]
-    errs = [close(card_loss, cpu_loss, rtol=1e-5, atol=0.0)]
-    errs += [close(card_dense[k], cpu_dense[k]) for k in cpu_dense]
-    if table == "f32":
-        errs.append(close(card_rows, cpu_rows))
-        rows_note = f"{errs[-1]:.3e}"
-    else:
-        (cq, cs, ca), (pq, ps, pa) = (unpack_quantized_table(r, EMB) for r in (card_rows, cpu_rows))
-        errs.append(max(close(cs, ps), close(ca, pa)))
+    loss_err = close(card_loss, cpu_loss, rtol=1e-5, atol=0.0)
+    dense_err = max(close(card_dense[k], cpu_dense[k]) for k in cpu_dense)
+    notes = []
+    for path, cpu in cpu_rows.items():
+        if path != "unified_q":
+            notes.append(f"{path} {close(card_rows[path], cpu):.3e}")
+            continue
+        (cq, cs, ca), (pq, ps, pa) = (unpack_quantized_table(r, EMB)
+                                      for r in (card_rows[path], cpu))
+        err = max(close(cs, ps), close(ca, pa))
         diff = (cq.int() - pq.int()).abs()
         flips = int((diff > 0).sum())
         if int(diff.max()) > 1 or flips > max(1, diff.numel() // 1000):
-            raise AssertionError(f"int8 card vs CPU: {flips} q values differ, by up to "
+            raise AssertionError(f"{tag} int8 card vs CPU: {flips} q values differ, by up to "
                                  f"{int(diff.max())}")
-        rows_note = f"scale/acc {errs[-1]:.3e}, {flips} of {diff.numel()} q values off by one"
-    print(f"[{table}] card vs CPU, {CPU_STEPS} steps at batch {CPU_BATCH}: losses "
-          f"{card_loss.tolist()} / {cpu_loss.tolist()}; max abs err: loss {errs[0]:.3e}, dense "
-          f"params {max(errs[1:-1]):.3e}, {touched.shape[0]} touched packed rows {rows_note}")
+        notes.append(f"{path} scale/acc {err:.3e}, {flips} of {diff.numel()} q values off by one")
+    print(f"{tag} card vs CPU, {CPU_STEPS} steps at batch {CPU_BATCH}: losses "
+          f"{card_loss.tolist()} / {cpu_loss.tolist()}; max abs err: loss {loss_err:.3e}, dense "
+          f"params {dense_err:.3e}; {touched.shape[0]} touched packed rows: {'; '.join(notes)}")
 
 
 def main() -> int:
@@ -784,7 +1059,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    paths = build("cross", "seg_scan", "scatter", "requantize")
+    paths = build("cross", "seg_scan", "scatter", "requantize", "fm")
     print(f"built {', '.join(str(p.name) for p in paths.values())} in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernel against plain (these launches are not the main path's)
@@ -793,14 +1068,10 @@ def main() -> int:
     # 4. serving: the serving path, with launch counts from zero
     requests = make_requests(rng)
     torch.cuda.reset_peak_memory_stats()
-    cross_network.launches = 0
-    for table in ("f32", "int8"):
-        serve_table(table, requests, args.seed)
+    zero_counts()
+    served = sum(serve_table(table, requests, args.seed) for table in ("f32", "int8"))
+    check_launches("DCN-v2 serving", {k: 0 for k in ALL_KERNELS}, {cross_network: served})
     serving_launches = cross_network.launches
-    served = 2 * ((1 + REPEATS) * len(requests) + len(PROFILED_SHAPES))
-    if serving_launches != served:
-        raise AssertionError(f"cross kernel launched {serving_launches} times for {served} "
-                             f"requests")
     print(f"serving: {served} requests, cross_network launches {serving_launches}; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
@@ -829,7 +1100,7 @@ def main() -> int:
 
     # 7. f32 training, with launch counts from zero
     leaves = flax_leaves(np.random.default_rng(args.seed + 3), "f32")
-    f32_launches, f32_ms = train("f32", leaves, rng, args.seed)
+    f32_launches, f32_ms, _ = train("f32", leaves, rng, args.seed)
     torch.cuda.empty_cache()
 
     # 8. f32 card against CPU
@@ -842,16 +1113,63 @@ def main() -> int:
 
     # 10. int8 training, with launch counts from zero
     leaves = flax_leaves(np.random.default_rng(args.seed + 4), "int8")
-    launches, int8_ms = train("int8", leaves, rng, args.seed)
+    launches, int8_ms, _ = train("int8", leaves, rng, args.seed)
     print(f"[train] int8-packed {int8_ms:.3f} ms/step against f32-packed {f32_ms:.3f} ms/step "
           f"({f32_ms / int8_ms:.3f}x)")
     torch.cuda.empty_cache()
 
     # 11. int8 card against CPU
     card_against_cpu("int8", leaves, rng, args.seed)
+    del leaves
+
+    # 12. the FM kernels against plain, and B2 at the linear table's E=1
+    # (not the main path's launches)
+    fm_errs, fm_timing = check_and_time_fm(gen)
+    scan_timing_lin = check_and_time_lin_scan(rng, gen)
+    torch.cuda.empty_cache()
+
+    # 13. DeepFM serving, with launch counts from zero
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    deepfm_served = sum(serve_table(table, requests, args.seed, "deepfm",
+                                    profiled=PROFILED_SHAPES[1:])
+                        for table in ("f32", "int8"))
+    check_launches("DeepFM serving", {k: 0 for k in ALL_KERNELS}, {fm_interaction: deepfm_served})
+    deepfm_serving_launches = fm_interaction.launches
+    print(f"DeepFM serving: {deepfm_served} requests, fm_interaction launches "
+          f"{deepfm_serving_launches}, fm_interaction_backward launches "
+          f"{fm_interaction_backward.launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.empty_cache()
+
+    # 14. DeepFM f32 training, with launch counts from zero
+    leaves = deepfm_leaves(np.random.default_rng(args.seed + 5), "f32")
+    fm_f32_launches, fm_f32_ms, shares = train("f32", leaves, rng, args.seed, "deepfm")
+    torch.cuda.empty_cache()
+
+    # 16 (f32). DeepFM f32 card against CPU
+    card_against_cpu("f32", leaves, rng, args.seed, "deepfm")
+    del leaves
+
+    # 15. DeepFM int8 training, with launch counts from zero
+    leaves = deepfm_leaves(np.random.default_rng(args.seed + 6), "int8")
+    fm_int8_launches, fm_int8_ms, _ = train("int8", leaves, rng, args.seed, "deepfm")
+    print(f"[train deepfm] int8-packed {fm_int8_ms:.3f} ms/step, f32-packed {fm_f32_ms:.3f} "
+          f"ms/step; DCN-v2 int8 {int8_ms:.3f}, f32 {f32_ms:.3f} ms/step in this run")
+    torch.cuda.empty_cache()
+
+    # 16 (int8). DeepFM int8 card against CPU
+    card_against_cpu("int8", leaves, rng, args.seed, "deepfm")
+    del leaves
 
     n_scan = TRAIN_BATCH * N_SPARSE
     vocab_rows = N_SPARSE * VOCAB
+    fm_shape = f"[{TRAIN_BATCH}, {FM_FIELDS}, {EMB}] f32"
+
+    def deepfm_launches(name):
+        return {"deepfm_f32_train_launches": fm_f32_launches[name],
+                "deepfm_int8_train_launches": fm_int8_launches[name]}
+
     entries = [
         {"name": "cross_network", "route": "cuda",
          "source": "pytorchrec_tpu_torch/csrc/cross.cu",
@@ -866,22 +1184,44 @@ def main() -> int:
          "launches": launches["segmented_sum_scan"], "max_abs_err": scan_err, **scan_timing,
          "shape": f"n={n_scan} E={EMB} f32, row stride {PACKED_W}",
          "f32_train_launches": f32_launches["segmented_sum_scan"],
+         **deepfm_launches("segmented_sum_scan"),
          "int8": {"shape": f"n={n_scan} E={EMB} f32, row stride {Q_W // 4}",
-                  **scan_timing_int8}},
+                  **scan_timing_int8},
+         "linear_table": {"shape": f"n={n_scan} E=1 f32, row stride {PACKED_W}",
+                          **scan_timing_lin}},
         {"name": "requantize_rows", "route": "cuda",
          "source": "pytorchrec_tpu_torch/csrc/requantize.cu",
          "replaces": "pytorchrec_tpu/ops/kernels/quantize.py:243",
          "launches": launches["requantize_rows"], "max_abs_err": requant_err, **requant_timing,
-         "shape": f"n={n_scan} rows of {Q_W} u8, E={EMB}"},
+         "shape": f"n={n_scan} rows of {Q_W} u8, E={EMB}",
+         "deepfm_int8_train_launches": fm_int8_launches["requantize_rows"]},
         {"name": "scatter_set_rows", "route": "cuda",
          "source": "pytorchrec_tpu_torch/csrc/scatter.cu",
          "replaces": "pytorchrec_tpu/ops/kernels/dma_scatter.py:117",
          "launches": launches["scatter_set_rows"], "max_abs_err": scatter_err, **scatter_timing,
          "shape": f"n={n_scan} rows of {PACKED_W} f32 into [{vocab_rows}, {PACKED_W}]",
          "f32_train_launches": f32_launches["scatter_set_rows"],
+         **deepfm_launches("scatter_set_rows"),
          "int8": {"shape": f"n={n_scan} rows of {Q_W} u8 into [{vocab_rows}, {Q_W}]",
                   **scatter_timing_int8}},
+        {"name": "fm_interaction", "route": "cuda",
+         "source": "pytorchrec_tpu_torch/csrc/fm.cu",
+         "replaces": "pytorchrec_tpu/ops/kernels/fm.py:24",
+         "launches": fm_f32_launches["fm_interaction"], "max_abs_err": fm_errs["fwd"],
+         **fm_timing["fwd"], "shape": fm_shape,
+         "deepfm_int8_train_launches": fm_int8_launches["fm_interaction"],
+         "serving_launches": deepfm_serving_launches, "grad_max_abs_err": fm_errs["grad"],
+         "library_note": "no single PyTorch call computes the FM interaction"},
+        {"name": "fm_interaction_backward", "route": "cuda",
+         "source": "pytorchrec_tpu_torch/csrc/fm.cu",
+         "replaces": "pytorchrec_tpu/ops/kernels/fm.py:31",
+         "launches": fm_f32_launches["fm_interaction_backward"], "max_abs_err": fm_errs["bwd"],
+         **fm_timing["bwd"], "shape": f"{fm_shape}, g [{TRAIN_BATCH}]",
+         "deepfm_int8_train_launches": fm_int8_launches["fm_interaction_backward"],
+         "library_note": "no single PyTorch call computes g * (sum_f v - v)"},
     ]
+    print(json.dumps({"deepfm": {"f32_ms_per_step": fm_f32_ms, "int8_ms_per_step": fm_int8_ms,
+                                 "table_share_ms": shares}}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,4 +1,4 @@
 from pytorchrec_tpu_torch.models.base import RecModel
-from pytorchrec_tpu_torch.models.ctr import DCNv2
+from pytorchrec_tpu_torch.models.ctr import FM, LR, DCNv2, DeepFM
 
-__all__ = ["RecModel", "DCNv2"]
+__all__ = ["RecModel", "DCNv2", "DeepFM", "FM", "LR"]

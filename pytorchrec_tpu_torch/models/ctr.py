@@ -1,26 +1,38 @@
-"""CTR family (port of ``pytorchrec_tpu/models/ctr.py``): DCN-v2 for now.
+"""CTR family (port of ``pytorchrec_tpu/models/ctr.py``): LR, FM, DeepFM and
+DCN-v2.
 
 The embedding layouts of ``_CTRBase`` come over as they are, with the flax
 parameter names, so converted weights load 1:1 (``utils/convert.py``):
 
-* per-field tables ``emb_<field>.embedding [vocab, E]``;
-* one unified offset-indexed f32 table ``unified_emb.embedding [sum(vocab), E]``;
+* per-field tables ``emb_<field>.embedding [vocab, E]`` and, for the linear
+  term, ``lin_<field>.embedding [vocab, 1]``;
+* one unified offset-indexed f32 table ``unified_emb.embedding [sum(vocab), E]``
+  and the linear table ``unified_lin.embedding [sum(vocab), 1]``;
 * one unified int8/int4 packed byte-row table ``unified_q [sum(vocab), W]``
-  u8 (``ops/quantized_packed.py``), with ``scale_col_groups`` scales a row.
+  u8 (``ops/quantized_packed.py``), with ``scale_col_groups`` scales a row;
+  the linear table stays f32 beside it;
+* the linear term's dense parameters ``dense_linear [F_dense]`` and the
+  global ``bias``, and the dense fields' factor vectors ``dense_factors
+  [F_dense, E]``.
+
+A model creates only what it reads (``_uses_field_embeddings``,
+``_uses_linear``). Flax creates a submodule's parameters only when it is
+called, but ``self.param`` leaves at once, so a JAX DCN-v2 tree holds
+``bias``, ``dense_factors`` and ``dense_linear`` unread, and a JAX LR tree
+``dense_factors``; the converter drops those.
 
 Fields arriving ``[B]`` are broadcast against candidate fields ``[B, N]``.
 
 Rows injection: ``sharded_table_specs(batch)`` (the sparse trainer's
-protocol) names the unified f32 table, and ``quantized_table_spec(batch)``
-(the quantized trainer's) the unified packed quantized table, each with its
-ids ``[..., F_sparse]`` and the batch key ``ROWS_KEY``; when the batch
-carries rows under that key, the model reads them in place of its own
-gather, so the trainer can gather packed rows once and take the loss's
-gradient with respect to the rows themselves.
+protocol) names the unified f32 tables a model reads, and
+``quantized_table_spec(batch)`` (the quantized trainer's) the unified packed
+quantized table, each with its ids ``[..., F_sparse]`` and a batch key
+(``ROWS_KEY``, ``LIN_ROWS_KEY``); when the batch carries rows under that
+key, the model reads them in place of its own gather, so the trainer can
+gather packed rows once and take the loss's gradient with respect to the
+rows themselves.
 
-The linear term (``bias``, ``dense_factors``, ``dense_linear``, the
-``lin_*`` tables) and the classic unpacked ``q``/``scale`` leaves come with
-the LR/FM slice: DCN-v2 never reads them.
+The classic unpacked ``q``/``scale`` leaves and DLRM come with later work.
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+from torch import nn
 
 from pytorchrec_tpu_torch.feature_column import CategoricalColumnWithIdentity, NumericColumn
 from pytorchrec_tpu_torch.models.base import (
@@ -38,7 +51,7 @@ from pytorchrec_tpu_torch.models.base import (
     one_hot_first_target,
 )
 from pytorchrec_tpu_torch.ops.embedding import Embedding, normal_init
-from pytorchrec_tpu_torch.ops.interactions import CrossNetworkV2
+from pytorchrec_tpu_torch.ops.interactions import CrossNetworkV2, fm_interaction
 from pytorchrec_tpu_torch.ops.kernels.quantize import quantize_rows
 from pytorchrec_tpu_torch.ops.mlp import MLP, linear
 from pytorchrec_tpu_torch.ops.quantized_packed import pack_quantized_table, packed_gather_dequant
@@ -62,8 +75,14 @@ def _gather_fields(batch: Batch, sparse_columns, dense_columns) -> Tuple[list, l
 
 
 class _CTRBase(RecModel):
-    # batch key of trainer-gathered rows of the unified table
+    # batch keys of trainer-gathered rows of the unified tables
     ROWS_KEY = "__rows__unified"
+    LIN_ROWS_KEY = "__rows__unified_lin"
+    # what the model reads, and so creates: the second-order field tables
+    # (and, with the linear term, the dense fields' factor vectors), and the
+    # linear term (linear tables, ``dense_linear``, ``bias``)
+    _uses_field_embeddings = True
+    _uses_linear = True
     # the CTR family trains its rowwise-Adagrad tables at the shared dense
     # lr (``training/sparse_trainer.py::resolve_table_lr``)
     table_lr_shared_ok = True
@@ -107,25 +126,44 @@ class _CTRBase(RecModel):
     def _build_embeddings(self, device: torch.device, generator) -> None:
         if self.quantized_embedding and not self.unified_embedding:
             raise ValueError("quantized_embedding requires unified_embedding")
+        if self.quantized_embedding and not self._uses_field_embeddings:
+            raise ValueError(f"{type(self).__name__} has no field table to quantize")
+        fields = self._uses_field_embeddings
         if not self.unified_embedding:
-            self.field_embeddings = []
+            self.field_embeddings, self.first_order = [], []
             for c in self.sparse_columns:
-                emb = Embedding(c.category_num, self.emb_size, device, generator)
-                self.add_module(f"emb_{c.feature_name}", emb)
-                self.field_embeddings.append(emb)
-            return
-        self._offsets, total = self._field_offsets()
-        if not self.quantized_embedding:
-            self.unified_emb = Embedding(total, self.emb_size, device, generator)
-            return
-        if not self.table_packed:
-            raise NotImplementedError(
-                "the unpacked q/scale quantized leaves are not ported yet; use table_packed=True")
-        rows = normal_init((total, self.emb_size), device, generator)
-        q, scale = quantize_rows(rows, bits=self.table_bits, col_groups=self.scale_col_groups)
-        acc = torch.zeros((total,), dtype=torch.float32, device=device)
-        self.register_buffer("unified_q", pack_quantized_table(
-            q, scale, acc, self.emb_size, self.table_bits, self.scale_col_groups))
+                if fields:
+                    emb = Embedding(c.category_num, self.emb_size, device, generator)
+                    self.add_module(f"emb_{c.feature_name}", emb)
+                    self.field_embeddings.append(emb)
+                if self._uses_linear:
+                    lin = Embedding(c.category_num, 1, device, generator)
+                    self.add_module(f"lin_{c.feature_name}", lin)
+                    self.first_order.append(lin)
+        else:
+            self._offsets, total = self._field_offsets()
+            if fields and not self.quantized_embedding:
+                self.unified_emb = Embedding(total, self.emb_size, device, generator)
+            elif fields:
+                if not self.table_packed:
+                    raise NotImplementedError("the unpacked q/scale quantized leaves are not "
+                                              "ported yet; use table_packed=True")
+                rows = normal_init((total, self.emb_size), device, generator)
+                q, scale = quantize_rows(rows, bits=self.table_bits,
+                                         col_groups=self.scale_col_groups)
+                acc = torch.zeros((total,), dtype=torch.float32, device=device)
+                self.register_buffer("unified_q", pack_quantized_table(
+                    q, scale, acc, self.emb_size, self.table_bits, self.scale_col_groups))
+            if self._uses_linear:
+                self.unified_lin = Embedding(total, 1, device, generator)
+        if self._uses_linear:
+            n_dense = len(self.dense_columns)
+            if n_dense and fields:  # read by _field_vectors
+                self.dense_factors = nn.Parameter(
+                    normal_init((n_dense, self.emb_size), device, generator))
+            if n_dense:
+                self.dense_linear = nn.Parameter(normal_init((n_dense,), device, generator))
+            self.bias = nn.Parameter(torch.zeros((), dtype=torch.float32, device=device))
 
     def _unified_ids(self, sparse) -> torch.Tensor:
         """Stack per-field ids with their offsets -> [..., F_sparse]."""
@@ -149,6 +187,36 @@ class _CTRBase(RecModel):
             vectors = self._unified_vectors(sparse, batch)
             return vectors.reshape(*vectors.shape[:-2], -1)
         return torch.cat([emb(ids) for emb, ids in zip(self.field_embeddings, sparse)], dim=-1)
+
+    def _field_vectors(self, sparse, dense, batch: Optional[Batch] = None) -> torch.Tensor:
+        """Every field's vector -> ``[..., F, E]``: the sparse fields' rows,
+        then each dense value times its factor vector (the FM input)."""
+        if self.unified_embedding:
+            vectors = [self._unified_vectors(sparse, batch)]
+        else:
+            vectors = [torch.stack([emb(ids) for emb, ids in zip(self.field_embeddings, sparse)],
+                                   dim=-2)]
+        if dense:
+            vectors.append(torch.stack(dense, dim=-1)[..., None] * self.dense_factors)
+        return torch.cat(vectors, dim=-2)
+
+    def _linear_term(self, sparse, dense, batch: Optional[Batch] = None) -> torch.Tensor:
+        """``bias + sum of the sparse fields' linear rows + sum_i dense_i *
+        dense_linear_i``; the unified rows may come injected under
+        ``LIN_ROWS_KEY``."""
+        total = self.bias
+        if self.unified_embedding:
+            ids = self._unified_ids(sparse)
+            lin_rows = batch.get(self.LIN_ROWS_KEY) if batch is not None else None
+            if lin_rows is None:
+                lin_rows = self.unified_lin(ids)
+            total = total + lin_rows.reshape(ids.shape).sum(dim=-1)
+        else:
+            for emb, ids in zip(self.first_order, sparse):
+                total = total + emb(ids)[..., 0]
+        for i, values in enumerate(dense):
+            total = total + values * self.dense_linear[i]
+        return total
 
     def _finish(self, prediction: torch.Tensor, candidate_mode: bool, batch: Batch) -> Prediction:
         if candidate_mode:
@@ -179,12 +247,20 @@ class _CTRBase(RecModel):
             "packed": self.table_packed, "emb_size": self.emb_size}}
 
     def sharded_table_specs(self, batch: Batch) -> Dict[str, dict]:
-        """Rows-injection protocol: the unified f32 table's flax path, its ids
+        """Rows-injection protocol: each unified f32 table the model reads
+        (the linear table, the field table), with its flax path, its ids
         ``[..., F_sparse]`` for ``batch`` and the batch key of its rows."""
         self._check_trainable_table(quantized=False)
         sparse, _, _ = _gather_fields(batch, self.sparse_columns, self.dense_columns)
-        return {"unified": {"path": "unified_emb/embedding", "ids": self._unified_ids(sparse),
-                            "rows_key": self.ROWS_KEY}}
+        ids = self._unified_ids(sparse)
+        specs = {}
+        if self._uses_linear:
+            specs["unified_lin"] = {"path": "unified_lin/embedding", "ids": ids,
+                                    "rows_key": self.LIN_ROWS_KEY}
+        if self._uses_field_embeddings:
+            specs["unified"] = {"path": "unified_emb/embedding", "ids": ids,
+                                "rows_key": self.ROWS_KEY}
+        return specs
 
     def sparse_table_ids(self, batch: Batch) -> Dict[str, torch.Tensor]:
         """Sparse-trainer protocol: table path -> the flat ids that gather from
@@ -194,13 +270,22 @@ class _CTRBase(RecModel):
                   for c, off in zip(self.sparse_columns, self._offsets)]
         parts = [(ids + off).reshape(-1) for ids, off in fields if ids is not None]
         ids = torch.cat(parts) if parts else torch.zeros((0,), dtype=torch.int64)
-        return {"unified_emb/embedding": ids}
+        paths = []
+        if self._uses_linear:
+            paths.append("unified_lin/embedding")
+        if self._uses_field_embeddings:
+            paths.append("unified_emb/embedding")
+        return {path: ids for path in paths}
 
 
 class DCNv2(_CTRBase):
     """DCN-v2: cross network and deep network in parallel over
     ``x0 = [sparse embeddings || dense values]``; the linear head reads
-    ``[cross_out || deep_out]`` and returns the logit."""
+    ``[cross_out || deep_out]`` and returns the logit. It reads no linear
+    term, so it creates none (the JAX model declares one and never reads
+    it)."""
+
+    _uses_linear = False
 
     def __init__(self, *args, num_cross_layers: int = 3,
                  layers: Sequence[int] = (256, 128), dropout: float = 0.0,
@@ -226,3 +311,54 @@ class DCNv2(_CTRBase):
         deep_out = self.deep(x0, train=train, generator=generator)
         prediction = self.head(torch.cat([cross_out, deep_out], dim=-1))[..., 0]
         return self._finish(prediction, candidate_mode, batch)
+
+
+class LR(_CTRBase):
+    """Logistic regression: the linear term alone (a logit)."""
+
+    _uses_field_embeddings = False
+
+    def forward(self, batch: Batch, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Prediction:
+        sparse, dense, candidate_mode = _gather_fields(batch, self.sparse_columns,
+                                                       self.dense_columns)
+        return self._finish(self._linear_term(sparse, dense, batch), candidate_mode, batch)
+
+
+class FM(_CTRBase):
+    """Factorization machine: the linear term plus the pairwise second-order
+    term of all field vectors."""
+
+    def forward(self, batch: Batch, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Prediction:
+        sparse, dense, candidate_mode = _gather_fields(batch, self.sparse_columns,
+                                                       self.dense_columns)
+        vectors = self._field_vectors(sparse, dense, batch)
+        prediction = self._linear_term(sparse, dense, batch) + fm_interaction(vectors)
+        return self._finish(prediction, candidate_mode, batch)
+
+
+class DeepFM(_CTRBase):
+    """FM plus a deep MLP tower over the concatenated field vectors (the FM
+    and the deep part share the embeddings, as in the original paper); the
+    tower's head ``deep_head`` has no bias."""
+
+    def __init__(self, *args, layers: Sequence[int] = (256, 128), dropout: float = 0.0,
+                 device=None, generator: Optional[torch.Generator] = None, **kwargs):
+        device = resolve_device(device)
+        super().__init__(*args, device=device, generator=generator, **kwargs)
+        dim = (len(self.sparse_columns) + len(self.dense_columns)) * self.emb_size
+        self.deep = MLP(dim, tuple(layers), activation="relu", dropout=dropout,
+                        device=device, generator=generator)
+        self.deep_head = linear(self.deep.out_features, 1, use_bias=False, device=device,
+                                generator=generator)
+
+    def forward(self, batch: Batch, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Prediction:
+        sparse, dense, candidate_mode = _gather_fields(batch, self.sparse_columns,
+                                                       self.dense_columns)
+        vectors = self._field_vectors(sparse, dense, batch)  # [..., F, E]
+        fm_term = self._linear_term(sparse, dense, batch) + fm_interaction(vectors)
+        flat = vectors.reshape(*vectors.shape[:-2], -1)  # [..., F * E]
+        deep_term = self.deep_head(self.deep(flat, train=train, generator=generator))[..., 0]
+        return self._finish(fm_term + deep_term, candidate_mode, batch)

@@ -1,6 +1,11 @@
-"""Feature interactions: DCN-v2 cross layers (port of the cross part of
-``pytorchrec_tpu/ops/interactions.py``; ``fm_interaction`` and
-``dot_interaction`` come with the FM and DLRM slices).
+"""Feature interactions (port of ``pytorchrec_tpu/ops/interactions.py``): the
+FM pairwise interaction and the DCN-v2 cross layers (``dot_interaction``
+comes with the DLRM slice).
+
+The JAX package's ``fm_interaction`` reaches its Pallas kernel only with
+``use_pallas=True``, which its models never pass: a cost-model choice of the
+TPU. The port has no such flag: on the card every call launches the FM
+kernels (``ops/kernels/fm.py``), on the CPU the plain version runs.
 """
 
 from __future__ import annotations
@@ -11,7 +16,25 @@ import torch
 from torch import nn
 
 from pytorchrec_tpu_torch.ops.embedding import normal_init
+from pytorchrec_tpu_torch.ops.kernels import fm
 from pytorchrec_tpu_torch.ops.kernels.cross import cross_network
+
+
+def fm_interaction(field_vectors: torch.Tensor) -> torch.Tensor:
+    """FM second-order term, summed over factor dims: ``[..., F, E] ->
+    [...]``, ``0.5 * sum_e((sum_f v)^2 - sum_f v^2)``. Lead dims (candidate
+    mode ``[B, N, F, E]``) flatten into the kernel's batch."""
+    lead = field_vectors.shape[:-2]
+    flat = field_vectors.reshape(-1, *field_vectors.shape[-2:]).contiguous()
+    return fm.fm_interaction(flat).reshape(lead)
+
+
+def fm_interaction_vector(field_vectors: torch.Tensor) -> torch.Tensor:
+    """Per-factor FM interaction, kept vector-valued: ``[..., F, E] ->
+    [..., E]``. Plain torch: the JAX package has no kernel for it."""
+    sum_of_fields = field_vectors.sum(dim=-2)
+    sum_of_squares = torch.square(field_vectors).sum(dim=-2)
+    return 0.5 * (torch.square(sum_of_fields) - sum_of_squares)
 
 
 def cross_layer_v2(x0: torch.Tensor, xl: torch.Tensor, w: torch.Tensor,

@@ -11,7 +11,9 @@ table is one ``[V, W]`` u8 buffer of ``q || scale || acc || staging`` rows
    own gather (``quantized_table_spec``);
 2. runs the model, the loss and the backward;
 3. steps the dense optimizer over the model's parameters (the table is a
-   buffer, so it takes no part: the port's form of ``optax.masked``);
+   buffer, so it takes no part: the port's form of ``optax.masked``); a
+   model with a linear term keeps its f32 ``unified_lin`` table there, with
+   a dense gradient, as the JAX trainer does;
 4. runs ``packed_quantized_update`` (sort, permute, segmented scan, rowwise
    Adagrad, id-keyed stochastic requantization, scatter-set) with the
    pre-update rows, in place on the buffer, salted from the state's key.

@@ -4,18 +4,21 @@ row-sparse lazy updates.
 
 ``SparseEmbeddingTrainer(model, table_optimizer="adam", packed_tables=True)``
 keeps each embedding table as one ``[V, W]`` buffer of
-``table || moments || staging`` rows (``ops/sparse_update.py``). A train step:
+``table || moments || staging`` rows (``ops/sparse_update.py``): DCN-v2's
+field table, LR's linear table, FM's and DeepFM's both (the linear table's
+E is 1, so its rows use 4 of 64 columns under Adam, as in the JAX package).
+A train step:
 
-1. gathers the packed rows of the batch's ids once; their first E columns
-   go into the model as a leaf tensor that requires grad (the model's rows
-   injection, ``sharded_table_specs``), so the table itself takes no part
-   in autograd;
+1. gathers the packed rows of the batch's ids once for each table; their
+   first E columns go into the model as a leaf tensor that requires grad,
+   under the table's own batch key (the model's rows injection,
+   ``sharded_table_specs``), so no table takes part in autograd;
 2. runs the model, the loss and the backward, which gives the dense
    parameters their gradients and the injected rows theirs;
 3. steps the dense optimizer over the dense parameters only;
 4. runs ``packed_sparse_update`` (sort, permute, segmented scan, lazy Adam
-   or Adagrad, scatter-set) with the pre-update rows, in place on the
-   packed buffer, which is never reallocated.
+   or Adagrad, scatter-set) for each table with its pre-update rows, in
+   place on its packed buffer, which is never reallocated.
 
 The model's table parameter becomes a strided view of the buffer's first E
 columns (no grad), so serving and ``unpacked_params`` read the trained table

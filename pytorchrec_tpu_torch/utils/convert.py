@@ -9,16 +9,21 @@ them into the port model's state dict:
   ``table || moments || staging`` row (``SparseEmbeddingTrainer`` with
   ``packed_tables=True``); its first E columns are the table;
 * the uint8 packed quantized table ``unified_q`` passes through unchanged;
-* ``bias``, ``dense_factors`` and ``dense_linear`` are created by every
-  DCN-v2 tree but never read by it, so they are dropped.
+* the linear term's leaves (``bias``, ``dense_linear``, ``dense_factors``,
+  ``lin_<field>/embedding``, ``unified_lin/embedding``, plain ``[V, 1]`` or
+  packed ``[V, 64]``) load where the model has them; ``bias``,
+  ``dense_factors`` and ``dense_linear`` are created by every DCN-v2 tree
+  (and ``dense_factors`` by every LR tree) but never read, so where the
+  model has no such parameter they are dropped.
 
 Any other leaf the port does not know raises, as does a port parameter that
 no leaf fills.
 
 ``params_from_jax(flat, trainer)`` loads into a packed trainer instead
 (``SparseEmbeddingTrainer`` or ``QuantizedEmbeddingTrainer``), right after
-its ``init_state``: each packed leaf (``unified_emb/embedding`` ``[V, W]``
-f32, or ``unified_q`` ``[V, W]`` u8) loads whole into the trainer's packed
+its ``init_state``: each packed leaf (``unified_emb/embedding`` and
+``unified_lin/embedding`` ``[V, W]`` f32, or ``unified_q`` ``[V, W]`` u8)
+loads whole into the trainer's packed
 buffer, moments, accumulator and staging columns included, in place; the
 dense leaves load into the model as above. The dense optimizer's state is
 then still empty, as optax's ``init`` leaves it.
@@ -44,6 +49,7 @@ _RULES = (
     (r"(\w+)/embedding", r"\1.embedding", "table_columns"),
     (r"cross/(ws|bs)", r"cross.\1", None),
     (r"unified_q", "unified_q", None),
+    (r"(bias|dense_factors|dense_linear)", r"\1", None),
 )
 
 
@@ -77,7 +83,7 @@ def params_from_jax(flat: Mapping[str, np.ndarray], target):
     loaded: Dict[str, torch.Tensor] = {}
     filled = set()
     for path, value in flat.items():
-        if path in UNREAD_LEAVES:
+        if path in UNREAD_LEAVES and path not in state:
             continue
         key, transform = _port_key(path)
         if key not in state:

@@ -15,13 +15,15 @@ import torch
 from flax import traverse_util
 
 from pytorchrec_tpu.feature_column import CategoricalColumnWithIdentity, NumericColumn
-from pytorchrec_tpu.models import DCNv2
+from pytorchrec_tpu.models import DCNv2, DeepFM
 from pytorchrec_tpu.training.quantized_trainer import QuantizedEmbeddingTrainer
 from pytorchrec_tpu.training.sparse_trainer import SparseEmbeddingTrainer
 from pytorchrec_tpu.training.trainer import Trainer
 from pytorchrec_tpu_torch import feature_column as tfc
 from pytorchrec_tpu_torch.models import DCNv2 as TorchDCNv2
+from pytorchrec_tpu_torch.models import DeepFM as TorchDeepFM
 from pytorchrec_tpu_torch.ops.kernels.cross import cross_network
+from pytorchrec_tpu_torch.training import SparseEmbeddingTrainer as TorchSparseTrainer
 from pytorchrec_tpu_torch.training import Trainer as TorchTrainer
 from pytorchrec_tpu_torch.utils import params_from_jax
 
@@ -153,3 +155,66 @@ def test_converter_raises_on_leaves_it_cannot_place(change):
         flat["head/bias"] = np.zeros((2,), np.float32)
     with pytest.raises((KeyError, ValueError)):
         params_from_jax(flat, _port_model("unified_f32"))
+
+
+def _deepfm_pair(make_trainer, sample):
+    """A JAX DeepFM (unified tables) under ``make_trainer`` and a port DeepFM
+    of the same widths."""
+    cols = dict(
+        sparse_columns=tuple(CategoricalColumnWithIdentity(feature_name=f"c_{i}",
+                                                           category_num=VOCAB)
+                             for i in range(N_SPARSE)),
+        dense_columns=tuple(NumericColumn(feature_name=f"d_{i}") for i in range(N_DENSE)))
+    trainer = make_trainer(DeepFM(**cols, emb_size=4, layers=(8,), unified_embedding=True))
+    trainer.compile(optimizer="adam", lr=1e-3, loss="bce", metrics=())
+    trainer.init_state(sample, seed=0)
+    port = TorchDeepFM(
+        sparse_columns=[tfc.CategoricalColumnWithIdentity(feature_name=f"c_{i}",
+                                                          category_num=VOCAB)
+                        for i in range(N_SPARSE)],
+        dense_columns=[tfc.NumericColumn(feature_name=f"d_{i}") for i in range(N_DENSE)],
+        emb_size=4, layers=(8,), unified_embedding=True, device="cpu",
+        generator=torch.Generator().manual_seed(0))
+    return trainer, port
+
+
+@pytest.mark.parametrize("layout", ["unified_f32", "packed_f32"])
+def test_converter_loads_the_linear_term_where_the_model_reads_it(layout):
+    """DeepFM reads the three leaves DCN-v2 drops, and its linear table,
+    plain ``[V, 1]`` or packed ``[V, 64]`` (sliced to its first column)."""
+    point, _ = _batches()
+    make = Trainer if layout == "unified_f32" else (
+        lambda m: SparseEmbeddingTrainer(m, packed_tables=True))
+    jax_trainer, port = _deepfm_pair(make, point)
+    flat = _flat_leaves(jax_trainer)
+    assert flat["unified_lin/embedding"].shape == (
+        N_SPARSE * VOCAB, 1 if layout == "unified_f32" else 64)
+    model = params_from_jax(flat, port)
+    for key in ("bias", "dense_factors", "dense_linear"):
+        np.testing.assert_array_equal(getattr(model, key).detach().numpy(), flat[key])
+    np.testing.assert_array_equal(model.unified_lin.embedding.detach().numpy(),
+                                  flat["unified_lin/embedding"][:, :1])
+    np.testing.assert_array_equal(model.deep_head.weight.detach().numpy(),
+                                  flat["deep_head/kernel"].T)
+    del flat["dense_linear"]
+    with pytest.raises(KeyError):  # a parameter the model reads needs its leaf
+        params_from_jax(flat, model)
+
+
+def test_converter_loads_two_packed_leaves_into_one_trainer():
+    point, _ = _batches()
+    jax_trainer, port_model = _deepfm_pair(
+        lambda m: SparseEmbeddingTrainer(m, packed_tables=True), point)
+    flat = _flat_leaves(jax_trainer)
+    flat["unified_lin/embedding"] = flat["unified_lin/embedding"].copy()
+    flat["unified_lin/embedding"][:, 1:4] = 0.5  # moments, loaded whole with the table
+    trainer = TorchSparseTrainer(port_model, device="cpu", packed_tables=True)
+    trainer.compile(optimizer="adam", lr=1e-3, loss="bce")
+    trainer.init_state(point, seed=0)
+    buffers = {path: t.data_ptr() for path, t in trainer.state.packed.items()}
+    params_from_jax(flat, trainer)
+    assert {path: t.data_ptr() for path, t in trainer.state.packed.items()} == buffers
+    for path in ("unified_emb/embedding", "unified_lin/embedding"):
+        np.testing.assert_array_equal(trainer.state.packed[path].numpy(), flat[path])
+    np.testing.assert_array_equal(trainer.model.unified_lin.embedding.detach().numpy(),
+                                  flat["unified_lin/embedding"][:, :1])

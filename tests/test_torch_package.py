@@ -41,7 +41,8 @@ def test_every_training_module_is_walked():
             "pytorchrec_tpu_torch.training.callbacks", "pytorchrec_tpu_torch.ops.kernels.seg_scan",
             "pytorchrec_tpu_torch.ops.kernels.scatter", "pytorchrec_tpu_torch.ops.kernels.quantize",
             "pytorchrec_tpu_torch.ops.quantized_packed", "pytorchrec_tpu_torch.utils.rng",
-            "pytorchrec_tpu_torch.training.quantized_trainer"} <= modules
+            "pytorchrec_tpu_torch.training.quantized_trainer",
+            "pytorchrec_tpu_torch.ops.kernels.fm"} <= modules
 
 
 def test_importing_every_port_module_loads_no_jax():
@@ -66,7 +67,7 @@ def test_no_port_source_names_jax_or_the_jax_package():
     sources = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     offenders = [str(p.relative_to(ROOT)) for p in sources if pattern.search(p.read_text())]
     assert not offenders
-    for kernel in ("cross", "seg_scan", "scatter", "requantize"):
+    for kernel in ("cross", "seg_scan", "scatter", "requantize", "fm"):
         assert (PORT / "csrc" / f"{kernel}.cu").exists()
 
 

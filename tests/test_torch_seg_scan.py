@@ -32,7 +32,7 @@ def _heads(rng, n, long_runs):
 
 
 @pytest.mark.parametrize("long_runs", [False, True])
-@pytest.mark.parametrize("e", [4, 16])
+@pytest.mark.parametrize("e", [1, 4, 16])
 @pytest.mark.parametrize("n", [1, 7, 37, 300])
 def test_plain_scan_matches_pallas_and_xla(n, e, long_runs):
     rng = np.random.default_rng(n * 100 + e + long_runs)

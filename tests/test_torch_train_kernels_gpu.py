@@ -37,7 +37,8 @@ def _sorted_heads(ids: np.ndarray) -> np.ndarray:
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,e,skew", [(1, 16, False), (2, 16, False), (1000, 16, False),
                                       (851_968, 16, False), (200_000, 16, True),
-                                      (5000, 4, True), (3333, 37, False), (700, 256, True)])
+                                      (5000, 4, True), (3333, 37, False), (700, 256, True),
+                                      (851_968, 1, False), (5000, 1, True)])
 def test_seg_scan_kernel_matches_plain(n, e, skew):
     _need_card()
     rng = np.random.default_rng(n + e)
