@@ -7,8 +7,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
 
 1. card: the card's name and power limit (nvidia-smi) and torch's name for it;
 2. build: every CUDA kernel of the serving and training paths (cross,
-   seg_scan, scatter, requantize), from ``pytorchrec_tpu_torch/csrc``, one
-   nvcc each, all at once;
+   seg_scan, scatter, requantize, fm, din_attention), from
+   ``pytorchrec_tpu_torch/csrc``, one nvcc each, all at once;
 3. kernel against plain: the cross kernel's wrapper on the card at the shapes
    the serving path gives it, held against its plain PyTorch version;
 4. serving: DCN-v2 at the full Criteo width (26 sparse fields of 100k ids,
@@ -79,12 +79,42 @@ Phases; any failure ends the run with a non-zero exit and no result line:
 15. DeepFM int8 training: phase 10 for DeepFM, the f32 linear table in the
    dense Adam; every step launches each of the five kernels once;
 16. DeepFM card against CPU: phases 8 and 11 for DeepFM;
+17. DIN kernels against plain, on the card: the attention-pooling kernel at
+   the shapes DIN gives it (``[1, 1]``, the training step's ``[4096, 2]`` and
+   the leave-one-out request's ``[1024, 100]`` candidates over 20 history
+   steps, E=64, score MLP (80, 40)), plus E=8 with (16, 8), depths 1 and 3,
+   a layer 160 wide, relu, and forward and backward through its autograd
+   Function against plain autograd at ``[4096, 2, 20]``; then its time beside
+   its plain version and its bound (the least work, ``w_0`` split by blocks;
+   the concat form's beside it) at the training and the serving shape. The scan,
+   scatter and requantize kernels at DIN's step shape (90,112 item ids of
+   E=64: scan row stride 256 and 96, scatter of 1 KB f32 rows, requantize
+   of 384-byte rows), checked and timed;
+18. DIN serving at the "DIN on Amazon" scale of ``scripts/din_sparse_ab.py``
+   (1,048,576 items and 65,536 users of E=64, attention (80, 40), MLP
+   (200, 80)), weights from ``--seed`` in the flax leaf layout through
+   ``params_from_jax``: point-wise requests of 1, 1000 and 4096 rows and
+   candidate requests ``[1, 100]``, ``[256, 100]`` and ``[1024, 100]``, with
+   the f32 tables and with the int8 item table; each request launches the
+   pooling kernel once and agrees with the same model run with the plain
+   pool on the card and, for ``[256, 100]``, on the CPU;
+19. DIN f32 training: phase 7 for DIN at batch 4096 (2 candidates, positive
+   first, 20 history steps; batches made as ``scripts/din_sparse_ab.py``
+   makes them), two packed tables (``[65536, 256]`` and ``[1048576, 256]``):
+   every step launches the pooling kernel once and the scan and the scatter
+   twice;
+20. DIN int8 training: phase 10 for DIN, the ``[1048576, 384]`` u8 ``i_q``
+   table (rowwise Adagrad at the model's table lr 2e-2), the f32 user table
+   in the dense Adam; every step launches the pooling, scan, requantize and
+   scatter kernels once each;
+21. DIN card against CPU: phases 8 and 11 for DIN, at batch 512;
 
 then a ``{"kernels": [...]}`` line with every kernel at its main-path shape
 (``launches``: for B1–B4 the DCN-v2 int8 training run's, for the FM kernels
-the DeepFM f32 training run's; the other paths' counts beside). Each path
-(serving, each training run) zeroes every launch count just before it and
-reads them just after. The last line is ``{"ok": true, "device": {...}}``.
+the DeepFM f32 training run's, for the pooling kernel the DIN f32 training
+run's; the other paths' counts beside). Each path (serving, each training
+run) zeroes every launch count just before it and reads them just after.
+The last line is ``{"ok": true, "device": {...}}``.
 Needs one CUDA card; no JAX and nothing of the JAX package is imported.
 """
 
@@ -92,19 +122,27 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import functools
 import json
 import subprocess
 import sys
 import time
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
 from pytorchrec_tpu_torch.feature_column import CategoricalColumnWithIdentity, NumericColumn
-from pytorchrec_tpu_torch.models import DCNv2, DeepFM
+from pytorchrec_tpu_torch.models import DIN, DCNv2, DeepFM
 from pytorchrec_tpu_torch.models import ctr as ctr_module
+from pytorchrec_tpu_torch.ops import attention as attention_module
 from pytorchrec_tpu_torch.ops.kernels.build import build
 from pytorchrec_tpu_torch.ops.kernels.cross import cross_network, cross_network_plain
+from pytorchrec_tpu_torch.ops.kernels.din_attention import (
+    din_attention_pool,
+    din_attention_pool_plain,
+)
 from pytorchrec_tpu_torch.ops.kernels.fm import (
     fm_interaction,
     fm_interaction_backward,
@@ -164,19 +202,23 @@ FM_FIELDS = N_SPARSE + N_DENSE
 DEEP_DIM = FM_FIELDS * EMB  # 624, the deep tower's input
 FM_SHAPES = ((1,), (1000,), (TRAIN_BATCH,), (CANDIDATES[0] * CANDIDATES[1],))  # rows
 
+# DIN at the "DIN on Amazon" scale of scripts/din_sparse_ab.py:22-23,45-52
+DIN_USERS, DIN_ITEMS = 65_536, 1_048_576
+DIN_EMB, DIN_STEPS, DIN_CAND, DIN_BATCH = 64, 20, 2, 4096
+DIN_ATT, DIN_MLP = (80, 40), (200, 80)
+DIN_PACKED_W = 4 * DIN_EMB  # f32 table || m || v || staging under Adam
+DIN_Q_W = packed_q_width(DIN_EMB, 8, 1)  # 384 bytes
+DIN_Q_BASE = packed_q_base(DIN_EMB, 8, 1)  # 72: the int8 rows' staging offset
+DIN_LOO = 100  # leave-one-out candidates: the positive and neg_sample_n=99
+DIN_REQUESTS = ((1,), (1000,), (4096,), (1, DIN_LOO), (256, DIN_LOO), (1024, DIN_LOO))
+DIN_CPU_REQUEST = 4  # [256, 100] is also scored on the CPU
+DIN_CPU_BATCH = 512
+DIN_TABLES = {"f32": "i_embeddings/embedding", "int8": "i_q"}  # the item table's leaf
+DIN_TABLE_LR = 2e-2  # DIN's table_lr_hint: the int8 table's rowwise-Adagrad lr
+DIN_ROW_SCALE = 10.0  # table rows N(0, 0.1), ten times the init's (din_leaves says why)
+
 ALL_KERNELS = (cross_network, segmented_sum_scan, requantize_rows, scatter_set_rows,
-               fm_interaction, fm_interaction_backward)
-FORWARD_KERNEL = {"dcnv2": cross_network, "deepfm": fm_interaction}  # one launch a request
-# kernel launches of one train step, by (model, table); every other kernel launches none
-PER_STEP = {
-    ("dcnv2", "f32"): {cross_network: 1, segmented_sum_scan: 1, scatter_set_rows: 1},
-    ("dcnv2", "int8"): {cross_network: 1, segmented_sum_scan: 1, requantize_rows: 1,
-                        scatter_set_rows: 1},
-    ("deepfm", "f32"): {fm_interaction: 1, fm_interaction_backward: 1, segmented_sum_scan: 2,
-                        scatter_set_rows: 2},
-    ("deepfm", "int8"): {fm_interaction: 1, fm_interaction_backward: 1, segmented_sum_scan: 1,
-                         requantize_rows: 1, scatter_set_rows: 1},
-}
+               fm_interaction, fm_interaction_backward, din_attention_pool)
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
@@ -263,23 +305,35 @@ def normal_leaf(rng: np.random.Generator, *shape) -> np.ndarray:
     return rng.standard_normal(shape, dtype=np.float32) * np.float32(0.01)
 
 
-def table_leaves(rng: np.random.Generator, table: str) -> dict:
-    """The unified field table's leaf: f32, the ``[V, 64]`` packed
-    ``table || m || v || pad`` rows of ``SparseEmbeddingTrainer(packed_tables=
-    True)``; int8, the ``q || scale || acc || pad`` u8 rows of
-    ``QuantizedEmbeddingTrainer(packed_tables=True)``."""
-    rows = normal_leaf(rng, N_SPARSE * VOCAB, EMB)
-    if table == "f32":
-        packed = np.zeros((rows.shape[0], PACKED_W), np.float32)
-        packed[:, :EMB] = rows
-        return {"unified_emb/embedding": packed}
+def packed_f32_leaf(rows: np.ndarray, width: int) -> np.ndarray:
+    """``[V, width]`` packed ``table || m || v || pad`` rows of
+    ``SparseEmbeddingTrainer(packed_tables=True)``, moments zero."""
+    packed = np.zeros((rows.shape[0], width), np.float32)
+    packed[:, :rows.shape[1]] = rows
+    return packed
+
+
+def packed_q_leaf(rows: np.ndarray, width: int) -> np.ndarray:
+    """``[V, width]`` u8 ``q || scale || acc || pad`` rows of
+    ``QuantizedEmbeddingTrainer(packed_tables=True)``: int8, one scale a row
+    (round to nearest), accumulator zero."""
+    emb = rows.shape[1]
     absmax = np.abs(rows).max(axis=1)
     scale = np.where(absmax > 0, absmax / np.float32(127.0), np.float32(1.0)).astype(np.float32)
     q = np.clip(np.rint(rows / scale[:, None]), -127, 127).astype(np.int8)
-    packed = np.zeros((rows.shape[0], Q_W), np.uint8)
-    packed[:, :EMB] = q.view(np.uint8)
-    packed[:, EMB:EMB + 4] = scale[:, None].view(np.uint8)
-    return {"unified_q": packed}
+    packed = np.zeros((rows.shape[0], width), np.uint8)
+    packed[:, :emb] = q.view(np.uint8)
+    packed[:, emb:emb + 4] = scale[:, None].view(np.uint8)
+    return packed
+
+
+def table_leaves(rng: np.random.Generator, table: str) -> dict:
+    """The unified field table's leaf: f32, the ``[V, 64]`` packed f32 rows;
+    int8, the ``[V, 128]`` packed u8 rows."""
+    rows = normal_leaf(rng, N_SPARSE * VOCAB, EMB)
+    if table == "f32":
+        return {"unified_emb/embedding": packed_f32_leaf(rows, PACKED_W)}
+    return {"unified_q": packed_q_leaf(rows, Q_W)}
 
 
 def flax_leaves(rng: np.random.Generator, table: str) -> dict:
@@ -328,9 +382,59 @@ def deepfm_leaves(rng: np.random.Generator, table: str) -> dict:
     return leaves
 
 
-def make_model(table: str, device, seed: int, model_name: str = "dcnv2"):
-    """DCN-v2 or DeepFM at ``bench.py``'s Criteo width, with the unified
-    table of ``table``."""
+def din_leaves(rng: np.random.Generator, table: str) -> dict:
+    """Random DIN parameters in the flax leaf layout: the attention's
+    ``w<i>``/``b<i>`` ``[in, out]``, the MLP and the bias-free head N(0, 0.01);
+    f32 tables as the packed ``[V, 256]`` leaves of the sparse trainer, or
+    the int8 item table as the ``[V, 384]`` u8 ``i_q`` beside a plain f32
+    user table.
+
+    The table rows are N(0, 0.1), not the init's N(0, 0.01). At N(0, 0.01) the
+    MLP's biases outweigh the item's share of its inputs, so the two
+    candidates of a ``[B, 2]`` row look alike to it and the BCE pair's
+    gradients (-1/2 and +1/2 a row) cancel to near Adam's eps. There
+    ``g / (|g| + eps)`` turns the card's and the CPU's last-bit differences
+    into a visible share of a step: 2.6e-6 in an MLP bias after 2 steps on
+    the H100, over phase 21's tolerance. Rows ten times larger set the
+    candidates apart and the pair's gradients no longer cancel."""
+    dims = [4 * DIN_EMB, *DIN_ATT, 1]
+    leaves = {}
+    for i in range(len(dims) - 1):
+        leaves[f"attention/w{i}"] = normal_leaf(rng, dims[i], dims[i + 1])
+        leaves[f"attention/b{i}"] = normal_leaf(rng, dims[i + 1])
+    width = 4 * DIN_EMB
+    for i, units in enumerate(DIN_MLP):
+        leaves[f"mlp/Dense_{i}/Dense_0/kernel"] = normal_leaf(rng, width, units)
+        leaves[f"mlp/Dense_{i}/Dense_0/bias"] = normal_leaf(rng, units)
+        width = units
+    leaves["head/kernel"] = normal_leaf(rng, width, 1)
+    users = normal_leaf(rng, DIN_USERS, DIN_EMB) * np.float32(DIN_ROW_SCALE)
+    items = normal_leaf(rng, DIN_ITEMS, DIN_EMB) * np.float32(DIN_ROW_SCALE)
+    if table == "f32":
+        leaves["u_embeddings/embedding"] = packed_f32_leaf(users, DIN_PACKED_W)
+        leaves["i_embeddings/embedding"] = packed_f32_leaf(items, DIN_PACKED_W)
+    else:
+        leaves["u_embeddings/embedding"] = users
+        leaves["i_q"] = packed_q_leaf(items, DIN_Q_W)
+    return leaves
+
+
+def make_din(table: str, device, seed: int) -> DIN:
+    """DIN at ``scripts/din_sparse_ab.py``'s scale, with the f32 or the int8
+    item table."""
+    col = CategoricalColumnWithIdentity
+    return DIN(uid_column=col(feature_name="uid", category_num=DIN_USERS),
+               iid_column=col(feature_name="iid", category_num=DIN_ITEMS),
+               his_column=col(feature_name="pos_his", category_num=DIN_ITEMS),
+               his_len_column=col(feature_name="pos_his_len", category_num=DIN_STEPS + 1),
+               label_column=LABEL, emb_size=DIN_EMB, att_hidden_units=DIN_ATT,
+               mlp_layers=DIN_MLP, quantized_table=table == "int8", device=device,
+               generator=torch.Generator(device=device).manual_seed(seed))
+
+
+def make_ctr(cls, table: str, device, seed: int):
+    """DCN-v2 or DeepFM (``cls``) at ``bench.py``'s Criteo width, with the
+    unified table of ``table``."""
     sparse = [CategoricalColumnWithIdentity(feature_name=f"c_{i}", category_num=VOCAB)
               for i in range(N_SPARSE)]
     dense = [NumericColumn(feature_name=f"d_{i}") for i in range(N_DENSE)]
@@ -339,9 +443,25 @@ def make_model(table: str, device, seed: int, model_name: str = "dcnv2"):
                   layers=MLP_UNITS, unified_embedding=True, quantized_embedding=quantized,
                   table_packed=quantized, device=device,
                   generator=torch.Generator(device=device).manual_seed(seed))
-    if model_name == "deepfm":
-        return DeepFM(**kwargs)
-    return DCNv2(num_cross_layers=CROSS_LAYERS, **kwargs)
+    if cls is DCNv2:
+        kwargs["num_cross_layers"] = CROSS_LAYERS
+    return cls(**kwargs)
+
+
+def make_train_batch(rng: np.random.Generator, rows: int = TRAIN_BATCH) -> dict:
+    """``bench.py``'s ``make_host_batch`` at ``rows`` rows."""
+    batch = {f"c_{i}": rng.integers(0, VOCAB, size=rows).astype(np.int32)
+             for i in range(N_SPARSE)}
+    for i in range(N_DENSE):
+        batch[f"d_{i}"] = rng.normal(size=rows).astype(np.float32)
+    batch["label"] = rng.integers(0, 2, size=rows).astype(np.int32)
+    return batch
+
+
+def unified_ids(fields: dict) -> np.ndarray:
+    """Ids in the unified table, row after row, as the trainer flattens them."""
+    return np.stack([fields[f"c_{i}"].astype(np.int64) + i * VOCAB for i in range(N_SPARSE)],
+                    axis=1).reshape(-1)
 
 
 def make_requests(rng: np.random.Generator) -> list:
@@ -358,6 +478,47 @@ def make_requests(rng: np.random.Generator) -> list:
     req.update({f"d_{i}": rng.normal(size=b).astype(np.float32) for i in range(N_DENSE)})
     requests.append((f"candidates {b}x{n}", req, (b, n)))
     return requests
+
+
+def make_din_batch(rng: np.random.Generator, rows: int = DIN_BATCH) -> dict:
+    """``scripts/din_sparse_ab.py``'s ``make_host_batch`` at ``rows`` rows: 2
+    candidates (positive first), 20 history steps of ids in [1, V), all
+    valid."""
+    return {
+        "uid": rng.integers(0, DIN_USERS, size=rows).astype(np.int32),
+        "iid": rng.integers(0, DIN_ITEMS, size=(rows, DIN_CAND)).astype(np.int32),
+        "pos_his": rng.integers(1, DIN_ITEMS, size=(rows, DIN_STEPS)).astype(np.int32),
+        "pos_his_len": rng.integers(1, DIN_STEPS + 1, size=rows).astype(np.int32),
+        "label": rng.integers(0, 2, size=rows).astype(np.int32),
+    }
+
+
+def make_din_requests(rng: np.random.Generator) -> list:
+    """DIN requests (no label): point-wise rows and candidate requests
+    ``[B, 100]``; histories of ``pos_his_len`` ids, then PAD (0), as the
+    history reader lays them out."""
+    requests = []
+    for shape in DIN_REQUESTS:
+        req = make_din_batch(rng, shape[0])
+        del req["label"]
+        steps = np.arange(DIN_STEPS)[None, :]
+        req["pos_his"][steps >= req["pos_his_len"][:, None]] = 0
+        req["iid"] = rng.integers(0, DIN_ITEMS, size=shape).astype(np.int32)
+        name = f"{shape[0]} rows" if len(shape) == 1 else f"candidates {shape[0]}x{shape[1]}"
+        requests.append((name, req, shape))
+    return requests
+
+
+def din_item_ids(batch: dict) -> np.ndarray:
+    """The item table's ids of a batch in the trainer's order: candidates,
+    then history."""
+    iid = batch["iid"].reshape(batch["iid"].shape[0], -1)
+    return np.concatenate([iid.reshape(-1), batch["pos_his"].reshape(-1)]).astype(np.int64)
+
+
+def din_table_ids(path: str, batch: dict) -> np.ndarray:
+    """The ids a DIN batch gathers from the packed table at ``path``."""
+    return batch["uid"].astype(np.int64) if path.startswith("u_") else din_item_ids(batch)
 
 
 class PlainCross(torch.nn.Module):
@@ -381,26 +542,74 @@ def plain_fm(field_vectors: torch.Tensor) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def plain_forward(model):
-    """Inside: ``model`` runs the plain version in place of its forward
-    kernel (the same parameters and inputs)."""
-    if isinstance(model, DCNv2):
-        kernel_cross = model.cross
-        model.cross = PlainCross(kernel_cross)
+def swapped(owner, name: str, plain):
+    """Inside: ``owner.name`` is ``plain``, the plain version in place of a
+    model's forward kernel (the same parameters and inputs)."""
+    kernel = getattr(owner, name)
+    setattr(owner, name, plain)
+    try:
         yield
-        model.cross = kernel_cross
-    else:
-        kernel_fm = ctr_module.fm_interaction
-        ctr_module.fm_interaction = plain_fm
-        yield
-        ctr_module.fm_interaction = kernel_fm
+    finally:
+        setattr(owner, name, kernel)
 
 
-def profile_call(fn, label: str, launches=None, top: int = 6) -> None:
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    """What the serving, training and card-against-CPU phases need to know
+    of one model at its scale here."""
+    name: str
+    make: Callable  # (table, device, seed) -> the model, with the f32 or int8 table
+    leaves: Callable  # (rng, table) -> random parameters in the flax leaf layout
+    batch: Callable  # (rng, rows) -> a host training batch
+    table_ids: Callable  # (packed table path, host batch) -> the ids it gathers
+    tables: dict  # table format -> the largest table's leaf (int8: the packed u8 buffer)
+    q_name: str  # the quantized table's name in unpacked_quantized()
+    forward_kernel: Any  # one launch a request
+    plain_forward: Callable  # (model) -> a context in which it runs the plain version
+    per_step: dict  # table format -> {kernel: launches a train step}; the others none
+    train_rows: int
+    cpu_rows: int  # batch of the card against the CPU
+    cpu_request: int  # index of the serving request also scored on the CPU
+    emb: int
+    scored_key: str  # the batch field whose shape the scores take
+    table_lr: Optional[float] = None  # the int8 table's lr, where the model sets it
+
+
+DCNV2_SPEC = ModelSpec(
+    name="dcnv2", make=functools.partial(make_ctr, DCNv2), leaves=flax_leaves,
+    batch=make_train_batch, table_ids=lambda path, batch: unified_ids(batch), tables=TABLES,
+    q_name="unified", forward_kernel=cross_network,
+    plain_forward=lambda model: swapped(model, "cross", PlainCross(model.cross)),
+    per_step={"f32": {cross_network: 1, segmented_sum_scan: 1, scatter_set_rows: 1},
+              "int8": {cross_network: 1, segmented_sum_scan: 1, requantize_rows: 1,
+                       scatter_set_rows: 1}},
+    train_rows=TRAIN_BATCH, cpu_rows=CPU_BATCH, cpu_request=1, emb=EMB, scored_key="c_0")
+DEEPFM_SPEC = dataclasses.replace(
+    DCNV2_SPEC, name="deepfm", make=functools.partial(make_ctr, DeepFM), leaves=deepfm_leaves,
+    forward_kernel=fm_interaction,
+    plain_forward=lambda model: swapped(ctr_module, "fm_interaction", plain_fm),
+    per_step={"f32": {fm_interaction: 1, fm_interaction_backward: 1, segmented_sum_scan: 2,
+                      scatter_set_rows: 2},
+              "int8": {fm_interaction: 1, fm_interaction_backward: 1, segmented_sum_scan: 1,
+                       requantize_rows: 1, scatter_set_rows: 1}})
+DIN_SPEC = ModelSpec(
+    name="din", make=make_din, leaves=din_leaves, batch=make_din_batch, table_ids=din_table_ids,
+    tables=DIN_TABLES, q_name="i", forward_kernel=din_attention_pool,
+    plain_forward=lambda model: swapped(attention_module, "din_attention_pool",
+                                        din_attention_pool_plain),
+    per_step={"f32": {din_attention_pool: 1, segmented_sum_scan: 2, scatter_set_rows: 2},
+              "int8": {din_attention_pool: 1, segmented_sum_scan: 1, requantize_rows: 1,
+                       scatter_set_rows: 1}},
+    train_rows=DIN_BATCH, cpu_rows=DIN_CPU_BATCH, cpu_request=DIN_CPU_REQUEST, emb=DIN_EMB,
+    scored_key="iid", table_lr=DIN_TABLE_LR)
+
+
+def profile_call(fn, label: str, launches=None, top: int = 6, host_top: int = 0) -> None:
     """Where one call's time goes: torch.profiler's device time by kernel or
-    copy, against the call's host-clocked wall time. The call must launch
-    each kernel as often as ``launches`` says (default: the cross kernel
-    once) and no other."""
+    copy, against the call's host-clocked wall time, and (``host_top``) the
+    host operators with the most self time. The call must launch each kernel
+    as often as ``launches`` says (default: the cross kernel once) and no
+    other."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     before = counts()
     with torch.profiler.profile(activities=activities) as prof:
@@ -424,21 +633,29 @@ def profile_call(fn, label: str, launches=None, top: int = 6) -> None:
         rest = ranked[top:]
         print(f"    {sum(e.self_device_time_total for e in rest) / 1e3:8.3f} ms  "
               f"x{sum(e.count for e in rest):<3d} the {len(rest)} other kinds")
+    if host_top:
+        host = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
+        host_ms = sum(e.self_cpu_time_total for e in host) / 1e3
+        print(f"{label} host: {host_ms:.3f} ms of operator self time (profiler on), "
+              f"{sum(e.count for e in host)} operator calls; the most:")
+        for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:host_top]:
+            print(f"    {e.self_cpu_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
 
-def serve_table(table: str, requests: list, seed: int, model_name: str = "dcnv2",
+def serve_table(spec: ModelSpec, table: str, requests: list, seed: int,
                 profiled=PROFILED_SHAPES) -> int:
-    """Phases 4 and 13 for one model and table format: every request must
+    """Phases 4, 13 and 18 for one model and table format: every request must
     launch the model's forward kernel once and no other kernel. Returns the
     number of requests served."""
-    tag = f"[{table}]" if model_name == "dcnv2" else f"[{model_name} {table}]"
-    kernel = FORWARD_KERNEL[model_name]
+    tag = f"[{spec.name} {table}]"
+    kernel = spec.forward_kernel
     rng = np.random.default_rng(seed + (1 if table == "f32" else 2))
-    leaves = (flax_leaves if model_name == "dcnv2" else deepfm_leaves)(rng, table)
-    model = params_from_jax(leaves, make_model(table, "cuda", seed, model_name))
+    leaves = spec.leaves(rng, table)
+    model = params_from_jax(leaves, spec.make(table, "cuda", seed))
     serve = Trainer(model).make_serving_fn()
-    table_mb = (model.unified_emb.embedding if table == "f32" else model.unified_q).nbytes / 1e6
-    print(f"{tag} field table {table_mb:.1f} MB on the card")
+    path = spec.tables[table]
+    big = functools.reduce(getattr, path.split("/"), model)
+    print(f"{tag} table {path} {big.nbytes / 1e6:.1f} MB on the card")
 
     def request(label, req):
         before = counts()
@@ -470,14 +687,14 @@ def serve_table(table: str, requests: list, seed: int, model_name: str = "dcnv2"
         if shape in profiled:
             profile_call(lambda: serve(req), f"{tag} {name}", {kernel: 1})
 
-    with plain_forward(model):
+    with spec.plain_forward(model):
         for name, req, _ in requests:
             err = close(scores[name], serve(req))
             print(f"{tag} {name:18s} kernel vs plain {kernel.__name__} on the card: "
                   f"max abs err {err:.3e}")
 
-    cpu_model = params_from_jax(leaves, make_model(table, "cpu", seed, model_name))
-    name, req, _ = requests[1]
+    cpu_model = params_from_jax(leaves, spec.make(table, "cpu", seed))
+    name, req, _ = requests[spec.cpu_request]
     want = Trainer(cpu_model, device="cpu").make_serving_fn()(req)
     err = close(scores[name].cpu(), want)
     print(f"{tag} {name:18s} card vs CPU (plain) port: max abs err {err:.3e}")
@@ -529,22 +746,6 @@ def time_cross(rng: np.random.Generator, batch: int) -> dict:
           f"{timing['plain_ms']:.4f} ms, addmm loop {timing['library_ms']:.4f} ms, bound "
           f"{timing['bound_ms']:.4f} ms ({timing['bound_by']}); rounds {runs}")
     return timing
-
-
-def make_train_batch(rng: np.random.Generator, rows: int = TRAIN_BATCH) -> dict:
-    """``bench.py``'s ``make_host_batch`` at ``rows`` rows."""
-    batch = {f"c_{i}": rng.integers(0, VOCAB, size=rows).astype(np.int32)
-             for i in range(N_SPARSE)}
-    for i in range(N_DENSE):
-        batch[f"d_{i}"] = rng.normal(size=rows).astype(np.float32)
-    batch["label"] = rng.integers(0, 2, size=rows).astype(np.int32)
-    return batch
-
-
-def unified_ids(fields: dict) -> np.ndarray:
-    """Ids in the unified table, row after row, as the trainer flattens them."""
-    return np.stack([fields[f"c_{i}"].astype(np.int64) + i * VOCAB for i in range(N_SPARSE)],
-                    axis=1).reshape(-1)
 
 
 def segments(ids: np.ndarray):
@@ -608,23 +809,27 @@ def time_seg_scan(x: torch.Tensor, heads: torch.Tensor) -> dict:
     return timing
 
 
-def check_and_time_scatter(rng: np.random.Generator, gen: torch.Generator, table_kind: str):
-    """Phase 6, scatter: the update's last-of-segment rows into the packed
-    table (f32: [2.6M, 64] f32; int8: [2.6M, 128] u8), bit-exact against
-    plain; then kernel, plain (which filters the ids inside), ``index_copy_``
-    of the surviving rows (filtered beforehand, untimed) and the bound for
-    this data."""
-    vocab_rows = N_SPARSE * VOCAB
-    ordered, _, last = segments(unified_ids(make_train_batch(rng)))
+def check_and_time_scatter(rng: np.random.Generator, gen: torch.Generator, table_kind: str,
+                           ids=None, vocab_rows: int = N_SPARSE * VOCAB,
+                           widths=(PACKED_W, Q_W)):
+    """Phases 6 and 17, scatter: the update's last-of-segment rows into the
+    packed table (f32 ``[V, widths[0]]``, int8 ``[V, widths[1]]`` u8; V and
+    the ids ``bench.py``'s unless given), bit-exact against plain; then
+    kernel, plain (which filters the ids inside), ``index_copy_`` of the
+    surviving rows (filtered beforehand, untimed) and the bound for this
+    data."""
+    if ids is None:
+        ids = unified_ids(make_train_batch(rng))
+    ordered, _, last = segments(ids)
     n = ordered.shape[0]
     safe = torch.from_numpy(np.where(last, ordered, vocab_rows + np.arange(n)).astype(np.int32))
     safe = safe.cuda()
     if table_kind == "f32":
-        width, row_bytes = PACKED_W, 4 * PACKED_W
+        width, row_bytes = widths[0], 4 * widths[0]
         table = torch.randn((vocab_rows, width), device="cuda", generator=gen)
         rows = torch.randn((n, width), device="cuda", generator=gen)
     else:
-        width = row_bytes = Q_W
+        width = row_bytes = widths[1]
         table = torch.randint(0, 256, (vocab_rows, width), dtype=torch.uint8, device="cuda",
                               generator=gen)
         rows = torch.randint(0, 256, (n, width), dtype=torch.uint8, device="cuda", generator=gen)
@@ -687,46 +892,51 @@ def check_cross_grad(rng: np.random.Generator, gen: torch.Generator) -> float:
     return worst
 
 
-def requantize_inputs(rng: np.random.Generator, gen: torch.Generator, seed: int):
-    """The int8 update's operands of ``requantize_rows`` at the main path's
-    shape: a random int8 packed ``[2.6M, 128]`` table (rows N(0, 0.01),
-    accumulators U(0, 1e-3)) gathered at ``bench.py``-drawn ids, grads
-    N(0, 1e-2) staged into the rows, the rows permuted into id order, the
-    grads summed by the scan kernel, and the salt of step 1 for seed
-    ``seed``. Returns (moved, g, sorted ids, salt)."""
-    vocab_rows = N_SPARSE * VOCAB
-    q, scale = quantize_rows(torch.randn((vocab_rows, EMB), device="cuda", generator=gen) * 0.01)
+def requantize_inputs(rng: np.random.Generator, gen: torch.Generator, seed: int, ids=None,
+                      vocab_rows: int = N_SPARSE * VOCAB, emb: int = EMB,
+                      path: str = TABLES["int8"]):
+    """The int8 update's operands of ``requantize_rows`` at a main path's
+    shape: a random int8 packed ``[V, W]`` table (rows N(0, 0.01),
+    accumulators U(0, 1e-3)) gathered at ``ids`` (``bench.py``-drawn unless
+    given), grads N(0, 1e-2) staged into the rows, the rows permuted into id
+    order, the grads summed by the scan kernel, and the salt of step 1 for
+    seed ``seed`` and the table's ``path``. Returns (moved, g, sorted ids,
+    salt)."""
+    base = packed_q_base(emb, 8, 1)
+    q, scale = quantize_rows(torch.randn((vocab_rows, emb), device="cuda", generator=gen) * 0.01)
     acc = torch.rand((vocab_rows,), device="cuda", generator=gen) * 1e-3
-    table = pack_quantized_table(q, scale, acc, EMB)
+    table = pack_quantized_table(q, scale, acc, emb)
     del q, scale, acc
-    ids = torch.from_numpy(unified_ids(make_train_batch(rng)).astype(np.int32)).cuda()
+    if ids is None:
+        ids = unified_ids(make_train_batch(rng))
+    ids = torch.from_numpy(ids.astype(np.int32)).cuda()
     staged = table.index_select(0, ids)
     del table
-    dvec = torch.randn((ids.shape[0], EMB), device="cuda", generator=gen) * 1e-2
-    staged[:, Q_BASE:Q_BASE + 4 * EMB] = dvec.view(torch.uint8)
+    dvec = torch.randn((ids.shape[0], emb), device="cuda", generator=gen) * 1e-2
+    staged[:, base:base + 4 * emb] = dvec.view(torch.uint8)
     sorted_ids, order = torch.sort(ids, stable=True)
     moved = staged.index_select(0, order)
     heads = torch.cat([torch.ones(1, dtype=torch.bool, device="cuda"),
                        sorted_ids[1:] != sorted_ids[:-1]])
-    g = segmented_sum_scan(moved.view(torch.float32)[:, Q_BASE // 4:Q_BASE // 4 + EMB], heads)
-    salt = table_rounding_salt(split(prng_key(seed))[1], 1, TABLES["int8"])
+    g = segmented_sum_scan(moved.view(torch.float32)[:, base // 4:base // 4 + emb], heads)
+    salt = table_rounding_salt(split(prng_key(seed))[1], 1, path)
     return moved, g, sorted_ids, salt
 
 
-def rows_agree(got: torch.Tensor, want: torch.Tensor, label: str) -> float:
+def rows_agree(got: torch.Tensor, want: torch.Tensor, label: str, emb: int = EMB) -> float:
     """Requantized rows, kernel against plain: scale and accumulator rtol
     3e-7, q bytes identical except on a row whose scale or accumulator
     differs (there by at most one), every byte after the accumulator zero.
     Returns the max abs error of the dequantized rows."""
-    (gq, gs, ga), (wq, ws, wa) = (unpack_quantized_table(t, EMB) for t in (got, want))
+    (gq, gs, ga), (wq, ws, wa) = (unpack_quantized_table(t, emb) for t in (got, want))
     close(gs, ws, rtol=3e-7, atol=0.0)
     close(ga, wa, rtol=3e-7, atol=0.0)
     diff = (gq.int() - wq.int()).abs()
     same = (gs == ws) & (ga == wa)
-    if int((diff * same[:, None]).max()) or int(diff.max()) > 1 or got[:, EMB + 8:].any():
+    if int((diff * same[:, None]).max()) or int(diff.max()) > 1 or got[:, emb + 8:].any():
         raise AssertionError(f"{label}: q bytes differ by up to {int(diff.max())} "
                              f"({int((diff > 0).sum())} of them), or a staging byte is set")
-    err = (dequant_packed_rows(got, EMB) - dequant_packed_rows(want, EMB)).abs()
+    err = (dequant_packed_rows(got, emb) - dequant_packed_rows(want, emb)).abs()
     print(f"requantize_rows kernel vs plain  {label:24s} n={got.shape[0]:7d}: "
           f"{int((diff > 0).sum())} q bytes, {int((gs != ws).sum())} scales, "
           f"{int((ga != wa).sum())} accumulators differ; dequantized max abs err "
@@ -873,15 +1083,182 @@ def check_and_time_lin_scan(rng: np.random.Generator, gen: torch.Generator) -> d
     return time_seg_scan(x, heads)
 
 
-def make_trainer(table: str, device: str, leaves: dict, sample: dict, seed: int,
-                 model_name: str = "dcnv2"):
+# the pooling kernel against plain: (label, B, N, S, E, hidden, activation,
+# spread inputs); the first three are DIN's shapes
+DIN_POOL_CASES = (
+    ("[1, 1]", 1, 1, DIN_STEPS, DIN_EMB, DIN_ATT, "sigmoid", False),
+    ("[4096, 2]", DIN_BATCH, DIN_CAND, DIN_STEPS, DIN_EMB, DIN_ATT, "sigmoid", False),
+    ("[1024, 100]", 1024, DIN_LOO, DIN_STEPS, DIN_EMB, DIN_ATT, "sigmoid", False),
+    ("[4096, 2] spread", DIN_BATCH, DIN_CAND, DIN_STEPS, DIN_EMB, DIN_ATT, "sigmoid", True),
+    ("[4096, 2] relu", DIN_BATCH, DIN_CAND, DIN_STEPS, DIN_EMB, DIN_ATT, "relu", True),
+    ("E=8 (16, 8)", 1000, 3, 6, 8, (16, 8), "sigmoid", True),
+    ("E=8 (8,)", 1000, 3, 6, 8, (8,), "sigmoid", True),
+    ("E=8 (16, 8, 4) relu", 1000, 3, 6, 8, (16, 8, 4), "relu", True),
+    ("E=8 (160, 40)", 1000, 3, 6, 8, (160, 40), "sigmoid", True),
+)
+
+
+def din_pool_inputs(gen: torch.Generator, b: int, n: int, s: int, e: int, hidden, spread=False):
+    """Pooling operands on the card: rows and weights N(0, 0.01), as DIN
+    initialises them (``spread``: rows N(0, 1), weights N(0, 0.1), a peaked
+    softmax); a fifth of the steps masked, step 0 always valid."""
+    row, weight = (1.0, 0.1) if spread else (0.01, 0.01)
+    his = torch.randn((b, s, e), device="cuda", generator=gen) * row
+    tgt = torch.randn((b, n, e), device="cuda", generator=gen) * row
+    valid = (torch.rand((b, s), device="cuda", generator=gen) < 0.8).to(torch.int32)
+    valid[:, 0] = 1
+    dims = [4 * e, *hidden, 1]
+    params = []
+    for i in range(len(dims) - 1):
+        params += [torch.randn((dims[i], dims[i + 1]), device="cuda", generator=gen) * weight,
+                   torch.randn((dims[i + 1],), device="cuda", generator=gen) * weight]
+    return his, tgt, valid, params
+
+
+def din_pool_work(b: int, n: int, s: int, e: int, hidden):
+    """(least operations, concat-form operations, bytes) of the pooling.
+
+    ``[h, t, h - t, h * t] w_0 = h (w_a + w_c) + t (w_b - w_c) + (h * t) w_d``
+    exactly (``w_0``'s four row blocks), so the least work forms the two
+    combined blocks once, runs the h part once a (b, s) and the t part once a
+    (b, n), and for each (b, n, s) pair only ``h * t``, its product with
+    ``w_d``, the sum of the three parts, the later layers and its share of the
+    pool. The concat form, which the kernel computes, runs all of ``w_0`` for
+    every pair. Bytes: his, tgt, valid and the weights read once, the result
+    written once."""
+    dims = [4 * e, *hidden, 1]
+    h1 = dims[1]
+    later = sum(dims[i] * dims[i + 1] for i in range(1, len(dims) - 1))
+    pairs = b * n * s
+    least = (2 * e * h1 + 2 * e * h1 * (b * s + b * n)
+             + pairs * (e + 2 * e * h1 + h1 + 2 * later + 2 * e))
+    concat = pairs * 2 * (4 * e * h1 + later + e)
+    weights = sum(dims[i] * dims[i + 1] + dims[i + 1] for i in range(len(dims) - 1))
+    return least, concat, 4 * (b * s * e + 2 * b * n * e + b * s + weights)
+
+
+def check_and_time_din(gen: torch.Generator):
+    """Phase 17, the pooling kernel: against plain at every case, forward and
+    backward through its Function against plain autograd at the training
+    shape, then kernel and plain timed (CUDA events, median of 3 interleaved
+    rounds) with the bound (``din_pool_work``'s least work; the concat form's
+    beside it), at the training and the serving shape. Returns (max abs error
+    at DIN's shapes, gradient error, timings)."""
+    worst = 0.0
+    for label, b, n, s, e, hidden, activation, spread in DIN_POOL_CASES:
+        his, tgt, valid, params = din_pool_inputs(gen, b, n, s, e, hidden, spread)
+        got = din_attention_pool(his, tgt, valid, params, activation)
+        want = din_attention_pool_plain(his, tgt, valid, params, activation)
+        torch.cuda.synchronize()
+        err = close(got, want)
+        print(f"din_attention_pool kernel vs plain  {label:22s} [{b}, {n}, {s}, {e}] {hidden} "
+              f"{activation}: max abs err {err:.3e}")
+        if label in ("[1, 1]", "[4096, 2]", "[1024, 100]"):
+            worst = max(worst, err)
+
+    # spread inputs: at the init's scale every gradient is under the atol
+    his, tgt, valid, params = din_pool_inputs(gen, DIN_BATCH, DIN_CAND, DIN_STEPS, DIN_EMB,
+                                              DIN_ATT, spread=True)
+    upstream = torch.randn((DIN_BATCH, DIN_CAND, DIN_EMB), device="cuda", generator=gen)
+
+    def forward_backward(fn):
+        leaves = [t.clone().requires_grad_() for t in (his, tgt, *params)]
+        out = fn(leaves[0], leaves[1], valid, leaves[2:])
+        out.backward(upstream)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    before = counts()
+    got = forward_backward(din_attention_pool)
+    torch.cuda.synchronize()
+    check_launches("din_attention_pool Function forward + backward", before,
+                   {din_attention_pool: 1})
+    grad_err = max(close(a, b) for a, b in zip(got, forward_backward(din_attention_pool_plain)))
+    print(f"din_attention_pool forward + backward through the Function vs plain autograd, "
+          f"[{DIN_BATCH}, {DIN_CAND}, {DIN_STEPS}, {DIN_EMB}] spread: max abs err {grad_err:.3e} "
+          f"(output, his, tgt and {len(params)} weights)")
+
+    timings = {}
+    for key, (b, n) in (("train", (DIN_BATCH, DIN_CAND)), ("serve", (1024, DIN_LOO))):
+        his, tgt, valid, params = din_pool_inputs(gen, b, n, DIN_STEPS, DIN_EMB, DIN_ATT)
+        runs = {"ms": [], "plain_ms": []}
+        for _ in range(3):
+            runs["ms"].append(time_cuda(lambda: din_attention_pool(his, tgt, valid, params),
+                                        iters=20))
+            runs["plain_ms"].append(time_cuda(
+                lambda: din_attention_pool_plain(his, tgt, valid, params), iters=10))
+        flops, concat, nbytes = din_pool_work(b, n, DIN_STEPS, DIN_EMB, DIN_ATT)
+        ops_ms, bytes_ms = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES_S
+        timings[key] = {k: float(np.median(v)) for k, v in runs.items()}
+        timings[key].update(bound_ms=max(ops_ms, bytes_ms), library_ms=None,
+                            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                            concat_bound_ms=1e3 * concat / PEAK_F32_FLOPS)
+        print(f"din_attention_pool at [{b}, {n}, {DIN_STEPS}, {DIN_EMB}] {DIN_ATT}: kernel "
+              f"{timings[key]['ms']:.4f} ms, plain {timings[key]['plain_ms']:.4f} ms, bound "
+              f"{timings[key]['bound_ms']:.4f} ms ({flops / 1e9:.3f} GFLOP with w_0 split, "
+              f"{nbytes / 1e6:.1f} MB; {100 * timings[key]['bound_ms'] / timings[key]['ms']:.1f}% "
+              f"of the kernel's time); the concat form the kernel runs "
+              f"{concat / 1e9:.2f} GFLOP, {timings[key]['concat_bound_ms']:.4f} ms "
+              f"({concat / 1e9 / timings[key]['ms']:.1f} TFLOP/s); no single PyTorch call "
+              f"computes MLP-scored attention pooling; rounds {runs}")
+    return worst, grad_err, timings
+
+
+def check_and_time_din_update(rng: np.random.Generator, gen: torch.Generator, seed: int) -> dict:
+    """Phase 17, the update's kernels at DIN's step shape (the item table's
+    90,112 ids of a batch, E=64): the scan over the f32 rows' staging columns
+    (row stride 256) and the int8 rows' (row stride 96), the scatter of 1 KB
+    f32 rows into ``[1048576, 256]`` and of 384-byte rows, the requantization
+    of 384-byte rows at the model's table lr; each against plain, then
+    timed."""
+    ids = din_item_ids(make_din_batch(rng))
+    _, heads, _ = segments(ids)
+    heads = torch.from_numpy(heads).cuda()
+    timings = {}
+    for kind, width, start in (("f32", DIN_PACKED_W, 3 * DIN_EMB),
+                               ("int8", DIN_Q_W // 4, DIN_Q_BASE // 4)):
+        wide = torch.randn((ids.shape[0], width), device="cuda", generator=gen)
+        x = wide[:, start:start + DIN_EMB]
+        err = close(segmented_sum_scan(x, heads), segmented_sum_scan_plain(x, heads), rtol=1e-5,
+                    atol=1e-5)
+        print(f"segmented_sum_scan kernel vs plain  DIN ids n={ids.shape[0]} E={DIN_EMB} row "
+              f"stride {x.stride(0)}: max abs err {err:.3e}")
+        timings[f"scan_{kind}"] = time_seg_scan(x, heads)
+        _, timings[f"scatter_{kind}"] = check_and_time_scatter(
+            rng, gen, kind, ids=ids, vocab_rows=DIN_ITEMS, widths=(DIN_PACKED_W, DIN_Q_W))
+    moved, g, sorted_ids, salt = requantize_inputs(rng, gen, seed, ids=ids, vocab_rows=DIN_ITEMS,
+                                                   emb=DIN_EMB, path=DIN_TABLES["int8"])
+    lr = DIN_TABLE_LR
+    got = requantize_rows(moved, g, sorted_ids, salt, lr, DIN_EMB)
+    want = requantize_rows_plain(moved, g, sorted_ids, salt, lr, DIN_EMB)
+    torch.cuda.synchronize()
+    rows_agree(got.cpu(), want.cpu(), "DIN ids", emb=DIN_EMB)
+    runs = {"ms": [], "plain_ms": []}
+    for _ in range(3):
+        runs["ms"].append(time_cuda(lambda: requantize_rows(moved, g, sorted_ids, salt, lr,
+                                                            DIN_EMB)))
+        runs["plain_ms"].append(time_cuda(
+            lambda: requantize_rows_plain(moved, g, sorted_ids, salt, lr, DIN_EMB), iters=10))
+    n = moved.shape[0]
+    nbytes = n * ((DIN_EMB + 8) + 4 * DIN_EMB + 4 + DIN_Q_W)
+    timings["requantize"] = {k: float(np.median(v)) for k, v in runs.items()}
+    timings["requantize"].update(library_ms=None, bound_ms=1e3 * nbytes / PEAK_BYTES_S,
+                                 bound_by="bytes")
+    print(f"requantize_rows at DIN's n={n} W={DIN_Q_W} E={DIN_EMB}: kernel "
+          f"{timings['requantize']['ms']:.4f} ms, plain {timings['requantize']['plain_ms']:.4f} "
+          f"ms, bound {timings['requantize']['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB); "
+          f"rounds {runs}")
+    return timings
+
+
+def make_trainer(spec: ModelSpec, table: str, device: str, leaves: dict, sample: dict,
+                 seed: int):
     """bench.py's training set-up for ``table``: f32, packed ``table || m || v``
     rows under lazy Adam (``SparseEmbeddingTrainer``; DeepFM's linear table
     too); int8, packed ``q || scale || acc`` rows under rowwise Adagrad with
     stochastic requantization (``QuantizedEmbeddingTrainer``; DeepFM's f32
     linear table in the dense optimizer). Dense Adam, BCE, lr 1e-3; weights
     from ``leaves`` (flax layout)."""
-    model = make_model(table, device, seed, model_name)
+    model = spec.make(table, device, seed)
     cls = SparseEmbeddingTrainer if table == "f32" else QuantizedEmbeddingTrainer
     trainer = cls(model, device=device, packed_tables=True)
     trainer.compile(optimizer="adam", lr=TRAIN_LR, loss="bce")
@@ -908,16 +1285,19 @@ def time_table_share(trainer, batch: dict, path: str) -> float:
     return ms
 
 
-def train(table: str, leaves: dict, rng: np.random.Generator, seed: int,
-          model_name: str = "dcnv2"):
-    """Phases 7, 10, 14 and 15: one main training path, every launch count
-    from zero. Returns the launches (by kernel name), the ms/step and, for
-    DeepFM's f32 tables, each table's own share of a step in ms."""
-    tag = f"[train {table}]" if model_name == "dcnv2" else f"[train {model_name} {table}]"
-    per_step = PER_STEP[(model_name, table)]
-    host = [make_train_batch(rng) for _ in range(4)]
-    trainer = make_trainer(table, "cuda", leaves, host[0], seed, model_name)
+def train(spec: ModelSpec, table: str, leaves: dict, rng: np.random.Generator, seed: int,
+          table_shares: bool = False):
+    """Phases 7, 10, 14, 15, 19 and 20: one main training path, every launch count
+    from zero. Returns the launches (by kernel name), the ms/step and, with
+    ``table_shares``, each packed f32 table's own share of a step in ms."""
+    tag = f"[train {spec.name} {table}]"
+    per_step = spec.per_step[table]
+    rows = spec.train_rows
+    host = [spec.batch(rng, rows) for _ in range(4)]
+    trainer = make_trainer(spec, table, "cuda", leaves, host[0], seed)
     batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()} for b in host]
+    if table == "int8" and spec.table_lr is not None and trainer._table_lr != spec.table_lr:
+        raise AssertionError(f"{tag} table lr {trainer._table_lr}, want {spec.table_lr}")
     addresses = {path: packed.data_ptr() for path, packed in trainer.state.packed.items()}
     for path, packed in trainer.state.packed.items():
         print(f"{tag} packed table {path} {tuple(packed.shape)} {packed.dtype}, "
@@ -930,8 +1310,9 @@ def train(table: str, leaves: dict, rng: np.random.Generator, seed: int,
         for path, address in addresses.items():
             if trainer.state.packed[path].data_ptr() != address:
                 raise AssertionError(f"{tag} the packed table {path} was reallocated")
-        if table == "int8" and trainer.model.unified_q.data_ptr() != addresses["unified_q"]:
-            raise AssertionError(f"{tag} the packed table is not the model's unified_q")
+        q_path = spec.tables["int8"]
+        if table == "int8" and trainer.model.get_buffer(q_path).data_ptr() != addresses[q_path]:
+            raise AssertionError(f"{tag} the packed table is not the model's {q_path}")
 
     zero_counts()
     zero = counts()
@@ -955,7 +1336,7 @@ def train(table: str, leaves: dict, rng: np.random.Generator, seed: int,
     print(f"{tag} {steps} train_steps, launches {names(counts())}; losses {losses[0]:.6f} -> "
           f"{losses[-1]:.6f}")
     print(f"{tag} {ms:.3f} ms/step (CUDA events over {TRAIN_TIMED} steps), "
-          f"{TRAIN_BATCH / (ms / 1e3):.0f} examples/s; host clock {host_ms:.3f} ms/step")
+          f"{rows / (ms / 1e3):.0f} examples/s; host clock {host_ms:.3f} ms/step")
     print(f"{tag} peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
     before = counts()
@@ -964,30 +1345,33 @@ def train(table: str, leaves: dict, rng: np.random.Generator, seed: int,
     if len(history.history["loss"]) != 2 or not np.isfinite(history.history["loss"]).all():
         raise AssertionError(f"{tag} fit_steps: history {history.history}")
     print(f"{tag} fit_steps(4, log_every=2): loss {history.history['loss']}")
-    profile_call(lambda: trainer.train_step(batches[0]), f"{tag} one step", per_step, top=24)
+    profile_call(lambda: trainer.train_step(batches[0]), f"{tag} one step", per_step, top=24,
+                 host_top=12)
     check_buffers()
 
     before = counts()
     request = {k: v[:1000] for k, v in host[1].items() if k != "label"}
     scores = trainer.make_serving_fn()(request)
     torch.cuda.synchronize()
-    check_launches(f"{tag} serving from the trained state", before,
-                   {FORWARD_KERNEL[model_name]: 1})
-    if tuple(scores.shape) != (1000,) or not torch.isfinite(scores).all():
+    check_launches(f"{tag} serving from the trained state", before, {spec.forward_kernel: 1})
+    shape = tuple(request[spec.scored_key].shape)
+    if tuple(scores.shape) != shape or not torch.isfinite(scores).all():
         raise AssertionError(f"{tag} serving from the trained state failed")
-    print(f"{tag} make_serving_fn on the trained state: 1000 finite scores, mean "
+    print(f"{tag} make_serving_fn on the trained state: {shape} finite scores, mean "
           f"{float(scores.mean()):.6f}")
     if table == "int8":
-        touched = torch.from_numpy(np.unique(np.concatenate([unified_ids(b) for b in host])))
-        _, _, acc = trainer.unpacked_quantized()["unified"]
-        if not bool((acc[touched] > 0).all()) or acc.numel() != N_SPARSE * VOCAB:
+        path, name = spec.tables["int8"], spec.q_name
+        touched = torch.from_numpy(np.unique(np.concatenate(
+            [spec.table_ids(path, b) for b in host])))
+        _, _, acc = trainer.unpacked_quantized()[name]
+        if not bool((acc[touched] > 0).all()) or acc.numel() != trainer.state.packed[path].shape[0]:
             raise AssertionError(f"{tag} unpacked_quantized: an accumulator of a touched row "
                                  f"stayed 0")
         print(f"{tag} unpacked_quantized: acc > 0 on all {touched.shape[0]} touched rows, "
               f"{int((acc > 0).sum())} of {acc.numel()} rows")
     launches = names(counts())
     shares = {}
-    if model_name == "deepfm" and table == "f32":
+    if table_shares:
         for path in trainer.state.packed:
             shares[path] = time_table_share(trainer, batches[0], path)
         print(f"{tag} each table's own share of a step (gather + packed update, timed "
@@ -995,9 +1379,9 @@ def train(table: str, leaves: dict, rng: np.random.Generator, seed: int,
     return launches, ms, shares
 
 
-def card_against_cpu(table: str, leaves: dict, rng: np.random.Generator, seed: int,
-                     model_name: str = "dcnv2") -> None:
-    """Phases 8, 11 and 16: 2 steps at batch 1024 on the card and on the CPU
+def card_against_cpu(spec: ModelSpec, table: str, leaves: dict, rng: np.random.Generator,
+                     seed: int) -> None:
+    """Phases 8, 11, 16 and 21: 2 steps at batch 1024 (DIN 512) on the card and on the CPU
     (plain versions) from the same state: losses rtol 1e-5, dense parameters
     rtol 1e-4 / atol 1e-6 (DeepFM's int8 set-up keeps its linear table
     there, whose card gradient sums by atomics in no fixed order); each
@@ -1005,18 +1389,20 @@ def card_against_cpu(table: str, leaves: dict, rng: np.random.Generator, seed: i
     and accumulator so and their q values off by at most one in at most 0.1%
     of them (int8: f32 sums in another order move a value over a rounding
     threshold)."""
-    tag = f"[{table}]" if model_name == "dcnv2" else f"[{model_name} {table}]"
-    host = [make_train_batch(rng, CPU_BATCH) for _ in range(CPU_STEPS)]
-    touched = torch.from_numpy(np.unique(np.concatenate([unified_ids(b) for b in host])))
+    tag = f"[{spec.name} {table}]"
+    batch_rows, emb = spec.cpu_rows, spec.emb
+    host = [spec.batch(rng, batch_rows) for _ in range(CPU_STEPS)]
     runs = {}
     for device in ("cuda", "cpu"):
-        trainer = make_trainer(table, device, leaves, host[0], seed, model_name)
+        trainer = make_trainer(spec, table, device, leaves, host[0], seed)
         losses = torch.stack([trainer.train_step(b) for b in host]).cpu()
         keys = {path.replace("/", ".") for path in trainer.state.packed}
         dense = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()
                  if k not in keys}
-        rows = {path: packed[touched.to(device)].cpu()
-                for path, packed in trainer.state.packed.items()}
+        rows = {}
+        for path, packed in trainer.state.packed.items():
+            touched = np.unique(np.concatenate([spec.table_ids(path, b) for b in host]))
+            rows[path] = packed[torch.from_numpy(touched).to(device)].cpu()
         runs[device] = losses, dense, rows
         del trainer
     (card_loss, card_dense, card_rows), (cpu_loss, cpu_dense, cpu_rows) = runs["cuda"], runs["cpu"]
@@ -1024,10 +1410,10 @@ def card_against_cpu(table: str, leaves: dict, rng: np.random.Generator, seed: i
     dense_err = max(close(card_dense[k], cpu_dense[k]) for k in cpu_dense)
     notes = []
     for path, cpu in cpu_rows.items():
-        if path != "unified_q":
-            notes.append(f"{path} {close(card_rows[path], cpu):.3e}")
+        if path != spec.tables["int8"]:
+            notes.append(f"{path} {close(card_rows[path], cpu):.3e} ({cpu.shape[0]} rows)")
             continue
-        (cq, cs, ca), (pq, ps, pa) = (unpack_quantized_table(r, EMB)
+        (cq, cs, ca), (pq, ps, pa) = (unpack_quantized_table(r, emb)
                                       for r in (card_rows[path], cpu))
         err = max(close(cs, ps), close(ca, pa))
         diff = (cq.int() - pq.int()).abs()
@@ -1036,9 +1422,9 @@ def card_against_cpu(table: str, leaves: dict, rng: np.random.Generator, seed: i
             raise AssertionError(f"{tag} int8 card vs CPU: {flips} q values differ, by up to "
                                  f"{int(diff.max())}")
         notes.append(f"{path} scale/acc {err:.3e}, {flips} of {diff.numel()} q values off by one")
-    print(f"{tag} card vs CPU, {CPU_STEPS} steps at batch {CPU_BATCH}: losses "
+    print(f"{tag} card vs CPU, {CPU_STEPS} steps at batch {batch_rows}: losses "
           f"{card_loss.tolist()} / {cpu_loss.tolist()}; max abs err: loss {loss_err:.3e}, dense "
-          f"params {dense_err:.3e}; {touched.shape[0]} touched packed rows: {'; '.join(notes)}")
+          f"params {dense_err:.3e}; touched packed rows: {'; '.join(notes)}")
 
 
 def main() -> int:
@@ -1059,7 +1445,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    paths = build("cross", "seg_scan", "scatter", "requantize", "fm")
+    paths = build("cross", "seg_scan", "scatter", "requantize", "fm", "din_attention")
     print(f"built {', '.join(str(p.name) for p in paths.values())} in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernel against plain (these launches are not the main path's)
@@ -1069,7 +1455,7 @@ def main() -> int:
     requests = make_requests(rng)
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    served = sum(serve_table(table, requests, args.seed) for table in ("f32", "int8"))
+    served = sum(serve_table(DCNV2_SPEC, table, requests, args.seed) for table in ("f32", "int8"))
     check_launches("DCN-v2 serving", {k: 0 for k in ALL_KERNELS}, {cross_network: served})
     serving_launches = cross_network.launches
     print(f"serving: {served} requests, cross_network launches {serving_launches}; peak device "
@@ -1100,11 +1486,11 @@ def main() -> int:
 
     # 7. f32 training, with launch counts from zero
     leaves = flax_leaves(np.random.default_rng(args.seed + 3), "f32")
-    f32_launches, f32_ms, _ = train("f32", leaves, rng, args.seed)
+    f32_launches, f32_ms, _ = train(DCNV2_SPEC, "f32", leaves, rng, args.seed)
     torch.cuda.empty_cache()
 
     # 8. f32 card against CPU
-    card_against_cpu("f32", leaves, rng, args.seed)
+    card_against_cpu(DCNV2_SPEC, "f32", leaves, rng, args.seed)
     del leaves
 
     # 9. the requantize kernel against plain (not the main path's launches)
@@ -1113,13 +1499,13 @@ def main() -> int:
 
     # 10. int8 training, with launch counts from zero
     leaves = flax_leaves(np.random.default_rng(args.seed + 4), "int8")
-    launches, int8_ms, _ = train("int8", leaves, rng, args.seed)
+    launches, int8_ms, _ = train(DCNV2_SPEC, "int8", leaves, rng, args.seed)
     print(f"[train] int8-packed {int8_ms:.3f} ms/step against f32-packed {f32_ms:.3f} ms/step "
           f"({f32_ms / int8_ms:.3f}x)")
     torch.cuda.empty_cache()
 
     # 11. int8 card against CPU
-    card_against_cpu("int8", leaves, rng, args.seed)
+    card_against_cpu(DCNV2_SPEC, "int8", leaves, rng, args.seed)
     del leaves
 
     # 12. the FM kernels against plain, and B2 at the linear table's E=1
@@ -1131,7 +1517,7 @@ def main() -> int:
     # 13. DeepFM serving, with launch counts from zero
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    deepfm_served = sum(serve_table(table, requests, args.seed, "deepfm",
+    deepfm_served = sum(serve_table(DEEPFM_SPEC, table, requests, args.seed,
                                     profiled=PROFILED_SHAPES[1:])
                         for table in ("f32", "int8"))
     check_launches("DeepFM serving", {k: 0 for k in ALL_KERNELS}, {fm_interaction: deepfm_served})
@@ -1144,22 +1530,65 @@ def main() -> int:
 
     # 14. DeepFM f32 training, with launch counts from zero
     leaves = deepfm_leaves(np.random.default_rng(args.seed + 5), "f32")
-    fm_f32_launches, fm_f32_ms, shares = train("f32", leaves, rng, args.seed, "deepfm")
+    fm_f32_launches, fm_f32_ms, shares = train(DEEPFM_SPEC, "f32", leaves, rng, args.seed,
+                                               table_shares=True)
     torch.cuda.empty_cache()
 
     # 16 (f32). DeepFM f32 card against CPU
-    card_against_cpu("f32", leaves, rng, args.seed, "deepfm")
+    card_against_cpu(DEEPFM_SPEC, "f32", leaves, rng, args.seed)
     del leaves
 
     # 15. DeepFM int8 training, with launch counts from zero
     leaves = deepfm_leaves(np.random.default_rng(args.seed + 6), "int8")
-    fm_int8_launches, fm_int8_ms, _ = train("int8", leaves, rng, args.seed, "deepfm")
+    fm_int8_launches, fm_int8_ms, _ = train(DEEPFM_SPEC, "int8", leaves, rng, args.seed)
     print(f"[train deepfm] int8-packed {fm_int8_ms:.3f} ms/step, f32-packed {fm_f32_ms:.3f} "
           f"ms/step; DCN-v2 int8 {int8_ms:.3f}, f32 {f32_ms:.3f} ms/step in this run")
     torch.cuda.empty_cache()
 
     # 16 (int8). DeepFM int8 card against CPU
-    card_against_cpu("int8", leaves, rng, args.seed, "deepfm")
+    card_against_cpu(DEEPFM_SPEC, "int8", leaves, rng, args.seed)
+    del leaves
+    torch.cuda.empty_cache()
+
+    # 17. the DIN pooling kernel against plain, and the update's kernels at
+    # DIN's step shape (not the main path's launches)
+    din_err, din_grad_err, din_timing = check_and_time_din(gen)
+    din_update_timing = check_and_time_din_update(rng, gen, args.seed)
+    torch.cuda.empty_cache()
+
+    # 18. DIN serving, with launch counts from zero
+    din_requests = make_din_requests(rng)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    din_served = sum(serve_table(DIN_SPEC, table, din_requests, args.seed,
+                                 profiled=(din_requests[-1][2],))
+                     for table in ("f32", "int8"))
+    check_launches("DIN serving", {k: 0 for k in ALL_KERNELS}, {din_attention_pool: din_served})
+    din_serving_launches = din_attention_pool.launches
+    print(f"DIN serving: {din_served} requests, din_attention_pool launches "
+          f"{din_serving_launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.empty_cache()
+
+    # 19. DIN f32 training, with launch counts from zero
+    leaves = din_leaves(np.random.default_rng(args.seed + 7), "f32")
+    din_f32_launches, din_f32_ms, _ = train(DIN_SPEC, "f32", leaves, rng, args.seed)
+    torch.cuda.empty_cache()
+
+    # 21 (f32). DIN f32 card against CPU
+    card_against_cpu(DIN_SPEC, "f32", leaves, rng, args.seed)
+    del leaves
+    torch.cuda.empty_cache()
+
+    # 20. DIN int8 training, with launch counts from zero
+    leaves = din_leaves(np.random.default_rng(args.seed + 8), "int8")
+    din_int8_launches, din_int8_ms, _ = train(DIN_SPEC, "int8", leaves, rng, args.seed)
+    print(f"[train din] int8-packed {din_int8_ms:.3f} ms/step, f32-packed {din_f32_ms:.3f} "
+          f"ms/step at batch {DIN_BATCH}")
+    torch.cuda.empty_cache()
+
+    # 21 (int8). DIN int8 card against CPU
+    card_against_cpu(DIN_SPEC, "int8", leaves, rng, args.seed)
     del leaves
 
     n_scan = TRAIN_BATCH * N_SPARSE
@@ -1169,6 +1598,12 @@ def main() -> int:
     def deepfm_launches(name):
         return {"deepfm_f32_train_launches": fm_f32_launches[name],
                 "deepfm_int8_train_launches": fm_int8_launches[name]}
+
+    def din_launches(name):
+        return {"din_f32_train_launches": din_f32_launches[name],
+                "din_int8_train_launches": din_int8_launches[name]}
+
+    n_din = DIN_BATCH * (DIN_CAND + DIN_STEPS)
 
     entries = [
         {"name": "cross_network", "route": "cuda",
@@ -1184,26 +1619,38 @@ def main() -> int:
          "launches": launches["segmented_sum_scan"], "max_abs_err": scan_err, **scan_timing,
          "shape": f"n={n_scan} E={EMB} f32, row stride {PACKED_W}",
          "f32_train_launches": f32_launches["segmented_sum_scan"],
-         **deepfm_launches("segmented_sum_scan"),
+         **deepfm_launches("segmented_sum_scan"), **din_launches("segmented_sum_scan"),
          "int8": {"shape": f"n={n_scan} E={EMB} f32, row stride {Q_W // 4}",
                   **scan_timing_int8},
          "linear_table": {"shape": f"n={n_scan} E=1 f32, row stride {PACKED_W}",
-                          **scan_timing_lin}},
+                          **scan_timing_lin},
+         "din_f32": {"shape": f"n={n_din} E={DIN_EMB} f32, row stride {DIN_PACKED_W}",
+                     **din_update_timing["scan_f32"]},
+         "din_int8": {"shape": f"n={n_din} E={DIN_EMB} f32, row stride {DIN_Q_W // 4}",
+                      **din_update_timing["scan_int8"]}},
         {"name": "requantize_rows", "route": "cuda",
          "source": "pytorchrec_tpu_torch/csrc/requantize.cu",
          "replaces": "pytorchrec_tpu/ops/kernels/quantize.py:243",
          "launches": launches["requantize_rows"], "max_abs_err": requant_err, **requant_timing,
          "shape": f"n={n_scan} rows of {Q_W} u8, E={EMB}",
-         "deepfm_int8_train_launches": fm_int8_launches["requantize_rows"]},
+         "deepfm_int8_train_launches": fm_int8_launches["requantize_rows"],
+         "din_int8_train_launches": din_int8_launches["requantize_rows"],
+         "din": {"shape": f"n={n_din} rows of {DIN_Q_W} u8, E={DIN_EMB}",
+                 **din_update_timing["requantize"]}},
         {"name": "scatter_set_rows", "route": "cuda",
          "source": "pytorchrec_tpu_torch/csrc/scatter.cu",
          "replaces": "pytorchrec_tpu/ops/kernels/dma_scatter.py:117",
          "launches": launches["scatter_set_rows"], "max_abs_err": scatter_err, **scatter_timing,
          "shape": f"n={n_scan} rows of {PACKED_W} f32 into [{vocab_rows}, {PACKED_W}]",
          "f32_train_launches": f32_launches["scatter_set_rows"],
-         **deepfm_launches("scatter_set_rows"),
+         **deepfm_launches("scatter_set_rows"), **din_launches("scatter_set_rows"),
          "int8": {"shape": f"n={n_scan} rows of {Q_W} u8 into [{vocab_rows}, {Q_W}]",
-                  **scatter_timing_int8}},
+                  **scatter_timing_int8},
+         "din_f32": {"shape": f"n={n_din} rows of {DIN_PACKED_W} f32 into "
+                              f"[{DIN_ITEMS}, {DIN_PACKED_W}]",
+                     **din_update_timing["scatter_f32"]},
+         "din_int8": {"shape": f"n={n_din} rows of {DIN_Q_W} u8 into [{DIN_ITEMS}, {DIN_Q_W}]",
+                      **din_update_timing["scatter_int8"]}},
         {"name": "fm_interaction", "route": "cuda",
          "source": "pytorchrec_tpu_torch/csrc/fm.cu",
          "replaces": "pytorchrec_tpu/ops/kernels/fm.py:24",
@@ -1219,9 +1666,23 @@ def main() -> int:
          **fm_timing["bwd"], "shape": f"{fm_shape}, g [{TRAIN_BATCH}]",
          "deepfm_int8_train_launches": fm_int8_launches["fm_interaction_backward"],
          "library_note": "no single PyTorch call computes g * (sum_f v - v)"},
+        {"name": "din_attention_pool", "route": "cuda",
+         "source": "pytorchrec_tpu_torch/csrc/din_attention.cu",
+         "replaces": "pytorchrec_tpu/ops/kernels/din_attention.py:144",
+         "launches": din_f32_launches["din_attention_pool"], "max_abs_err": din_err,
+         **din_timing["train"],
+         "shape": f"[{DIN_BATCH}, {DIN_CAND}, {DIN_STEPS}, {DIN_EMB}] f32, score MLP {DIN_ATT}",
+         "din_int8_train_launches": din_int8_launches["din_attention_pool"],
+         "serving_launches": din_serving_launches, "grad_max_abs_err": din_grad_err,
+         "serving": {"shape": f"[1024, {DIN_LOO}, {DIN_STEPS}, {DIN_EMB}] f32",
+                     **din_timing["serve"]},
+         "library_note": "no single PyTorch call computes MLP-scored attention pooling "
+                         "(scaled_dot_product_attention scores by dot product)"},
     ]
     print(json.dumps({"deepfm": {"f32_ms_per_step": fm_f32_ms, "int8_ms_per_step": fm_int8_ms,
-                                 "table_share_ms": shares}}))
+                                 "table_share_ms": shares},
+                      "din": {"f32_ms_per_step": din_f32_ms, "int8_ms_per_step": din_int8_ms,
+                              "batch": DIN_BATCH}}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,3 +1,3 @@
-from pytorchrec_tpu_torch.loss.losses import LOSSES, bce_loss, get_loss, mse_loss
+from pytorchrec_tpu_torch.loss.losses import LOSSES, bce_loss, bpr_loss, get_loss, mse_loss
 
-__all__ = ["LOSSES", "bce_loss", "mse_loss", "get_loss"]
+__all__ = ["LOSSES", "bce_loss", "bpr_loss", "mse_loss", "get_loss"]

@@ -1,7 +1,8 @@
-"""Loss functions (port of ``pytorchrec_tpu/loss/losses.py``): BCE and MSE.
+"""Loss functions (port of ``pytorchrec_tpu/loss/losses.py``): BCE, MSE and
+BPR.
 
 Each takes ``(prediction, target)`` and a reduction (``mean``, ``sum`` or
-``none``). The ranking and multi-task losses (bpr, top1, softmax, esmm)
+``none``). The other ranking and multi-task losses (top1, softmax, esmm)
 come with the task slices.
 """
 
@@ -36,7 +37,16 @@ def bce_loss(prediction: torch.Tensor, target: torch.Tensor,
                      + (1.0 - target) * F.logsigmoid(-prediction)), reduction)
 
 
-LOSSES = {"bce": bce_loss, "mse": mse_loss}
+def bpr_loss(prediction: torch.Tensor, target=None, reduction: str = "mean") -> torch.Tensor:
+    """Pairwise BPR on ``[B, 2]`` (positive, negative) scores:
+    ``softplus(neg - pos)``. ``target`` is ignored: the pair layout is
+    positional."""
+    if prediction.dim() != 2 or prediction.shape[1] != 2:
+        raise ValueError(f"bpr_loss takes [B, 2] scores, got {tuple(prediction.shape)}")
+    return _reduce(F.softplus(prediction[:, 1] - prediction[:, 0]), reduction)
+
+
+LOSSES = {"bce": bce_loss, "bpr": bpr_loss, "mse": mse_loss}
 
 
 def get_loss(loss_name: str) -> Callable:

@@ -41,3 +41,9 @@ class RecModel(nn.Module):
                 generator: Optional[torch.Generator] = None) -> Prediction:  # pragma: no cover
         """``generator`` feeds dropout when ``train`` is True."""
         raise NotImplementedError
+
+    @property
+    def has_quantized_table(self) -> bool:
+        """Whether a table is kept as quantized byte rows, which train only
+        under ``QuantizedEmbeddingTrainer``."""
+        return False

@@ -223,6 +223,10 @@ class _CTRBase(RecModel):
             return prediction, one_hot_first_target(prediction)
         return prediction, label_target(self.label_column, batch)
 
+    @property
+    def has_quantized_table(self) -> bool:
+        return self.quantized_embedding
+
     def _check_trainable_table(self, quantized: bool) -> None:
         """The sparse trainer takes the unified f32 table, the quantized
         trainer the unified quantized one."""

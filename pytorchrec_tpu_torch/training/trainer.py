@@ -94,7 +94,7 @@ class Trainer:
         counter starts at 0. ``sample_batch`` names the tables a batch reads
         (the sparse trainer's protocol)."""
         self._assert_compiled()
-        if getattr(self.model, "quantized_embedding", False) and not self.trains_quantized_tables:
+        if self.model.has_quantized_table and not self.trains_quantized_tables:
             raise ValueError("a quantized table trains under QuantizedEmbeddingTrainer")
         generator = torch.Generator(device=self.device).manual_seed(seed)
         with torch.no_grad():

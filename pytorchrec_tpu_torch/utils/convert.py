@@ -8,7 +8,9 @@ them into the port model's state dict:
 * an f32 embedding leaf wider than the model's E is a packed
   ``table || moments || staging`` row (``SparseEmbeddingTrainer`` with
   ``packed_tables=True``); its first E columns are the table;
-* the uint8 packed quantized table ``unified_q`` passes through unchanged;
+* the uint8 packed quantized tables ``unified_q`` and DIN's ``i_q`` pass
+  through unchanged, as do DIN's attention weights ``attention/w<i>`` and
+  ``attention/b<i>`` (kept ``[in, out]``, ``ops/attention.py``);
 * the linear term's leaves (``bias``, ``dense_linear``, ``dense_factors``,
   ``lin_<field>/embedding``, ``unified_lin/embedding``, plain ``[V, 1]`` or
   packed ``[V, 64]``) load where the model has them; ``bias``,
@@ -21,8 +23,10 @@ no leaf fills.
 
 ``params_from_jax(flat, trainer)`` loads into a packed trainer instead
 (``SparseEmbeddingTrainer`` or ``QuantizedEmbeddingTrainer``), right after
-its ``init_state``: each packed leaf (``unified_emb/embedding`` and
-``unified_lin/embedding`` ``[V, W]`` f32, or ``unified_q`` ``[V, W]`` u8)
+its ``init_state``: each packed leaf (``unified_emb/embedding``,
+``unified_lin/embedding``, DIN's ``u_embeddings/embedding`` and
+``i_embeddings/embedding`` ``[V, W]`` f32, or ``unified_q`` / ``i_q``
+``[V, W]`` u8)
 loads whole into the trainer's packed
 buffer, moments, accumulator and staging columns included, in place; the
 dense leaves load into the model as above. The dense optimizer's state is
@@ -48,7 +52,8 @@ _RULES = (
     (r"(\w+)/bias", r"\1.bias", None),
     (r"(\w+)/embedding", r"\1.embedding", "table_columns"),
     (r"cross/(ws|bs)", r"cross.\1", None),
-    (r"unified_q", "unified_q", None),
+    (r"attention/([wb]\d+)", r"attention.\1", None),
+    (r"(unified_q|i_q)", r"\1", None),
     (r"(bias|dense_factors|dense_linear)", r"\1", None),
 )
 

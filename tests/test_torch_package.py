@@ -42,7 +42,9 @@ def test_every_training_module_is_walked():
             "pytorchrec_tpu_torch.ops.kernels.scatter", "pytorchrec_tpu_torch.ops.kernels.quantize",
             "pytorchrec_tpu_torch.ops.quantized_packed", "pytorchrec_tpu_torch.utils.rng",
             "pytorchrec_tpu_torch.training.quantized_trainer",
-            "pytorchrec_tpu_torch.ops.kernels.fm"} <= modules
+            "pytorchrec_tpu_torch.ops.kernels.fm", "pytorchrec_tpu_torch.ops.kernels.din_attention",
+            "pytorchrec_tpu_torch.ops.attention", "pytorchrec_tpu_torch.ops.seq_utils",
+            "pytorchrec_tpu_torch.models.din"} <= modules
 
 
 def test_importing_every_port_module_loads_no_jax():
@@ -67,7 +69,7 @@ def test_no_port_source_names_jax_or_the_jax_package():
     sources = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     offenders = [str(p.relative_to(ROOT)) for p in sources if pattern.search(p.read_text())]
     assert not offenders
-    for kernel in ("cross", "seg_scan", "scatter", "requantize", "fm"):
+    for kernel in ("cross", "seg_scan", "scatter", "requantize", "fm", "din_attention"):
         assert (PORT / "csrc" / f"{kernel}.cu").exists()
 
 
@@ -196,6 +198,19 @@ def test_losses_match_jax(name, reduction):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("reduction", ["mean", "sum", "none"])
+def test_bpr_loss_matches_jax(reduction):
+    """BPR on [B, 2] (positive, negative) scores, large ones included (the
+    stable softplus); rtol 1e-5 / atol 1e-6."""
+    prediction = (np.random.default_rng(8).normal(size=(64, 2)) * 30).astype(np.float32)
+    want = jax_losses.bpr_loss(jnp.asarray(prediction), None, reduction=reduction)
+    got = get_loss("bpr")(torch.from_numpy(prediction), None, reduction=reduction)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError):
+        get_loss("bpr")(torch.zeros(64), None)
+
+
 def test_unported_losses_raise():
     with pytest.raises(NotImplementedError):
-        get_loss("bpr")
+        get_loss("top1")
