@@ -7,7 +7,7 @@ Phases; any failure ends the run with a non-zero exit and no result line:
 
 1. card: the card's name and power limit (nvidia-smi) and torch's name for it;
 2. build: every CUDA kernel of the serving and training paths (cross,
-   seg_scan, scatter, requantize, fm, din_attention), from
+   seg_scan, scatter, requantize, fm, din_attention, retrieval_topk), from
    ``pytorchrec_tpu_torch/csrc``, one nvcc each, all at once;
 3. kernel against plain: the cross kernel's wrapper on the card at the shapes
    the serving path gives it, held against its plain PyTorch version;
@@ -108,12 +108,46 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    in the dense Adam; every step launches the pooling, scan, requantize and
    scatter kernels once each;
 21. DIN card against CPU: phases 8 and 11 for DIN, at batch 512;
+22. B7 against plain, on the card: the fused score + bin-max kernel at the
+   serving shape (4096 unit queries x 1,000,000 unit items, D=128, tc 2048,
+   group 16) in bf16 and f32, at B=1, at B=37 and D=16 with the three
+   ``(V, tc, group)`` of ``tests/test_pallas_kernels.py``, at V=1 and V=100,
+   and with duplicated rows (the lower id wins); vals rtol 1e-4 / atol 1e-6,
+   ids equal except in bins whose best and runner-up tie within that (they
+   are counted). Then its time at the serving shape beside the plain
+   version, the per-super-chunk cuBLAS score GEMMs alone, the exact chunked
+   top-k and both bounds (bf16 tensor cores, f32 FMA);
+23. two-tower retrieval serving at ``scripts/retrieval_bench.py``'s scale, no
+   cut (1M users and 1M items of E=64, towers (256, 128), normalized,
+   temperature 0.05), weights from ``--seed`` in the flax leaf layout through
+   ``params_from_jax``: the bf16 item index built and timed, fused requests
+   of 1, 256 and 4096 queries at k=100 (each launches B7 once and agrees with
+   the plain version on the card, the 256-query one with the CPU too; their
+   scores are the exact scores of their ids; the 4096-query recall against
+   the exact path is at least 0.975), one fused request on an f32 index,
+   ``approx=True`` (the exact path), point-wise and candidate scoring through
+   ``make_serving_fn`` (no B7), a profile of the 4096-query request; the same
+   with the int8 item table;
+24. two-tower f32 training: phase 7 for the two-tower model at batch 4096
+   (``iid [B, 1]``: 4095 in-batch negatives a row), the softmax loss, lr
+   1e-2, two packed ``[1000000, 256]`` f32 tables: every step launches the
+   scan and the scatter twice and B7 never; then a fused retrieval from the
+   trained model's rebuilt index, which launches B7 once;
+25. two-tower int8 training: phase 10 for the two-tower model, the
+   ``[1000000, 384]`` u8 ``i_q``, the user table in the dense Adam; every
+   step launches the scan, requantize and scatter kernels once each;
+26. two-tower card against CPU: phases 8 and 11 at batch 512 with
+   accidental-hit masking, planted duplicate positives and a logQ column,
+   each step from a common state, with Adam's eps window counted
+   (``tt_card_against_cpu`` says why);
 
-then a ``{"kernels": [...]}`` line with every kernel at its main-path shape
-(``launches``: for B1–B4 the DCN-v2 int8 training run's, for the FM kernels
-the DeepFM f32 training run's, for the pooling kernel the DIN f32 training
-run's; the other paths' counts beside). Each path (serving, each training
-run) zeroes every launch count just before it and reads them just after.
+then a ``two_tower`` JSON line (ms/step, fused and exact ms a request,
+recall, index build ms) and a ``{"kernels": [...]}`` line with every kernel
+at its main-path shape (``launches``: for B1–B4 the DCN-v2 int8 training
+run's, for the FM kernels the DeepFM f32 training run's, for the pooling
+kernel the DIN f32 training run's, for B7 the two-tower serving run's; the
+other paths' counts beside). Each path (serving, each training run) zeroes
+every launch count just before it and reads them just after.
 The last line is ``{"ok": true, "device": {...}}``.
 Needs one CUDA card; no JAX and nothing of the JAX package is imported.
 """
@@ -122,6 +156,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import functools
 import json
@@ -134,7 +169,7 @@ import numpy as np
 import torch
 
 from pytorchrec_tpu_torch.feature_column import CategoricalColumnWithIdentity, NumericColumn
-from pytorchrec_tpu_torch.models import DIN, DCNv2, DeepFM
+from pytorchrec_tpu_torch.models import DIN, DCNv2, DeepFM, TwoTower
 from pytorchrec_tpu_torch.models import ctr as ctr_module
 from pytorchrec_tpu_torch.ops import attention as attention_module
 from pytorchrec_tpu_torch.ops.kernels.build import build
@@ -155,6 +190,14 @@ from pytorchrec_tpu_torch.ops.kernels.quantize import (
     requantize_rows_plain,
     table_rounding_salt,
 )
+from pytorchrec_tpu_torch.ops.kernels.retrieval_topk import (
+    DEFAULT_GROUP,
+    DEFAULT_TC,
+    LANES,
+    PAD_SCORE,
+    bin_max_scores,
+    bin_max_scores_plain,
+)
 from pytorchrec_tpu_torch.ops.kernels.scatter import scatter_set_rows, scatter_set_rows_plain
 from pytorchrec_tpu_torch.ops.kernels.seg_scan import (
     segmented_sum_scan,
@@ -168,6 +211,8 @@ from pytorchrec_tpu_torch.ops.quantized_packed import (
     unpack_quantized_table,
 )
 from pytorchrec_tpu_torch.ops.sparse_update import packed_sparse_update
+from pytorchrec_tpu_torch.serving import build_item_index, make_retrieve_fn
+from pytorchrec_tpu_torch.serving import retrieval as retrieval_module
 from pytorchrec_tpu_torch.training import QuantizedEmbeddingTrainer, SparseEmbeddingTrainer, Trainer
 from pytorchrec_tpu_torch.utils import params_from_jax
 from pytorchrec_tpu_torch.utils.rng import prng_key, split
@@ -217,11 +262,36 @@ DIN_TABLES = {"f32": "i_embeddings/embedding", "int8": "i_q"}  # the item table'
 DIN_TABLE_LR = 2e-2  # DIN's table_lr_hint: the int8 table's rowwise-Adagrad lr
 DIN_ROW_SCALE = 10.0  # table rows N(0, 0.1), ten times the init's (din_leaves says why)
 
-ALL_KERNELS = (cross_network, segmented_sum_scan, requantize_rows, scatter_set_rows,
-               fm_interaction, fm_interaction_backward, din_attention_pool)
+# two-tower retrieval at scripts/retrieval_bench.py:31-57's scale, no cut:
+# 1M users and 1M items of E=64, towers (256, 128), D=128, cosine / 0.05
+TT_USERS = TT_ITEMS = 1_000_000
+TT_EMB, TT_LAYERS, TT_TEMPERATURE = 64, (256, 128), 0.05
+TT_DIM = TT_LAYERS[-1]
+TT_K = 100
+TT_REQUESTS = (1, 256, 4096)  # fused requests of this many queries
+TT_CPU_REQUEST = 256  # also served on the CPU
+TT_INDEX_BATCH = 131072
+TT_BATCH, TT_LR = 4096, 1e-2  # training (tests/test_two_tower.py:377's lr)
+TT_CPU_BATCH = 512
+TT_PACKED_W = 4 * TT_EMB  # f32 table || m || v || staging under Adam
+TT_Q_W = packed_q_width(TT_EMB, 8, 1)  # 384 bytes
+TT_TABLES = {"f32": "i_embeddings/embedding", "int8": "i_q"}  # the item table's leaf
+TT_ROW_SCALE = 10.0  # table rows N(0, 0.1), as DIN's (tt_leaves says why)
+TT_RECALL_MIN = 0.975
+# B7 at the serving shape: 4096 queries x 1M items, D=128, tc 2048, group 16
+B7_QUERIES = 4096
+# Adam (optim/optimizers.py, ops/sparse_update.py): beta2, and the RMS
+# gradient under which a step's size hangs on a gradient's last bits (100 eps)
+ADAM_BETA2 = 0.999
+ADAM_EPS_WINDOW = 1e-6
 
-# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
+ALL_KERNELS = (cross_network, segmented_sum_scan, requantize_rows, scatter_set_rows,
+               fm_interaction, fm_interaction_backward, din_attention_pool, bin_max_scores)
+
+# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, bf16 on
+# the tensor cores (dense), HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_TENSOR_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 
 # kernel against plain: f32 sums of D terms run in another order
@@ -564,8 +634,8 @@ class ModelSpec:
     table_ids: Callable  # (packed table path, host batch) -> the ids it gathers
     tables: dict  # table format -> the largest table's leaf (int8: the packed u8 buffer)
     q_name: str  # the quantized table's name in unpacked_quantized()
-    forward_kernel: Any  # one launch a request
-    plain_forward: Callable  # (model) -> a context in which it runs the plain version
+    forward_kernel: Any  # one launch a scored request (None: the model's scoring runs none)
+    plain_forward: Optional[Callable]  # (model) -> a context in which it runs the plain version
     per_step: dict  # table format -> {kernel: launches a train step}; the others none
     train_rows: int
     cpu_rows: int  # batch of the card against the CPU
@@ -573,6 +643,9 @@ class ModelSpec:
     emb: int
     scored_key: str  # the batch field whose shape the scores take
     table_lr: Optional[float] = None  # the int8 table's lr, where the model sets it
+    loss: str = "bce"
+    lr: float = TRAIN_LR
+    after_train: Optional[Callable] = None  # (trainer, host batches, tag): more of the path
 
 
 DCNV2_SPEC = ModelSpec(
@@ -602,6 +675,111 @@ DIN_SPEC = ModelSpec(
                        scatter_set_rows: 1}},
     train_rows=DIN_BATCH, cpu_rows=DIN_CPU_BATCH, cpu_request=DIN_CPU_REQUEST, emb=DIN_EMB,
     scored_key="iid", table_lr=DIN_TABLE_LR)
+
+
+def he_leaf(rng: np.random.Generator, fan_in: int, fan_out: int) -> np.ndarray:
+    """A ``[fan_in, fan_out]`` kernel N(0, 2 / fan_in)."""
+    return rng.standard_normal((fan_in, fan_out), dtype=np.float32) * np.float32(
+        np.sqrt(2.0 / fan_in))
+
+
+def tt_leaves(rng: np.random.Generator, table: str) -> dict:
+    """Random two-tower parameters in the flax leaf layout: each tower's MLP
+    and projection kernels N(0, 2 / fan_in), biases N(0, 0.01); the f32
+    tables as the packed ``[V, 256]`` leaves of the sparse trainer, or the int8
+    item table as the ``[V, 384]`` u8 ``i_q`` beside a plain f32 user table.
+
+    Not the init's N(0, 0.01) everywhere: through three layers of 0.01
+    weights every tower output is about its biases, so every item scores
+    alike (retrieval would rank ties, and a bf16 index would merge them), and
+    the in-batch softmax's gradients cancel to near Adam's eps, where the
+    card's and the CPU's last-bit differences become a visible share of a
+    step (tests/test_two_tower.py calls it the plateau). Table rows are
+    N(0, 0.1), as DIN's."""
+    leaves = {}
+    for tower in ("user", "item"):
+        fan_in = TT_EMB
+        for i, units in enumerate(TT_LAYERS):
+            leaves[f"{tower}_mlp/Dense_{i}/Dense_0/kernel"] = he_leaf(rng, fan_in, units)
+            leaves[f"{tower}_mlp/Dense_{i}/Dense_0/bias"] = normal_leaf(rng, units)
+            fan_in = units
+        leaves[f"{tower}_proj/kernel"] = he_leaf(rng, fan_in, TT_DIM)
+        leaves[f"{tower}_proj/bias"] = normal_leaf(rng, TT_DIM)
+    users = normal_leaf(rng, TT_USERS, TT_EMB) * np.float32(TT_ROW_SCALE)
+    items = normal_leaf(rng, TT_ITEMS, TT_EMB) * np.float32(TT_ROW_SCALE)
+    if table == "f32":
+        leaves["u_embeddings/embedding"] = packed_f32_leaf(users, TT_PACKED_W)
+        leaves["i_embeddings/embedding"] = packed_f32_leaf(items, TT_PACKED_W)
+    else:
+        leaves["u_embeddings/embedding"] = users
+        leaves["i_q"] = packed_q_leaf(items, TT_Q_W)
+    return leaves
+
+
+def make_two_tower(table: str, device, seed: int, mask: bool = False) -> TwoTower:
+    """The two-tower model at ``scripts/retrieval_bench.py``'s scale, with
+    the f32 or the int8 item table."""
+    col = CategoricalColumnWithIdentity
+    return TwoTower(uid_column=col(feature_name="uid", category_num=TT_USERS),
+                    iid_column=col(feature_name="iid", category_num=TT_ITEMS),
+                    emb_size=TT_EMB, layers=TT_LAYERS, normalize=True,
+                    temperature=TT_TEMPERATURE, mask_accidental_hits=mask,
+                    quantized_table=table == "int8", device=device,
+                    generator=torch.Generator(device=device).manual_seed(seed))
+
+
+def make_tt_batch(rng: np.random.Generator, rows: int = TT_BATCH) -> dict:
+    """In-batch-negatives training rows: ``uid [B]`` and the positive
+    ``iid [B, 1]``, ids uniform over the tables."""
+    return {"uid": rng.integers(0, TT_USERS, size=rows).astype(np.int32),
+            "iid": rng.integers(0, TT_ITEMS, size=(rows, 1)).astype(np.int32)}
+
+
+def make_tt_cpu_batch(rng: np.random.Generator, rows: int = TT_CPU_BATCH) -> dict:
+    """``make_tt_batch`` with planted duplicate positives (8 groups of 4
+    rows share an item: accidental hits to mask) and a raw sampling
+    probability a row under ``TwoTower.Q_KEY`` (float64, as numpy makes
+    it)."""
+    batch = make_tt_batch(rng, rows)
+    for group in range(8):
+        batch["iid"][16 * group:16 * group + 4, 0] = batch["iid"][16 * group, 0]
+    batch[TwoTower.Q_KEY] = rng.uniform(1e-6, 1e-3, size=rows)
+    return batch
+
+
+def tt_table_ids(path: str, batch: dict) -> np.ndarray:
+    """The ids a two-tower batch gathers from the packed table at ``path``."""
+    return (batch["uid"] if path.startswith("u_") else batch["iid"].reshape(-1)).astype(np.int64)
+
+
+def tt_retrieve_trained(trainer, host: list, tag: str) -> None:
+    """Phases 24 and 25, the serving end of training: the trained model's
+    item index rebuilt, then one fused retrieval of 256 users, which
+    launches B7 once."""
+    index = build_item_index(trainer.model, TT_ITEMS, batch_size=TT_INDEX_BATCH)
+    before = counts()
+    scores, ids = make_retrieve_fn(trainer.model, approx="fused")(index, host[1]["uid"][:256],
+                                                                  TT_K)
+    torch.cuda.synchronize()
+    check_launches(f"{tag} fused retrieval from the trained state", before, {bin_max_scores: 1})
+    if tuple(ids.shape) != (256, TT_K) or not torch.isfinite(scores).all() or (
+            ids.min() < 0 or ids.max() >= TT_ITEMS):
+        raise AssertionError(f"{tag} fused retrieval from the trained state failed")
+    print(f"{tag} fused retrieval from the rebuilt index: 256 x {TT_K}, top score mean "
+          f"{float(scores[:, 0].mean()):.4f}")
+
+
+TT_SPEC = ModelSpec(
+    name="two_tower", make=make_two_tower, leaves=tt_leaves, batch=make_tt_batch,
+    table_ids=tt_table_ids, tables=TT_TABLES, q_name="i", forward_kernel=None,
+    plain_forward=None,
+    per_step={"f32": {segmented_sum_scan: 2, scatter_set_rows: 2},
+              "int8": {segmented_sum_scan: 1, requantize_rows: 1, scatter_set_rows: 1}},
+    train_rows=TT_BATCH, cpu_rows=TT_CPU_BATCH, cpu_request=None, emb=TT_EMB, scored_key="iid",
+    table_lr=TT_LR, loss="softmax", lr=TT_LR, after_train=tt_retrieve_trained)
+# the card against the CPU: accidental hits masked, duplicates planted, logQ
+TT_CPU_SPEC = dataclasses.replace(TT_SPEC, make=functools.partial(make_two_tower, mask=True),
+                                  batch=make_tt_cpu_batch)
 
 
 def profile_call(fn, label: str, launches=None, top: int = 6, host_top: int = 0) -> None:
@@ -1250,18 +1428,328 @@ def check_and_time_din_update(rng: np.random.Generator, gen: torch.Generator, se
     return timings
 
 
+# B7 against plain: (label, B, V, D, tc, group, dtype); the serving shape first
+B7_CASES = (
+    ("serving shape bf16", B7_QUERIES, TT_ITEMS, TT_DIM, DEFAULT_TC, DEFAULT_GROUP,
+     torch.bfloat16),
+    ("serving shape f32", B7_QUERIES, TT_ITEMS, TT_DIM, DEFAULT_TC, DEFAULT_GROUP, torch.float32),
+    ("B=1 bf16", 1, TT_ITEMS, TT_DIM, DEFAULT_TC, DEFAULT_GROUP, torch.bfloat16),
+    ("B=37 D=16 bf16", 37, 1024, 16, 256, 2, torch.bfloat16),
+    ("B=37 D=16 bf16", 37, 1000, 16, 256, 2, torch.bfloat16),
+    ("B=37 D=16 bf16", 37, 700, 16, 256, 4, torch.bfloat16),
+    ("B=37 D=16 f32", 37, 1024, 16, 256, 2, torch.float32),
+    ("B=37 D=16 f32", 37, 1000, 16, 256, 2, torch.float32),
+    ("B=37 D=16 f32", 37, 700, 16, 256, 4, torch.float32),
+    ("V=1 bf16", 256, 1, TT_DIM, DEFAULT_TC, DEFAULT_GROUP, torch.bfloat16),
+    ("V=100 bf16", 256, 100, TT_DIM, DEFAULT_TC, DEFAULT_GROUP, torch.bfloat16),
+    ("V=100 f32", 256, 100, TT_DIM, DEFAULT_TC, DEFAULT_GROUP, torch.float32),
+)
+
+
+def unit_rows(gen: torch.Generator, n: int, d: int) -> torch.Tensor:
+    """``[n, d]`` f32 rows of norm 1 on the card, as the normalized towers
+    give them (scores are cosines)."""
+    x = torch.randn((n, d), device="cuda", generator=gen)
+    return x / x.norm(dim=1, keepdim=True)
+
+
+def bin_margins(q: torch.Tensor, items: torch.Tensor, tc: int, group: int) -> torch.Tensor:
+    """Each bin's best score minus its runner-up (inf where a bin has one
+    candidate), from the plain version's f32 scores."""
+    sup = tc * group
+    qf = q.to(items.dtype).float()
+    out = []
+    for start in range(0, items.shape[0], sup):
+        scores = qf @ items[start:start + sup].float().T
+        scores = torch.nn.functional.pad(scores, (0, sup - scores.shape[1]), value=PAD_SCORE)
+        scores = scores.reshape(q.shape[0], sup // LANES, LANES)
+        if scores.shape[1] == 1:
+            out.append(torch.full_like(scores[:, 0], float("inf")))
+        else:
+            top = scores.topk(2, dim=1).values
+            out.append(top[:, 0] - top[:, 1])
+    return torch.cat(out, dim=1)
+
+
+def bins_agree(label: str, q, items, tc: int, group: int, got, want) -> float:
+    """B7 against plain: vals rtol 1e-4 / atol 1e-6; idx equal wherever a
+    bin's best and runner-up differ by more than that (elsewhere the ids
+    must share the bin). Prints the exempt bins; returns the max abs
+    error."""
+    (gv, gi), (wv, wi) = got, want
+    err = close(gv, wv)
+    tied = bin_margins(q, items, tc, group) <= ATOL + RTOL * wv.abs()
+    sup = tc * group
+    if not torch.equal(gi[~tied], wi[~tied]) or not torch.equal(gi[tied] % LANES,
+                                                                 wi[tied] % LANES) or (
+            not torch.equal(gi[tied] // sup, wi[tied] // sup)):
+        raise AssertionError(f"bin_max_scores {label}: ids differ outside near-tied bins")
+    print(f"bin_max_scores kernel vs plain  {label:20s} B={q.shape[0]:5d} V={items.shape[0]:8d} "
+          f"D={q.shape[1]:3d} tc={tc} group={group}: max abs err {err:.3e}, "
+          f"{int((gi != wi).sum())} ids differ, {int(tied.sum())} of {tied.numel()} bins exempt "
+          f"(best and runner-up within tolerance)")
+    return err
+
+
+def b7_work(b: int, v: int, d: int, dtype, tc: int = DEFAULT_TC,
+            group: int = DEFAULT_GROUP) -> dict:
+    """B7's bound: 2 B V D operations at the tensor cores' bf16 or the f32
+    FMA rate; bytes: the f32 queries and the items read once, the outputs
+    written once."""
+    n_super = -(-v // (tc * group))
+    item_bytes = 2 if dtype == torch.bfloat16 else 4
+    nbytes = 4 * b * d + item_bytes * v * d + 8 * b * n_super * LANES
+    peak = PEAK_BF16_TENSOR_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    ops_ms, bytes_ms = 1e3 * 2 * b * v * d / peak, 1e3 * nbytes / PEAK_BYTES_S
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+
+
+def check_and_time_b7(gen: torch.Generator):
+    """Phase 22: B7 against plain at every case of ``B7_CASES`` and with
+    duplicated rows (``items[i] == items[i + 128]``: the lower id wins),
+    then kernel, plain, the per-super-chunk cuBLAS score GEMMs alone (f32
+    out, no selection) and the exact chunked top-k timed at the serving
+    shape (CUDA events, median of 3 interleaved rounds) beside both bounds.
+    Returns (max abs error at the serving shape, timings by dtype)."""
+    worst = 0.0
+    main = {}
+    for label, b, v, d, tc, group, dtype in B7_CASES:
+        q = unit_rows(gen, b, d)
+        items = unit_rows(gen, v, d).to(dtype)
+        got = bin_max_scores(q, items, tc, group)
+        want = bin_max_scores_plain(q, items, tc, group)
+        torch.cuda.synchronize()
+        err = bins_agree(label, q, items, tc, group, got, want)
+        if label.startswith("serving shape"):
+            worst = max(worst, err)
+            main[dtype] = (q, items)
+        del got, want
+    q, items = unit_rows(gen, 512, 64), unit_rows(gen, 70_000, 64)
+    for dtype in (torch.bfloat16, torch.float32):
+        dup = items.to(dtype, copy=True)
+        dup[128:256] = dup[:128]
+        dup[20_000 + 128] = dup[20_000]
+        got_vals, got_idx = bin_max_scores(q, dup, 2048, 4)
+        want_vals, want_idx = bin_max_scores_plain(q, dup, 2048, 4)
+        close(got_vals, want_vals)
+        if not torch.equal(got_idx, want_idx) or bool((got_idx // 128 == 1).any()):
+            raise AssertionError(f"bin_max_scores duplicated rows {dtype}: a higher id won a tie")
+        print(f"bin_max_scores kernel vs plain  duplicated rows {str(dtype):14s}: ids equal, "
+              f"rows 128..255 never beat their copies")
+
+    timings = {}
+    sup = DEFAULT_TC * DEFAULT_GROUP
+    for dtype, (q, items) in main.items():
+        b, d = q.shape
+        v = items.shape[0]
+        q_cast = q.to(dtype)
+
+        def library():  # cuBLAS score GEMMs, f32 out, never called by the port
+            for start in range(0, v, sup):
+                chunk = items[start:start + sup]
+                if dtype == torch.bfloat16:
+                    torch.mm(q_cast, chunk.T, out_dtype=torch.float32)
+                else:
+                    torch.mm(q_cast, chunk.T)
+
+        runs = {"ms": [], "plain_ms": [], "library_ms": []}
+        for _ in range(3):
+            runs["ms"].append(time_cuda(lambda: bin_max_scores(q, items), iters=10, warmup=2))
+            runs["plain_ms"].append(time_cuda(lambda: bin_max_scores_plain(q, items), iters=5,
+                                              warmup=1))
+            runs["library_ms"].append(time_cuda(library, iters=10, warmup=2))
+        timing = {k: float(np.median(r)) for k, r in runs.items()}
+        work = b7_work(b, v, d, dtype)
+        timing.update(bound_ms=work["bound_ms"], bound_by=work["bound_by"])
+        if dtype == torch.bfloat16:
+            exact = [time_cuda(lambda: retrieval_module._topk_scores(q, items, TT_K), iters=3,
+                               warmup=1) for _ in range(3)]
+            timing["exact_topk_ms"] = float(np.median(exact))
+            timing["f32_fma_bound_ms"] = b7_work(b, v, d, torch.float32)["ops_ms"]
+        timings[dtype] = timing
+        print(f"bin_max_scores at [{b}, {d}] x [{v}, {d}] {dtype}: kernel {timing['ms']:.4f} ms "
+              f"({2e-9 * b * v * d / timing['ms']:.1f} TFLOP/s), plain {timing['plain_ms']:.4f} ms, "
+              f"cuBLAS score GEMMs alone {timing['library_ms']:.4f} ms, bound "
+              f"{timing['bound_ms']:.4f} ms ({timing['bound_by']}; bytes "
+              f"{work['bytes_ms']:.4f} ms)"
+              + (f", the f32 FMA bound {timing['f32_fma_bound_ms']:.4f} ms, exact chunked top-k "
+                 f"{timing['exact_topk_ms']:.3f} ms" if dtype == torch.bfloat16 else "")
+              + f"; rounds {runs}")
+    return worst, timings
+
+
+def retrieval_agree(label: str, got, want, rtol: float = 1e-4, atol: float = 1e-5) -> float:
+    """Two top-k results of one request: scores rtol 1e-4 / atol 1e-5 (f32
+    sums in another order, divided by the temperature) position by position;
+    an id missing from the other result only where its score ties the k-th
+    (within the same tolerance). Returns the max abs error."""
+    (gs, gi), (ws, wi) = ((s.float().cpu(), i.cpu()) for s, i in (got, want))
+    err = close(gs, ws, rtol=rtol, atol=atol)
+    missing = ~(gi[:, :, None] == wi[:, None, :]).any(dim=-1)
+    kth = ws[:, -1:]
+    at_edge = (gs - kth).abs() <= atol + rtol * kth.abs()
+    if bool((missing & ~at_edge).any()):
+        raise AssertionError(f"{label}: {int((missing & ~at_edge).sum())} ids differ away from "
+                             f"the k-th score")
+    print(f"{label}: scores max abs err {err:.3e}; {int((gi != wi).sum())} of {gi.numel()} ids at "
+          f"other positions, {int(missing.sum())} swapped at the k-th score")
+    return err
+
+
+def scores_exact(label: str, model, index: torch.Tensor, u_ids, scores, ids) -> float:
+    """The returned scores against the exact f32 scores of the returned ids
+    (the query cast to the index's dtype, then f32 products and sums):
+    rtol 1e-4 / atol 1e-5."""
+    with torch.inference_mode():
+        u_vec = model.user_vectors(torch.as_tensor(u_ids).cuda()).to(index.dtype).float()
+        exact = torch.einsum("bd,bkd->bk", u_vec, index[ids.long()].float()) / model.temperature
+    err = close(scores, exact, rtol=1e-4, atol=1e-5)
+    print(f"{label}: returned scores vs the exact f32 scores of the returned ids, max abs err "
+          f"{err:.3e}")
+    return err
+
+
+def recall_at_k(got_ids: torch.Tensor, exact_ids: torch.Tensor) -> float:
+    return float((got_ids[:, :, None] == exact_ids[:, None, :]).any(dim=-1).float().mean())
+
+
+def serve_two_tower(seed: int) -> dict:
+    """Phase 23: two-tower retrieval at ``scripts/retrieval_bench.py``'s
+    scale with the f32 item table (bf16 and f32 index) and with the int8
+    ``i_q`` (index built through dequantization). Fused requests of 1, 256
+    and 4096 queries at k=100 each launch B7 once and agree with the same
+    request through the plain version on the card (the 256-query one also
+    on the CPU); their scores are the exact scores of their ids; the
+    4096-query request's recall against the exact path is at least 0.975.
+    Then ``approx=True`` (the exact path), point-wise and candidate scoring
+    through ``make_serving_fn`` (no B7), and a profile of the 4096-query
+    request. The caller zeroes the counts. Returns the measurements."""
+    out = {"fused_ms": {}, "recall": {}, "index_build_ms": {}, "fused_calls": 0}
+    rng = np.random.default_rng(seed + 9)
+    theory = 1 - (TT_K - 1) / (2 * -(-TT_ITEMS // (DEFAULT_TC * DEFAULT_GROUP)) * LANES)
+    requests = {n: rng.integers(0, TT_USERS, size=n).astype(np.int32) for n in TT_REQUESTS}
+    for table in ("f32", "int8"):
+        tag = f"[two_tower {table}]"
+        leaves = tt_leaves(rng, table)
+        model = params_from_jax(leaves, make_two_tower(table, "cuda", seed))
+        build = []
+        for _ in range(2):  # the first also warms cuBLAS up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            index = build_item_index(model, TT_ITEMS, batch_size=TT_INDEX_BATCH)
+            torch.cuda.synchronize()
+            build.append(1e3 * (time.perf_counter() - t0))
+        out["index_build_ms"][table] = build[-1]
+        print(f"{tag} build_item_index({TT_ITEMS}, batch_size={TT_INDEX_BATCH}): {index.dtype} "
+              f"{tuple(index.shape)}, {index.nbytes / 1e6:.1f} MB, {build[0]:.1f} ms (first), "
+              f"{build[1]:.1f} ms")
+        fused = make_retrieve_fn(model, approx="fused")
+
+        def request(label, n, fn=fused, idx=index):
+            before = counts()
+            result = fn(idx, requests[n], TT_K)
+            torch.cuda.synchronize()
+            check_launches(f"{tag} {label}", before, {bin_max_scores: 1} if fn is fused else {})
+            out["fused_calls"] += fn is fused
+            scores, ids = result
+            if (tuple(ids.shape) != (n, TT_K) or not torch.isfinite(scores).all()
+                    or int(ids.min()) < 0 or int(ids.max()) >= TT_ITEMS):
+                raise AssertionError(f"{tag} {label}: ids {tuple(ids.shape)} out of shape or range")
+            return result
+
+        results = {}
+        for n in TT_REQUESTS:
+            request(f"warm-up {n}", n)
+            times = []
+            for _ in range(REPEATS):
+                t0 = time.perf_counter()
+                results[n] = request(f"fused {n} queries", n)
+                times.append(1e3 * (time.perf_counter() - t0))
+            out["fused_ms"][f"{table} {n}"] = float(np.median(times))
+            print(f"{tag} fused request of {n:4d} queries, k={TT_K}: median "
+                  f"{np.median(times):8.3f} ms, min {min(times):8.3f} ms (host clock, {REPEATS} "
+                  f"requests)")
+        with swapped(retrieval_module, "bin_max_scores", bin_max_scores_plain):
+            for n in TT_REQUESTS:
+                retrieval_agree(f"{tag} fused {n} queries, kernel vs plain on the card",
+                                results[n], fused(index, requests[n], TT_K))
+        for n in TT_REQUESTS:
+            scores_exact(f"{tag} fused {n} queries", model, index, requests[n], *results[n])
+
+        exact = make_retrieve_fn(model)
+        t0 = time.perf_counter()
+        exact_result = request("exact 4096 queries", 4096, fn=exact)
+        exact_ms = 1e3 * (time.perf_counter() - t0)
+        recall = recall_at_k(results[4096][1], exact_result[1])
+        out["recall"][table] = recall
+        print(f"{tag} recall@{TT_K} of the fused 4096-query request against the exact path: "
+              f"{recall:.5f} (theory 1 - (k-1)/(2 n_bins) = {theory:.5f}; exact path "
+              f"{exact_ms:.1f} ms)")
+        if recall < TT_RECALL_MIN:
+            raise AssertionError(f"{tag} recall {recall:.5f} below {TT_RECALL_MIN}")
+        approx = request("approx=True 256 queries", 256, fn=make_retrieve_fn(model, approx=True))
+        retrieval_agree(f"{tag} approx=True (the exact path) vs exact, 256 queries", approx,
+                        exact(index, requests[256], TT_K))
+
+        if table == "f32":
+            out["exact_ms"] = exact_ms
+            cpu_model = params_from_jax(leaves, make_two_tower(table, "cpu", seed))
+            with torch.inference_mode():
+                cpu_rows = cpu_model.item_vectors(torch.arange(4096)).to(torch.bfloat16).float()
+            card_rows = index[:4096].float().cpu()
+            ulp = torch.finfo(torch.bfloat16).eps * card_rows.abs()
+            if not bool(((cpu_rows - card_rows).abs() <= ulp).all()):
+                raise AssertionError(f"{tag} index rows differ from the CPU's by more than an ulp")
+            cpu_result = make_retrieve_fn(cpu_model, approx="fused")(
+                index.cpu(), requests[TT_CPU_REQUEST], TT_K)
+            retrieval_agree(f"{tag} fused {TT_CPU_REQUEST} queries, card vs CPU (plain) port",
+                            results[TT_CPU_REQUEST], cpu_result)
+            del cpu_model
+            index32 = build_item_index(model, TT_ITEMS, batch_size=TT_INDEX_BATCH,
+                                       dtype=torch.float32)
+            result32 = request("fused 256 queries, f32 index", 256, idx=index32)
+            scores_exact(f"{tag} fused 256 queries on the f32 index", model, index32,
+                         requests[256], *result32)
+            with swapped(retrieval_module, "bin_max_scores", bin_max_scores_plain):
+                retrieval_agree(f"{tag} fused 256 queries on the f32 index, kernel vs plain",
+                                result32, fused(index32, requests[256], TT_K))
+            del index32
+            profile_call(lambda: fused(index, requests[4096], TT_K),
+                         f"{tag} fused 4096-query request", {bin_max_scores: 1}, top=8)
+            out["fused_calls"] += 1
+
+        serve = Trainer(model).make_serving_fn()
+        for shape in ((1,), (1000,), (4096,), (256, 100)):
+            req = {"uid": rng.integers(0, TT_USERS, shape[0]).astype(np.int32),
+                   "iid": rng.integers(0, TT_ITEMS, shape).astype(np.int32)}
+            before = counts()
+            got = serve(req)
+            torch.cuda.synchronize()
+            check_launches(f"{tag} make_serving_fn {shape}", before, {})
+            if tuple(got.shape) != shape or not torch.isfinite(got).all():
+                raise AssertionError(f"{tag} make_serving_fn {shape}: {tuple(got.shape)}")
+        print(f"{tag} make_serving_fn point-wise [1|1000|4096] and candidates [256, 100]: finite "
+              f"scores, no B7 launch")
+        del model, index, leaves
+        torch.cuda.empty_cache()
+    return out
+
+
 def make_trainer(spec: ModelSpec, table: str, device: str, leaves: dict, sample: dict,
                  seed: int):
     """bench.py's training set-up for ``table``: f32, packed ``table || m || v``
     rows under lazy Adam (``SparseEmbeddingTrainer``; DeepFM's linear table
     too); int8, packed ``q || scale || acc`` rows under rowwise Adagrad with
     stochastic requantization (``QuantizedEmbeddingTrainer``; DeepFM's f32
-    linear table in the dense optimizer). Dense Adam, BCE, lr 1e-3; weights
-    from ``leaves`` (flax layout)."""
+    linear table in the dense optimizer). Dense Adam, the spec's loss and lr
+    (BCE and 1e-3 but for the two-tower model); weights from ``leaves`` (flax
+    layout)."""
     model = spec.make(table, device, seed)
     cls = SparseEmbeddingTrainer if table == "f32" else QuantizedEmbeddingTrainer
     trainer = cls(model, device=device, packed_tables=True)
-    trainer.compile(optimizer="adam", lr=TRAIN_LR, loss="bce")
+    trainer.compile(optimizer="adam", lr=spec.lr, loss=spec.loss)
     trainer.init_state(sample, seed=seed)
     return params_from_jax(leaves, trainer)
 
@@ -1287,8 +1775,8 @@ def time_table_share(trainer, batch: dict, path: str) -> float:
 
 def train(spec: ModelSpec, table: str, leaves: dict, rng: np.random.Generator, seed: int,
           table_shares: bool = False):
-    """Phases 7, 10, 14, 15, 19 and 20: one main training path, every launch count
-    from zero. Returns the launches (by kernel name), the ms/step and, with
+    """Phases 7, 10, 14, 15, 19, 20, 24 and 25: one main training path, every
+    launch count from zero. Returns the launches (by kernel name), the ms/step and, with
     ``table_shares``, each packed f32 table's own share of a step in ms."""
     tag = f"[train {spec.name} {table}]"
     per_step = spec.per_step[table]
@@ -1353,7 +1841,8 @@ def train(spec: ModelSpec, table: str, leaves: dict, rng: np.random.Generator, s
     request = {k: v[:1000] for k, v in host[1].items() if k != "label"}
     scores = trainer.make_serving_fn()(request)
     torch.cuda.synchronize()
-    check_launches(f"{tag} serving from the trained state", before, {spec.forward_kernel: 1})
+    check_launches(f"{tag} serving from the trained state", before,
+                   {spec.forward_kernel: 1} if spec.forward_kernel else {})
     shape = tuple(request[spec.scored_key].shape)
     if tuple(scores.shape) != shape or not torch.isfinite(scores).all():
         raise AssertionError(f"{tag} serving from the trained state failed")
@@ -1369,6 +1858,8 @@ def train(spec: ModelSpec, table: str, leaves: dict, rng: np.random.Generator, s
                                  f"stayed 0")
         print(f"{tag} unpacked_quantized: acc > 0 on all {touched.shape[0]} touched rows, "
               f"{int((acc > 0).sum())} of {acc.numel()} rows")
+    if spec.after_train is not None:
+        spec.after_train(trainer, host, tag)
     launches = names(counts())
     shares = {}
     if table_shares:
@@ -1379,10 +1870,25 @@ def train(spec: ModelSpec, table: str, leaves: dict, rng: np.random.Generator, s
     return launches, ms, shares
 
 
+def int8_rows_agree(tag: str, path: str, card: torch.Tensor, cpu: torch.Tensor, emb: int) -> str:
+    """Packed int8 rows, card against CPU: scale and accumulator rtol 1e-4 /
+    atol 1e-6, q values off by at most one in at most 0.1% of them (f32 sums
+    in another order move a value over a rounding threshold)."""
+    (cq, cs, ca), (pq, ps, pa) = (unpack_quantized_table(r, emb) for r in (card, cpu))
+    err = max(close(cs, ps), close(ca, pa))
+    diff = (cq.int() - pq.int()).abs()
+    flips = int((diff > 0).sum())
+    if int(diff.max()) > 1 or flips > max(1, diff.numel() // 1000):
+        raise AssertionError(f"{tag} int8 card vs CPU: {flips} q values differ, by up to "
+                             f"{int(diff.max())}")
+    return f"{path} scale/acc {err:.3e}, {flips} of {diff.numel()} q values off by one"
+
+
 def card_against_cpu(spec: ModelSpec, table: str, leaves: dict, rng: np.random.Generator,
                      seed: int) -> None:
-    """Phases 8, 11, 16 and 21: 2 steps at batch 1024 (DIN 512) on the card and on the CPU
-    (plain versions) from the same state: losses rtol 1e-5, dense parameters
+    """Phases 8, 11, 16 and 21: 2 steps at batch 1024 (DIN 512) on the card
+    and on the CPU (plain versions) from the same state:
+    losses rtol 1e-5, dense parameters
     rtol 1e-4 / atol 1e-6 (DeepFM's int8 set-up keeps its linear table
     there, whose card gradient sums by atomics in no fixed order); each
     packed table's touched rows rtol 1e-4 / atol 1e-6 (f32), or their scale
@@ -1413,18 +1919,85 @@ def card_against_cpu(spec: ModelSpec, table: str, leaves: dict, rng: np.random.G
         if path != spec.tables["int8"]:
             notes.append(f"{path} {close(card_rows[path], cpu):.3e} ({cpu.shape[0]} rows)")
             continue
-        (cq, cs, ca), (pq, ps, pa) = (unpack_quantized_table(r, emb)
-                                      for r in (card_rows[path], cpu))
-        err = max(close(cs, ps), close(ca, pa))
-        diff = (cq.int() - pq.int()).abs()
-        flips = int((diff > 0).sum())
-        if int(diff.max()) > 1 or flips > max(1, diff.numel() // 1000):
-            raise AssertionError(f"{tag} int8 card vs CPU: {flips} q values differ, by up to "
-                                 f"{int(diff.max())}")
-        notes.append(f"{path} scale/acc {err:.3e}, {flips} of {diff.numel()} q values off by one")
+        notes.append(int8_rows_agree(tag, path, card_rows[path], cpu, emb))
     print(f"{tag} card vs CPU, {CPU_STEPS} steps at batch {batch_rows}: losses "
           f"{card_loss.tolist()} / {cpu_loss.tolist()}; max abs err: loss {loss_err:.3e}, dense "
           f"params {dense_err:.3e}; touched packed rows: {'; '.join(notes)}")
+
+
+def adam_values_agree(label: str, got: torch.Tensor, want: torch.Tensor, v_hat: torch.Tensor,
+                      lr: float):
+    """Adam-updated values, card against CPU after one step from a common
+    state: rtol 1e-4 / atol 1e-6, except where the CPU's bias-corrected RMS
+    gradient ``sqrt(v_hat)`` is under ``ADAM_EPS_WINDOW``: there the step
+    ``lr * m_hat / (sqrt(v_hat) + eps)`` turns the last bits of a gradient that
+    summed to nearly nothing into a share of ``lr``, so those values need only
+    lie within two steps (2.01 lr) of each other. Returns (max abs error of the
+    others, how many values in the window differ)."""
+    ill = v_hat.sqrt() < ADAM_EPS_WINDOW
+    err = close(got[~ill], want[~ill]) if bool((~ill).any()) else 0.0
+    if bool(((got[ill] - want[ill]).abs() > 2.01 * lr).any()):
+        raise AssertionError(f"{label}: a value in the eps window moved more than two steps")
+    return err, int((got[ill] != want[ill]).sum())
+
+
+def tt_card_against_cpu(table: str, leaves: dict, rng: np.random.Generator, seed: int) -> None:
+    """Phase 26: ``TT_CPU_SPEC``'s 2 steps at batch 512 on the card and on the
+    CPU (plain versions), each step from a common state: after step 1 the
+    card's trainer takes the CPU's tables, moments and dense optimizer state.
+    Checked after every step: the loss rtol 1e-5; the moments, the int8 rows
+    (``int8_rows_agree``) and every Adam-updated value rtol 1e-4 / atol 1e-6
+    (``adam_values_agree``: values whose gradient sits in Adam's eps window
+    are counted and bounded instead). Stepping from a common state keeps one
+    such value's rounding from steering the next step: run freely, two
+    correct implementations drift apart there by a share of ``lr``, as two CPU
+    runs whose weights differ in their last bits do."""
+    spec = TT_CPU_SPEC
+    tag = f"[{spec.name} {table}]"
+    host = [spec.batch(rng, spec.cpu_rows) for _ in range(CPU_STEPS)]
+    card, cpu = (make_trainer(spec, table, device, leaves, host[0], seed)
+                 for device in ("cuda", "cpu"))
+    for step, batch in enumerate(host, start=1):
+        card_loss, cpu_loss = float(card.train_step(batch)), float(cpu.train_step(batch))
+        close(torch.tensor([card_loss]), torch.tensor([cpu_loss]), rtol=1e-5, atol=0.0)
+        bias = 1.0 - ADAM_BETA2 ** step
+        optimizer = cpu.state.optimizer
+        card_params = dict(card.model.named_parameters())
+        dense_err, exempt, notes = 0.0, 0, []
+        for name, param in cpu.model.named_parameters():
+            if param not in optimizer.state:  # a table: the packed update trains it
+                continue
+            err, n = adam_values_agree(f"{tag} step {step} {name}",
+                                       card_params[name].detach().cpu(), param.detach(),
+                                       optimizer.state[param]["exp_avg_sq"] / bias, spec.lr)
+            dense_err, exempt = max(dense_err, err), exempt + n
+        for path, packed in cpu.state.packed.items():
+            touched = torch.from_numpy(np.unique(spec.table_ids(path, batch)))
+            got, want = card.state.packed[path][touched.cuda()].cpu(), packed[touched]
+            if table == "int8":
+                notes.append(int8_rows_agree(tag, path, got, want, spec.emb))
+                continue
+            emb = spec.emb
+            err, n = adam_values_agree(f"{tag} step {step} {path}", got[:, :emb], want[:, :emb],
+                                       want[:, 2 * emb:3 * emb] / bias, spec.lr)
+            moments = close(got[:, emb:3 * emb], want[:, emb:3 * emb])
+            exempt += n
+            notes.append(f"{path} values {err:.3e}, moments {moments:.3e} ({touched.shape[0]} "
+                         f"rows)")
+        print(f"{tag} card vs CPU, step {step} of {CPU_STEPS} at batch {spec.cpu_rows}: losses "
+              f"{card_loss:.6f} / {cpu_loss:.6f}; max abs err: dense params {dense_err:.3e}; "
+              f"touched packed rows: {'; '.join(notes)}; {exempt} values in Adam's eps window "
+              f"differ (each within 2.01 lr)")
+        with torch.no_grad():  # the next step starts from the CPU's state on both
+            for path, packed in cpu.state.packed.items():
+                card.state.packed[path].copy_(packed)
+            for name, param in cpu.model.named_parameters():
+                card_params[name].copy_(param)
+        state = copy.deepcopy(cpu.state.optimizer.state_dict())  # never shared with the CPU's
+        for saved, own in zip(state["param_groups"], card.state.optimizer.param_groups):
+            saved.update(fused=own["fused"], foreach=own["foreach"])  # the card keeps its Adam
+        card.state.optimizer.load_state_dict(state)
+    del card, cpu
 
 
 def main() -> int:
@@ -1445,7 +2018,8 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    paths = build("cross", "seg_scan", "scatter", "requantize", "fm", "din_attention")
+    paths = build("cross", "seg_scan", "scatter", "requantize", "fm", "din_attention",
+                  "retrieval_topk")
     print(f"built {', '.join(str(p.name) for p in paths.values())} in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernel against plain (these launches are not the main path's)
@@ -1590,6 +2164,44 @@ def main() -> int:
     # 21 (int8). DIN int8 card against CPU
     card_against_cpu(DIN_SPEC, "int8", leaves, rng, args.seed)
     del leaves
+    torch.cuda.empty_cache()
+
+    # 22. B7 against plain, and its times at the serving shape (not the main
+    # path's launches)
+    b7_err, b7_timing = check_and_time_b7(gen)
+    torch.cuda.empty_cache()
+
+    # 23. two-tower retrieval serving, with launch counts from zero
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    tt_serving = serve_two_tower(args.seed)
+    check_launches("two-tower serving", {k: 0 for k in ALL_KERNELS},
+                   {bin_max_scores: tt_serving["fused_calls"]})
+    tt_serving_launches = bin_max_scores.launches
+    print(f"two-tower serving: bin_max_scores launches {tt_serving_launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.empty_cache()
+
+    # 24. two-tower f32 training, with launch counts from zero
+    leaves = tt_leaves(np.random.default_rng(args.seed + 10), "f32")
+    tt_f32_launches, tt_f32_ms, _ = train(TT_SPEC, "f32", leaves, rng, args.seed)
+    torch.cuda.empty_cache()
+
+    # 26 (f32). two-tower f32 card against CPU
+    tt_card_against_cpu("f32", leaves, rng, args.seed)
+    del leaves
+    torch.cuda.empty_cache()
+
+    # 25. two-tower int8 training, with launch counts from zero
+    leaves = tt_leaves(np.random.default_rng(args.seed + 11), "int8")
+    tt_int8_launches, tt_int8_ms, _ = train(TT_SPEC, "int8", leaves, rng, args.seed)
+    print(f"[train two_tower] int8-packed {tt_int8_ms:.3f} ms/step, f32-packed {tt_f32_ms:.3f} "
+          f"ms/step at batch {TT_BATCH}")
+    torch.cuda.empty_cache()
+
+    # 26 (int8). two-tower int8 card against CPU
+    tt_card_against_cpu("int8", leaves, rng, args.seed)
+    del leaves
 
     n_scan = TRAIN_BATCH * N_SPARSE
     vocab_rows = N_SPARSE * VOCAB
@@ -1678,11 +2290,29 @@ def main() -> int:
                      **din_timing["serve"]},
          "library_note": "no single PyTorch call computes MLP-scored attention pooling "
                          "(scaled_dot_product_attention scores by dot product)"},
+        {"name": "bin_max_scores", "route": "cuda",
+         "source": "pytorchrec_tpu_torch/csrc/retrieval_topk.cu",
+         "replaces": "pytorchrec_tpu/ops/kernels/retrieval_topk.py:155",
+         "launches": tt_serving_launches, "max_abs_err": b7_err,
+         **{k: v for k, v in b7_timing[torch.bfloat16].items() if k != "exact_topk_ms"},
+         "shape": f"q [{B7_QUERIES}, {TT_DIM}] f32 x items [{TT_ITEMS}, {TT_DIM}] bf16, tc "
+                  f"{DEFAULT_TC}, group {DEFAULT_GROUP}",
+         "f32": {"shape": f"items [{TT_ITEMS}, {TT_DIM}] f32", **b7_timing[torch.float32]},
+         "exact_topk_ms": b7_timing[torch.bfloat16]["exact_topk_ms"],
+         "f32_train_launches": tt_f32_launches["bin_max_scores"],
+         "int8_train_launches": tt_int8_launches["bin_max_scores"],
+         "library_note": "the per-super-chunk cuBLAS score GEMMs (torch.mm, f32 out) without "
+                         "the selection; no single PyTorch call computes score + bin max"},
     ]
     print(json.dumps({"deepfm": {"f32_ms_per_step": fm_f32_ms, "int8_ms_per_step": fm_int8_ms,
                                  "table_share_ms": shares},
                       "din": {"f32_ms_per_step": din_f32_ms, "int8_ms_per_step": din_int8_ms,
                               "batch": DIN_BATCH}}))
+    print(json.dumps({"two_tower": {"f32_ms_per_step": tt_f32_ms, "int8_ms_per_step": tt_int8_ms,
+                                    "batch": TT_BATCH, "fused_ms": tt_serving["fused_ms"],
+                                    "exact_ms": tt_serving["exact_ms"],
+                                    "recall": tt_serving["recall"],
+                                    "index_build_ms": tt_serving["index_build_ms"]}}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,9 +1,9 @@
-"""Loss functions (port of ``pytorchrec_tpu/loss/losses.py``): BCE, MSE and
-BPR.
+"""Loss functions (port of ``pytorchrec_tpu/loss/losses.py``): BCE, MSE,
+BPR and the sampled-softmax cross entropy.
 
 Each takes ``(prediction, target)`` and a reduction (``mean``, ``sum`` or
-``none``). The other ranking and multi-task losses (top1, softmax, esmm)
-come with the task slices.
+``none``). The other ranking and multi-task losses (top1, esmm) come with
+the task slices.
 """
 
 from __future__ import annotations
@@ -46,7 +46,17 @@ def bpr_loss(prediction: torch.Tensor, target=None, reduction: str = "mean") -> 
     return _reduce(F.softplus(prediction[:, 1] - prediction[:, 0]), reduction)
 
 
-LOSSES = {"bce": bce_loss, "bpr": bpr_loss, "mse": mse_loss}
+def softmax_ce_loss(prediction: torch.Tensor, target=None, reduction: str = "mean") -> torch.Tensor:
+    """Sampled-softmax cross entropy on ``[B, N >= 2]`` positive-first logits:
+    ``-log_softmax(prediction)[:, 0]``; with TwoTower's in-batch layout, the
+    in-batch-negatives loss. ``target`` is ignored: the layout is
+    positional."""
+    if prediction.dim() != 2 or prediction.shape[1] < 2:
+        raise ValueError(f"softmax_ce_loss takes [B, N >= 2] logits, got {tuple(prediction.shape)}")
+    return _reduce(-torch.log_softmax(prediction, dim=-1)[:, 0], reduction)
+
+
+LOSSES = {"bce": bce_loss, "bpr": bpr_loss, "mse": mse_loss, "softmax": softmax_ce_loss}
 
 
 def get_loss(loss_name: str) -> Callable:

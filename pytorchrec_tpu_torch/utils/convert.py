@@ -8,9 +8,15 @@ them into the port model's state dict:
 * an f32 embedding leaf wider than the model's E is a packed
   ``table || moments || staging`` row (``SparseEmbeddingTrainer`` with
   ``packed_tables=True``); its first E columns are the table;
-* the uint8 packed quantized tables ``unified_q`` and DIN's ``i_q`` pass
-  through unchanged, as do DIN's attention weights ``attention/w<i>`` and
-  ``attention/b<i>`` (kept ``[in, out]``, ``ops/attention.py``);
+* the uint8 packed quantized tables ``unified_q`` and the item table
+  ``i_q`` (DIN's and TwoTower's) pass through unchanged, as do DIN's
+  attention weights ``attention/w<i>`` and ``attention/b<i>`` (kept
+  ``[in, out]``, ``ops/attention.py``);
+* TwoTower's leaves need no rule of their own: ``u_embeddings/embedding``
+  and ``i_embeddings/embedding`` (plain ``[V, E]`` or packed ``[V, 4E]``),
+  ``i_q``, the towers ``user_mlp/Dense_<i>/Dense_0/{kernel,bias}`` and
+  ``item_mlp/...``, and the projections ``user_proj/{kernel,bias}`` and
+  ``item_proj/{kernel,bias}``;
 * the linear term's leaves (``bias``, ``dense_linear``, ``dense_factors``,
   ``lin_<field>/embedding``, ``unified_lin/embedding``, plain ``[V, 1]`` or
   packed ``[V, 64]``) load where the model has them; ``bias``,
@@ -24,8 +30,8 @@ no leaf fills.
 ``params_from_jax(flat, trainer)`` loads into a packed trainer instead
 (``SparseEmbeddingTrainer`` or ``QuantizedEmbeddingTrainer``), right after
 its ``init_state``: each packed leaf (``unified_emb/embedding``,
-``unified_lin/embedding``, DIN's ``u_embeddings/embedding`` and
-``i_embeddings/embedding`` ``[V, W]`` f32, or ``unified_q`` / ``i_q``
+``unified_lin/embedding``, DIN's and TwoTower's ``u_embeddings/embedding``
+and ``i_embeddings/embedding`` ``[V, W]`` f32, or ``unified_q`` / ``i_q``
 ``[V, W]`` u8)
 loads whole into the trainer's packed
 buffer, moments, accumulator and staging columns included, in place; the

@@ -44,7 +44,9 @@ def test_every_training_module_is_walked():
             "pytorchrec_tpu_torch.training.quantized_trainer",
             "pytorchrec_tpu_torch.ops.kernels.fm", "pytorchrec_tpu_torch.ops.kernels.din_attention",
             "pytorchrec_tpu_torch.ops.attention", "pytorchrec_tpu_torch.ops.seq_utils",
-            "pytorchrec_tpu_torch.models.din"} <= modules
+            "pytorchrec_tpu_torch.models.din", "pytorchrec_tpu_torch.models.two_tower",
+            "pytorchrec_tpu_torch.serving", "pytorchrec_tpu_torch.serving.retrieval",
+            "pytorchrec_tpu_torch.ops.kernels.retrieval_topk"} <= modules
 
 
 def test_importing_every_port_module_loads_no_jax():
@@ -69,7 +71,8 @@ def test_no_port_source_names_jax_or_the_jax_package():
     sources = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     offenders = [str(p.relative_to(ROOT)) for p in sources if pattern.search(p.read_text())]
     assert not offenders
-    for kernel in ("cross", "seg_scan", "scatter", "requantize", "fm", "din_attention"):
+    for kernel in ("cross", "seg_scan", "scatter", "requantize", "fm", "din_attention",
+                   "retrieval_topk"):
         assert (PORT / "csrc" / f"{kernel}.cu").exists()
 
 
@@ -209,6 +212,17 @@ def test_bpr_loss_matches_jax(reduction):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
     with pytest.raises(ValueError):
         get_loss("bpr")(torch.zeros(64), None)
+
+
+def test_new_exports():
+    from pytorchrec_tpu_torch import loss, models, serving
+    from pytorchrec_tpu_torch.ops.kernels import retrieval_topk
+
+    assert {"TwoTower"} <= set(models.__all__) and {"softmax_ce_loss"} <= set(loss.__all__)
+    assert {"build_item_index", "make_retrieve_fn"} <= set(serving.__all__)
+    assert retrieval_topk.bin_max_scores.launches >= 0 and get_loss("softmax") is not None
+    assert (retrieval_topk.LANES, retrieval_topk.DEFAULT_TC, retrieval_topk.DEFAULT_GROUP,
+            retrieval_topk.PAD_SCORE) == (128, 2048, 16, -1e30)
 
 
 def test_unported_losses_raise():
