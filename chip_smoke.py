@@ -7,7 +7,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
 
 1. card: the card's name and power limit (nvidia-smi) and torch's name for it;
 2. build: every CUDA kernel of the serving and training paths (cross,
-   seg_scan, scatter, requantize, fm, din_attention, retrieval_topk), from
+   seg_scan, scatter, requantize, fm, din_attention, retrieval_topk,
+   quantize), from
    ``pytorchrec_tpu_torch/csrc``, one nvcc each, all at once;
 3. kernel against plain: the cross kernel's wrapper on the card at the shapes
    the serving path gives it, held against its plain PyTorch version;
@@ -140,14 +141,44 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    accidental-hit masking, planted duplicate positives and a logQ column,
    each step from a common state, with Adam's eps window counted
    (``tt_card_against_cpu`` says why);
+27. B8 against plain, on the card, bit for bit (q and scale): the stochastic
+   quantize kernel at the classic step's shape (the dedup of a
+   ``bench.py`` batch's 851,968 ids, E=16, the table's step-1 id-keyed
+   bits), at ``[1, 1]``, ``[7, 1]`` and ``[1000, 64]``, and on edge rows (all
+   zero, quotients on integers, bits of 2**31 and above, values past 127
+   before the clip); then its time beside its plain version and its bound,
+   the id-keyed hash's, the dedup's and the q and scale scatter-sets'
+   times, and the whole classic update of a ``[2.6M, 16]`` int8 table timed
+   alone;
+28. classic int8 serving: phase 4's requests for DCN-v2 and DeepFM with the
+   classic ``unified_q`` int8 ``[2.6M, 16]`` and ``unified_scale`` f32
+   ``[2.6M]`` leaves (``table_packed=False``, the JAX package's default);
+   B8 never launches;
+29. classic int8 DCN-v2 training: phase 7 under ``QuantizedEmbeddingTrainer
+   (packed_tables=False)`` (dedup of the row grads, rowwise Adagrad, id-keyed
+   stochastic requantization through B8, scatter-set of q and scale, the
+   accumulator's masked add); every step launches the cross kernel, the
+   scan and B8 once each and the scatter twice;
+30. classic int8 DeepFM training: phase 29 for DeepFM (the FM forward and
+   backward once a step in place of the cross kernel);
+31. classic card against CPU: phases 8 and 11 for both models' classic
+   tables, q values off by one in at most 0.1%;
+32. the classic step against the packed step: one DCN-v2 step each from the
+   same weights and table on ids unique within each field; q and scale
+   bit-equal, accumulators rtol 1e-6 (B8 against B3);
+33. classic int4 and two scale groups: phase 29 for each, no B8 launch (no
+   TPU kernel covers them);
 
 then a ``two_tower`` JSON line (ms/step, fused and exact ms a request,
-recall, index build ms) and a ``{"kernels": [...]}`` line with every kernel
-at its main-path shape (``launches``: for B1–B4 the DCN-v2 int8 training
-run's, for the FM kernels the DeepFM f32 training run's, for the pooling
-kernel the DIN f32 training run's, for B7 the two-tower serving run's; the
-other paths' counts beside). Each path (serving, each training run) zeroes
-every launch count just before it and reads them just after.
+recall, index build ms), a ``classic_int8`` line (ms/step of the classic
+formats, B8's time, the hash's, the dedup's and the update's, phase 32's
+verdict) and a ``{"kernels": [...]}`` line with every kernel at its
+main-path shape (``launches``: for B1–B4 the DCN-v2 int8 training run's, for
+the FM kernels the DeepFM f32 training run's, for the pooling kernel the DIN
+f32 training run's, for B7 the two-tower serving run's, for B8 the DCN-v2
+classic training run's; the other paths' counts beside). Each path
+(serving, each training run) zeroes every launch count just before it and
+reads them just after.
 The last line is ``{"ok": true, "device": {...}}``.
 Needs one CUDA card; no JAX and nothing of the JAX package is imported.
 """
@@ -185,9 +216,13 @@ from pytorchrec_tpu_torch.ops.kernels.fm import (
     fm_interaction_plain,
 )
 from pytorchrec_tpu_torch.ops.kernels.quantize import (
+    id_keyed_rounding_bits,
     quantize_rows,
     requantize_rows,
     requantize_rows_plain,
+    rounding_bits_i32,
+    stochastic_quantize_rows,
+    stochastic_quantize_rows_plain,
     table_rounding_salt,
 )
 from pytorchrec_tpu_torch.ops.kernels.retrieval_topk import (
@@ -210,10 +245,11 @@ from pytorchrec_tpu_torch.ops.quantized_packed import (
     packed_q_width,
     unpack_quantized_table,
 )
-from pytorchrec_tpu_torch.ops.sparse_update import packed_sparse_update
+from pytorchrec_tpu_torch.ops.sparse_update import dedup_row_grads, packed_sparse_update
 from pytorchrec_tpu_torch.serving import build_item_index, make_retrieve_fn
 from pytorchrec_tpu_torch.serving import retrieval as retrieval_module
 from pytorchrec_tpu_torch.training import QuantizedEmbeddingTrainer, SparseEmbeddingTrainer, Trainer
+from pytorchrec_tpu_torch.training.quantized_trainer import classic_quantized_update
 from pytorchrec_tpu_torch.utils import params_from_jax
 from pytorchrec_tpu_torch.utils.rng import prng_key, split
 
@@ -236,7 +272,10 @@ TRAIN_WARMUP, TRAIN_TIMED = 5, 20
 PACKED_W = 64  # f32 table || m || v || staging at E=16
 Q_W = packed_q_width(EMB, 8, 1)  # 128 bytes: int8 q || scale || acc || staging
 Q_BASE = packed_q_base(EMB, 8, 1)  # 24: the int8 rows' staging offset
-TABLES = {"f32": "unified_emb/embedding", "int8": "unified_q"}  # DCN-v2's packed leaf
+# the classic (unpacked) quantized tables: format -> (bits, scale column groups)
+CLASSIC = {"classic": (8, 1), "classic_int4": (4, 1), "classic_g2": (8, 2)}
+# DCN-v2's packed leaf, or the classic table's q leaf
+TABLES = {"f32": "unified_emb/embedding", "int8": "unified_q", **{t: "unified_q" for t in CLASSIC}}
 LIN = "unified_lin/embedding"  # DeepFM's linear table, packed [V, 64] under the f32 trainer
 CPU_BATCH, CPU_STEPS = 1024, 2  # card against CPU
 LABEL = CategoricalColumnWithIdentity(feature_name="label", category_num=2)
@@ -286,7 +325,8 @@ ADAM_BETA2 = 0.999
 ADAM_EPS_WINDOW = 1e-6
 
 ALL_KERNELS = (cross_network, segmented_sum_scan, requantize_rows, scatter_set_rows,
-               fm_interaction, fm_interaction_backward, din_attention_pool, bin_max_scores)
+               fm_interaction, fm_interaction_backward, din_attention_pool, bin_max_scores,
+               stochastic_quantize_rows)
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, bf16 on
 # the tensor cores (dense), HBM3
@@ -397,13 +437,33 @@ def packed_q_leaf(rows: np.ndarray, width: int) -> np.ndarray:
     return packed
 
 
+def classic_q_leaves(rows: np.ndarray, bits: int = 8, groups: int = 1) -> dict:
+    """The classic leaves of ``QuantizedEmbeddingTrainer()`` (one draw,
+    round to nearest): ``unified_q`` int8 ``[V, E]`` (int4: ``[V, E/2]``,
+    even columns in the low nibble) and ``unified_scale`` f32 ``[V]`` (``[V,
+    G]`` with G column groups)."""
+    n, emb = rows.shape
+    qmax = np.float32(127.0 if bits == 8 else 7.0)
+    grouped = rows.reshape(n, groups, emb // groups)
+    absmax = np.abs(grouped).max(axis=2)
+    scale = np.where(absmax > 0, absmax / qmax, np.float32(1.0)).astype(np.float32)
+    q = np.clip(np.rint(grouped / scale[..., None]), -qmax, qmax).astype(np.int32).reshape(n, emb)
+    if bits == 4:
+        q = (q[:, 0::2] & 0xF) | ((q[:, 1::2] & 0xF) << 4)
+    return {"unified_q": q.astype(np.uint8).view(np.int8),
+            "unified_scale": scale[:, 0] if groups == 1 else scale}
+
+
 def table_leaves(rng: np.random.Generator, table: str) -> dict:
-    """The unified field table's leaf: f32, the ``[V, 64]`` packed f32 rows;
-    int8, the ``[V, 128]`` packed u8 rows."""
+    """The unified field table's leaves: f32, the ``[V, 64]`` packed f32 rows;
+    int8, the ``[V, 128]`` packed u8 rows; a classic format, ``unified_q`` and
+    ``unified_scale``."""
     rows = normal_leaf(rng, N_SPARSE * VOCAB, EMB)
     if table == "f32":
         return {"unified_emb/embedding": packed_f32_leaf(rows, PACKED_W)}
-    return {"unified_q": packed_q_leaf(rows, Q_W)}
+    if table == "int8":
+        return {"unified_q": packed_q_leaf(rows, Q_W)}
+    return classic_q_leaves(rows, *CLASSIC[table])
 
 
 def flax_leaves(rng: np.random.Generator, table: str) -> dict:
@@ -504,15 +564,15 @@ def make_din(table: str, device, seed: int) -> DIN:
 
 def make_ctr(cls, table: str, device, seed: int):
     """DCN-v2 or DeepFM (``cls``) at ``bench.py``'s Criteo width, with the
-    unified table of ``table``."""
+    unified table of ``table`` (f32, packed int8 or a classic format)."""
     sparse = [CategoricalColumnWithIdentity(feature_name=f"c_{i}", category_num=VOCAB)
               for i in range(N_SPARSE)]
     dense = [NumericColumn(feature_name=f"d_{i}") for i in range(N_DENSE)]
-    quantized = table == "int8"
+    bits, groups = CLASSIC.get(table, (8, 1))
     kwargs = dict(sparse_columns=sparse, dense_columns=dense, label_column=LABEL, emb_size=EMB,
-                  layers=MLP_UNITS, unified_embedding=True, quantized_embedding=quantized,
-                  table_packed=quantized, device=device,
-                  generator=torch.Generator(device=device).manual_seed(seed))
+                  layers=MLP_UNITS, unified_embedding=True, quantized_embedding=table != "f32",
+                  table_packed=table == "int8", table_bits=bits, scale_col_groups=groups,
+                  device=device, generator=torch.Generator(device=device).manual_seed(seed))
     if cls is DCNv2:
         kwargs["num_cross_layers"] = CROSS_LAYERS
     return cls(**kwargs)
@@ -655,7 +715,13 @@ DCNV2_SPEC = ModelSpec(
     plain_forward=lambda model: swapped(model, "cross", PlainCross(model.cross)),
     per_step={"f32": {cross_network: 1, segmented_sum_scan: 1, scatter_set_rows: 1},
               "int8": {cross_network: 1, segmented_sum_scan: 1, requantize_rows: 1,
-                       scatter_set_rows: 1}},
+                       scatter_set_rows: 1},
+              # the classic step: the dedup's scan, B8 (int8, one scale a row), and
+              # the scatter-set of q and of scale
+              "classic": {cross_network: 1, segmented_sum_scan: 1, stochastic_quantize_rows: 1,
+                          scatter_set_rows: 2},
+              **{t: {cross_network: 1, segmented_sum_scan: 1, scatter_set_rows: 2}
+                 for t in ("classic_int4", "classic_g2")}},
     train_rows=TRAIN_BATCH, cpu_rows=CPU_BATCH, cpu_request=1, emb=EMB, scored_key="c_0")
 DEEPFM_SPEC = dataclasses.replace(
     DCNV2_SPEC, name="deepfm", make=functools.partial(make_ctr, DeepFM), leaves=deepfm_leaves,
@@ -664,7 +730,9 @@ DEEPFM_SPEC = dataclasses.replace(
     per_step={"f32": {fm_interaction: 1, fm_interaction_backward: 1, segmented_sum_scan: 2,
                       scatter_set_rows: 2},
               "int8": {fm_interaction: 1, fm_interaction_backward: 1, segmented_sum_scan: 1,
-                       requantize_rows: 1, scatter_set_rows: 1}})
+                       requantize_rows: 1, scatter_set_rows: 1},
+              "classic": {fm_interaction: 1, fm_interaction_backward: 1, segmented_sum_scan: 1,
+                          stochastic_quantize_rows: 1, scatter_set_rows: 2}})
 DIN_SPEC = ModelSpec(
     name="din", make=make_din, leaves=din_leaves, batch=make_din_batch, table_ids=din_table_ids,
     tables=DIN_TABLES, q_name="i", forward_kernel=din_attention_pool,
@@ -822,7 +890,7 @@ def profile_call(fn, label: str, launches=None, top: int = 6, host_top: int = 0)
 
 def serve_table(spec: ModelSpec, table: str, requests: list, seed: int,
                 profiled=PROFILED_SHAPES) -> int:
-    """Phases 4, 13 and 18 for one model and table format: every request must
+    """Phases 4, 13, 18 and 28 for one model and table format: every request must
     launch the model's forward kernel once and no other kernel. Returns the
     number of requests served."""
     tag = f"[{spec.name} {table}]"
@@ -1165,6 +1233,170 @@ def check_and_time_requantize(rng: np.random.Generator, gen: torch.Generator, se
           f"{1e3 * whole_rows / PEAK_BYTES_S:.4f} ms); no single PyTorch call computes it; "
           f"rounds {runs}")
     return errs[0], timing
+
+
+def b8_edge_rows(emb: int = EMB):
+    """Rows at B8's edges, with their bits: an all-zero row (scale 1);
+    quotients that land on integers (scale 2**-7, u 0 and u 1/2, bits
+    ``0x80000000``); 127 + u rounding up to 128 (bits ``0xFFFFFFFF``); an
+    absmax whose quotient lies just over 127, so -128 before the clip; and
+    random bits, half of them at 2**31 and above."""
+    step = 2.0**-7
+    rows = torch.zeros((6, emb), device="cuda")
+    bits = torch.zeros((6, emb), dtype=torch.int32, device="cuda")
+    rows[1] = (torch.arange(emb, device="cuda") - emb // 2) * step
+    rows[1, 0] = -127 * step
+    rows[2] = (torch.arange(emb, device="cuda") + 0.5) * step
+    rows[2, -1] = 127 * step
+    bits[2] = -2**31
+    rows[3, 0] = 127 * step
+    bits[3] = -1
+    over = next(v for v in np.linspace(0.5, 1.0, 4001, dtype=np.float32)
+                if v / (v / np.float32(127)) > np.float32(127))
+    rows[4, 0] = -float(over)
+    rows[5] = torch.linspace(-0.01, 0.02, emb, device="cuda")
+    bits[5] = torch.randint(-2**31, 2**31 - 1, (emb,), dtype=torch.int32, device="cuda")
+    return rows, bits
+
+
+def b8_agree(label: str, rows: torch.Tensor, bits: torch.Tensor) -> float:
+    """B8 against its plain version on the card, bit for bit (q and scale);
+    returns the max abs error of the dequantized rows (0)."""
+    q, scale = stochastic_quantize_rows(rows, bits)
+    want_q, want_scale = stochastic_quantize_rows_plain(rows, bits)
+    torch.cuda.synchronize()
+    q_off = int((q != want_q).sum())
+    s_off = int((scale.view(torch.int32) != want_scale.view(torch.int32)).sum())
+    if q_off or s_off:
+        raise AssertionError(f"B8 vs plain {label}: {q_off} q values and {s_off} scales differ")
+    err = float((q.float() * scale[:, None] - want_q.float() * want_scale[:, None]).abs().max())
+    print(f"stochastic_quantize_rows kernel vs plain  {label:28s} [{rows.shape[0]}, "
+          f"{rows.shape[1]}]: q and scale bit-equal; {int((bits < 0).sum())} bit patterns of "
+          f"2**31 and above, {int((scale == 1).sum())} scales of 1")
+    return err
+
+
+def check_and_time_b8(rng: np.random.Generator, gen: torch.Generator, seed: int):
+    """Phase 27: B8 against its plain version bit for bit at the classic
+    step's shape (the dedup of a ``bench.py`` batch's 851,968 ids, rows
+    N(0, 0.01), the step-1 id-keyed bits of the table), at ``[1, 1]``,
+    ``[7, 1]`` and ``[1000, 64]`` and on the edge rows; then B8, its plain
+    version, the id-keyed hash and the dedup timed (CUDA events, median of 3
+    interleaved rounds) beside B8's bound, and the step's two scatter-sets
+    and the whole classic update of a ``[2.6M, 16]`` int8 table timed
+    alone. Returns (error, B8's timing, the
+    step's parts in ms)."""
+    ids = torch.from_numpy(unified_ids(make_train_batch(rng)).astype(np.int32)).cuda()
+    dvec = torch.randn((ids.shape[0], EMB), device="cuda", generator=gen) * 1e-2
+    grads = dedup_row_grads(ids, dvec)
+    salt = table_rounding_salt(split(prng_key(seed))[1], 1, TABLES["classic"])
+
+    def hashed():
+        return rounding_bits_i32(id_keyed_rounding_bits(grads.ids, EMB, salt))
+
+    bits = hashed()
+    rows = torch.randn((ids.shape[0], EMB), device="cuda", generator=gen) * 0.01
+    wide = torch.randn((1000, 64), device="cuda", generator=gen) * 0.01
+    wide_bits = torch.randint(-2**31, 2**31 - 1, (1000, 64), dtype=torch.int32, device="cuda",
+                              generator=gen)
+    err = b8_agree("bench ids, id-keyed bits", rows, bits)
+    for label, r, b in (("1 x 1", rows[:1, :1], bits[:1, :1]),
+                        ("7 x 1", rows[:7, :1], bits[:7, :1]),
+                        ("1000 x 64", wide, wide_bits), ("edge rows", *b8_edge_rows())):
+        err = max(err, b8_agree(label, r.contiguous(), b.contiguous()))
+    edge_q, _ = stochastic_quantize_rows(*b8_edge_rows())
+    if edge_q[3, 0] != 127 or edge_q[4, 0] != -127 or edge_q[2, :-1].tolist() != list(
+            range(1, EMB)):
+        raise AssertionError(f"B8 edge rows: {edge_q.tolist()}")
+
+    runs = {"ms": [], "plain_ms": [], "hash_ms": [], "dedup_ms": []}
+    for _ in range(3):
+        runs["ms"].append(time_cuda(lambda: stochastic_quantize_rows(rows, bits)))
+        runs["plain_ms"].append(time_cuda(lambda: stochastic_quantize_rows_plain(rows, bits),
+                                          iters=10))
+        runs["hash_ms"].append(time_cuda(hashed, iters=10))
+        runs["dedup_ms"].append(time_cuda(lambda: dedup_row_grads(ids, dvec), iters=10))
+    n = rows.shape[0]
+    nbytes = n * EMB * (4 + 4 + 1) + 4 * n  # rows and bits read, q and scale written
+    timing = {k: float(np.median(runs[k])) for k in ("ms", "plain_ms")}
+    timing.update(library_ms=None, bound_ms=1e3 * nbytes / PEAK_BYTES_S, bound_by="bytes")
+    parts = {k: float(np.median(runs[k])) for k in ("hash_ms", "dedup_ms")}
+    q_table, s_table = quantize_rows(torch.randn((N_SPARSE * VOCAB, EMB), device="cuda",
+                                                 generator=gen) * 0.01)
+    acc = torch.zeros((N_SPARSE * VOCAB,), device="cuda")
+    q_new, s_new = stochastic_quantize_rows(rows, bits)
+    safe = torch.where(grads.mask > 0, grads.ids, N_SPARSE * VOCAB).to(torch.int32)
+
+    def scatters():  # the step's two B4 launches: q rows, then scales
+        scatter_set_rows(q_table, q_new, safe)
+        scatter_set_rows(s_table.view(-1, 1), s_new.view(-1, 1), safe)
+
+    parts["scatters_ms"] = float(np.median([time_cuda(scatters) for _ in range(3)]))
+    parts["update_ms"] = float(np.median([time_cuda(
+        lambda: classic_quantized_update(q_table, s_table, acc, ids, dvec, TRAIN_LR, salt),
+        iters=10, warmup=2) for _ in range(3)]))
+    del q_table, s_table, acc
+    print(f"stochastic_quantize_rows at n={n} E={EMB}: kernel {timing['ms']:.4f} ms, plain "
+          f"{timing['plain_ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} "
+          f"MB); no single PyTorch call computes it; rounds {runs['ms']} / plain "
+          f"{runs['plain_ms']}")
+    print(f"classic update parts at n={n}: id-keyed hash (int64, to int32 patterns) "
+          f"{parts['hash_ms']:.4f} ms, dedup_row_grads {parts['dedup_ms']:.4f} ms, the q and "
+          f"scale scatter-sets {parts['scatters_ms']:.4f} ms, the whole "
+          f"classic_quantized_update of a [{N_SPARSE * VOCAB}, {EMB}] int8 table "
+          f"{parts['update_ms']:.4f} ms; rounds {runs['hash_ms']} / {runs['dedup_ms']}")
+    return err, timing, parts
+
+
+def packed_from_classic(leaves: dict) -> np.ndarray:
+    """``[V, 128]`` u8 packed rows holding the classic int8 leaves' q and
+    scale, accumulator zero."""
+    q, scale = leaves["unified_q"], leaves["unified_scale"]
+    packed = np.zeros((q.shape[0], Q_W), np.uint8)
+    packed[:, :EMB] = q.view(np.uint8)
+    packed[:, EMB:EMB + 4] = scale[:, None].view(np.uint8)
+    return packed
+
+
+def classic_against_packed(rng: np.random.Generator, seed: int) -> str:
+    """Phase 32: one classic step and one packed step of DCN-v2 at full
+    width from the same weights and table, on a batch of 32768 rows whose
+    ids are unique within each field: q and scale equal, accumulators rtol
+    1e-6 (JAX's ``tests/test_quantized.py`` check; here it holds B8 against
+    B3, which round alike)."""
+    leaves = flax_leaves(rng, "classic")
+    batch = make_train_batch(rng)
+    for i in range(N_SPARSE):
+        batch[f"c_{i}"] = rng.permutation(VOCAB)[:TRAIN_BATCH].astype(np.int32)
+    packed_leaves = {k: v for k, v in leaves.items() if k != "unified_scale"}
+    packed_leaves["unified_q"] = packed_from_classic(leaves)
+    classic = make_trainer(DCNV2_SPEC, "classic", "cuda", leaves, batch, seed)
+    before = counts()
+    classic.train_step(batch)
+    torch.cuda.synchronize()
+    check_launches("[dcnv2] classic step", before, DCNV2_SPEC.per_step["classic"])
+    got = (classic.model.unified_q.cpu(), classic.model.unified_scale.cpu(),
+           classic.state.table_acc["unified"].cpu())
+    del classic
+    packed = make_trainer(DCNV2_SPEC, "int8", "cuda", packed_leaves, batch, seed)
+    before = counts()
+    packed.train_step(batch)
+    torch.cuda.synchronize()
+    check_launches("[dcnv2] packed step", before, DCNV2_SPEC.per_step["int8"])
+    want = packed.unpacked_quantized()["unified"]
+    del packed
+    touched = torch.from_numpy(np.unique(unified_ids(batch)))
+    q_off = int((got[0] != want[0]).sum())
+    s_off = int((got[1].view(torch.int32) != want[1].view(torch.int32)).sum())
+    if q_off or s_off or touched.shape[0] != TRAIN_BATCH * N_SPARSE:
+        raise AssertionError(f"classic vs packed step: {q_off} q values and {s_off} scales "
+                             f"differ")
+    err = close(got[2], want[2], rtol=1e-6, atol=1e-8)
+    moved = int((got[0][touched] != torch.from_numpy(leaves["unified_q"])[touched]).sum())
+    note = (f"classic step vs packed step on {touched.shape[0]} unique ids: q and scale "
+            f"bit-equal, accumulators max abs err {err:.3e}; {moved} q values moved")
+    print(f"[dcnv2] {note}")
+    return note
 
 
 def fm_close(got: torch.Tensor, want: torch.Tensor, v: torch.Tensor) -> float:
@@ -1743,15 +1975,30 @@ def make_trainer(spec: ModelSpec, table: str, device: str, leaves: dict, sample:
     rows under lazy Adam (``SparseEmbeddingTrainer``; DeepFM's linear table
     too); int8, packed ``q || scale || acc`` rows under rowwise Adagrad with
     stochastic requantization (``QuantizedEmbeddingTrainer``; DeepFM's f32
-    linear table in the dense optimizer). Dense Adam, the spec's loss and lr
-    (BCE and 1e-3 but for the two-tower model); weights from ``leaves`` (flax
-    layout)."""
+    linear table in the dense optimizer); a classic format, the same with
+    the model's ``unified_q`` and ``unified_scale`` buffers and the state's
+    accumulator (``packed_tables=False``). Dense Adam, the spec's loss and
+    lr (BCE and 1e-3 but for the two-tower model); weights from ``leaves``
+    (flax layout)."""
     model = spec.make(table, device, seed)
     cls = SparseEmbeddingTrainer if table == "f32" else QuantizedEmbeddingTrainer
-    trainer = cls(model, device=device, packed_tables=True)
+    trainer = cls(model, device=device, packed_tables=table not in CLASSIC)
     trainer.compile(optimizer="adam", lr=spec.lr, loss=spec.loss)
     trainer.init_state(sample, seed=seed)
     return params_from_jax(leaves, trainer)
+
+
+def trained_tables(trainer) -> dict:
+    """The tables a trainer updates in place, by name: each packed buffer;
+    for a classic table its ``q`` and ``scale`` buffers and its
+    accumulator."""
+    tables = dict(trainer.state.packed)
+    for name, acc in getattr(trainer.state, "table_acc", {}).items():
+        info = trainer._specs[name]
+        for path in (info["q_path"], info["scale_path"]):
+            tables[path] = trainer.model.get_buffer(path)
+        tables[f"{name} accumulator"] = acc
+    return tables
 
 
 def time_table_share(trainer, batch: dict, path: str) -> float:
@@ -1775,9 +2022,10 @@ def time_table_share(trainer, batch: dict, path: str) -> float:
 
 def train(spec: ModelSpec, table: str, leaves: dict, rng: np.random.Generator, seed: int,
           table_shares: bool = False):
-    """Phases 7, 10, 14, 15, 19, 20, 24 and 25: one main training path, every
-    launch count from zero. Returns the launches (by kernel name), the ms/step and, with
-    ``table_shares``, each packed f32 table's own share of a step in ms."""
+    """Phases 7, 10, 14, 15, 19, 20, 24, 25, 29, 30 and 33: one main training
+    path, every launch count from zero. Returns the launches (by kernel
+    name), the ms/step and, with ``table_shares``, each packed f32 table's
+    own share of a step in ms."""
     tag = f"[train {spec.name} {table}]"
     per_step = spec.per_step[table]
     rows = spec.train_rows
@@ -1786,18 +2034,17 @@ def train(spec: ModelSpec, table: str, leaves: dict, rng: np.random.Generator, s
     batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()} for b in host]
     if table == "int8" and spec.table_lr is not None and trainer._table_lr != spec.table_lr:
         raise AssertionError(f"{tag} table lr {trainer._table_lr}, want {spec.table_lr}")
-    addresses = {path: packed.data_ptr() for path, packed in trainer.state.packed.items()}
-    for path, packed in trainer.state.packed.items():
-        print(f"{tag} packed table {path} {tuple(packed.shape)} {packed.dtype}, "
-              f"{packed.nbytes / 1e6:.1f} MB")
+    addresses = {path: t.data_ptr() for path, t in trained_tables(trainer).items()}
+    for path, t in trained_tables(trainer).items():
+        print(f"{tag} table {path} {tuple(t.shape)} {t.dtype}, {t.nbytes / 1e6:.1f} MB")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
     def check_buffers():
-        for path, address in addresses.items():
-            if trainer.state.packed[path].data_ptr() != address:
-                raise AssertionError(f"{tag} the packed table {path} was reallocated")
+        for path, t in trained_tables(trainer).items():
+            if t.data_ptr() != addresses[path]:
+                raise AssertionError(f"{tag} the table {path} was reallocated")
         q_path = spec.tables["int8"]
         if table == "int8" and trainer.model.get_buffer(q_path).data_ptr() != addresses[q_path]:
             raise AssertionError(f"{tag} the packed table is not the model's {q_path}")
@@ -1858,6 +2105,14 @@ def train(spec: ModelSpec, table: str, leaves: dict, rng: np.random.Generator, s
                                  f"stayed 0")
         print(f"{tag} unpacked_quantized: acc > 0 on all {touched.shape[0]} touched rows, "
               f"{int((acc > 0).sum())} of {acc.numel()} rows")
+    elif table in CLASSIC:
+        touched = torch.from_numpy(np.unique(np.concatenate(
+            [spec.table_ids(spec.tables[table], b) for b in host]))).cuda()
+        acc = trainer.state.table_acc[spec.q_name]
+        if not bool((acc[touched] > 0).all()):
+            raise AssertionError(f"{tag} an accumulator of a touched row stayed 0")
+        print(f"{tag} table_acc: acc > 0 on all {touched.shape[0]} touched rows, "
+              f"{int((acc > 0).sum())} of {acc.numel()} rows")
     if spec.after_train is not None:
         spec.after_train(trainer, host, tag)
     launches = names(counts())
@@ -1870,11 +2125,13 @@ def train(spec: ModelSpec, table: str, leaves: dict, rng: np.random.Generator, s
     return launches, ms, shares
 
 
-def int8_rows_agree(tag: str, path: str, card: torch.Tensor, cpu: torch.Tensor, emb: int) -> str:
-    """Packed int8 rows, card against CPU: scale and accumulator rtol 1e-4 /
-    atol 1e-6, q values off by at most one in at most 0.1% of them (f32 sums
-    in another order move a value over a rounding threshold)."""
-    (cq, cs, ca), (pq, ps, pa) = (unpack_quantized_table(r, emb) for r in (card, cpu))
+def int8_rows_agree(tag: str, path: str, card, cpu, emb: int) -> str:
+    """Int8 rows, card against CPU: packed rows, or classic ``(q, scale,
+    acc)`` triples; scale and accumulator rtol 1e-4 / atol 1e-6, q values
+    off by at most one in at most 0.1% of them (f32 sums in another order
+    move a value over a rounding threshold)."""
+    (cq, cs, ca), (pq, ps, pa) = (r if isinstance(r, tuple) else unpack_quantized_table(r, emb)
+                                  for r in (card, cpu))
     err = max(close(cs, ps), close(ca, pa))
     diff = (cq.int() - pq.int()).abs()
     flips = int((diff > 0).sum())
@@ -1886,15 +2143,15 @@ def int8_rows_agree(tag: str, path: str, card: torch.Tensor, cpu: torch.Tensor, 
 
 def card_against_cpu(spec: ModelSpec, table: str, leaves: dict, rng: np.random.Generator,
                      seed: int) -> None:
-    """Phases 8, 11, 16 and 21: 2 steps at batch 1024 (DIN 512) on the card
-    and on the CPU (plain versions) from the same state:
+    """Phases 8, 11, 16, 21 and 31: 2 steps at batch 1024 (DIN 512) on the
+    card and on the CPU (plain versions) from the same state:
     losses rtol 1e-5, dense parameters
     rtol 1e-4 / atol 1e-6 (DeepFM's int8 set-up keeps its linear table
     there, whose card gradient sums by atomics in no fixed order); each
     packed table's touched rows rtol 1e-4 / atol 1e-6 (f32), or their scale
     and accumulator so and their q values off by at most one in at most 0.1%
-    of them (int8: f32 sums in another order move a value over a rounding
-    threshold)."""
+    of them (int8, packed or classic: f32 sums in another order move a value
+    over a rounding threshold)."""
     tag = f"[{spec.name} {table}]"
     batch_rows, emb = spec.cpu_rows, spec.emb
     host = [spec.batch(rng, batch_rows) for _ in range(CPU_STEPS)]
@@ -1902,13 +2159,20 @@ def card_against_cpu(spec: ModelSpec, table: str, leaves: dict, rng: np.random.G
     for device in ("cuda", "cpu"):
         trainer = make_trainer(spec, table, device, leaves, host[0], seed)
         losses = torch.stack([trainer.train_step(b) for b in host]).cpu()
-        keys = {path.replace("/", ".") for path in trainer.state.packed}
+        keys = {path.replace("/", ".") for path in trained_tables(trainer)}
         dense = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()
                  if k not in keys}
         rows = {}
         for path, packed in trainer.state.packed.items():
             touched = np.unique(np.concatenate([spec.table_ids(path, b) for b in host]))
             rows[path] = packed[torch.from_numpy(touched).to(device)].cpu()
+        for name, acc in getattr(trainer.state, "table_acc", {}).items():
+            info = trainer._specs[name]
+            touched = np.unique(np.concatenate([spec.table_ids(info["q_path"], b) for b in host]))
+            index = torch.from_numpy(touched).to(device)
+            rows[info["q_path"]] = tuple(
+                t[index].cpu() for t in (trainer.model.get_buffer(info["q_path"]),
+                                         trainer.model.get_buffer(info["scale_path"]), acc))
         runs[device] = losses, dense, rows
         del trainer
     (card_loss, card_dense, card_rows), (cpu_loss, cpu_dense, cpu_rows) = runs["cuda"], runs["cpu"]
@@ -1916,7 +2180,7 @@ def card_against_cpu(spec: ModelSpec, table: str, leaves: dict, rng: np.random.G
     dense_err = max(close(card_dense[k], cpu_dense[k]) for k in cpu_dense)
     notes = []
     for path, cpu in cpu_rows.items():
-        if path != spec.tables["int8"]:
+        if table == "f32" or path != spec.tables[table]:
             notes.append(f"{path} {close(card_rows[path], cpu):.3e} ({cpu.shape[0]} rows)")
             continue
         notes.append(int8_rows_agree(tag, path, card_rows[path], cpu, emb))
@@ -2019,7 +2283,7 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     paths = build("cross", "seg_scan", "scatter", "requantize", "fm", "din_attention",
-                  "retrieval_topk")
+                  "retrieval_topk", "quantize")
     print(f"built {', '.join(str(p.name) for p in paths.values())} in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernel against plain (these launches are not the main path's)
@@ -2202,6 +2466,59 @@ def main() -> int:
     # 26 (int8). two-tower int8 card against CPU
     tt_card_against_cpu("int8", leaves, rng, args.seed)
     del leaves
+    torch.cuda.empty_cache()
+
+    # 27. B8 against plain, its time, and the classic update's parts (not the
+    # main path's launches)
+    b8_err, b8_timing, classic_parts = check_and_time_b8(rng, gen, args.seed)
+    torch.cuda.empty_cache()
+
+    # 28. classic int8 serving, DCN-v2 and DeepFM, with launch counts from zero
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    classic_served = {spec.name: serve_table(spec, "classic", requests, args.seed,
+                                             profiled=PROFILED_SHAPES[1:])
+                      for spec in (DCNV2_SPEC, DEEPFM_SPEC)}
+    check_launches("classic serving", {k: 0 for k in ALL_KERNELS},
+                   {cross_network: classic_served["dcnv2"],
+                    fm_interaction: classic_served["deepfm"]})
+    print(f"classic serving: {classic_served} requests, stochastic_quantize_rows launches "
+          f"{stochastic_quantize_rows.launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.empty_cache()
+
+    # 29 and 31. classic int8 DCN-v2 training, with launch counts from zero,
+    # and the card against the CPU
+    leaves = flax_leaves(np.random.default_rng(args.seed + 12), "classic")
+    classic_launches, classic_ms, _ = train(DCNV2_SPEC, "classic", leaves, rng, args.seed)
+    torch.cuda.empty_cache()
+    card_against_cpu(DCNV2_SPEC, "classic", leaves, rng, args.seed)
+    del leaves
+    torch.cuda.empty_cache()
+
+    # 30 and 31. classic int8 DeepFM training, with launch counts from zero,
+    # and the card against the CPU
+    leaves = deepfm_leaves(np.random.default_rng(args.seed + 13), "classic")
+    fm_classic_launches, fm_classic_ms, _ = train(DEEPFM_SPEC, "classic", leaves, rng, args.seed)
+    torch.cuda.empty_cache()
+    card_against_cpu(DEEPFM_SPEC, "classic", leaves, rng, args.seed)
+    del leaves
+    torch.cuda.empty_cache()
+
+    # 32. the classic step against the packed step on unique ids
+    classic_vs_packed = classic_against_packed(np.random.default_rng(args.seed + 14), args.seed)
+    torch.cuda.empty_cache()
+
+    # 33. classic int4 and two scale groups: no B8
+    other_ms = {}
+    for offset, table in enumerate(("classic_int4", "classic_g2")):
+        leaves = flax_leaves(np.random.default_rng(args.seed + 15 + offset), table)
+        _, other_ms[table], _ = train(DCNV2_SPEC, table, leaves, rng, args.seed)
+        del leaves
+        torch.cuda.empty_cache()
+    print(f"[train dcnv2] classic int8 {classic_ms:.3f} ms/step, int4 "
+          f"{other_ms['classic_int4']:.3f}, two scale groups {other_ms['classic_g2']:.3f}; "
+          f"packed int8 {int8_ms:.3f}, f32 {f32_ms:.3f} ms/step in this run")
 
     n_scan = TRAIN_BATCH * N_SPARSE
     vocab_rows = N_SPARSE * VOCAB
@@ -2231,6 +2548,7 @@ def main() -> int:
          "launches": launches["segmented_sum_scan"], "max_abs_err": scan_err, **scan_timing,
          "shape": f"n={n_scan} E={EMB} f32, row stride {PACKED_W}",
          "f32_train_launches": f32_launches["segmented_sum_scan"],
+         "classic_train_launches": classic_launches["segmented_sum_scan"],
          **deepfm_launches("segmented_sum_scan"), **din_launches("segmented_sum_scan"),
          "int8": {"shape": f"n={n_scan} E={EMB} f32, row stride {Q_W // 4}",
                   **scan_timing_int8},
@@ -2255,6 +2573,7 @@ def main() -> int:
          "launches": launches["scatter_set_rows"], "max_abs_err": scatter_err, **scatter_timing,
          "shape": f"n={n_scan} rows of {PACKED_W} f32 into [{vocab_rows}, {PACKED_W}]",
          "f32_train_launches": f32_launches["scatter_set_rows"],
+         "classic_train_launches": classic_launches["scatter_set_rows"],
          **deepfm_launches("scatter_set_rows"), **din_launches("scatter_set_rows"),
          "int8": {"shape": f"n={n_scan} rows of {Q_W} u8 into [{vocab_rows}, {Q_W}]",
                   **scatter_timing_int8},
@@ -2290,6 +2609,15 @@ def main() -> int:
                      **din_timing["serve"]},
          "library_note": "no single PyTorch call computes MLP-scored attention pooling "
                          "(scaled_dot_product_attention scores by dot product)"},
+        {"name": "stochastic_quantize_rows", "route": "cuda",
+         "source": "pytorchrec_tpu_torch/csrc/quantize.cu",
+         "replaces": "pytorchrec_tpu/ops/kernels/quantize.py:119",
+         "launches": classic_launches["stochastic_quantize_rows"], "max_abs_err": b8_err,
+         **b8_timing, "shape": f"rows [{n_scan}, {EMB}] f32, bits [{n_scan}, {EMB}] uint32",
+         "deepfm_classic_train_launches": fm_classic_launches["stochastic_quantize_rows"],
+         "serving_launches": 0,
+         "library_note": "no single PyTorch call computes absmax, scale and stochastic "
+                         "rounding to int8"},
         {"name": "bin_max_scores", "route": "cuda",
          "source": "pytorchrec_tpu_torch/csrc/retrieval_topk.cu",
          "replaces": "pytorchrec_tpu/ops/kernels/retrieval_topk.py:155",
@@ -2313,6 +2641,12 @@ def main() -> int:
                                     "exact_ms": tt_serving["exact_ms"],
                                     "recall": tt_serving["recall"],
                                     "index_build_ms": tt_serving["index_build_ms"]}}))
+    print(json.dumps({"classic_int8": {
+        "dcnv2_ms_per_step": classic_ms, "deepfm_ms_per_step": fm_classic_ms,
+        "dcnv2_int4_ms_per_step": other_ms["classic_int4"],
+        "dcnv2_two_groups_ms_per_step": other_ms["classic_g2"], "batch": TRAIN_BATCH,
+        "b8_ms": b8_timing["ms"], **classic_parts, "served": classic_served,
+        "classic_vs_packed": classic_vs_packed}}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -9,8 +9,12 @@ parameter names, so converted weights load 1:1 (``utils/convert.py``):
 * one unified offset-indexed f32 table ``unified_emb.embedding [sum(vocab), E]``
   and the linear table ``unified_lin.embedding [sum(vocab), 1]``;
 * one unified int8/int4 packed byte-row table ``unified_q [sum(vocab), W]``
-  u8 (``ops/quantized_packed.py``), with ``scale_col_groups`` scales a row;
-  the linear table stays f32 beside it;
+  u8 (``ops/quantized_packed.py``), with ``scale_col_groups`` scales a row
+  (``table_packed=True``), or the classic pair of buffers ``unified_q``
+  int8 ``[sum(vocab), E]`` (int4: ``[sum(vocab), E/2]`` nibble-packed) and
+  ``unified_scale`` f32 ``[sum(vocab)]`` (``[sum(vocab), G]`` with G column
+  groups) (``table_packed=False``, the JAX package's default); the linear
+  table stays f32 beside either;
 * the linear term's dense parameters ``dense_linear [F_dense]`` and the
   global ``bias``, and the dense fields' factor vectors ``dense_factors
   [F_dense, E]``.
@@ -25,14 +29,17 @@ Fields arriving ``[B]`` are broadcast against candidate fields ``[B, N]``.
 
 Rows injection: ``sharded_table_specs(batch)`` (the sparse trainer's
 protocol) names the unified f32 tables a model reads, and
-``quantized_table_spec(batch)`` (the quantized trainer's) the unified packed
-quantized table, each with its ids ``[..., F_sparse]`` and a batch key
-(``ROWS_KEY``, ``LIN_ROWS_KEY``); when the batch carries rows under that
-key, the model reads them in place of its own gather, so the trainer can
-gather packed rows once and take the loss's gradient with respect to the
-rows themselves.
+``quantized_table_spec(batch)`` (the quantized trainer's) the unified
+quantized table, packed or classic, each with its ids ``[..., F_sparse]``
+and a batch key (``ROWS_KEY``, ``LIN_ROWS_KEY``); when the batch carries
+rows under that key, the model reads them in place of its own gather, so
+the trainer can gather the rows once and take the loss's gradient with
+respect to the rows themselves.
 
-The classic unpacked ``q``/``scale`` leaves and DLRM come with later work.
+The classic table's init keeps the JAX package's quirk: ``q`` and ``scale``
+come from two independent N(0, 0.01) draws, each rounded to nearest, so a
+row's initial values are not one draw's (the first quantized update
+re-establishes them). DLRM comes with later work.
 """
 
 from __future__ import annotations
@@ -52,7 +59,7 @@ from pytorchrec_tpu_torch.models.base import (
 )
 from pytorchrec_tpu_torch.ops.embedding import Embedding, normal_init
 from pytorchrec_tpu_torch.ops.interactions import CrossNetworkV2, fm_interaction
-from pytorchrec_tpu_torch.ops.kernels.quantize import quantize_rows
+from pytorchrec_tpu_torch.ops.kernels.quantize import dequantize_rows, quantize_rows
 from pytorchrec_tpu_torch.ops.mlp import MLP, linear
 from pytorchrec_tpu_torch.ops.quantized_packed import pack_quantized_table, packed_gather_dequant
 from pytorchrec_tpu_torch.utils.device import resolve_device
@@ -145,15 +152,19 @@ class _CTRBase(RecModel):
             if fields and not self.quantized_embedding:
                 self.unified_emb = Embedding(total, self.emb_size, device, generator)
             elif fields:
-                if not self.table_packed:
-                    raise NotImplementedError("the unpacked q/scale quantized leaves are not "
-                                              "ported yet; use table_packed=True")
-                rows = normal_init((total, self.emb_size), device, generator)
-                q, scale = quantize_rows(rows, bits=self.table_bits,
-                                         col_groups=self.scale_col_groups)
-                acc = torch.zeros((total,), dtype=torch.float32, device=device)
-                self.register_buffer("unified_q", pack_quantized_table(
-                    q, scale, acc, self.emb_size, self.table_bits, self.scale_col_groups))
+                formats = dict(bits=self.table_bits, col_groups=self.scale_col_groups)
+                q, scale = quantize_rows(normal_init((total, self.emb_size), device, generator),
+                                         **formats)
+                if self.table_packed:
+                    acc = torch.zeros((total,), dtype=torch.float32, device=device)
+                    self.register_buffer("unified_q", pack_quantized_table(
+                        q, scale, acc, self.emb_size, self.table_bits, self.scale_col_groups))
+                else:
+                    # the scale from a second, independent draw (the JAX init)
+                    _, scale = quantize_rows(
+                        normal_init((total, self.emb_size), device, generator), **formats)
+                    self.register_buffer("unified_q", q)
+                    self.register_buffer("unified_scale", scale)
             if self._uses_linear:
                 self.unified_lin = Embedding(total, 1, device, generator)
         if self._uses_linear:
@@ -170,15 +181,22 @@ class _CTRBase(RecModel):
         return torch.stack([ids + off for ids, off in zip(sparse, self._offsets)], dim=-1)
 
     def _unified_vectors(self, sparse, batch: Optional[Batch] = None) -> torch.Tensor:
-        """[..., F_sparse, E] from the unified table (f32 or packed quantized),
-        or the rows the trainer injected under ``ROWS_KEY``."""
+        """[..., F_sparse, E] from the unified table (f32, packed quantized or
+        classic quantized), or the rows the trainer injected under
+        ``ROWS_KEY``."""
         ids = self._unified_ids(sparse)
         rows = batch.get(self.ROWS_KEY) if batch is not None else None
         if rows is not None:
             return rows.reshape(*ids.shape, self.emb_size)
-        if self.quantized_embedding:
+        if self.quantized_embedding and self.table_packed:
             return packed_gather_dequant(self.unified_q, ids, self.emb_size,
                                          self.table_bits, self.scale_col_groups)
+        if self.quantized_embedding:
+            flat = ids.reshape(-1)
+            rows = dequantize_rows(self.unified_q.index_select(0, flat),
+                                   self.unified_scale.index_select(0, flat),
+                                   bits=self.table_bits, col_groups=self.scale_col_groups)
+            return rows.reshape(*ids.shape, self.emb_size)
         return self.unified_emb(ids)
 
     def _embedded_concat(self, sparse, batch: Optional[Batch] = None) -> torch.Tensor:
@@ -240,8 +258,9 @@ class _CTRBase(RecModel):
 
     def quantized_table_spec(self, batch: Batch) -> Dict[str, dict]:
         """Quantized-trainer protocol: the unified quantized table's flax
-        path, its ids ``[..., F_sparse]`` for ``batch``, the batch key of its
-        rows and its format."""
+        paths (``q``, and ``scale`` for the classic table), its ids
+        ``[..., F_sparse]`` for ``batch``, the batch key of its rows and its
+        format."""
         self._check_trainable_table(quantized=True)
         sparse, _, _ = _gather_fields(batch, self.sparse_columns, self.dense_columns)
         return {"unified": {

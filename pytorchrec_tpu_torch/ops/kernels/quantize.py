@@ -1,12 +1,25 @@
 """Row quantization, f32 rows <-> int8 (or nibble-packed int4) + f32 scale,
-and the int8 table update's requantize kernel (port of
+the classic table update's stochastic quantize kernel and the packed int8
+table update's requantize kernel (port of
 ``pytorchrec_tpu/ops/kernels/quantize.py``).
 
 Plain torch: int4 packing, quantization with round-to-nearest (table init)
-or stochastic rounding from given bits, dequantization, the id-keyed
-rounding bits and the per-step salt they take.
+or stochastic rounding from given bits (``quantize_rows``, every format),
+dequantization, the id-keyed rounding bits and the per-step salt they take.
 
-Kernel. ``requantize_rows`` replaces ``_requantize_kernel`` (the
+Kernel B8. ``stochastic_quantize_rows`` replaces ``_quantize_kernel`` (the
+``pl.pallas_call`` of ``quantize_rows_pallas``): f32 rows and their uint32
+rounding bits (held in int32) give int8 rows and one scale a row,
+``quantize_rows(rows, bits, bits=8, col_groups=1)`` bit for bit. The classic
+quantized-row trainer runs it once a step on each int8 table
+(``training/quantized_trainer.py``); round-to-nearest, int4 and column
+groups stay plain torch, as no TPU kernel covers them. The kernel
+(``csrc/quantize.cu``) gives each row a group of up to 32 threads. It is
+bound by bytes: rows and bits read, q and scale written, 126.1 MB at the
+classic step's shape (851,968 rows, E=16), 0.0376 ms on the H100 at
+3.35 TB/s.
+
+Kernel B3. ``requantize_rows`` replaces ``_requantize_kernel`` (the
 ``pl.pallas_call`` of ``requantize_rows_pallas``): over the permuted packed
 ``q || scale || acc || ...`` byte rows of an int8 table (one scale a row) and
 the rows' summed grads it runs the rowwise-Adagrad step and the id-keyed
@@ -16,10 +29,11 @@ reads each row's ``q || scale || acc`` bytes, its grads and its id, and writes
 the whole new row, 187 MB at the main path's shape (851,968 rows of 128
 bytes, E=16), 0.056 ms on the H100 at 3.35 TB/s.
 
-``requantize_rows`` dispatches by device (``ops/kernels/__init__.py``): a
-CUDA tensor launches the kernel and raises if the launch fails; a CPU tensor
-runs ``requantize_rows_plain``. ``requantize_rows.launches`` counts kernel
-launches. The JAX package runs its kernel only when an environment variable
+Both wrappers dispatch by device (``ops/kernels/__init__.py``): a CUDA
+tensor launches the kernel and raises if the launch fails; a CPU tensor runs
+the plain version (``stochastic_quantize_rows_plain``,
+``requantize_rows_plain``). ``<wrapper>.launches`` counts kernel launches.
+The JAX package runs its kernel only when an environment variable
 asks for it, because it measured slower there than XLA's chain on its TPU;
 the port runs it on every int8 step on the card.
 
@@ -69,7 +83,8 @@ def quantize_rows(rows: torch.Tensor, rng_bits: Optional[torch.Tensor] = None, b
     """[N, E] f32 -> ([N, E] int8 (bits=8) or [N, E//2] packed (bits=4),
     f32 scale [N] or [N, G]).
 
-    ``rng_bits`` (``[N, E]`` integers in ``[0, 2**32)``) selects stochastic
+    ``rng_bits`` (``[N, E]`` uint32 values: integers in ``[0, 2**32)``, or
+    their int32 bit patterns) selects stochastic
     rounding, ``floor(x + (bits >> 8) * 2**-24)``; without it values round to
     nearest, ties to even, as ``jnp.rint`` does. ``col_groups=G`` gives each
     row G column groups with an absmax scale of their own."""
@@ -148,6 +163,14 @@ def id_keyed_rounding_bits(ids: torch.Tensor, e: int, salt: int) -> torch.Tensor
     return _mix_u32(x ^ (int(salt) & _U32))
 
 
+def rounding_bits_i32(bits: torch.Tensor) -> torch.Tensor:
+    """Integers in ``[0, 2**32)`` (``id_keyed_rounding_bits``' int64) -> the
+    same uint32 bit patterns held in int32: values of ``2**31`` and above wrap
+    to negatives (``2**32 - 1`` -> ``-1``), never saturate."""
+    x = bits.to(torch.int64) & _U32
+    return (x - ((x >> 31) << 32)).to(torch.int32)
+
+
 def table_rounding_salt(key, step: int, path: str) -> int:
     """The per-(table, step) salt of ``id_keyed_rounding_bits``, from the
     train state's key (numpy ``uint32[2]``, ``utils/rng.py``), the 1-based
@@ -166,6 +189,13 @@ def _sum_in_column_order(x: torch.Tensor) -> torch.Tensor:
     return total
 
 
+def mean_square_rows(g: torch.Tensor) -> torch.Tensor:
+    """``[n, e] -> [n]``: ``mean(g**2)`` along each row, summed from column 0
+    up and divided by ``e`` (the rowwise-Adagrad increment, as the JAX
+    package's CPU reduction and the kernel compute it)."""
+    return _divide(_sum_in_column_order(torch.square(g)), g.shape[1])
+
+
 def requantize_rows_chain(moved: torch.Tensor, g: torch.Tensor, rng_bits: torch.Tensor,
                           lr: float, e: int, eps: float = 1e-6, bits: int = 8,
                           col_groups: int = 1) -> torch.Tensor:
@@ -182,7 +212,7 @@ def requantize_rows_chain(moved: torch.Tensor, g: torch.Tensor, rng_bits: torch.
     current = dequantize_rows(moved[:, :qb].contiguous().view(torch.int8),
                               scale_old[:, 0] if col_groups == 1 else scale_old,
                               bits=bits, col_groups=col_groups)
-    acc_new = acc_old + _divide(_sum_in_column_order(torch.square(g)), e)
+    acc_new = acc_old + mean_square_rows(g)
     new_rows = current - lr * g / (torch.sqrt(acc_new)[:, None] + eps)
     q_new, s_new = quantize_rows(new_rows, rng_bits=rng_bits, bits=bits, col_groups=col_groups)
     return torch.cat([q_new.view(torch.uint8),
@@ -266,3 +296,65 @@ def requantize_rows(moved: torch.Tensor, g: torch.Tensor, ids: torch.Tensor, sal
 
 
 requantize_rows.launches = 0
+
+
+def stochastic_quantize_rows_plain(rows: torch.Tensor, rng_bits: torch.Tensor
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of B8: ``quantize_rows`` at int8 with one
+    scale a row and the given bits."""
+    return quantize_rows(rows, rng_bits=rng_bits, bits=8, col_groups=1)
+
+
+@functools.cache
+def _quantize_kernel():
+    lib = library("quantize")
+    lib.quantize_rows_launch.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    lib.quantize_rows_launch.restype = ctypes.c_int
+    lib.quantize_error_string.argtypes = [ctypes.c_int]
+    lib.quantize_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch_quantize(rows: torch.Tensor, rng_bits: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    for name, t in (("rows", rows), ("rng_bits", rng_bits)):
+        if not t.is_contiguous():
+            raise ValueError(f"stochastic_quantize_rows kernel takes contiguous tensors; {name} "
+                             f"is not")
+    if rng_bits.device != rows.device:
+        raise ValueError(f"rng_bits is on {rng_bits.device}, rows on {rows.device}")
+    n, e = rows.shape
+    q = torch.empty((n, e), dtype=torch.int8, device=rows.device)
+    scale = torch.empty((n,), dtype=torch.float32, device=rows.device)
+    if n == 0:
+        return q, scale
+    lib = _quantize_kernel()
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.quantize_rows_launch(rows.data_ptr(), rng_bits.data_ptr(), q.data_ptr(),
+                                       scale.data_ptr(), n, e, stream)
+    if err != 0:
+        raise RuntimeError("stochastic_quantize_rows kernel launch failed: "
+                           + lib.quantize_error_string(err).decode())
+    stochastic_quantize_rows.launches += 1
+    return q, scale
+
+
+def stochastic_quantize_rows(rows: torch.Tensor, rng_bits: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B8: ``rows [n, E]`` f32 and ``rng_bits [n, E]`` int32 (uint32 bit
+    patterns, ``rounding_bits_i32``) -> ``(q [n, E] int8, scale [n] f32)``:
+    ``scale = absmax / 127`` (1 for an all-zero row) and
+    ``q = clip(floor(row / scale + (bits >> 8) * 2**-24), -127, 127)``."""
+    if rows.dim() != 2 or tuple(rng_bits.shape) != tuple(rows.shape) or rows.shape[1] < 1:
+        raise ValueError(f"want rows [n, E >= 1] and rng_bits of the same shape; got "
+                         f"{tuple(rows.shape)}, {tuple(rng_bits.shape)}")
+    if rows.dtype != torch.float32 or rng_bits.dtype != torch.int32:
+        raise TypeError(f"want rows float32, rng_bits int32; got {rows.dtype}, {rng_bits.dtype}")
+    if launches_kernel(rows, rng_bits):
+        return _launch_quantize(rows, rng_bits)
+    return stochastic_quantize_rows_plain(rows, rng_bits)
+
+
+stochastic_quantize_rows.launches = 0

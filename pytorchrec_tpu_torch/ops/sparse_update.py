@@ -14,9 +14,14 @@ so the forward gather of packed rows also fetches the moments, and the
 update moves each touched row once (``packed_sparse_update``). The reference
 package chose the 64-column multiple for its own hardware; the port keeps it
 so that packed leaves convert without reshaping.
+
+``dedup_row_grads`` sums duplicate ids' row grads for the unpacked tables
+(the classic quantized rows), with static shapes and no host sync.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -29,6 +34,50 @@ PACKED_COLS = {"adam": lambda e: 3 * e, "adagrad": lambda e: 2 * e,
                "rowwise_adagrad": lambda e: e + 1}
 
 _FAST_WIDTH = 64
+
+
+class SparseRowGrad(NamedTuple):
+    """Deduplicated row gradients: ``rows[i]`` applies to ``ids[i]``;
+    ``mask[i] = 0`` marks padding. ``ids`` are sorted ascending; with
+    ``pad_id_base`` padding ids are out of range and strictly unique."""
+
+    ids: torch.Tensor   # [n] int32, sorted ascending
+    rows: torch.Tensor  # [n, E]
+    mask: torch.Tensor  # [n] 0/1, in the rows' dtype
+
+
+def dedup_row_grads(ids: torch.Tensor, dvec: torch.Tensor,
+                    pad_id_base: Optional[int] = None) -> SparseRowGrad:
+    """Combine duplicate ids by summing their row grads, with static shapes:
+    ``ids [n]``, ``dvec [n, E]`` -> n slots, the first ``#unique`` holding
+    each id's summed grad in ascending id order, the rest masked padding
+    with zero rows. Padding ids alias the last unique id (a zero update,
+    safe only for a masked add), or, with ``pad_id_base`` (the table's row
+    count), are ``pad_id_base + slot``: out of range, ascending and unique.
+
+    One stable sort brings equal ids together in occurrence order, the
+    segmented scan (B2) leaves each id's total in its segment's last slot,
+    and the k-th slot gathers the k-th segment's last slot (found by
+    ``searchsorted`` on the running count of last slots): no atomics, no
+    boolean-mask indexing and no host sync."""
+    n = ids.shape[0]
+    if n == 0:
+        return SparseRowGrad(ids.to(torch.int32), dvec, dvec.new_zeros((0,)))
+    sorted_ids, order = torch.sort(ids, stable=True)
+    moved = dvec.index_select(0, order)
+    differs = sorted_ids[1:] != sorted_ids[:-1]
+    one = torch.ones((1,), dtype=torch.bool, device=ids.device)
+    summed = segmented_sum_scan(moved, torch.cat([one, differs]))
+    ends = torch.cumsum(torch.cat([differs, one]), 0)  # last slots up to each slot
+    slot = torch.arange(n, device=ids.device)
+    valid = slot < ends[-1]
+    # slot k takes the (k+1)-th last slot; past #unique, the final slot
+    last = torch.searchsorted(ends, slot + 1).clamp_(max=n - 1)
+    rows = torch.where(valid[:, None], summed.index_select(0, last), 0.0)
+    seg_ids = sorted_ids.index_select(0, last).to(torch.int64)
+    if pad_id_base is not None:
+        seg_ids = torch.where(valid, seg_ids, pad_id_base + slot)
+    return SparseRowGrad(seg_ids.to(torch.int32), rows, valid.to(dvec.dtype))
 
 
 def f32_to_bytes(x: torch.Tensor) -> torch.Tensor:

@@ -4,9 +4,10 @@ The JAX package threads one immutable pytree (params, optimizer state, step,
 PRNG key) through a jitted step. In the port the parameters live in the
 model (an ``nn.Module``) and are updated in place; the state holds what the
 model does not: the dense optimizer, the generator of dropout masks, the
-step counter and, for packed tables, the packed
+step counter, for packed tables the packed
 ``table || moments || staging`` (f32) or ``q || scale || acc || staging``
-(quantized) buffers.
+(quantized) buffers, and for the classic quantized tables (a ``q`` and a
+``scale`` buffer of the model) their rowwise-Adagrad accumulators.
 
 ``step`` starts at 0 and counts finished train steps, as JAX's
 ``state.step``; a step's packed update takes ``step + 1`` (1-based, for
@@ -42,3 +43,6 @@ class QuantizedTrainState(SparseTrainState):
     # The JAX state's PRNG key (``split(PRNGKey(seed))[1]``), numpy uint32[2]:
     # it salts each step's rounding bits (``utils/rng.py``)
     rng_key: Optional[np.ndarray] = None
+    # classic tables (``packed_tables=False``): table name (``"unified"``) ->
+    # the f32 [V] rowwise-Adagrad accumulator, the JAX state's ``table_acc``
+    table_acc: Dict[str, torch.Tensor] = field(default_factory=dict)

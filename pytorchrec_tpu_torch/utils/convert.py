@@ -9,7 +9,11 @@ them into the port model's state dict:
   ``table || moments || staging`` row (``SparseEmbeddingTrainer`` with
   ``packed_tables=True``); its first E columns are the table;
 * the uint8 packed quantized tables ``unified_q`` and the item table
-  ``i_q`` (DIN's and TwoTower's) pass through unchanged, as do DIN's
+  ``i_q`` (DIN's and TwoTower's), and the classic quantized leaves of a CTR
+  model with ``table_packed=False`` (``unified_q`` int8 ``[V, E]`` or
+  nibble-packed ``[V, E/2]``, ``unified_scale`` f32 ``[V]`` or ``[V, G]``),
+  pass through unchanged, their dtype and shape held to the model's
+  buffers, as do DIN's
   attention weights ``attention/w<i>`` and ``attention/b<i>`` (kept
   ``[in, out]``, ``ops/attention.py``);
 * TwoTower's leaves need no rule of their own: ``u_embeddings/embedding``
@@ -35,7 +39,11 @@ and ``i_embeddings/embedding`` ``[V, W]`` f32, or ``unified_q`` / ``i_q``
 ``[V, W]`` u8)
 loads whole into the trainer's packed
 buffer, moments, accumulator and staging columns included, in place; the
-dense leaves load into the model as above. The dense optimizer's state is
+dense leaves, and a classic quantized table's ``unified_q`` and
+``unified_scale`` (the model's buffers, which the trainer updates), load
+into the model as above, in place. The classic accumulator
+(``state.table_acc``) is train state, not a leaf: it stays as
+``init_state`` left it, zero. The dense optimizer's state is
 then still empty, as optax's ``init`` leaves it.
 """
 
@@ -59,7 +67,7 @@ _RULES = (
     (r"(\w+)/embedding", r"\1.embedding", "table_columns"),
     (r"cross/(ws|bs)", r"cross.\1", None),
     (r"attention/([wb]\d+)", r"attention.\1", None),
-    (r"(unified_q|i_q)", r"\1", None),
+    (r"(unified_q|unified_scale|i_q)", r"\1", None),
     (r"(bias|dense_factors|dense_linear)", r"\1", None),
 )
 

@@ -209,8 +209,10 @@ def test_table_lr_resolves_from_the_model():
 def test_mismatched_tables_and_trainers_raise():
     batch = _batches(1)[0]
     model = _port_model(8, 1)
-    with pytest.raises(NotImplementedError):  # the classic q/scale rows come later
-        TorchQuantizedTrainer(model, device="cpu", packed_tables=False)
+    classic = TorchQuantizedTrainer(model, device="cpu", packed_tables=False)
+    classic.compile(optimizer="adam", lr=LR, loss="bce")
+    with pytest.raises(ValueError, match="must agree"):  # a packed model, a classic trainer
+        classic.init_state(batch, seed=0)
     trainer = TorchQuantizedTrainer(model, device="cpu", packed_tables=True)
     trainer.compile(optimizer="adam", lr=LR, loss="bce")
     model.table_packed = False  # the model now reports unpacked rows

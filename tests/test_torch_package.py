@@ -71,9 +71,11 @@ def test_no_port_source_names_jax_or_the_jax_package():
     sources = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     offenders = [str(p.relative_to(ROOT)) for p in sources if pattern.search(p.read_text())]
     assert not offenders
-    for kernel in ("cross", "seg_scan", "scatter", "requantize", "fm", "din_attention",
-                   "retrieval_topk"):
-        assert (PORT / "csrc" / f"{kernel}.cu").exists()
+    kernels = {"cross", "seg_scan", "scatter", "requantize", "fm", "din_attention",
+               "retrieval_topk", "quantize"}
+    assert {p.stem for p in (PORT / "csrc").glob("*.cu")} == kernels
+    smoke = (ROOT / "chip_smoke.py").read_text()
+    assert all(f'"{kernel}"' in smoke for kernel in kernels)  # chip_smoke builds every one
 
 
 def _small_model(device):
@@ -223,6 +225,15 @@ def test_new_exports():
     assert retrieval_topk.bin_max_scores.launches >= 0 and get_loss("softmax") is not None
     assert (retrieval_topk.LANES, retrieval_topk.DEFAULT_TC, retrieval_topk.DEFAULT_GROUP,
             retrieval_topk.PAD_SCORE) == (128, 2048, 16, -1e30)
+    from pytorchrec_tpu_torch.ops import sparse_update
+    from pytorchrec_tpu_torch.ops.kernels import quantize
+    from pytorchrec_tpu_torch.training import quantized_trainer
+
+    assert quantize.stochastic_quantize_rows.launches >= 0
+    assert callable(quantize.stochastic_quantize_rows_plain)
+    assert callable(quantize.rounding_bits_i32) and callable(sparse_update.dedup_row_grads)
+    assert sparse_update.SparseRowGrad._fields == ("ids", "rows", "mask")
+    assert callable(quantized_trainer.classic_quantized_update)
 
 
 def test_unported_losses_raise():
