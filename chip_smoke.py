@@ -25,7 +25,7 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    one more 32768-row request run under torch.profiler, which prints the
    device time by kernel and copy against the request's wall time;
 5. cross timings: the cross kernel's time at 1, 4096 and 32768 rows beside
-   its plain version, a cuBLAS yardstick and the card's bound;
+   its plain version, a cuBLAS yardstick and the card's bound (f32 FMA);
 6. training kernels against plain, on the card: the segmented scan at the
    packed update's shape (851,968 rows of E=16, ids drawn as ``bench.py``
    draws them), a Zipf-skewed case with segments of 10k+ rows and 1 and
@@ -113,11 +113,14 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    serving shape (4096 unit queries x 1,000,000 unit items, D=128, tc 2048,
    group 16) in bf16 and f32, at B=1, at B=37 and D=16 with the three
    ``(V, tc, group)`` of ``tests/test_pallas_kernels.py``, at V=1 and V=100,
-   and with duplicated rows (the lower id wins); vals rtol 1e-4 / atol 1e-6,
-   ids equal except in bins whose best and runner-up tie within that (they
-   are counted). Then its time at the serving shape beside the plain
-   version, the per-super-chunk cuBLAS score GEMMs alone, the exact chunked
-   top-k and both bounds (bf16 tensor cores, f32 FMA);
+   at the bf16 kernel's edges (B past one 128-query tile, 5 and 300 tiles a
+   super-chunk, bf16 D of 13 and 100, padded for TMA), and with duplicated
+   rows (the lower id wins); vals rtol 1e-4 / atol 1e-6, ids equal except in
+   bins whose best and runner-up tie within that (they are counted). Then
+   its time at the serving shape beside the plain version, the
+   per-super-chunk cuBLAS score GEMMs alone, the exact chunked top-k and the
+   bounds (bf16 tensor cores; f32 FMA), and the bf16 kernel alone at 1 and
+   256 queries with its work units;
 23. two-tower retrieval serving at ``scripts/retrieval_bench.py``'s scale, no
    cut (1M users and 1M items of E=64, towers (256, 128), normalized,
    temperature 0.05), weights from ``--seed`` in the flax leaf layout through
@@ -169,16 +172,17 @@ Phases; any failure ends the run with a non-zero exit and no result line:
 33. classic int4 and two scale groups: phase 29 for each, no B8 launch (no
    TPU kernel covers them);
 
-then a ``two_tower`` JSON line (ms/step, fused and exact ms a request,
-recall, index build ms), a ``classic_int8`` line (ms/step of the classic
-formats, B8's time, the hash's, the dedup's and the update's, phase 32's
-verdict) and a ``{"kernels": [...]}`` line with every kernel at its
-main-path shape (``launches``: for B1–B4 the DCN-v2 int8 training run's, for
-the FM kernels the DeepFM f32 training run's, for the pooling kernel the DIN
-f32 training run's, for B7 the two-tower serving run's, for B8 the DCN-v2
-classic training run's; the other paths' counts beside). Each path
-(serving, each training run) zeroes every launch count just before it and
-reads them just after.
+then a line of the fused 4096-query request and the DCN-v2 steps beside the
+times of the earlier B1 and B7 designs, a ``two_tower`` JSON line (ms/step,
+fused and exact ms a request, recall, index build ms), a ``classic_int8``
+line (ms/step of the classic formats, B8's time, the hash's, the dedup's and
+the update's, phase 32's verdict) and a ``{"kernels": [...]}`` line with
+every kernel at its main-path shape (``launches``: for B1–B4 the DCN-v2 int8
+training run's, for the FM kernels the DeepFM f32 training run's, for the
+pooling kernel the DIN f32 training run's, for B7 the two-tower serving
+run's, for B8 the DCN-v2 classic training run's; the other paths' counts
+beside). Each path (serving, each training run) zeroes every launch count
+just before it and reads them just after.
 The last line is ``{"ok": true, "device": {...}}``.
 Needs one CUDA card; no JAX and nothing of the JAX package is imported.
 """
@@ -333,6 +337,11 @@ ALL_KERNELS = (cross_network, segmented_sum_scan, requantize_rows, scatter_set_r
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_TENSOR_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
+# the paths that B1 and B7 run, timed with the kernels' earlier designs (B1
+# f32 FMA at 512 threads a block, B7 on mma.sync) in a whole run of this
+# script on an H100 80GB HBM3 at 700 W, printed beside this run's times
+EARLIER_MS = {"fused 4096-query request": (7.810, 8.134), "DCN-v2 f32 step": 9.945,
+              "DCN-v2 int8 step": 9.655, "DCN-v2 classic step": 14.377}
 
 # kernel against plain: f32 sums of D terms run in another order
 RTOL, ATOL = 1e-4, 1e-6
@@ -988,9 +997,10 @@ def time_cross(rng: np.random.Generator, batch: int) -> dict:
     timing = {k: float(np.median(v)) for k, v in runs.items()}
     timing["bound_ms"] = max(ops_ms, bytes_ms)
     timing["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
-    print(f"cross_network at B={batch}: kernel {timing['ms']:.4f} ms, plain "
-          f"{timing['plain_ms']:.4f} ms, addmm loop {timing['library_ms']:.4f} ms, bound "
-          f"{timing['bound_ms']:.4f} ms ({timing['bound_by']}); rounds {runs}")
+    print(f"cross_network at B={batch}: kernel {timing['ms']:.4f} ms "
+          f"({flops / timing['ms'] / 1e9:.1f} TFLOP/s), plain {timing['plain_ms']:.4f} ms, addmm "
+          f"loop {timing['library_ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms "
+          f"({timing['bound_by']}: f32 FMA); rounds {runs}")
     return timing
 
 
@@ -1675,7 +1685,17 @@ B7_CASES = (
     ("V=1 bf16", 256, 1, TT_DIM, DEFAULT_TC, DEFAULT_GROUP, torch.bfloat16),
     ("V=100 bf16", 256, 100, TT_DIM, DEFAULT_TC, DEFAULT_GROUP, torch.bfloat16),
     ("V=100 f32", 256, 100, TT_DIM, DEFAULT_TC, DEFAULT_GROUP, torch.float32),
+    # the bf16 kernel's edges: B past one 128-query tile, 5 and 300 tiles a
+    # super-chunk (not a multiple of the TMA ring's depth; above 255), bf16
+    # depths that are not a multiple of 8 (padded for TMA)
+    ("B=200 bf16", 200, 5000, TT_DIM, 128, 3, torch.bfloat16),
+    ("5 tiles bf16", 1, 5000, TT_DIM, 128, 5, torch.bfloat16),
+    ("300 tiles bf16", 70, 100_000, 64, 38_400, 1, torch.bfloat16),
+    ("300 tiles f32", 70, 100_000, 64, 38_400, 1, torch.float32),
+    ("D=13 bf16", 33, 5000, 13, 256, 3, torch.bfloat16),
+    ("D=100 bf16", 129, 3000, 100, 512, 2, torch.bfloat16),
 )
+B7_REQUEST_QUERIES = (1, 256)  # B7 also timed alone at the smaller fused requests
 
 
 def unit_rows(gen: torch.Generator, n: int, d: int) -> torch.Tensor:
@@ -1800,14 +1820,28 @@ def check_and_time_b7(gen: torch.Generator):
                                warmup=1) for _ in range(3)]
             timing["exact_topk_ms"] = float(np.median(exact))
             timing["f32_fma_bound_ms"] = b7_work(b, v, d, torch.float32)["ops_ms"]
+            # B7 alone at the smaller fused requests: one unit a (128-query
+            # tile, super-chunk), so few units for 132 SMs
+            timing["requests"] = {}
+            for n in B7_REQUEST_QUERIES:
+                qn = q[:n].contiguous()
+                ms = float(np.median([time_cuda(lambda: bin_max_scores(qn, items), iters=10,
+                                                warmup=2) for _ in range(3)]))
+                units = -(-n // 128) * -(-v // sup)
+                timing["requests"][n] = {"ms": ms, "units": units,
+                                         "bound_ms": b7_work(n, v, d, dtype)["bound_ms"]}
         timings[dtype] = timing
         print(f"bin_max_scores at [{b}, {d}] x [{v}, {d}] {dtype}: kernel {timing['ms']:.4f} ms "
               f"({2e-9 * b * v * d / timing['ms']:.1f} TFLOP/s), plain {timing['plain_ms']:.4f} ms, "
               f"cuBLAS score GEMMs alone {timing['library_ms']:.4f} ms, bound "
-              f"{timing['bound_ms']:.4f} ms ({timing['bound_by']}; bytes "
-              f"{work['bytes_ms']:.4f} ms)"
+              f"{timing['bound_ms']:.4f} ms ({timing['bound_by']}: "
+              + ("bf16 tensor cores" if dtype == torch.bfloat16 else "f32 FMA")
+              + f"; bytes {work['bytes_ms']:.4f} ms)"
               + (f", the f32 FMA bound {timing['f32_fma_bound_ms']:.4f} ms, exact chunked top-k "
-                 f"{timing['exact_topk_ms']:.3f} ms" if dtype == torch.bfloat16 else "")
+                 f"{timing['exact_topk_ms']:.3f} ms; alone at "
+                 + ", ".join(f"B={n}: {r['ms']:.4f} ms ({r['units']} units for 132 SMs, bound "
+                             f"{r['bound_ms']:.4f} ms)" for n, r in timing["requests"].items())
+                 if dtype == torch.bfloat16 else "")
               + f"; rounds {runs}")
     return worst, timings
 
@@ -2519,6 +2553,13 @@ def main() -> int:
     print(f"[train dcnv2] classic int8 {classic_ms:.3f} ms/step, int4 "
           f"{other_ms['classic_int4']:.3f}, two scale groups {other_ms['classic_g2']:.3f}; "
           f"packed int8 {int8_ms:.3f}, f32 {f32_ms:.3f} ms/step in this run")
+
+    lo, hi = EARLIER_MS["fused 4096-query request"]
+    print(f"the paths B1 and B7 run, beside the earlier designs' run: fused 4096-query request "
+          f"{tt_serving['fused_ms']['f32 4096']:.3f} ms (earlier {lo}-{hi}); DCN-v2 f32 "
+          f"{f32_ms:.3f} ms/step (earlier {EARLIER_MS['DCN-v2 f32 step']}), int8 {int8_ms:.3f} "
+          f"({EARLIER_MS['DCN-v2 int8 step']}), classic {classic_ms:.3f} "
+          f"({EARLIER_MS['DCN-v2 classic step']})")
 
     n_scan = TRAIN_BATCH * N_SPARSE
     vocab_rows = N_SPARSE * VOCAB

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 alone into ``pytorchrec_tpu_torch/_build/<name>_<hash>.so``, which is loaded
-with ``ctypes``. The hash covers the source and the flags, so an edited
-source never reuses a stale library. ``build`` starts one ``nvcc`` for each
-missing source, all at once, and waits for them together.
+with ``ctypes``. The hash covers the source, every shared header
+``csrc/*.cuh`` (a source may include any of them) and the flags, so an
+edited source or header never reuses a stale library. ``build`` starts one
+``nvcc`` for each missing source, all at once, and waits for them together.
 """
 
 from __future__ import annotations
@@ -39,9 +40,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}_{digest}.so"
+    """Where ``csrc/<name>.cu`` builds to: named by a hash of the source, of
+    each ``.cuh`` header beside it (name and content) and of the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build(*names: str) -> Dict[str, Path]:

@@ -15,14 +15,17 @@ ranks. Expected recall at k over ``n_bins`` bins is about
 ``1 - (k - 1) / (2 n_bins)``.
 
 The kernel (``csrc/retrieval_topk.cu``) never writes the ``[B, V]`` score
-matrix: a block holds a tile of queries and walks one super-chunk's 128-row
-item tiles, keeping each (query, bin) pair's running max and tile number
-with the one thread that owns the pair. bf16 items run tensor-core
-``mma.sync`` products, f32 items f32 FMA (no TF32, as the JAX reference on
-the CPU). It is bound by operations: 1.049 TFLOP at 4096 queries x 1M items
-x D=128, 1.06 ms in bf16 on the H100, 15.65 ms in f32. The depth is limited
-by shared memory (``D <= 208`` bf16, ``D <= 152`` f32 on the H100) and ids
-are int32; the wrapper raises beyond either before the launch.
+matrix: each (query, bin) pair's running max and tile number stay with the
+one thread that owns the pair while a super-chunk's 128-row item tiles go
+by. bf16 items run ``wgmma`` fed by TMA in persistent, warp-specialised
+blocks; f32 items run f32 FMA in the plain version's order (no TF32, as the
+JAX reference on the CPU). It is bound by operations: 1.049 TFLOP at 4096
+queries x 1M items x D=128, 1.06 ms in bf16 on the H100, 15.65 ms in f32.
+The depth is limited by shared memory (``D <= 256`` bf16, ``D <= 152`` f32
+on the H100) and ids are int32; the wrapper raises beyond either before the
+launch. TMA needs bf16 rows of a multiple of 8 columns on 16-byte aligned
+storage, so the wrapper zero-pads a bf16 depth that is not one in a copy
+(zeros add nothing to a score) and copies a misaligned view.
 
 The JAX function's ``tb`` (query rows a TPU grid step) is a tiling choice
 that does not change the result; the port has no such argument.
@@ -112,6 +115,16 @@ def _kernel():
     return lib
 
 
+def _tma_ready(x: torch.Tensor) -> torch.Tensor:
+    """``x [n, D]`` bf16 as TMA reads it: D zero-padded to a multiple of 8
+    (a 16-byte row stride) and 16-byte aligned storage, copied only where
+    it is not so already."""
+    pad = -x.shape[1] % 8
+    if pad:
+        return F.pad(x, (0, pad))
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _launch(queries: torch.Tensor, items: torch.Tensor, tc: int,
             group: int) -> Tuple[torch.Tensor, torch.Tensor]:
     if not items.is_contiguous():
@@ -127,6 +140,8 @@ def _launch(queries: torch.Tensor, items: torch.Tensor, tc: int,
     if b >= _INT32_LIMIT:
         raise ValueError(f"B={b} exceeds the kernel's int32 counts")
     q = queries.to(items.dtype).contiguous()  # the JAX kernel casts too (retrieval_topk.py:145)
+    if items.dtype == torch.bfloat16:
+        q, items, d = _tma_ready(q), _tma_ready(items), -(-d // 8) * 8
     lib = _kernel()
     code = _DTYPES[items.dtype]
     smem = lib.bin_max_smem_bytes(d, code)

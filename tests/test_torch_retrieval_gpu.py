@@ -38,6 +38,15 @@ CASES = [
     (65, 5000, 37, 128, 5, torch.float32),  # element loads, depth padded to 40
     (130, 3000, 200, 512, 2, torch.bfloat16),
     (64, 3000, 152, 512, 2, torch.float32),
+    (130, 3000, 256, 512, 2, torch.bfloat16),  # the widest bf16 depth: 2 item stages
+    (1, 5000, 128, 128, 5, torch.bfloat16),  # 5 tiles a super-chunk: not a multiple of the ring
+    (200, 5000, 128, 128, 3, torch.bfloat16),  # B past one query tile, partial second
+    (200, 5000, 128, 128, 3, torch.float32),
+    (70, 100_000, 64, 38_400, 1, torch.bfloat16),  # 300 tiles a super-chunk: above 255
+    (70, 100_000, 64, 38_400, 1, torch.float32),
+    (33, 5000, 13, 256, 3, torch.bfloat16),  # bf16 D not a multiple of 8: padded for TMA
+    (129, 3000, 100, 512, 2, torch.bfloat16),  # 100 = 4 mod 8, two swizzle atoms
+    (257, 40_000, 128, 2048, 16, torch.bfloat16),  # a second super-chunk of mostly wholly pad tiles
 ]
 
 
@@ -132,18 +141,53 @@ def test_duplicated_rows_give_the_lowest_id(dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_duplicated_rows_at_the_serving_depth_give_the_lowest_id(dtype):
+    """The copies at D=128, in the first two stages of the ring, for three
+    query tiles. Among 300 x 9 x 128 bins some distinct rows score within
+    the tolerance of each other, where the kernel's and plain's sums may
+    order them apart (``assert_bins_agree``); an exact copy never wins."""
+    _need_card()
+    q, items = _inputs(300, 70_000, 128, dtype, seed=3)
+    items[128:256] = items[:128]
+    items[600 + 128] = items[600]
+    got = rt.bin_max_scores(q, items, 2048, 4)
+    assert_bins_agree(q, items, 2048, 4, got, rt.bin_max_scores_plain(q, items, 2048, 4))
+    assert not bool((got[1] // 128 == 1).any())  # rows 128..255 never win over 0..127
+    assert not bool((got[1] == 600 + 128).any())
+
+
+@pytest.mark.gpu
+def test_misaligned_bf16_items_are_copied_for_tma():
+    """A view that starts 2 bytes into its storage: TMA needs 16-byte
+    aligned rows, so the wrapper copies it; the result is the same."""
+    _need_card()
+    q, items = _inputs(40, 3000, 64, torch.bfloat16, seed=4)
+    flat = torch.empty(items.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    view = flat[1:].view(items.shape)
+    view.copy_(items)
+    assert view.data_ptr() % 16 != 0
+    got = rt.bin_max_scores(q, view, 256, 4)
+    assert torch.equal(got[0], rt.bin_max_scores(q, items, 256, 4)[0])
+    assert_bins_agree(q, items, 256, 4, got, rt.bin_max_scores_plain(q, items, 256, 4))
+
+
+@pytest.mark.gpu
 def test_empty_inputs_launch_nothing_and_bad_inputs_raise():
     _need_card()
     before = rt.bin_max_scores.launches
     q, items = _inputs(0, 500, 16, torch.bfloat16, seed=1)
     vals, idx = rt.bin_max_scores(q, items)
     assert vals.shape == idx.shape == (0, rt.LANES) and rt.bin_max_scores.launches == before
-    q, items = _inputs(4, 500, 256, torch.bfloat16, seed=1)
+    q, items = _inputs(4, 500, 264, torch.bfloat16, seed=1)
     with pytest.raises(ValueError):  # more shared memory than a block may have
         rt.bin_max_scores(q, items)
+    q32, items32 = _inputs(4, 500, 156, torch.float32, seed=1)
+    with pytest.raises(ValueError):
+        rt.bin_max_scores(q32, items32)
     with pytest.raises(TypeError):
         rt.bin_max_scores(q, items.half())
     with pytest.raises(ValueError):
-        rt.bin_max_scores(q[:, :128], items[:, ::2])
+        rt.bin_max_scores(q[:, :132], items[:, ::2])
     with pytest.raises(ValueError):  # a CPU tensor beside a CUDA one
         rt.bin_max_scores(q.cpu(), items)
