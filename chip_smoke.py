@@ -11,7 +11,15 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    quantize), from
    ``pytorchrec_tpu_torch/csrc``, one nvcc each, all at once;
 3. kernel against plain: the cross kernel's wrapper on the card at the shapes
-   the serving path gives it, held against its plain PyTorch version;
+   the serving path gives it, and at D = 513, 1677 and 2048 (past the fused
+   form's width: the tiled form) at 1, 1000, 4097 and 32768 rows, held
+   against its plain PyTorch version, with the form and k-slices its plan
+   chose; at 5 rows (the rows tile); then, report only (``ROADMAP.md`` C1),
+   B1 against cuBLAS over a grid of batches and widths at the card tests'
+   inputs: where cuBLAS splits k (a split-k reduce kernel in a
+   ``torch.profiler`` trace of ``torch.mm``) beside where the plan does,
+   the kernel's worst error against plain and cuBLAS's own against float64
+   products, as shares of rtol 1e-4 / atol 1e-6;
 4. serving: DCN-v2 at the full Criteo width (26 sparse fields of 100k ids,
    E=16, 13 dense fields, 3 cross layers, MLP 256-128; ``bench.py``'s
    config), weights made from ``--seed`` in the flax leaf layout and loaded
@@ -24,12 +32,13 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    the card and, for the 1000-row request, on the CPU. One more 1-row and
    one more 32768-row request run under torch.profiler, which prints the
    device time by kernel and copy against the request's wall time;
-5. cross timings: the cross kernel's time at 1, 4096 and 32768 rows beside
-   its plain version, a cuBLAS yardstick and the card's bound (f32 FMA);
+5. cross timings: the cross kernel's time at 1, 1000, 4096 and 32768 rows,
+   at D=429 and at D=1677, beside its plain version, the per-layer cuBLAS
+   ``addmm`` loop and the card's bound (f32 FMA), with the form that ran;
 6. training kernels against plain, on the card: the segmented scan at the
    packed update's shape (851,968 rows of E=16, ids drawn as ``bench.py``
-   draws them), a Zipf-skewed case with segments of 10k+ rows and 1 and
-   1000 rows; the scatter-set into a [2.6M, 64] f32 table (bit-exact); the
+   draws them), a Zipf-skewed case with segments of 10k+ rows, 1 and
+   1000 rows, and rows of E = 257, 300 and 512 (chunks of 256 columns); the scatter-set into a [2.6M, 64] f32 table (bit-exact); the
    cross network's gradient through its autograd Function against autograd
    through the plain version at B=4096; then each kernel's time beside its
    plain version, a PyTorch yardstick where one exists, and its bound, at
@@ -171,9 +180,16 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    bit-equal, accumulators rtol 1e-6 (B8 against B3);
 33. classic int4 and two scale groups: phase 29 for each, no B8 launch (no
    TPU kernel covers them);
+34. DCN-v2 at E=64, the configuration of ``scripts/int8_e64_ab.py`` (26
+   fields of 100k ids, E=64, 13 dense, so the cross network's D = 1677, 3
+   cross layers, MLP 256-128) with the f32 and the int8 packed tables:
+   requests of 1, 4096 and 32768 rows, each against the plain cross forward
+   on the card and the 4096-row one against the CPU, then phase 7's
+   training run for each table; launch counts from zero, the cross kernel
+   once a request and once a step (its tiled form: D is past the fused
+   form's width);
 
-then a line of the fused 4096-query request and the DCN-v2 steps beside the
-times of the earlier B1 and B7 designs, a ``two_tower`` JSON line (ms/step,
+then a ``two_tower`` JSON line (ms/step,
 fused and exact ms a request, recall, index build ms), a ``classic_int8``
 line (ms/step of the classic formats, B8's time, the hash's, the dedup's and
 the update's, phase 32's verdict) and a ``{"kernels": [...]}`` line with
@@ -208,7 +224,7 @@ from pytorchrec_tpu_torch.models import DIN, DCNv2, DeepFM, TwoTower
 from pytorchrec_tpu_torch.models import ctr as ctr_module
 from pytorchrec_tpu_torch.ops import attention as attention_module
 from pytorchrec_tpu_torch.ops.kernels.build import build
-from pytorchrec_tpu_torch.ops.kernels.cross import cross_network, cross_network_plain
+from pytorchrec_tpu_torch.ops.kernels.cross import cross_network, cross_network_plain, cross_plan
 from pytorchrec_tpu_torch.ops.kernels.din_attention import (
     din_attention_pool,
     din_attention_pool_plain,
@@ -323,6 +339,17 @@ TT_ROW_SCALE = 10.0  # table rows N(0, 0.1), as DIN's (tt_leaves says why)
 TT_RECALL_MIN = 0.975
 # B7 at the serving shape: 4096 queries x 1M items, D=128, tc 2048, group 16
 B7_QUERIES = 4096
+# DCN-v2 at scripts/int8_e64_ab.py:21,54-55's E=64: the cross network's D is
+# 26 * 64 + 13 = 1677, past the fused form's width
+E64 = 64
+E64_DIM = N_SPARSE * E64 + N_DENSE
+E64_REQUEST_ROWS = (1, 4096, 32768)
+# phase 3: widths past the fused form's at these batches
+WIDE_DIMS = (513, 1677, 2048)
+WIDE_ROWS = (1, 1000, 4097, 32768)
+# phase 3's grid against cuBLAS
+SWEEP_ROWS = (9, 33, 129, 256, 512, 1000, 1536, 2000, 4097)
+SWEEP_DIMS = (64, 256, 429, 512, 513, 700, 1024, 1677, 2048)
 # Adam (optim/optimizers.py, ops/sparse_update.py): beta2, and the RMS
 # gradient under which a step's size hangs on a gradient's last bits (100 eps)
 ADAM_BETA2 = 0.999
@@ -337,11 +364,6 @@ ALL_KERNELS = (cross_network, segmented_sum_scan, requantize_rows, scatter_set_r
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_TENSOR_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
-# the paths that B1 and B7 run, timed with the kernels' earlier designs (B1
-# f32 FMA at 512 threads a block, B7 on mma.sync) in a whole run of this
-# script on an H100 80GB HBM3 at 700 W, printed beside this run's times
-EARLIER_MS = {"fused 4096-query request": (7.810, 8.134), "DCN-v2 f32 step": 9.945,
-              "DCN-v2 int8 step": 9.655, "DCN-v2 classic step": 14.377}
 
 # kernel against plain: f32 sums of D terms run in another order
 RTOL, ATOL = 1e-4, 1e-6
@@ -401,19 +423,30 @@ def cross_inputs(rng: np.random.Generator, batch: int, dim: int, device):
     return [torch.from_numpy(a).to(device) for a in (x0, ws, bs)]
 
 
+def plan_name(batch: int, dim: int) -> str:
+    """The form (and tile and k-slices) the wrapper's plan runs at a shape."""
+    plan = cross_plan(batch, dim, torch.cuda.get_device_properties(0)
+                      .multi_processor_count)
+    if plan.form == "fused":
+        return "fused"
+    return f"tiled, tile {plan.tile}, {plan.splits} k-slice{'s' * (plan.splits > 1)}"
+
+
 def check_cross(rng: np.random.Generator) -> float:
-    """Phase 3: kernel against plain at every shape serving gives it, plus an
-    odd width; returns the max abs error at D=429."""
+    """Phase 3: kernel against plain at every shape serving gives it, an odd
+    width, the widths past the fused form's and a batch of a few rows;
+    returns the max abs error at D=429."""
     worst = 0.0
     shapes = [(b, DIM) for b in (*REQUEST_ROWS, CANDIDATES[0] * CANDIDATES[1])] + [(1000, 37)]
+    shapes += [(b, d) for d in WIDE_DIMS for b in WIDE_ROWS] + [(5, DIM), (5, E64_DIM)]
     for batch, dim in shapes:
         x0, ws, bs = cross_inputs(rng, batch, dim, "cuda")
         got = cross_network(x0, ws, bs)
         want = cross_network_plain(x0, ws, bs)
         torch.cuda.synchronize()
         err = close(got, want)
-        print(f"cross_network kernel vs plain  B={batch:6d} D={dim} L={CROSS_LAYERS}: "
-              f"max abs err {err:.3e}")
+        print(f"cross_network kernel vs plain  B={batch:6d} D={dim} L={CROSS_LAYERS} "
+              f"({plan_name(batch, dim)}): max abs err {err:.3e}")
         if dim == DIM:
             worst = max(worst, err)
     return worst
@@ -463,36 +496,38 @@ def classic_q_leaves(rows: np.ndarray, bits: int = 8, groups: int = 1) -> dict:
             "unified_scale": scale[:, 0] if groups == 1 else scale}
 
 
-def table_leaves(rng: np.random.Generator, table: str) -> dict:
-    """The unified field table's leaves: f32, the ``[V, 64]`` packed f32 rows;
-    int8, the ``[V, 128]`` packed u8 rows; a classic format, ``unified_q`` and
-    ``unified_scale``."""
-    rows = normal_leaf(rng, N_SPARSE * VOCAB, EMB)
+def table_leaves(rng: np.random.Generator, table: str, emb: int = EMB) -> dict:
+    """The unified field table's leaves: f32, the ``[V, 4E]`` packed f32 rows
+    (``[V, 64]`` at E=16); int8, the packed u8 rows (``[V, 128]`` at E=16); a
+    classic format, ``unified_q`` and ``unified_scale``."""
+    rows = normal_leaf(rng, N_SPARSE * VOCAB, emb)
     if table == "f32":
-        return {"unified_emb/embedding": packed_f32_leaf(rows, PACKED_W)}
+        return {"unified_emb/embedding": packed_f32_leaf(rows, 4 * emb)}
     if table == "int8":
-        return {"unified_q": packed_q_leaf(rows, Q_W)}
+        return {"unified_q": packed_q_leaf(rows, packed_q_width(emb, 8, 1))}
     return classic_q_leaves(rows, *CLASSIC[table])
 
 
-def flax_leaves(rng: np.random.Generator, table: str) -> dict:
+def flax_leaves(rng: np.random.Generator, table: str, emb: int = EMB) -> dict:
     """Random DCN-v2 parameters in the flax leaf layout (``/``-joined paths),
-    N(0, 0.01) as the JAX package initialises them."""
+    N(0, 0.01) as the JAX package initialises them, at embedding width
+    ``emb``."""
+    dim = N_SPARSE * emb + N_DENSE
     leaves = {
-        "cross/ws": normal_leaf(rng, CROSS_LAYERS, DIM, DIM),
-        "cross/bs": normal_leaf(rng, CROSS_LAYERS, DIM),
-        "deep/Dense_0/Dense_0/kernel": normal_leaf(rng, DIM, MLP_UNITS[0]),
+        "cross/ws": normal_leaf(rng, CROSS_LAYERS, dim, dim),
+        "cross/bs": normal_leaf(rng, CROSS_LAYERS, dim),
+        "deep/Dense_0/Dense_0/kernel": normal_leaf(rng, dim, MLP_UNITS[0]),
         "deep/Dense_0/Dense_0/bias": normal_leaf(rng, MLP_UNITS[0]),
         "deep/Dense_1/Dense_0/kernel": normal_leaf(rng, MLP_UNITS[0], MLP_UNITS[1]),
         "deep/Dense_1/Dense_0/bias": normal_leaf(rng, MLP_UNITS[1]),
-        "head/kernel": normal_leaf(rng, DIM + MLP_UNITS[1], 1),
+        "head/kernel": normal_leaf(rng, dim + MLP_UNITS[1], 1),
         "head/bias": normal_leaf(rng, 1),
         # created by every DCN-v2 tree, never read; the converter drops them
         "bias": np.zeros((), np.float32),
-        "dense_factors": normal_leaf(rng, N_DENSE, EMB),
+        "dense_factors": normal_leaf(rng, N_DENSE, emb),
         "dense_linear": normal_leaf(rng, N_DENSE),
     }
-    leaves.update(table_leaves(rng, table))
+    leaves.update(table_leaves(rng, table, emb))
     return leaves
 
 
@@ -571,14 +606,15 @@ def make_din(table: str, device, seed: int) -> DIN:
                generator=torch.Generator(device=device).manual_seed(seed))
 
 
-def make_ctr(cls, table: str, device, seed: int):
-    """DCN-v2 or DeepFM (``cls``) at ``bench.py``'s Criteo width, with the
-    unified table of ``table`` (f32, packed int8 or a classic format)."""
+def make_ctr(cls, table: str, device, seed: int, emb: int = EMB):
+    """DCN-v2 or DeepFM (``cls``) at ``bench.py``'s Criteo width (embedding
+    width ``emb``), with the unified table of ``table`` (f32, packed int8 or
+    a classic format)."""
     sparse = [CategoricalColumnWithIdentity(feature_name=f"c_{i}", category_num=VOCAB)
               for i in range(N_SPARSE)]
     dense = [NumericColumn(feature_name=f"d_{i}") for i in range(N_DENSE)]
     bits, groups = CLASSIC.get(table, (8, 1))
-    kwargs = dict(sparse_columns=sparse, dense_columns=dense, label_column=LABEL, emb_size=EMB,
+    kwargs = dict(sparse_columns=sparse, dense_columns=dense, label_column=LABEL, emb_size=emb,
                   layers=MLP_UNITS, unified_embedding=True, quantized_embedding=table != "f32",
                   table_packed=table == "int8", table_bits=bits, scale_col_groups=groups,
                   device=device, generator=torch.Generator(device=device).manual_seed(seed))
@@ -603,13 +639,16 @@ def unified_ids(fields: dict) -> np.ndarray:
                     axis=1).reshape(-1)
 
 
-def make_requests(rng: np.random.Generator) -> list:
+def make_requests(rng: np.random.Generator, request_rows=REQUEST_ROWS,
+                  candidates: bool = True) -> list:
     """Host (numpy) requests as a server receives them; no label column."""
     requests = []
-    for rows in REQUEST_ROWS:
+    for rows in request_rows:
         req = {f"c_{i}": rng.integers(0, VOCAB, rows).astype(np.int32) for i in range(N_SPARSE)}
         req.update({f"d_{i}": rng.normal(size=rows).astype(np.float32) for i in range(N_DENSE)})
         requests.append((f"{rows} rows", req, (rows,)))
+    if not candidates:
+        return requests
     b, n = CANDIDATES
     # item-side fields per candidate [B, N]; user-side fields [B], broadcast
     req = {f"c_{i}": rng.integers(0, VOCAB, (b, n) if i < N_SPARSE // 2 else b).astype(np.int32)
@@ -752,6 +791,14 @@ DIN_SPEC = ModelSpec(
                        scatter_set_rows: 1}},
     train_rows=DIN_BATCH, cpu_rows=DIN_CPU_BATCH, cpu_request=DIN_CPU_REQUEST, emb=DIN_EMB,
     scored_key="iid", table_lr=DIN_TABLE_LR)
+
+
+# DCN-v2 at scripts/int8_e64_ab.py's E=64: D = 1677, past the fused form's
+# width, so every request and step runs B1's tiled form
+E64_SPEC = dataclasses.replace(
+    DCNV2_SPEC, name="dcnv2_e64", make=functools.partial(make_ctr, DCNv2, emb=E64),
+    leaves=functools.partial(flax_leaves, emb=E64),
+    per_step={t: DCNV2_SPEC.per_step[t] for t in ("f32", "int8")}, emb=E64)
 
 
 def he_leaf(rng: np.random.Generator, fan_in: int, fan_out: int) -> np.ndarray:
@@ -974,10 +1021,11 @@ def time_cuda(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_cross(rng: np.random.Generator, batch: int) -> dict:
-    """Phase 5 at one request size: kernel, plain version and a cuBLAS
-    yardstick (CUDA events, median of 3 interleaved rounds), and the bound."""
-    x0, ws, bs = cross_inputs(rng, batch, DIM, "cuda")
+def time_cross(rng: np.random.Generator, batch: int, dim: int = DIM) -> dict:
+    """Phase 5 at one shape: kernel, plain version and the per-layer cuBLAS
+    ``addmm`` loop (CUDA events, median of 3 interleaved rounds), the bound
+    and the form that ran."""
+    x0, ws, bs = cross_inputs(rng, batch, dim, "cuda")
 
     def library():  # cuBLAS yardstick, never called by the port
         xl = x0
@@ -986,22 +1034,87 @@ def time_cross(rng: np.random.Generator, batch: int) -> dict:
         return xl
 
     close(library(), cross_network_plain(x0, ws, bs))
+    flops = 2 * batch * dim * dim * CROSS_LAYERS + 3 * batch * dim * CROSS_LAYERS
+    iters = 50 if flops < 1e11 else 10
     runs = {"ms": [], "plain_ms": [], "library_ms": []}
     for _ in range(3):
-        runs["ms"].append(time_cuda(lambda: cross_network(x0, ws, bs)))
-        runs["plain_ms"].append(time_cuda(lambda: cross_network_plain(x0, ws, bs)))
-        runs["library_ms"].append(time_cuda(library))
-    flops = 2 * batch * DIM * DIM * CROSS_LAYERS + 3 * batch * DIM * CROSS_LAYERS
-    nbytes = 4 * (2 * batch * DIM + CROSS_LAYERS * DIM * DIM + CROSS_LAYERS * DIM)
+        runs["ms"].append(time_cuda(lambda: cross_network(x0, ws, bs), iters))
+        runs["plain_ms"].append(time_cuda(lambda: cross_network_plain(x0, ws, bs), iters))
+        runs["library_ms"].append(time_cuda(library, iters))
+    nbytes = 4 * (2 * batch * dim + CROSS_LAYERS * dim * dim + CROSS_LAYERS * dim)
     ops_ms, bytes_ms = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES_S
     timing = {k: float(np.median(v)) for k, v in runs.items()}
     timing["bound_ms"] = max(ops_ms, bytes_ms)
     timing["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
-    print(f"cross_network at B={batch}: kernel {timing['ms']:.4f} ms "
+    timing["form"] = plan_name(batch, dim)
+    print(f"cross_network at B={batch} D={dim} ({timing['form']}): kernel {timing['ms']:.4f} ms "
           f"({flops / timing['ms'] / 1e9:.1f} TFLOP/s), plain {timing['plain_ms']:.4f} ms, addmm "
           f"loop {timing['library_ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms "
           f"({timing['bound_by']}: f32 FMA); rounds {runs}")
     return timing
+
+
+def cublas_splits(x: torch.Tensor, w: torch.Tensor) -> Optional[bool]:
+    """Whether cuBLAS splits k in ``torch.mm(x, w)``: a split-k reduce kernel
+    in a ``torch.profiler`` trace of the call (a split-k that reduces inside
+    one kernel is not seen); None where the trace holds no kernel."""
+    torch.mm(x, w)
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        torch.mm(x, w)
+        torch.cuda.synchronize()
+    kernels = [e.key for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return any("split" in k.lower() for k in kernels) if kernels else None
+
+
+def check_against_cublas() -> dict:
+    """Phase 3, second part: over SWEEP_ROWS x SWEEP_DIMS at L=3 and the
+    card tests' inputs, where cuBLAS splits k beside where the plan does, the kernel's
+    worst error against plain (cuBLAS) and cuBLAS's own against float64
+    products rounded to f32, as shares of rtol 1e-4 / atol 1e-6. Reports;
+    the open fault is ROADMAP.md C1."""
+
+    def share(got, want):
+        return float(((got - want).abs() / (ATOL + RTOL * want.abs())).max())
+
+    YES_NO = {True: "y", False: "n", None: "-"}
+    rows = {}
+    for dim in SWEEP_DIMS:
+        for batch in SWEEP_ROWS:
+            gen = np.random.default_rng(batch + dim)
+            x0 = torch.from_numpy(gen.normal(size=(batch, dim)).astype(np.float32)).cuda()
+            ws = torch.from_numpy((gen.normal(size=(3, dim, dim)) * 0.01).astype(np.float32)).cuda()
+            bs = torch.from_numpy((gen.normal(size=(3, dim)) * 0.01).astype(np.float32)).cuda()
+            want = cross_network_plain(x0, ws, bs)
+            exact = x0
+            for layer in range(3):
+                u = (exact.double() @ ws[layer].double()).float()
+                exact = x0 * (u + bs[layer]) + exact
+            rows[(batch, dim)] = {"cublas_splits": cublas_splits(x0, ws[0]),
+                                  "plan_splits": cross_plan(batch, dim).splits > 1,
+                                  "kernel": share(cross_network(x0, ws, bs), want),
+                                  "cublas": share(want, exact)}
+    outside = {k: v for k, v in rows.items() if v["kernel"] > 1}
+    summary = {
+        "shapes": len(rows),
+        "split_traced": sum(v["cublas_splits"] is not None for v in rows.values()),
+        "split_agrees": sum(v["cublas_splits"] == v["plan_splits"] for v in rows.values()),
+        "outside": len(outside),
+        "outside_d_le_512": sum(d <= 512 for _, d in outside),
+        "cublas_outside_vs_f64": sum(v["cublas"] > 1 for v in rows.values())}
+    print(f"B1 against cuBLAS over {summary['shapes']} shapes (B {SWEEP_ROWS}, D {SWEEP_DIMS}, "
+          f"L=3): of {summary['split_traced']} traced, the plan splits k where cuBLAS does "
+          f"(a split-k reduce kernel) and not elsewhere at {summary['split_agrees']}; kernel "
+          f"outside rtol {RTOL} / atol {ATOL} of cuBLAS at {summary['outside']} "
+          f"({summary['outside_d_le_512']} with D <= 512); cuBLAS outside it from float64 "
+          f"products at {summary['cublas_outside_vs_f64']}")
+    print("    outside (B, D: kernel / cuBLAS-vs-float64 shares; split by cuBLAS, plan): "
+          + "; ".join(f"{b}x{d}: {v['kernel']:.2f} / {v['cublas']:.2f}, "
+                      f"{YES_NO[v['cublas_splits']]}{YES_NO[v['plan_splits']]}"
+                      for (b, d), v in outside.items()))
+    return summary
 
 
 def segments(ids: np.ndarray):
@@ -1042,6 +1155,14 @@ def check_seg_scan(rng: np.random.Generator, gen: torch.Generator):
               f"longest segment {longest:6d}: max abs err {err:.3e} (atol {atol})")
         if main is None:
             main = (err, x, heads)
+    for e in (257, 300, 512):  # chunks of 256 columns
+        ids = main_ids[:100_000]
+        wide = torch.randn((ids.shape[0], e + 12), device="cuda", generator=gen)
+        x, heads = wide[:, 5:5 + e], torch.from_numpy(segments(ids)[1]).cuda()
+        err = close(segmented_sum_scan(x, heads), segmented_sum_scan_plain(x, heads), rtol=1e-5,
+                    atol=1e-5)
+        print(f"segmented_sum_scan kernel vs plain  bench ids    n={ids.shape[0]:7d} E={e} "
+              f"(row stride {x.stride(0)}): max abs err {err:.3e}")
     return main
 
 
@@ -2320,8 +2441,10 @@ def main() -> int:
                   "retrieval_topk", "quantize")
     print(f"built {', '.join(str(p.name) for p in paths.values())} in {time.perf_counter() - t0:.1f} s")
 
-    # 3. kernel against plain (these launches are not the main path's)
+    # 3. kernel against plain, then against cuBLAS over a grid (these
+    # launches are not the main path's)
     max_err = check_cross(rng)
+    against_cublas = check_against_cublas()
 
     # 4. serving: the serving path, with launch counts from zero
     requests = make_requests(rng)
@@ -2333,11 +2456,12 @@ def main() -> int:
     print(f"serving: {served} requests, cross_network launches {serving_launches}; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
-    # 5. cross timings at the smallest and a middle request; the largest,
-    # the training batch, goes into the kernels line
-    for batch in (REQUEST_ROWS[0], REQUEST_ROWS[2]):
-        time_cross(rng, batch)
-    cross_timing = time_cross(rng, TRAIN_BATCH)
+    # 5. cross timings at the request sizes, at D=429 and at E=64's D=1677;
+    # the training batch at D=429 heads the kernels line
+    cross_times = {f"D={dim}": {str(batch): time_cross(rng, batch, dim) for batch in REQUEST_ROWS}
+                   for dim in (DIM, E64_DIM)}
+    cross_timing = {k: v for k, v in cross_times[f"D={DIM}"][str(TRAIN_BATCH)].items()
+                    if k != "form"}
 
     # 6. training kernels against plain, and their times at the f32 and the
     # int8 step's shapes (not the main path's launches)
@@ -2554,12 +2678,26 @@ def main() -> int:
           f"{other_ms['classic_int4']:.3f}, two scale groups {other_ms['classic_g2']:.3f}; "
           f"packed int8 {int8_ms:.3f}, f32 {f32_ms:.3f} ms/step in this run")
 
-    lo, hi = EARLIER_MS["fused 4096-query request"]
-    print(f"the paths B1 and B7 run, beside the earlier designs' run: fused 4096-query request "
-          f"{tt_serving['fused_ms']['f32 4096']:.3f} ms (earlier {lo}-{hi}); DCN-v2 f32 "
-          f"{f32_ms:.3f} ms/step (earlier {EARLIER_MS['DCN-v2 f32 step']}), int8 {int8_ms:.3f} "
-          f"({EARLIER_MS['DCN-v2 int8 step']}), classic {classic_ms:.3f} "
-          f"({EARLIER_MS['DCN-v2 classic step']})")
+    # 34. DCN-v2 at E=64 (D=1677: B1's tiled form), serving and training,
+    # with launch counts from zero
+    e64_requests = make_requests(rng, E64_REQUEST_ROWS, candidates=False)
+    zero_counts()
+    e64_served = sum(serve_table(E64_SPEC, table, e64_requests, args.seed,
+                                 profiled=PROFILED_SHAPES[1:])
+                     for table in ("f32", "int8"))
+    check_launches("DCN-v2 E=64 serving", {k: 0 for k in ALL_KERNELS}, {cross_network: e64_served})
+    e64_serving_launches = cross_network.launches
+    torch.cuda.empty_cache()
+    e64_train = {}
+    for offset, table in enumerate(("f32", "int8")):
+        leaves = flax_leaves(np.random.default_rng(args.seed + 17 + offset), table, E64)
+        launches_e64, e64_train[table], _ = train(E64_SPEC, table, leaves, rng, args.seed)
+        e64_train[f"{table}_launches"] = launches_e64["cross_network"]
+        del leaves
+        torch.cuda.empty_cache()
+    print(f"[dcnv2 E=64, D={E64_DIM}] serving: {e64_served} requests, cross_network launches "
+          f"{e64_serving_launches}; training f32 {e64_train['f32']:.3f}, int8 "
+          f"{e64_train['int8']:.3f} ms/step at batch {TRAIN_BATCH}")
 
     n_scan = TRAIN_BATCH * N_SPARSE
     vocab_rows = N_SPARSE * VOCAB
@@ -2582,7 +2720,13 @@ def main() -> int:
          "launches": launches["cross_network"], "max_abs_err": max_err, **cross_timing,
          "shape": f"B={TRAIN_BATCH} D={DIM} L={CROSS_LAYERS} f32",
          "f32_train_launches": f32_launches["cross_network"],
-         "serving_launches": serving_launches, "grad_max_abs_err": grad_err},
+         "serving_launches": serving_launches, "grad_max_abs_err": grad_err,
+         "max_width": None, "times": cross_times, "against_cublas": against_cublas,
+         "e64": {"shape": f"D={E64_DIM} L={CROSS_LAYERS} f32",
+                 "serving_launches": e64_serving_launches,
+                 "f32_train_launches": e64_train["f32_launches"],
+                 "int8_train_launches": e64_train["int8_launches"],
+                 "f32_ms_per_step": e64_train["f32"], "int8_ms_per_step": e64_train["int8"]}},
         {"name": "segmented_sum_scan", "route": "cuda",
          "source": "pytorchrec_tpu_torch/csrc/seg_scan.cu",
          "replaces": "pytorchrec_tpu/ops/kernels/seg_scan.py:108",

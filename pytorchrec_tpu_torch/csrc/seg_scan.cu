@@ -31,6 +31,9 @@
 //   3. seg_scan_fixup: tile t > 0 adds aggregate t - 1 to its rows before its
 //      first head. Most tiles start with a head or a short run, so this pass
 //      touches few bytes; a segment longer than a tile is fixed in full.
+// Any E: the three passes run once for each chunk of at most 256 columns
+// (one thread a column at least), each chunk writing its columns of the
+// [n, E] output at row stride E. E <= 256 is one chunk.
 // Sums run in another order than the Hillis-Steele passes of the plain
 // version (sequentially within a run), so results agree to f32 rounding.
 // A single-pass decoupled look-back scan is left for later work.
@@ -40,7 +43,7 @@
 
 namespace {
 
-constexpr int THREADS = 256;       // also the widest E: one thread a column at least
+constexpr int THREADS = 256;       // also the widest chunk: one thread a column at least
 constexpr int TILE_FLOATS = 8192;  // 32 KB of shared memory a tile
 constexpr int MAX_ROWS = 1024;
 
@@ -110,7 +113,7 @@ __device__ void scan_tile(Shared& s, int rows, int e) {
 
 __global__ void __launch_bounds__(THREADS)
 seg_scan_tiles(const float* __restrict__ x, long long ld, const uint8_t* __restrict__ is_start,
-               float* __restrict__ out, int n, int e, float* __restrict__ agg,
+               float* __restrict__ out, long long ldo, int n, int e, float* __restrict__ agg,
                uint8_t* __restrict__ agg_head, int* __restrict__ lead) {
   __shared__ Shared s;
   const int tid = threadIdx.x;
@@ -125,8 +128,15 @@ seg_scan_tiles(const float* __restrict__ x, long long ld, const uint8_t* __restr
   if (tid < e) s.carry[tid] = 0.f;
   __syncthreads();
   scan_tile(s, rows, e);
-  float* o = out + row0 * e;
-  for (int i = tid; i < rows * e; i += THREADS) o[i] = s.tile[i];
+  float* o = out + row0 * ldo;
+  if (ldo == e) {
+    for (int i = tid; i < rows * e; i += THREADS) o[i] = s.tile[i];
+  } else {
+    for (int i = tid; i < rows * e; i += THREADS) {
+      const int r = i / e, c = i - r * e;
+      o[r * ldo + c] = s.tile[i];
+    }
+  }
   if (tid < e) agg[(long long)blockIdx.x * e + tid] = s.carry[tid];
   if (tid == 0) {
     agg_head[blockIdx.x] = s.lead < rows;
@@ -156,44 +166,61 @@ seg_scan_carries(float* __restrict__ agg, const uint8_t* __restrict__ agg_head, 
 // Tile blockIdx.x + 1 adds the running sum at the end of the tile before it
 // to its rows before its first head.
 __global__ void __launch_bounds__(THREADS)
-seg_scan_fixup(float* __restrict__ out, const float* __restrict__ agg,
+seg_scan_fixup(float* __restrict__ out, long long ldo, const float* __restrict__ agg,
                const int* __restrict__ lead, int e) {
   const int t = blockIdx.x + 1;
   const int rows = __ldg(lead + t);
   if (rows == 0) return;
   const float* carry = agg + (long long)(t - 1) * e;
-  float* o = out + (long long)t * tile_rows(e) * e;
-  for (int i = threadIdx.x; i < rows * e; i += THREADS) o[i] += __ldg(carry + i % e);
+  float* o = out + (long long)t * tile_rows(e) * ldo;
+  if (ldo == e) {
+    for (int i = threadIdx.x; i < rows * e; i += THREADS) o[i] += __ldg(carry + i % e);
+  } else {
+    for (int i = threadIdx.x; i < rows * e; i += THREADS) {
+      const int r = i / e, c = i - r * e;
+      o[r * ldo + c] += __ldg(carry + c);
+    }
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// The widest E the kernel takes (the wrapper raises beyond it).
-int seg_scan_max_width() { return THREADS; }
+// The widest chunk of columns one pass scans (the wrapper sizes the scratch
+// arrays for a chunk of min(E, this) columns).
+int seg_scan_chunk_width() { return THREADS; }
 
 // Rows a tile holds at width e: the wrapper sizes the scratch arrays
 // (ceil(n / rows) aggregates) with it.
 int seg_scan_tile_rows(int e) { return tile_rows(e); }
 
-// Launch the three passes on `stream`; returns the cudaError_t of the
-// launches (0 = success). agg [tiles, e] f32, agg_head [tiles] u8 and
-// lead [tiles] i32 are scratch, tiles = ceil(n / seg_scan_tile_rows(e)).
+// Launch the three passes on `stream` for each chunk of at most THREADS
+// columns; returns the cudaError_t of the launches (0 = success). out is
+// [n, e] contiguous. agg [tiles, w] f32, agg_head [tiles] u8 and lead
+// [tiles] i32 are scratch, w = min(e, THREADS), tiles = ceil(n /
+// seg_scan_tile_rows(w)); the chunks reuse them in stream order.
 int segmented_sum_scan_f32(const float* x, long long ld, const uint8_t* is_start, float* out,
                            int n, int e, float* agg, uint8_t* agg_head, int* lead,
                            void* stream) {
-  if (n < 1 || e < 1 || e > THREADS || ld < e) return (int)cudaErrorInvalidValue;
+  if (n < 1 || e < 1 || ld < e) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const int tiles = (int)((n + (long long)tile_rows(e) - 1) / tile_rows(e));
-  seg_scan_tiles<<<tiles, THREADS, 0, s>>>(x, ld, is_start, out, n, e, agg, agg_head, lead);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || tiles == 1) return (int)err;
-  seg_scan_carries<<<1, THREADS, 0, s>>>(agg, agg_head, tiles, e);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  seg_scan_fixup<<<tiles - 1, THREADS, 0, s>>>(out, agg, lead, e);
-  return (int)cudaGetLastError();
+  for (int c0 = 0; c0 < e; c0 += THREADS) {
+    const int w = e - c0 < THREADS ? e - c0 : THREADS;
+    const int tiles = (int)((n + (long long)tile_rows(w) - 1) / tile_rows(w));
+    seg_scan_tiles<<<tiles, THREADS, 0, s>>>(x + c0, ld, is_start, out + c0, e, n, w, agg,
+                                             agg_head, lead);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    if (tiles == 1) continue;
+    seg_scan_carries<<<1, THREADS, 0, s>>>(agg, agg_head, tiles, w);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    seg_scan_fixup<<<tiles - 1, THREADS, 0, s>>>(out + c0, e, agg, lead, w);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 const char* seg_scan_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -48,10 +48,11 @@ class CrossNetworkV2(nn.Module):
     and ``bs [L, D]`` in ``x @ W`` orientation, as the flax leaves
     ``cross/ws`` and ``cross/bs``.
 
-    All layers run in one call of ``cross_network``: the fused kernel on the
-    card, its plain version on the CPU. The kernel streams W, so the weights'
-    size sets no limit; it takes D <= 512 (``csrc/cross.cu``) and raises
-    beyond.
+    All layers run in one call of ``cross_network``: on the card the form
+    that ``cross_plan`` picks (fused or tiled, ``csrc/cross.cu``), on the CPU
+    the plain version. Both forms stream W, and the tiled form takes any D,
+    so neither the width nor the weights' size sets a limit, as in the JAX
+    module.
     Candidate-mode input ``[B, N, D]`` is flattened to ``[B*N, D]``.
     ``num_layers=0`` is the identity, with no parameters.
     """

@@ -15,7 +15,7 @@ the H100 at the update's shape (n = 851,968, E = 16). ``x`` may be a column
 slice of wider rows: the kernel takes the row stride, so the slice is not
 copied; the int8 update passes a strided f32 view of its byte rows, whose
 rows start 24 bytes in (the kernel's loads are scalar, so 4-byte alignment
-is enough). It takes E <= 256.
+is enough). It takes any E: past 256 columns it scans chunks of 256.
 
 ``segmented_sum_scan`` dispatches by device (``ops/kernels/__init__.py``): a
 CUDA tensor launches the kernel and raises if the launch fails; a CPU tensor
@@ -60,8 +60,8 @@ def _kernel():
                                            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                                            ctypes.c_void_p]
     lib.segmented_sum_scan_f32.restype = ctypes.c_int
-    lib.seg_scan_max_width.argtypes = []
-    lib.seg_scan_max_width.restype = ctypes.c_int
+    lib.seg_scan_chunk_width.argtypes = []
+    lib.seg_scan_chunk_width.restype = ctypes.c_int
     lib.seg_scan_tile_rows.argtypes = [ctypes.c_int]
     lib.seg_scan_tile_rows.restype = ctypes.c_int
     lib.seg_scan_error_string.argtypes = [ctypes.c_int]
@@ -93,14 +93,12 @@ def _launch(x: torch.Tensor, is_start: torch.Tensor) -> torch.Tensor:
     if n >= 2**31:
         raise ValueError(f"n={n} exceeds the kernel's int32 row count")
     lib = _kernel()
-    if e > lib.seg_scan_max_width():
-        raise ValueError(f"segmented_sum_scan kernel takes E <= {lib.seg_scan_max_width()}, "
-                         f"got E={e}")
     out = torch.empty((n, e), dtype=torch.float32, device=x.device)
     if n == 0 or e == 0:
         return out
-    tiles = -(-n // lib.seg_scan_tile_rows(e))
-    agg = torch.empty((tiles, e), dtype=torch.float32, device=x.device)
+    chunk = min(e, lib.seg_scan_chunk_width())  # columns one pass scans
+    tiles = -(-n // lib.seg_scan_tile_rows(chunk))
+    agg = torch.empty((tiles, chunk), dtype=torch.float32, device=x.device)
     agg_head = torch.empty((tiles,), dtype=torch.uint8, device=x.device)
     lead = torch.empty((tiles,), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):

@@ -18,10 +18,23 @@ from pytorchrec_tpu.ops.interactions import CrossNetworkV2 as JaxCrossNetworkV2
 from pytorchrec_tpu.ops.kernels.cross import cross_network_pallas
 from pytorchrec_tpu_torch.ops.interactions import CrossNetworkV2, cross_layer_v2
 from pytorchrec_tpu_torch.ops.kernels import launches_kernel
-from pytorchrec_tpu_torch.ops.kernels.cross import cross_network, cross_network_plain
+from pytorchrec_tpu_torch.ops.kernels.cross import (
+    FUSED_MAX_WIDTH,
+    K_TILE,
+    MAX_SLICES,
+    ROW_TILE,
+    SM_COUNT,
+    SPLIT_MAX_WAVES,
+    TILES,
+    cross_network,
+    cross_network_plain,
+    cross_plan,
+)
 
 RTOL, ATOL = 1e-5, 1e-7
-CASES = [(37, d, layers) for d in (29, 64) for layers in (0, 1, 3)]
+# (5, 520, 2): wider than the fused form's widest D, where the card runs the
+# tiled form
+CASES = [(37, d, layers) for d in (29, 64) for layers in (0, 1, 3)] + [(5, 520, 2)]
 
 
 def _inputs(batch, dim, layers, seed=0):
@@ -77,6 +90,64 @@ def test_cross_module_candidate_mode_matches_flax(layers):
         got = port(torch.from_numpy(x0)).numpy()
     assert got.shape == (5, 7, dim)
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_cross_module_past_the_fused_width_matches_jax():
+    """The port's module at D=520 against the Pallas kernel (interpret mode)
+    and the flax module's XLA layer loop. atol 1e-6: an output that cancels
+    near zero keeps the absolute error of its 520-term sums, about
+    sqrt(520) * 2^-24 * |x0| ~ 3e-7 at x0 ~ N(0, 1)."""
+    x0, ws, bs = _inputs(5, 520, 2, seed=10)
+    port = CrossNetworkV2(2, 520, device="cpu", generator=torch.Generator().manual_seed(0))
+    port.load_state_dict({"ws": torch.from_numpy(ws), "bs": torch.from_numpy(bs)})
+    with torch.no_grad():
+        got = port(torch.from_numpy(x0)).numpy()
+    pallas = np.asarray(cross_network_pallas(jnp.asarray(x0), jnp.asarray(ws), jnp.asarray(bs),
+                                             interpret=True))
+    module = JaxCrossNetworkV2(num_layers=2, use_pallas=False)
+    xla = np.asarray(module.apply({"params": {"ws": jnp.asarray(ws), "bs": jnp.asarray(bs)}},
+                                  jnp.asarray(x0)))
+    np.testing.assert_allclose(got, pallas, rtol=RTOL, atol=1e-6)
+    np.testing.assert_allclose(got, xla, rtol=RTOL, atol=1e-6)
+
+
+@pytest.mark.parametrize("dim", [1, 8, 429, 512, 513, 1677, 4096])
+@pytest.mark.parametrize("batch", [1, 5, 1000, 4096, 25600, 32768])
+def test_cross_plan_covers_every_shape(batch, dim):
+    """Every shape gets a plan; the fused form only up to its widest D; the
+    k-slices partition [0, D), each in ascending order."""
+    plan = cross_plan(batch, dim)
+    assert plan.form in ("fused", "tiled")
+    if plan.form == "fused":
+        assert dim <= FUSED_MAX_WIDTH and plan.tile is None
+    else:
+        assert plan.tile in range(len(TILES))
+    slices = plan.slices()
+    assert 1 <= len(slices) <= MAX_SLICES
+    assert all(ks and ks == sorted(ks) for ks in slices)
+    assert sorted(k for ks in slices for k in ks) == list(range(dim))
+
+
+@pytest.mark.parametrize("batch,dim,splits", [
+    (1000, 429, 14), (1000, 512, 16), (1000, 37, 3), (200, 1677, 15), (9, 4096, 16),
+    (1536, 429, 14), (2000, 429, 1), (4096, 429, 1), (1000, 1677, 1), (4097, 2048, 1),
+])
+def test_cross_plan_splits_k_where_the_grid_is_small(batch, dim, splits):
+    """k is split where the grid of 64 x 64 output tiles is at most
+    SPLIT_MAX_WAVES waves of the SMs, into at most MAX_SLICES contiguous
+    slices of a multiple of K_TILE (all but the last)."""
+    plan = cross_plan(batch, dim)
+    tiles = -(-batch // 64) * -(-dim // 64)
+    assert plan.form == "tiled" and plan.splits == splits
+    assert (splits > 1) == (tiles <= SPLIT_MAX_WAVES * SM_COUNT)
+    assert all(len(ks) % K_TILE == 0 for ks in plan.slices()[:-1])
+
+
+def test_cross_plan_takes_the_rows_tile_up_to_eight_rows():
+    assert cross_plan(1, 429).tile == ROW_TILE
+    assert [cross_plan(b, 1677).tile for b in range(2, 9)] == [0] * 7
+    assert cross_plan(9, 429).tile not in (0, ROW_TILE)
+    assert cross_plan(5, 4096).splits == 1
 
 
 def test_plain_version_is_the_layer_loop():

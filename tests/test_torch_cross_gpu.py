@@ -6,19 +6,30 @@ machine need not have):
 
     python -m pytest -p no:cacheprovider --noconftest -m gpu tests/test_torch_cross_gpu.py
 
-Tolerance rtol 1e-4 / atol 1e-6: the f32 sums of D terms run in another
-order in the kernel than in cuBLAS. Batches not a multiple of the kernel's
-64-row tile, and D = 1, 429 and 512, reach its edges. The kernel sums each
-output in one f32 accumulator in k order; at (1000, 512, 3) cuBLAS sums
-more accurately than that, and the kernel misses the tolerance in a few
-elements (``ROADMAP.md`` C, "f32 numerics"): that case fails on the card.
+Tolerance rtol 1e-4 / atol 1e-6: the f32 sums of D terms may run in another
+order in the kernel than in cuBLAS. The wrapper's plan (``cross_plan``)
+runs the fused form at large batches and D <= its widest, the tiled form
+elsewhere; batches not a multiple of a tile, D = 1, 429 and 512, the widths
+past the fused form's (513, 1677, 2048) and batches of 2 to 8 rows reach
+every form's edges. Where cuBLAS sums in one k-order accumulator the kernel
+does too, bit for bit; where cuBLAS splits k the plan splits it finer, so
+the kernel agrees wherever cuBLAS's sums agree with the exact ones. Shapes
+where they do not, past D = 512, are ``ROADMAP.md`` C1: (1000, 1677, 3),
+(1000, 2048, 3) and (4097, 2048, 3) among these cases.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from pytorchrec_tpu_torch.ops.kernels.cross import cross_network, cross_network_plain
+import pytorchrec_tpu_torch.ops.kernels.cross as cross_module
+from pytorchrec_tpu_torch.ops.kernels.cross import (
+    ROW_TILE,
+    CrossPlan,
+    cross_network,
+    cross_network_plain,
+    cross_plan,
+)
 
 
 def _need_card():
@@ -30,7 +41,9 @@ def _need_card():
 @pytest.mark.parametrize("batch,dim,layers", [(1, 429, 3), (1000, 429, 3), (32768, 429, 3),
                                               (37, 37, 3), (65, 8, 1), (33, 512, 2),
                                               (4097, 429, 3), (1000, 512, 2), (1000, 512, 3),
-                                              (131, 1, 3), (1, 1, 2), (63, 100, 3), (200, 64, 4)])
+                                              (131, 1, 3), (1, 1, 2), (63, 100, 3), (200, 64, 4),
+                                              (2, 429, 3), (5, 1677, 3), (8, 512, 3),
+                                              (999, 512, 3), (1024, 512, 3), (1000, 500, 3)])
 def test_cross_kernel_matches_plain_on_card(batch, dim, layers):
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -45,12 +58,45 @@ def test_cross_kernel_matches_plain_on_card(batch, dim, layers):
     torch.testing.assert_close(got, cross_network_plain(x0, ws, bs), rtol=1e-4, atol=1e-6)
 
 
+def _inputs(batch, dim, layers):
+    rng = np.random.default_rng(batch + dim)
+    x0 = torch.from_numpy(rng.normal(size=(batch, dim)).astype(np.float32)).cuda()
+    ws = torch.from_numpy((rng.normal(size=(layers, dim, dim)) * 0.01).astype(np.float32)).cuda()
+    bs = torch.from_numpy((rng.normal(size=(layers, dim)) * 0.01).astype(np.float32)).cuda()
+    return x0, ws, bs
+
+
 @pytest.mark.gpu
-def test_cross_kernel_raises_past_its_widest_d():
+@pytest.mark.parametrize("dim", [513, 1677, 2048])
+@pytest.mark.parametrize("batch", [1, 1000, 4097, 32768])
+def test_cross_kernel_takes_any_width(batch, dim):
+    """Past the fused form's widest D the tiled form runs, at the same
+    tolerance; no width limit is raised."""
     _need_card()
-    for dim in (513, 2048):
-        x0 = torch.zeros(4, dim, device="cuda")
-        ws = torch.zeros(1, dim, dim, device="cuda")
-        bs = torch.zeros(1, dim, device="cuda")
-        with pytest.raises(ValueError, match="D <= 512"):
-            cross_network(x0, ws, bs)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x0, ws, bs = _inputs(batch, dim, 3)
+    before = cross_network.launches
+    got = cross_network(x0, ws, bs)
+    torch.cuda.synchronize()
+    assert cross_network.launches == before + 1
+    torch.testing.assert_close(got, cross_network_plain(x0, ws, bs), rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,dim,tile", [
+    *((b, d, t) for b, d in ((70, 429), (1000, 429), (129, 37)) for t in range(1, 5)),
+    *((1000, 2048, t) for t in range(1, ROW_TILE))])
+def test_every_tile_gives_the_same_sums(batch, dim, tile, monkeypatch):
+    """The tile sets no summation order: every tile of the tiled form gives
+    the plan's bits with the plan's k-slices (the 128 x 128 tile runs only
+    where k is not split)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x0, ws, bs = _inputs(batch, dim, 2)
+    want = cross_network(x0, ws, bs)
+    plan = cross_plan(batch, dim)
+    monkeypatch.setattr(cross_module, "cross_plan",
+                        lambda *_: CrossPlan(**{**plan.__dict__, "tile": tile}))
+    got = cross_network(x0, ws, bs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -38,7 +38,8 @@ def _sorted_heads(ids: np.ndarray) -> np.ndarray:
 @pytest.mark.parametrize("n,e,skew", [(1, 16, False), (2, 16, False), (1000, 16, False),
                                       (851_968, 16, False), (200_000, 16, True),
                                       (5000, 4, True), (3333, 37, False), (700, 256, True),
-                                      (851_968, 1, False), (5000, 1, True)])
+                                      (851_968, 1, False), (5000, 1, True), (3000, 257, True),
+                                      (20_000, 300, False), (4000, 512, True)])
 def test_seg_scan_kernel_matches_plain(n, e, skew):
     _need_card()
     rng = np.random.default_rng(n + e)
@@ -75,7 +76,7 @@ def test_scatter_kernel_is_bit_exact(dtype, w):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch,dim,layers", [(4096, 429, 3), (37, 29, 1)])
+@pytest.mark.parametrize("batch,dim,layers", [(4096, 429, 3), (37, 29, 1), (4096, 1677, 3)])
 def test_cross_gradient_on_card_matches_plain_autograd(batch, dim, layers):
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
