@@ -12,14 +12,16 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    ``pytorchrec_tpu_torch/csrc``, one nvcc each, all at once;
 3. kernel against plain: the cross kernel's wrapper on the card at the shapes
    the serving path gives it, and at D = 513, 1677 and 2048 (past the fused
-   form's width: the tiled form) at 1, 1000, 4097 and 32768 rows, held
-   against its plain PyTorch version, with the form and k-slices its plan
-   chose; at 5 rows (the rows tile); then, report only (``ROADMAP.md`` C1),
-   B1 against cuBLAS over a grid of batches and widths at the card tests'
-   inputs: where cuBLAS splits k (a split-k reduce kernel in a
-   ``torch.profiler`` trace of ``torch.mm``) beside where the plan does,
-   the kernel's worst error against plain and cuBLAS's own against float64
-   products, as shares of rtol 1e-4 / atol 1e-6;
+   form's width: the tiled form) at 1, 1000, 4097 and 32768 rows, with the
+   form and k-slices its plan chose; at 5 rows (the rows tile). Up to
+   D = 512 it is held to its plain PyTorch version (cuBLAS); past it to the
+   exact sums (float64 products rounded to f32, ``cross_network_exact``):
+   within rtol 1e-4 / atol 1e-6 of them, or no farther from them than
+   cuBLAS is (``exact_gate``; ``ROADMAP.md`` C1). Then the gate past
+   D = 512 over a grid of batches and widths at the card tests' inputs,
+   with where cuBLAS splits k (a split-k reduce kernel in a
+   ``torch.profiler`` trace of ``torch.mm``) beside where the plan does and
+   each distance as a share of the tolerance;
 4. serving: DCN-v2 at the full Criteo width (26 sparse fields of 100k ids,
    E=16, 13 dense fields, 3 cross layers, MLP 256-128; ``bench.py``'s
    config), weights made from ``--seed`` in the flax leaf layout and loaded
@@ -59,8 +61,11 @@ Phases; any failure ends the run with a non-zero exit and no result line:
 9. requantize against plain, on the card: the int8 update's kernel at its
    main-path shape (851,968 permuted 128-byte rows of a random int8 table
    gathered at ``bench.py``-drawn ids, grads summed by the scan, the step-1
-   salt), at 1 and 1000 rows, with an all-zero row and with lr 10; then its
-   time beside its plain version and its bound;
+   salt), at 1 and 1000 rows, with an all-zero row and with lr 10, and at
+   DIN's step shape (90,112 384-byte rows of E=64, the model's table lr);
+   then its time beside its plain version and its bound at both shapes,
+   with its launch (lanes a row, rows a warp, grid, registers) and its
+   share of the bound;
 10. int8 training: phase 7 under ``QuantizedEmbeddingTrainer(packed_tables=
    True)`` (rowwise Adagrad and stochastic requantization of packed
    ``q || scale || acc`` byte rows, bench.py's headline ``int8-packed``
@@ -96,10 +101,10 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    a layer 160 wide, relu, and forward and backward through its autograd
    Function against plain autograd at ``[4096, 2, 20]``; then its time beside
    its plain version and its bound (the least work, ``w_0`` split by blocks;
-   the concat form's beside it) at the training and the serving shape. The scan,
-   scatter and requantize kernels at DIN's step shape (90,112 item ids of
-   E=64: scan row stride 256 and 96, scatter of 1 KB f32 rows, requantize
-   of 384-byte rows), checked and timed;
+   the concat form's beside it) at the training and the serving shape. The scan
+   and scatter kernels at DIN's step shape (90,112 item ids of E=64: scan
+   row stride 256 and 96, scatter of 1 KB f32 and 384-byte rows), checked
+   and timed;
 18. DIN serving at the "DIN on Amazon" scale of ``scripts/din_sparse_ab.py``
    (1,048,576 items and 65,536 users of E=64, attention (80, 40), MLP
    (200, 80)), weights from ``--seed`` in the flax leaf layout through
@@ -224,7 +229,15 @@ from pytorchrec_tpu_torch.models import DIN, DCNv2, DeepFM, TwoTower
 from pytorchrec_tpu_torch.models import ctr as ctr_module
 from pytorchrec_tpu_torch.ops import attention as attention_module
 from pytorchrec_tpu_torch.ops.kernels.build import build
-from pytorchrec_tpu_torch.ops.kernels.cross import cross_network, cross_network_plain, cross_plan
+from pytorchrec_tpu_torch.ops.kernels.cross import (
+    FUSED_MAX_WIDTH,
+    cross_network,
+    cross_network_exact,
+    cross_network_plain,
+    cross_plan,
+    exact_gate,
+    tolerance_share,
+)
 from pytorchrec_tpu_torch.ops.kernels.din_attention import (
     din_attention_pool,
     din_attention_pool_plain,
@@ -238,6 +251,7 @@ from pytorchrec_tpu_torch.ops.kernels.fm import (
 from pytorchrec_tpu_torch.ops.kernels.quantize import (
     id_keyed_rounding_bits,
     quantize_rows,
+    requantize_launch_info,
     requantize_rows,
     requantize_rows_plain,
     rounding_bits_i32,
@@ -319,6 +333,7 @@ DIN_CPU_REQUEST = 4  # [256, 100] is also scored on the CPU
 DIN_CPU_BATCH = 512
 DIN_TABLES = {"f32": "i_embeddings/embedding", "int8": "i_q"}  # the item table's leaf
 DIN_TABLE_LR = 2e-2  # DIN's table_lr_hint: the int8 table's rowwise-Adagrad lr
+DIN_REQUANTIZE_SEED = 21  # offset of phase 9's generators for DIN's rows
 DIN_ROW_SCALE = 10.0  # table rows N(0, 0.1), ten times the init's (din_leaves says why)
 
 # two-tower retrieval at scripts/retrieval_bench.py:31-57's scale, no cut:
@@ -435,7 +450,8 @@ def plan_name(batch: int, dim: int) -> str:
 def check_cross(rng: np.random.Generator) -> float:
     """Phase 3: kernel against plain at every shape serving gives it, an odd
     width, the widths past the fused form's and a batch of a few rows;
-    returns the max abs error at D=429."""
+    past D = 512 against the exact sums (``exact_gate``). Returns the max
+    abs error at D=429."""
     worst = 0.0
     shapes = [(b, DIM) for b in (*REQUEST_ROWS, CANDIDATES[0] * CANDIDATES[1])] + [(1000, 37)]
     shapes += [(b, d) for d in WIDE_DIMS for b in WIDE_ROWS] + [(5, DIM), (5, E64_DIM)]
@@ -444,9 +460,18 @@ def check_cross(rng: np.random.Generator) -> float:
         got = cross_network(x0, ws, bs)
         want = cross_network_plain(x0, ws, bs)
         torch.cuda.synchronize()
-        err = close(got, want)
-        print(f"cross_network kernel vs plain  B={batch:6d} D={dim} L={CROSS_LAYERS} "
-              f"({plan_name(batch, dim)}): max abs err {err:.3e}")
+        label = f"B={batch:6d} D={dim} L={CROSS_LAYERS} ({plan_name(batch, dim)})"
+        if dim <= FUSED_MAX_WIDTH:
+            err = close(got, want)
+            print(f"cross_network kernel vs plain  {label}: max abs err {err:.3e}")
+        else:
+            gate = exact_gate(got, want, cross_network_exact(x0, ws, bs))
+            print(f"cross_network kernel vs exact sums  {label}: kernel {gate['kernel']:.3f}, "
+                  f"cuBLAS {gate['cublas']:.3f} x the tolerance; max abs err against plain "
+                  f"{float((got - want).abs().max()):.3e}")
+            if not gate["ok"]:
+                raise AssertionError(f"cross_network {label}: farther from the exact sums than "
+                                     f"the tolerance and than cuBLAS")
         if dim == DIM:
             worst = max(worst, err)
     return worst
@@ -1071,14 +1096,12 @@ def cublas_splits(x: torch.Tensor, w: torch.Tensor) -> Optional[bool]:
 
 def check_against_cublas() -> dict:
     """Phase 3, second part: over SWEEP_ROWS x SWEEP_DIMS at L=3 and the
-    card tests' inputs, where cuBLAS splits k beside where the plan does, the kernel's
-    worst error against plain (cuBLAS) and cuBLAS's own against float64
-    products rounded to f32, as shares of rtol 1e-4 / atol 1e-6. Reports;
-    the open fault is ROADMAP.md C1."""
-
-    def share(got, want):
-        return float(((got - want).abs() / (ATOL + RTOL * want.abs())).max())
-
+    card tests' inputs, where cuBLAS splits k beside where the plan does, and
+    the kernel's and cuBLAS's distances from plain (cuBLAS) and from the exact
+    sums (``cross_network_exact``), as shares of rtol 1e-4 / atol 1e-6. A
+    gate past D = 512 (``exact_gate``); at D <= 512 it reports the shapes
+    where the kernel is outside the tolerance of cuBLAS (phase 3's first
+    part and the card tests gate there)."""
     YES_NO = {True: "y", False: "n", None: "-"}
     rows = {}
     for dim in SWEEP_DIMS:
@@ -1087,33 +1110,42 @@ def check_against_cublas() -> dict:
             x0 = torch.from_numpy(gen.normal(size=(batch, dim)).astype(np.float32)).cuda()
             ws = torch.from_numpy((gen.normal(size=(3, dim, dim)) * 0.01).astype(np.float32)).cuda()
             bs = torch.from_numpy((gen.normal(size=(3, dim)) * 0.01).astype(np.float32)).cuda()
-            want = cross_network_plain(x0, ws, bs)
-            exact = x0
-            for layer in range(3):
-                u = (exact.double() @ ws[layer].double()).float()
-                exact = x0 * (u + bs[layer]) + exact
+            got, want = cross_network(x0, ws, bs), cross_network_plain(x0, ws, bs)
+            gate = exact_gate(got, want, cross_network_exact(x0, ws, bs))
             rows[(batch, dim)] = {"cublas_splits": cublas_splits(x0, ws[0]),
                                   "plan_splits": cross_plan(batch, dim).splits > 1,
-                                  "kernel": share(cross_network(x0, ws, bs), want),
-                                  "cublas": share(want, exact)}
+                                  "kernel": tolerance_share(got, want),
+                                  "kernel_exact": gate["kernel"], "cublas": gate["cublas"],
+                                  "ok": gate["ok"] or dim <= FUSED_MAX_WIDTH}
     outside = {k: v for k, v in rows.items() if v["kernel"] > 1}
+    failed = {k: v for k, v in rows.items() if not v["ok"]}
     summary = {
         "shapes": len(rows),
         "split_traced": sum(v["cublas_splits"] is not None for v in rows.values()),
         "split_agrees": sum(v["cublas_splits"] == v["plan_splits"] for v in rows.values()),
         "outside": len(outside),
-        "outside_d_le_512": sum(d <= 512 for _, d in outside),
-        "cublas_outside_vs_f64": sum(v["cublas"] > 1 for v in rows.values())}
+        "outside_d_le_512": sum(d <= FUSED_MAX_WIDTH for _, d in outside),
+        "cublas_outside_vs_f64": sum(v["cublas"] > 1 for v in rows.values()),
+        "kernel_outside_vs_f64": sum(v["kernel_exact"] > 1 for v in rows.values()),
+        "worst_kernel_vs_f64": max(v["kernel_exact"] for v in rows.values()),
+        "worst_cublas_vs_f64": max(v["cublas"] for v in rows.values()),
+        "gate_failed": len(failed)}
     print(f"B1 against cuBLAS over {summary['shapes']} shapes (B {SWEEP_ROWS}, D {SWEEP_DIMS}, "
           f"L=3): of {summary['split_traced']} traced, the plan splits k where cuBLAS does "
           f"(a split-k reduce kernel) and not elsewhere at {summary['split_agrees']}; kernel "
           f"outside rtol {RTOL} / atol {ATOL} of cuBLAS at {summary['outside']} "
-          f"({summary['outside_d_le_512']} with D <= 512); cuBLAS outside it from float64 "
-          f"products at {summary['cublas_outside_vs_f64']}")
-    print("    outside (B, D: kernel / cuBLAS-vs-float64 shares; split by cuBLAS, plan): "
-          + "; ".join(f"{b}x{d}: {v['kernel']:.2f} / {v['cublas']:.2f}, "
-                      f"{YES_NO[v['cublas_splits']]}{YES_NO[v['plan_splits']]}"
-                      for (b, d), v in outside.items()))
+          f"({summary['outside_d_le_512']} with D <= 512); outside it from float64 "
+          f"products: cuBLAS at {summary['cublas_outside_vs_f64']} (worst "
+          f"{summary['worst_cublas_vs_f64']:.2f}), the kernel at "
+          f"{summary['kernel_outside_vs_f64']} (worst {summary['worst_kernel_vs_f64']:.2f}); "
+          f"gate failed at {summary['gate_failed']}")
+    print("    outside cuBLAS (B, D: kernel vs cuBLAS / kernel vs float64 / cuBLAS vs float64 "
+          "shares; split by cuBLAS, plan): "
+          + "; ".join(f"{b}x{d}: {v['kernel']:.2f} / {v['kernel_exact']:.2f} / "
+                      f"{v['cublas']:.2f}, {YES_NO[v['cublas_splits']]}"
+                      f"{YES_NO[v['plan_splits']]}" for (b, d), v in outside.items()))
+    if failed:
+        raise AssertionError(f"B1's gate failed at {sorted(failed)}")
     return summary
 
 
@@ -1321,10 +1353,38 @@ def rows_agree(got: torch.Tensor, want: torch.Tensor, label: str, emb: int = EMB
     return float(err.max())
 
 
+def time_requantize(moved: torch.Tensor, g: torch.Tensor, ids: torch.Tensor, salt: int,
+                    lr: float, emb: int, label: str) -> dict:
+    """B3 and its plain version at one shape (CUDA events, median of 3
+    interleaved rounds), its bound, its launch (the group of lanes a row,
+    rows a warp, the grid, registers a thread) and its share of the
+    bound."""
+    runs = {"ms": [], "plain_ms": []}
+    for _ in range(3):
+        runs["ms"].append(time_cuda(lambda: requantize_rows(moved, g, ids, salt, lr, emb)))
+        runs["plain_ms"].append(time_cuda(
+            lambda: requantize_rows_plain(moved, g, ids, salt, lr, emb), iters=10))
+    n, w = moved.shape
+    # what the function needs: q || scale || acc, grads and id of each row, the new row
+    nbytes = n * ((emb + 8) + 4 * emb + 4 + w)
+    timing = {k: float(np.median(v)) for k, v in runs.items()}
+    timing.update(library_ms=None, bound_ms=1e3 * nbytes / PEAK_BYTES_S, bound_by="bytes",
+                  launch=requantize_launch_info(n, w, emb))
+    launch = timing["launch"]
+    print(f"requantize_rows at {label} n={n} W={w} E={emb}: kernel {timing['ms']:.4f} ms, plain "
+          f"{timing['plain_ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} "
+          f"MB), {timing['bound_ms'] / timing['ms']:.1%} of the bound; {launch['group']} lanes "
+          f"a row, {launch['rows_per_warp']} rows a warp, {launch['unit']}-byte stores, grid "
+          f"{launch['grid']} blocks, {launch['registers']} registers; no single PyTorch call "
+          f"computes it; rounds {runs}")
+    return timing
+
+
 def check_and_time_requantize(rng: np.random.Generator, gen: torch.Generator, seed: int):
-    """Phase 9: kernel against plain at the main-path shape and the edge
-    cases, then kernel and plain timed (CUDA events, median of 3 interleaved
-    rounds) and the bound. Returns (main-path error, timing)."""
+    """Phase 9: B3 against plain at the int8 DCN-v2 step's shape and the
+    edge cases, and at DIN's step shape (the item table's 90,112 ids of a
+    batch, 384-byte rows, E=64, at the model's table lr); then B3 and plain
+    timed at both. Returns (main-path error, timing, DIN's timing)."""
     moved, g, ids, salt = requantize_inputs(rng, gen, seed)
     zero_moved, zero_g = moved[:1000].clone(), g[:1000].clone()
     zero_moved[7, :EMB] = 0
@@ -1346,24 +1406,22 @@ def check_and_time_requantize(rng: np.random.Generator, gen: torch.Generator, se
         q_new = unpack_quantized_table(got.cpu(), EMB)[0]
         if label.endswith("lr 10") and int(q_new.abs().max()) != 127:
             raise AssertionError("lr 10 did not reach the clip")
-
-    runs = {"ms": [], "plain_ms": []}
-    for _ in range(3):
-        runs["ms"].append(time_cuda(lambda: requantize_rows(moved, g, ids, salt, TRAIN_LR, EMB)))
-        runs["plain_ms"].append(time_cuda(
-            lambda: requantize_rows_plain(moved, g, ids, salt, TRAIN_LR, EMB), iters=10))
-    n = moved.shape[0]
-    # what the function needs: q || scale || acc, grads and id of each row, the new row
-    nbytes = n * ((EMB + 8) + 4 * EMB + 4 + Q_W)
-    whole_rows = n * (Q_W + 4 * EMB + 4 + Q_W)
-    timing = {k: float(np.median(v)) for k, v in runs.items()}
-    timing.update(library_ms=None, bound_ms=1e3 * nbytes / PEAK_BYTES_S, bound_by="bytes")
-    print(f"requantize_rows at n={n} W={Q_W} E={EMB}: kernel {timing['ms']:.4f} ms, plain "
-          f"{timing['plain_ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} "
-          f"MB; reading whole rows {whole_rows / 1e6:.1f} MB, "
-          f"{1e3 * whole_rows / PEAK_BYTES_S:.4f} ms); no single PyTorch call computes it; "
-          f"rounds {runs}")
-    return errs[0], timing
+    # DIN's operands from generators of their own, so that the later phases'
+    # data does not hang on this one's draws
+    din_gen = torch.Generator(device="cuda").manual_seed(seed + DIN_REQUANTIZE_SEED)
+    din_ids = din_item_ids(make_din_batch(np.random.default_rng(seed + DIN_REQUANTIZE_SEED)))
+    din_moved, din_g, din_ids, din_salt = requantize_inputs(
+        rng, din_gen, seed, ids=din_ids, vocab_rows=DIN_ITEMS, emb=DIN_EMB,
+        path=DIN_TABLES["int8"])
+    got = requantize_rows(din_moved, din_g, din_ids, din_salt, DIN_TABLE_LR, DIN_EMB)
+    want = requantize_rows_plain(din_moved, din_g, din_ids, din_salt, DIN_TABLE_LR, DIN_EMB)
+    torch.cuda.synchronize()
+    rows_agree(got.cpu(), want.cpu(), "DIN ids", emb=DIN_EMB)
+    del got, want
+    timing = time_requantize(moved, g, ids, salt, TRAIN_LR, EMB, "the int8 step's")
+    din_timing = time_requantize(din_moved, din_g, din_ids, din_salt, DIN_TABLE_LR, DIN_EMB,
+                                 "DIN's")
+    return errs[0], timing, din_timing
 
 
 def b8_edge_rows(emb: int = EMB):
@@ -1744,13 +1802,12 @@ def check_and_time_din(gen: torch.Generator):
     return worst, grad_err, timings
 
 
-def check_and_time_din_update(rng: np.random.Generator, gen: torch.Generator, seed: int) -> dict:
+def check_and_time_din_update(rng: np.random.Generator, gen: torch.Generator) -> dict:
     """Phase 17, the update's kernels at DIN's step shape (the item table's
     90,112 ids of a batch, E=64): the scan over the f32 rows' staging columns
     (row stride 256) and the int8 rows' (row stride 96), the scatter of 1 KB
-    f32 rows into ``[1048576, 256]`` and of 384-byte rows, the requantization
-    of 384-byte rows at the model's table lr; each against plain, then
-    timed."""
+    f32 rows into ``[1048576, 256]`` and of 384-byte rows; each against
+    plain, then timed (the requantization of DIN's rows is phase 9's)."""
     ids = din_item_ids(make_din_batch(rng))
     _, heads, _ = segments(ids)
     heads = torch.from_numpy(heads).cuda()
@@ -1766,28 +1823,6 @@ def check_and_time_din_update(rng: np.random.Generator, gen: torch.Generator, se
         timings[f"scan_{kind}"] = time_seg_scan(x, heads)
         _, timings[f"scatter_{kind}"] = check_and_time_scatter(
             rng, gen, kind, ids=ids, vocab_rows=DIN_ITEMS, widths=(DIN_PACKED_W, DIN_Q_W))
-    moved, g, sorted_ids, salt = requantize_inputs(rng, gen, seed, ids=ids, vocab_rows=DIN_ITEMS,
-                                                   emb=DIN_EMB, path=DIN_TABLES["int8"])
-    lr = DIN_TABLE_LR
-    got = requantize_rows(moved, g, sorted_ids, salt, lr, DIN_EMB)
-    want = requantize_rows_plain(moved, g, sorted_ids, salt, lr, DIN_EMB)
-    torch.cuda.synchronize()
-    rows_agree(got.cpu(), want.cpu(), "DIN ids", emb=DIN_EMB)
-    runs = {"ms": [], "plain_ms": []}
-    for _ in range(3):
-        runs["ms"].append(time_cuda(lambda: requantize_rows(moved, g, sorted_ids, salt, lr,
-                                                            DIN_EMB)))
-        runs["plain_ms"].append(time_cuda(
-            lambda: requantize_rows_plain(moved, g, sorted_ids, salt, lr, DIN_EMB), iters=10))
-    n = moved.shape[0]
-    nbytes = n * ((DIN_EMB + 8) + 4 * DIN_EMB + 4 + DIN_Q_W)
-    timings["requantize"] = {k: float(np.median(v)) for k, v in runs.items()}
-    timings["requantize"].update(library_ms=None, bound_ms=1e3 * nbytes / PEAK_BYTES_S,
-                                 bound_by="bytes")
-    print(f"requantize_rows at DIN's n={n} W={DIN_Q_W} E={DIN_EMB}: kernel "
-          f"{timings['requantize']['ms']:.4f} ms, plain {timings['requantize']['plain_ms']:.4f} "
-          f"ms, bound {timings['requantize']['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB); "
-          f"rounds {runs}")
     return timings
 
 
@@ -1930,8 +1965,8 @@ def check_and_time_b7(gen: torch.Generator):
         runs = {"ms": [], "plain_ms": [], "library_ms": []}
         for _ in range(3):
             runs["ms"].append(time_cuda(lambda: bin_max_scores(q, items), iters=10, warmup=2))
-            runs["plain_ms"].append(time_cuda(lambda: bin_max_scores_plain(q, items), iters=5,
-                                              warmup=1))
+            runs["plain_ms"].append(time_cuda(lambda: bin_max_scores_plain(q, items), iters=1,
+                                              warmup=0))
             runs["library_ms"].append(time_cuda(library, iters=10, warmup=2))
         timing = {k: float(np.median(r)) for k, r in runs.items()}
         work = b7_work(b, v, d, dtype)
@@ -2489,8 +2524,10 @@ def main() -> int:
     card_against_cpu(DCNV2_SPEC, "f32", leaves, rng, args.seed)
     del leaves
 
-    # 9. the requantize kernel against plain (not the main path's launches)
-    requant_err, requant_timing = check_and_time_requantize(rng, gen, args.seed)
+    # 9. the requantize kernel against plain at the int8 step's shape and
+    # DIN's, and its times at both (not the main path's launches)
+    requant_err, requant_timing, requant_din_timing = check_and_time_requantize(
+        rng, gen, args.seed)
     torch.cuda.empty_cache()
 
     # 10. int8 training, with launch counts from zero
@@ -2549,7 +2586,7 @@ def main() -> int:
     # 17. the DIN pooling kernel against plain, and the update's kernels at
     # DIN's step shape (not the main path's launches)
     din_err, din_grad_err, din_timing = check_and_time_din(gen)
-    din_update_timing = check_and_time_din_update(rng, gen, args.seed)
+    din_update_timing = check_and_time_din_update(rng, gen)
     torch.cuda.empty_cache()
 
     # 18. DIN serving, with launch counts from zero
@@ -2751,7 +2788,7 @@ def main() -> int:
          "deepfm_int8_train_launches": fm_int8_launches["requantize_rows"],
          "din_int8_train_launches": din_int8_launches["requantize_rows"],
          "din": {"shape": f"n={n_din} rows of {DIN_Q_W} u8, E={DIN_EMB}",
-                 **din_update_timing["requantize"]}},
+                 **requant_din_timing}},
         {"name": "scatter_set_rows", "route": "cuda",
          "source": "pytorchrec_tpu_torch/csrc/scatter.cu",
          "replaces": "pytorchrec_tpu/ops/kernels/dma_scatter.py:117",

@@ -61,6 +61,41 @@ def cross_network_plain(x0: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor) ->
     return xl
 
 
+def cross_network_exact(x0: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor) -> torch.Tensor:
+    """The reference the card's check holds the kernel to past
+    ``FUSED_MAX_WIDTH``: per layer ``u = x_l @ W_l`` from float64 products of
+    the f32 values, summed in float64 and rounded to f32, then
+    ``x0 * (u + b) + x_l`` in f32. Any device."""
+    xl = x0
+    for layer in range(ws.shape[0]):
+        u = (xl.double() @ ws[layer].double()).float()
+        xl = x0 * (u + bs[layer]) + xl
+    return xl
+
+
+# The card's tolerance for the cross network: f32 sums of D terms in
+# another order
+CARD_RTOL, CARD_ATOL = 1e-4, 1e-6
+
+
+def tolerance_share(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """``max |got - ref| / (CARD_ATOL + CARD_RTOL |ref|)``: how much of the
+    card's tolerance ``got`` takes from ``ref`` (at most 1.0 passes)."""
+    return float(((got - ref).abs() / (CARD_ATOL + CARD_RTOL * ref.abs())).max())
+
+
+def exact_gate(got: torch.Tensor, plain: torch.Tensor, exact: torch.Tensor) -> dict:
+    """The card's check of the kernel past ``FUSED_MAX_WIDTH``: ``got`` is
+    within the tolerance of the exact sums (``cross_network_exact``) or, where
+    ``plain`` (cuBLAS's ``torch.mm``) is not, no farther from them than
+    ``plain``. There cuBLAS splits k by a heuristic the port cannot see, and
+    its own sums lie up to 4x the tolerance from the exact ones
+    (``ROADMAP.md`` C1), so holding the kernel to cuBLAS's bits would hold it
+    to that heuristic. Returns both shares and whether the gate passes."""
+    kernel, cublas = tolerance_share(got, exact), tolerance_share(plain, exact)
+    return {"kernel": kernel, "cublas": cublas, "ok": kernel <= max(1.0, cublas)}
+
+
 # The fused form's widest D (csrc/cross.cu TN) and the batch from which it
 # runs; below that batch, or past that width, the tiled form runs.
 FUSED_MAX_WIDTH = 512
@@ -110,14 +145,16 @@ def cross_plan(batch: int, d: int, sm_count: int = SM_COUNT) -> CrossPlan:
     * the rows tile up to ROWS_MAX rows;
     * else the tiled form. Its tile: 128 x 128 where that grid is 8 blocks an
       SM or more, else the widest of 64 x 128, 64 x 64 and 32 x 64 whose grid
-      is half the SMs or more, else 8 x 64. Its k: one slice where the grid
-      of 64 x 64 output tiles is more than SPLIT_MAX_WAVES waves of the SMs,
-      else up to MAX_SLICES contiguous slices, each a multiple of K_TILE but
-      the last.
+      is half the SMs or more, else 8 x 64. Its k: up to MAX_SLICES
+      contiguous slices, each a multiple of K_TILE but the last, where the
+      grid of 64 x 64 output tiles is at most SPLIT_MAX_WAVES waves of the
+      SMs, and past FUSED_MAX_WIDTH wherever the tile is not 128 x 128 (that
+      tile does not split); one slice elsewhere.
 
     Why these k-slices. The card's checks hold the kernel to cuBLAS's
-    ``torch.mm`` at rtol 1e-4 / atol 1e-6. Traced on the H100 (cuBLAS
-    12.8) over B in 1..32768 and D in 1..4096, cuBLAS sums in one k-order
+    ``torch.mm`` at rtol 1e-4 / atol 1e-6 up to D = 512, and past it to
+    the exact sums (``exact_gate``). Traced on the H100 (cuBLAS 12.8)
+    over B in 1..32768 and D in 1..4096, cuBLAS sums in one k-order
     accumulator where its grid fills the card: the fused form's and one
     slice's sums, bit for bit. Where the grid is small it splits k, in 2 to
     33 slices whose count and order its heuristic picks by shape, and its
@@ -125,9 +162,13 @@ def cross_plan(batch: int, d: int, sm_count: int = SM_COUNT) -> CrossPlan:
     falls outside the tolerance there. Sixteen slices sum about as
     accurately as float64 products rounded to f32, so the kernel then
     agrees with cuBLAS wherever cuBLAS agrees with the exact sums: at every
-    traced shape with D <= 512. Past that, cuBLAS's own sums often lie
-    outside the tolerance from the exact ones, and only its own slice order
-    would agree (``ROADMAP.md`` C1).
+    traced shape with D <= 512. Past D = 512 one accumulator of D terms
+    lands 0.9 to 8.7 times the tolerance from the exact sums at 512 rows
+    and more, and 16 slices 0.3 to 1.9 times (``PERF.md``), while
+    cuBLAS's heuristic splits at some of those shapes and not at others;
+    so there the kernel splits wherever its tile can. The 128 x 128 tile
+    runs on grids of 8 blocks an SM or more, where cuBLAS sums unsplit too
+    (equal bits), and splitting there would cost 57% at 32768 x 1677.
     """
     if d < 1 or batch < 0 or sm_count < 1:
         raise ValueError(f"no plan for batch={batch}, d={d}, sm_count={sm_count}")
@@ -143,7 +184,7 @@ def cross_plan(batch: int, d: int, sm_count: int = SM_COUNT) -> CrossPlan:
 
     tile = 5 if blocks(5) >= 8 * sm_count else next(
         (t for t in (4, 3, 2) if 2 * blocks(t) >= sm_count), 1)
-    if blocks(3) > SPLIT_MAX_WAVES * sm_count:
+    if blocks(3) > SPLIT_MAX_WAVES * sm_count and (d <= FUSED_MAX_WIDTH or tile == 5):
         return CrossPlan("tiled", tile, d, one_slice)
     return CrossPlan("tiled", tile, d, -(-(-(-d // MAX_SLICES)) // K_TILE) * K_TILE)
 

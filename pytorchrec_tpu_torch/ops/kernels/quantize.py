@@ -24,10 +24,13 @@ Kernel B3. ``requantize_rows`` replaces ``_requantize_kernel`` (the
 ``q || scale || acc || ...`` byte rows of an int8 table (one scale a row) and
 the rows' summed grads it runs the rowwise-Adagrad step and the id-keyed
 stochastic requantization and returns the new byte rows. The kernel
-(``csrc/requantize.cu``) gives each row one warp. It is bound by bytes: it
-reads each row's ``q || scale || acc`` bytes, its grads and its id, and writes
-the whole new row, 187 MB at the main path's shape (851,968 rows of 128
-bytes, E=16), 0.056 ms on the H100 at 3.35 TB/s.
+(``csrc/requantize.cu``) gives each row a group of lanes, 4 columns a lane
+(4 lanes a row, 8 rows a warp at E=16), keeps the updated row in registers
+and writes it in 16-byte stores (4-byte ones where the row width is not a
+multiple of 16); ``requantize_geometry`` picks the layout. It is bound by
+bytes: it reads each row's ``q || scale || acc`` bytes, its grads and its
+id, and writes the whole new row, 187 MB at the main path's shape (851,968
+rows of 128 bytes, E=16), 0.056 ms on the H100 at 3.35 TB/s.
 
 Both wrappers dispatch by device (``ops/kernels/__init__.py``): a CUDA
 tensor launches the kernel and raises if the launch fails; a CPU tensor runs
@@ -45,6 +48,7 @@ into 16-bit halves, so no intermediate leaves int64.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import zlib
 from typing import Optional, Tuple
@@ -228,18 +232,82 @@ def requantize_rows_plain(moved: torch.Tensor, g: torch.Tensor, ids: torch.Tenso
     return requantize_rows_chain(moved, g, id_keyed_rounding_bits(ids, e, salt), lr, e, eps)
 
 
+# csrc/requantize.cu's threads a block, widest row (bytes) and the
+# (lanes a row, q words a lane) pairs it is built for: up to 512 q bytes a
+# row, held in registers
+REQUANTIZE_THREADS = 256
+REQUANTIZE_MAX_WIDTH = 4096
+REQUANTIZE_INSTANCES = ((4, 1), (8, 1), (16, 1), (32, 1), (32, 4))
+REQUANTIZE_MAX_E = 4 * max(g * k for g, k in REQUANTIZE_INSTANCES)
+
+
+@dataclasses.dataclass(frozen=True)
+class RequantizeGeometry:
+    """How B3 lays out one call: ``group`` lanes a row (``32 // group`` rows a
+    warp), ``words`` q words of 4 columns a lane, held in registers, and
+    ``unit`` the bytes a lane stores at once: 16 where the row width is a
+    multiple of 16, else 4. The grid is the card's to size (occupancy times
+    SMs, ``requantize_grid``)."""
+
+    group: int
+    words: int
+    unit: int
+
+    @property
+    def rows_per_warp(self) -> int:
+        return 32 // self.group
+
+
+def requantize_geometry(w: int, e: int) -> RequantizeGeometry:
+    """B3's layout for rows of ``w`` bytes holding ``e`` int8 columns. Plain
+    Python: the tests check it on the CPU. A lane computes 4 columns (one q
+    word, one float4 of grads), so a row takes its q words' count of lanes,
+    rounded up to a power of two and at least 4 (the 16-byte unit's 4 words
+    gather within a group); past 32 words (e > 128) 32 lanes hold 4 words
+    each, so e is at most REQUANTIZE_MAX_E."""
+    if e < 1 or e + 8 > w or w % 4 or w > REQUANTIZE_MAX_WIDTH or e > REQUANTIZE_MAX_E:
+        raise ValueError(f"requantize_rows kernel takes rows of a multiple of 4 bytes, at most "
+                         f"{REQUANTIZE_MAX_WIDTH}, holding e <= {REQUANTIZE_MAX_E} q bytes, a "
+                         f"scale and an accumulator; got W={w}, e={e}")
+    q_words = -(-e // 4)
+    group = min(32, max(4, 1 << (q_words - 1).bit_length()))
+    words = next(k for g, k in REQUANTIZE_INSTANCES if g == group and g * k >= q_words)
+    return RequantizeGeometry(group, words, 16 if w % 16 == 0 else 4)
+
+
 @functools.cache
 def _kernel():
     lib = library("requantize")
     lib.requantize_rows_launch.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_float,
-        ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.requantize_rows_launch.restype = ctypes.c_int
-    lib.requantize_max_width.argtypes = []
-    lib.requantize_max_width.restype = ctypes.c_int
+    lib.requantize_grid.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.requantize_grid.restype = ctypes.c_longlong
+    lib.requantize_registers.argtypes = [ctypes.c_int] * 3
+    lib.requantize_registers.restype = ctypes.c_int
+    for name in ("requantize_max_width", "requantize_threads"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
     lib.requantize_error_string.argtypes = [ctypes.c_int]
     lib.requantize_error_string.restype = ctypes.c_char_p
+    built = (lib.requantize_threads(), lib.requantize_max_width())
+    if built != (REQUANTIZE_THREADS, REQUANTIZE_MAX_WIDTH):
+        raise RuntimeError(f"csrc/requantize.cu's threads and widest row {built} differ from "
+                           f"{(REQUANTIZE_THREADS, REQUANTIZE_MAX_WIDTH)}")
     return lib
+
+
+def requantize_launch_info(n: int, w: int, e: int) -> dict:
+    """B3's launch at ``n`` rows of ``w`` bytes and ``e`` columns on the
+    current card: the geometry, the grid and the registers a thread."""
+    geometry = requantize_geometry(w, e)
+    lib = _kernel()
+    args = (geometry.group, geometry.words, geometry.unit)
+    return {"group": geometry.group, "rows_per_warp": geometry.rows_per_warp,
+            "words": geometry.words, "unit": geometry.unit,
+            "grid": int(lib.requantize_grid(n, *args)),
+            "registers": int(lib.requantize_registers(*args))}
 
 
 def _check(moved: torch.Tensor, g: torch.Tensor, ids: torch.Tensor, e: int) -> None:
@@ -263,18 +331,19 @@ def _launch(moved: torch.Tensor, g: torch.Tensor, ids: torch.Tensor, salt: int, 
         if t.device != moved.device:
             raise ValueError(f"{name} is on {t.device}, moved on {moved.device}")
     n, w = moved.shape
-    lib = _kernel()
-    if w % 4 or moved.data_ptr() % 4 or w > lib.requantize_max_width():
-        raise ValueError(f"requantize_rows kernel takes 4-byte aligned rows of at most "
-                         f"{lib.requantize_max_width()} bytes, a multiple of 4; got {w}")
+    geometry = requantize_geometry(w, e)
+    if moved.data_ptr() % 4:
+        raise ValueError("requantize_rows kernel reads rows as 4-byte words: moved must start "
+                         "at a 4-byte aligned address")
     out = torch.empty((n, w), dtype=torch.uint8, device=moved.device)
     if n == 0:
         return out
+    lib = _kernel()
     with torch.cuda.device(moved.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.requantize_rows_launch(moved.data_ptr(), g.data_ptr(), ids.data_ptr(),
                                          out.data_ptr(), n, w, e, int(salt) & _U32, lr, eps,
-                                         stream)
+                                         geometry.group, geometry.words, geometry.unit, stream)
     if err != 0:
         raise RuntimeError("requantize_rows kernel launch failed: "
                            + lib.requantize_error_string(err).decode())
@@ -288,7 +357,9 @@ def requantize_rows(moved: torch.Tensor, g: torch.Tensor, ids: torch.Tensor, sal
     rows with one scale a row: ``moved [n, W]`` u8 permuted
     ``q || scale || acc || ...`` rows, ``g [n, e]`` f32 summed grads,
     ``ids [n]`` int32 global row ids, ``salt`` a uint32 -> a new ``[n, W]``
-    u8, ``q' || scale' || acc'`` then zeros. Needs ``e + 8 <= W``."""
+    u8, ``q' || scale' || acc'`` then zeros. Needs ``e + 8 <= W``; on the
+    card also ``e <= REQUANTIZE_MAX_E`` (512) and ``W <= 4096``, a multiple
+    of 4, the rows at a 4-byte aligned address (``requantize_geometry``)."""
     _check(moved, g, ids, e)
     if launches_kernel(moved, g, ids):
         return _launch(moved, g, ids, salt, lr, e, eps)

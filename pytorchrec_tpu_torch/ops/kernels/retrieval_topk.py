@@ -78,20 +78,46 @@ def _check(queries: torch.Tensor, items: torch.Tensor, tc: int, group: int) -> N
         raise ValueError(f"queries are on {queries.device}, items on {items.device}")
 
 
+# elements of the [B, C] block of partial sums ``ordered_scores`` keeps
+ORDERED_BLOCK = 1 << 22
+
+
+def ordered_scores(queries: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
+    """``queries [B, D] @ items [V, D].T`` in f32, each score summed over D
+    in order, ``(((q_0 x_0) + q_1 x_1) + ...)``, every product and sum
+    rounded: every item takes the same operations wherever it sits, so equal
+    item rows score equal bits and ``argmax`` takes the lower id among them.
+    A library GEMM need not: the CPU's gives identical rows at different
+    columns different last bits. Both sides are upcast to f32 (the products
+    of bf16 values are exact in f32). Items go by in blocks of
+    ``ORDERED_BLOCK // B`` rows."""
+    q = queries.float()
+    b, d = q.shape
+    v = items.shape[0]
+    out = torch.zeros((b, v), dtype=torch.float32, device=items.device)
+    cols = max(1, ORDERED_BLOCK // max(b, 1))
+    for start in range(0, v, cols):
+        part = items[start:start + cols].float().T  # [D, C]
+        acc = out[:, start:start + cols]
+        for k in range(d):
+            acc.add_(q[:, k:k + 1] * part[k])
+    return out
+
+
 def bin_max_scores_plain(queries: torch.Tensor, items: torch.Tensor, tc: int = DEFAULT_TC,
                          group: int = DEFAULT_GROUP) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version (the JAX package's ``bin_max_scores_xla``),
-    one super-chunk at a time: f32 scores of the queries cast to the items'
-    dtype, the tail padded with ``PAD_SCORE``, then ``amax`` and ``argmax``
-    (which takes the first maximum) over each bin's ``tc * group / 128``
-    rows."""
+    one super-chunk at a time: ``ordered_scores`` of the queries cast to the
+    items' dtype, the tail padded with ``PAD_SCORE``, then ``amax`` and
+    ``argmax`` (which takes the first maximum) over each bin's
+    ``tc * group / 128`` rows."""
     b, v = queries.shape[0], items.shape[0]
     sup = tc * group
-    q = queries.to(items.dtype).float()
+    q = queries.to(items.dtype)
     lane = torch.arange(LANES, device=items.device)
     vals, idx = [], []
     for start in range(0, v, sup):
-        scores = q @ items[start:start + sup].float().T  # [B, <= sup] f32
+        scores = ordered_scores(q, items[start:start + sup])  # [B, <= sup] f32
         if scores.shape[1] < sup:
             scores = F.pad(scores, (0, sup - scores.shape[1]), value=PAD_SCORE)
         scores = scores.reshape(b, sup // LANES, LANES)

@@ -6,8 +6,9 @@ item id through the item tower once (one ``[V, D]`` matrix on the device,
 bf16 by default), and ``make_retrieve_fn`` answers queries against it:
 
 * exact (default): the corpus is scored in chunks of ``chunk_items`` rows
-  (one library matrix product each, f32 scores) with a running top-k merge,
-  so at most ``B x chunk_items`` scores exist at once;
+  (one library matrix product each on the card, ``ordered_scores`` on the
+  CPU; f32 scores) with a running top-k merge, so at most
+  ``B x chunk_items`` scores exist at once;
 * ``approx="fused"``: kernel B7 (``ops/kernels/retrieval_topk.py``) scores
   the corpus and keeps 128 bin maxima a super-chunk of ``16 x 2048`` rows
   without writing the scores, then one exact top-k ranks the candidates.
@@ -29,7 +30,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from pytorchrec_tpu_torch.ops.kernels.retrieval_topk import bin_max_scores
+from pytorchrec_tpu_torch.ops.kernels.retrieval_topk import bin_max_scores, ordered_scores
 
 Retrieve = Callable[[torch.Tensor, object, int], Tuple[torch.Tensor, torch.Tensor]]
 
@@ -121,11 +122,15 @@ def _fused_topk(u_vec: torch.Tensor, item_index: torch.Tensor, k: int, scale=Non
 
 def _chunk_scores(u_vec: torch.Tensor, chunk: torch.Tensor, scale) -> torch.Tensor:
     """``[B, C]`` f32 scores of the queries cast to the chunk's dtype. A bf16
-    product must not come back in bf16 (nearby scores would tie); on the card
-    cuBLAS gives f32 out of bf16 inputs, elsewhere both sides are upcast (the
-    products of bf16 values are exact in f32 either way)."""
+    product must not come back in bf16 (nearby scores would tie). On the card
+    cuBLAS scores the chunk (bf16 in, f32 out, or f32). On the CPU
+    ``ordered_scores`` does, so that equal item rows score equal bits and
+    the lower id ranks first among them, as in JAX: the CPU's GEMM gives
+    identical rows at different columns different last bits."""
     a = u_vec.to(chunk.dtype)
-    if chunk.dtype == torch.bfloat16 and chunk.is_cuda:
+    if not chunk.is_cuda:
+        scores = ordered_scores(a, chunk)
+    elif chunk.dtype == torch.bfloat16:
         scores = torch.mm(a, chunk.T, out_dtype=torch.float32)
     else:
         scores = a.float() @ chunk.float().T

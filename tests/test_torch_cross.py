@@ -27,8 +27,11 @@ from pytorchrec_tpu_torch.ops.kernels.cross import (
     SPLIT_MAX_WAVES,
     TILES,
     cross_network,
+    cross_network_exact,
     cross_network_plain,
     cross_plan,
+    exact_gate,
+    tolerance_share,
 )
 
 RTOL, ATOL = 1e-5, 1e-7
@@ -130,16 +133,19 @@ def test_cross_plan_covers_every_shape(batch, dim):
 
 @pytest.mark.parametrize("batch,dim,splits", [
     (1000, 429, 14), (1000, 512, 16), (1000, 37, 3), (200, 1677, 15), (9, 4096, 16),
-    (1536, 429, 14), (2000, 429, 1), (4096, 429, 1), (1000, 1677, 1), (4097, 2048, 1),
+    (1536, 429, 14), (2000, 429, 1), (4096, 429, 1), (1000, 1677, 15), (4097, 2048, 16),
+    (8192, 513, 11), (32768, 513, 1), (32768, 1677, 1), (9601, 1677, 1), (9600, 1677, 15),
 ])
 def test_cross_plan_splits_k_where_the_grid_is_small(batch, dim, splits):
     """k is split where the grid of 64 x 64 output tiles is at most
-    SPLIT_MAX_WAVES waves of the SMs, into at most MAX_SLICES contiguous
-    slices of a multiple of K_TILE (all but the last)."""
+    SPLIT_MAX_WAVES waves of the SMs, and past FUSED_MAX_WIDTH wherever the
+    tile is not 128 x 128, into at most MAX_SLICES contiguous slices of a
+    multiple of K_TILE (all but the last)."""
     plan = cross_plan(batch, dim)
     tiles = -(-batch // 64) * -(-dim // 64)
     assert plan.form == "tiled" and plan.splits == splits
-    assert (splits > 1) == (tiles <= SPLIT_MAX_WAVES * SM_COUNT)
+    assert (splits > 1) == (tiles <= SPLIT_MAX_WAVES * SM_COUNT
+                            or (dim > FUSED_MAX_WIDTH and TILES[plan.tile] != (128, 128)))
     assert all(len(ks) % K_TILE == 0 for ks in plan.slices()[:-1])
 
 
@@ -156,6 +162,40 @@ def test_plain_version_is_the_layer_loop():
     for layer in range(2):
         xl = cross_layer_v2(x0, xl, ws[layer], bs[layer])
     torch.testing.assert_close(cross_network_plain(x0, ws, bs), xl, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("batch,dim,layers", [(9, 6, 2), (37, 520, 3), (4, 1677, 1)])
+def test_exact_reference_is_the_float64_layer_loop(batch, dim, layers):
+    """``cross_network_exact`` against a numpy loop: float64 products summed
+    in float64 and rounded to f32, the update in f32. Tolerance rtol 1e-6 /
+    atol 1e-9: the two float64 sums may differ in their last bits, which
+    can move an f32 rounding by one ulp."""
+    x0, ws, bs = _inputs(batch, dim, layers, seed=dim)
+    xl = x0
+    for layer in range(layers):
+        u = (xl.astype(np.float64) @ ws[layer].astype(np.float64)).astype(np.float32)
+        xl = x0 * (u + bs[layer]) + xl
+    got = cross_network_exact(*(torch.from_numpy(a) for a in (x0, ws, bs)))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), xl, rtol=1e-6, atol=1e-9)
+
+
+def test_tolerance_share_and_the_exact_gate():
+    ref = torch.tensor([0.0, 1.0, -2.0])
+    assert tolerance_share(ref, ref) == 0.0
+    assert tolerance_share(ref + torch.tensor([1e-6, 0.0, 0.0]), ref) == pytest.approx(1.0)
+    # f32 rounds 2 * (1 + 2e-4) to within 1e-7 of it
+    assert tolerance_share(ref * (1 + 2e-4), ref) == pytest.approx(4e-4 / (1e-6 + 2e-4), rel=1e-3)
+    near = ref + torch.tensor([0.0, 5e-5, 0.0])  # half the tolerance at 1.0
+    far = ref + torch.tensor([0.0, 3e-4, 0.0])  # about 3x
+    assert exact_gate(near, far, ref)["ok"]  # within the tolerance
+    assert exact_gate(far, far, ref)["ok"]  # outside it, but no farther than cuBLAS
+    gate = exact_gate(far, near, ref)
+    assert not gate["ok"] and gate["kernel"] > 1.0 > gate["cublas"]
+    assert not exact_gate(ref + float("nan"), far, ref)["ok"]
+    x0, ws, bs = (torch.from_numpy(a) for a in _inputs(37, 520, 3, seed=1))
+    assert exact_gate(cross_network_plain(x0, ws, bs), cross_network_plain(x0, ws, bs),
+                      cross_network_exact(x0, ws, bs))["ok"]
 
 
 def test_dispatch_rule():

@@ -134,6 +134,38 @@ def test_requantize_wrapper_takes_the_plain_version_on_the_cpu():
                            torch.from_numpy(ids).long(), SALT, 0.01, E)
 
 
+@pytest.mark.parametrize("w,e", [(128, 16), (384, 64), (64, 4), (256, 37), (132, 16), (16, 8),
+                                 (20, 7), (12, 1), (1024, 128), (600, 129), (1024, 512),
+                                 (4096, 512)])
+def test_requantize_geometry_covers_every_row(w, e):
+    """B3's layout: a power-of-two group of 4 to 32 lanes a row whose q words
+    (4 columns a lane and word) hold all e columns, in a built instance;
+    16-byte stores where W is a multiple of 16, else 4-byte ones."""
+    geo = tq.requantize_geometry(w, e)
+    assert (geo.group, geo.words) in tq.REQUANTIZE_INSTANCES
+    assert geo.group in (4, 8, 16, 32) and geo.rows_per_warp * geo.group == 32
+    assert 4 * geo.group * geo.words >= e
+    assert geo.unit == (16 if w % 16 == 0 else 4)
+    q_words = -(-e // 4)
+    if q_words <= 32:  # one word a lane, no lane without one past the first four
+        assert geo.words == 1 and (geo.group == 4 or geo.group // 2 < q_words)
+
+
+def test_requantize_geometry_at_the_main_path_shapes():
+    # int8 DCN-v2, DeepFM and two-tower rows (E=16, 128 bytes): 8 rows a warp;
+    # DIN's (E=64, 384 bytes): 2 rows a warp, 16 lanes of 4 columns each
+    assert tq.requantize_geometry(128, 16) == tq.RequantizeGeometry(4, 1, 16)
+    assert tq.requantize_geometry(384, 64) == tq.RequantizeGeometry(16, 1, 16)
+    assert tq.requantize_geometry(128, 16).rows_per_warp == 8
+
+
+@pytest.mark.parametrize("w,e", [(128, 0), (20, 13), (130, 16), (4100, 16), (1024, 513),
+                                 (4096, 4088)])
+def test_requantize_geometry_rejects_rows_the_kernel_cannot_take(w, e):
+    with pytest.raises(ValueError):
+        tq.requantize_geometry(w, e)
+
+
 def _table(v, e, bits, groups, seed):
     rng = np.random.default_rng(seed)
     q, s = jq.quantize_rows_xla(jnp.asarray((rng.normal(size=(v, e)) * 0.01).astype(np.float32)),

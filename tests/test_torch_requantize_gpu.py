@@ -49,22 +49,37 @@ def _rows_agree(got: torch.Tensor, want: torch.Tensor, e: int) -> None:
     assert not got[:, e + 8:].any()
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n,e,w,lr", [(1, 16, 128, 0.01), (1000, 16, 128, 0.01),
-                                      (851_968, 16, 128, 1e-3), (1000, 16, 128, 10.0),
-                                      (777, 37, 256, 0.01), (333, 4, 64, 0.1)])
-def test_requantize_kernel_matches_plain(n, e, w, lr):
-    _need_card()
-    gen = torch.Generator(device="cuda").manual_seed(n + e)
+def _operands(n, e, w):
+    """Packed rows of ``w`` bytes (stale bytes past the accumulator), grads
+    and ids near the top of int32, with one all-zero row and grad."""
+    gen = torch.Generator(device="cuda").manual_seed(n + e + w)
     rows = torch.randn((n, e), device="cuda", generator=gen) * 0.01
     rows[n // 2] = 0.0
     q, scale = quantize_rows(rows)
     acc = torch.rand((n,), device="cuda", generator=gen) * 1e-3
-    moved = pack_quantized_table(q, scale, acc, e, min_width=w)
-    moved[:, e + 8:] = 0x5A  # stale staging bytes must not leak into the output
+    moved = torch.full((n, w), 0x5A, dtype=torch.uint8, device="cuda")  # stale staging bytes
+    moved[:, :e + 8] = pack_quantized_table(q, scale, acc, e)[:, :e + 8]
     g = torch.randn((n, e), device="cuda", generator=gen)
     g[n // 2] = 0.0
     ids = (2**31 - 1 - torch.randint(0, 10**6, (n,), device="cuda", generator=gen)).int()
+    return moved, g, ids
+
+
+# (n, e, W, lr): the int8 DCN-v2/DeepFM/two-tower step's shape and DIN's;
+# row counts that are not a multiple of the rows a warp (8 at W=128) or a
+# block (64); a W that is a multiple of 4 but not of 16 (4-byte stores);
+# e not a multiple of 4 (element grads, a scale across words); wide rows
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,e,w,lr", [(1, 16, 128, 0.01), (1000, 16, 128, 0.01),
+                                      (851_968, 16, 128, 1e-3), (1000, 16, 128, 10.0),
+                                      (777, 37, 256, 0.01), (333, 4, 64, 0.1),
+                                      (90_112, 64, 384, 2e-2), (3, 16, 128, 0.01),
+                                      (4_099, 16, 128, 0.01), (500, 16, 132, 0.01),
+                                      (300, 7, 20, 0.1), (129, 130, 600, 0.01),
+                                      (65, 512, 1024, 0.01)])
+def test_requantize_kernel_matches_plain(n, e, w, lr):
+    _need_card()
+    moved, g, ids = _operands(n, e, w)
     before = requantize_rows.launches
     got = requantize_rows(moved, g, ids, SALT, lr, e)
     torch.cuda.synchronize()
@@ -73,6 +88,38 @@ def test_requantize_kernel_matches_plain(n, e, w, lr):
     if n > 1:
         _, new_scale, _ = unpack_quantized_table(got[n // 2:n // 2 + 1].cpu(), e)
         assert float(new_scale[0]) == 1.0
+
+
+@pytest.mark.gpu
+def test_requantize_kernel_takes_misaligned_views():
+    """Rows at a 16-byte-misaligned (4-byte aligned) address and grads at a
+    4-byte offset launch the kernel (it reads 32-bit words, and element
+    grads where a float4 would be misaligned); rows at an odd address, and
+    rows of more q bytes than the kernel holds, raise before the launch."""
+    _need_card()
+    n, e, w = 1000, 16, 128
+    moved, g, ids = _operands(n, e, w)
+    want = requantize_rows_plain(moved, g, ids, SALT, 0.01, e)
+    buf = torch.empty(n * w + 16, dtype=torch.uint8, device="cuda")
+    moved4 = buf[4:4 + n * w].view(n, w)
+    moved4.copy_(moved)
+    gbuf = torch.empty(n * e + 4, device="cuda")
+    g1 = gbuf[1:1 + n * e].view(n, e)
+    g1.copy_(g)
+    assert moved4.data_ptr() % 16 == 4 and g1.data_ptr() % 16 == 4
+    before = requantize_rows.launches
+    got = requantize_rows(moved4, g1, ids, SALT, 0.01, e)
+    torch.cuda.synchronize()
+    assert requantize_rows.launches == before + 1
+    _rows_agree(got, want, e)
+    moved1 = buf[1:1 + n * w].view(n, w)
+    moved1.copy_(moved)
+    with pytest.raises(ValueError):
+        requantize_rows(moved1, g, ids, SALT, 0.01, e)
+    wide, wide_g, wide_ids = _operands(3, 513, 1024)  # past the q bytes a row it holds
+    with pytest.raises(ValueError):
+        requantize_rows(wide, wide_g, wide_ids, SALT, 0.01, 513)
+    assert requantize_rows.launches == before + 1
 
 
 def _model(device):
