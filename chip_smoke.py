@@ -98,10 +98,12 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    the shapes DIN gives it (``[1, 1]``, the training step's ``[4096, 2]`` and
    the leave-one-out request's ``[1024, 100]`` candidates over 20 history
    steps, E=64, score MLP (80, 40)), plus E=8 with (16, 8), depths 1 and 3,
-   a layer 160 wide, relu, and forward and backward through its autograd
+   a layer 160 wide, relu, E=40, a ragged ``[37, 100]`` and rows of S=129
+   (two chunks a row), and forward and backward through its autograd
    Function against plain autograd at ``[4096, 2, 20]``; then its time beside
    its plain version and its bound (the least work, ``w_0`` split by blocks;
-   the concat form's beside it) at the training and the serving shape. The scan
+   the split form's, which the kernel runs, and the concat form's beside it)
+   and its shared memory a block, at the training and the serving shape. The scan
    and scatter kernels at DIN's step shape (90,112 item ids of E=64: scan
    row stride 256 and 96, scatter of 1 KB f32 and 384-byte rows), checked
    and timed;
@@ -122,7 +124,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    table (rowwise Adagrad at the model's table lr 2e-2), the f32 user table
    in the dense Adam; every step launches the pooling, scan, requantize and
    scatter kernels once each;
-21. DIN card against CPU: phases 8 and 11 for DIN, at batch 512;
+21. DIN card against CPU: phase 26's check for DIN (f32 and int8) at batch
+   512, each step from a common state, with Adam's eps window counted;
 22. B7 against plain, on the card: the fused score + bin-max kernel at the
    serving shape (4096 unit queries x 1,000,000 unit items, D=128, tc 2048,
    group 16) in bf16 and f32, at B=1, at B=37 and D=16 with the three
@@ -157,7 +160,7 @@ Phases; any failure ends the run with a non-zero exit and no result line:
 26. two-tower card against CPU: phases 8 and 11 at batch 512 with
    accidental-hit masking, planted duplicate positives and a logQ column,
    each step from a common state, with Adam's eps window counted
-   (``tt_card_against_cpu`` says why);
+   (``stepped_card_against_cpu`` says why);
 27. B8 against plain, on the card, bit for bit (q and scale): the stochastic
    quantize kernel at the classic step's shape (the dedup of a
    ``bench.py`` batch's 851,968 ids, E=16, the table's step-1 id-keyed
@@ -241,6 +244,7 @@ from pytorchrec_tpu_torch.ops.kernels.cross import (
 from pytorchrec_tpu_torch.ops.kernels.din_attention import (
     din_attention_pool,
     din_attention_pool_plain,
+    tile_plan as din_tile_plan,
 )
 from pytorchrec_tpu_torch.ops.kernels.fm import (
     fm_interaction,
@@ -365,10 +369,19 @@ WIDE_ROWS = (1, 1000, 4097, 32768)
 # phase 3's grid against cuBLAS
 SWEEP_ROWS = (9, 33, 129, 256, 512, 1000, 1536, 2000, 4097)
 SWEEP_DIMS = (64, 256, 429, 512, 513, 700, 1024, 1677, 2048)
-# Adam (optim/optimizers.py, ops/sparse_update.py): beta2, and the RMS
+# Adam (optim/optimizers.py, ops/sparse_update.py): beta1, beta2, and the RMS
 # gradient under which a step's size hangs on a gradient's last bits (100 eps)
-ADAM_BETA2 = 0.999
+ADAM_BETA1, ADAM_BETA2 = 0.9, 0.999
 ADAM_EPS_WINDOW = 1e-6
+# the dense moments, card against CPU after a step from a common state, each
+# as a multiple of the step's gradient g: exp_avg (which takes (1 - beta1) g)
+# and the square root of exp_avg_sq (which takes (1 - beta2) g^2), rtol 1e-4
+# and atols that hold g to 1e-7, a tenth of the eps window (the card's and the
+# CPU's sums of a gradient over the batch differ by up to 3.3e-8 in the
+# two-tower model, 9.3e-10 in DIN: H100 80GB HBM3, 700 W)
+GRAD_ATOL = 1e-7
+MOMENT_CHECKS = {"exp_avg": (lambda m: m, (1 - ADAM_BETA1) * GRAD_ATOL),
+                 "exp_avg_sq": (torch.sqrt, (1 - ADAM_BETA2) ** 0.5 * GRAD_ATOL)}
 
 ALL_KERNELS = (cross_network, segmented_sum_scan, requantize_rows, scatter_set_rows,
                fm_interaction, fm_interaction_backward, din_attention_pool, bin_max_scores,
@@ -1694,6 +1707,10 @@ DIN_POOL_CASES = (
     ("E=8 (8,)", 1000, 3, 6, 8, (8,), "sigmoid", True),
     ("E=8 (16, 8, 4) relu", 1000, 3, 6, 8, (16, 8, 4), "relu", True),
     ("E=8 (160, 40)", 1000, 3, 6, 8, (160, 40), "sigmoid", True),
+    ("E=40", 1000, 3, DIN_STEPS, 40, DIN_ATT, "sigmoid", True),
+    ("[37, 100] ragged", 37, DIN_LOO, DIN_STEPS, DIN_EMB, DIN_ATT, "sigmoid", False),
+    ("S=129", 64, 3, 129, DIN_EMB, DIN_ATT, "relu", True),
+    ("S=1 (160, 40)", 1000, 3, 1, 8, (160, 40), "sigmoid", True),  # 33 rows a tile, not 128
 )
 
 
@@ -1715,34 +1732,38 @@ def din_pool_inputs(gen: torch.Generator, b: int, n: int, s: int, e: int, hidden
 
 
 def din_pool_work(b: int, n: int, s: int, e: int, hidden):
-    """(least operations, concat-form operations, bytes) of the pooling.
+    """(least, split-form and concat-form operations, bytes) of the pooling.
 
     ``[h, t, h - t, h * t] w_0 = h (w_a + w_c) + t (w_b - w_c) + (h * t) w_d``
     exactly (``w_0``'s four row blocks), so the least work forms the two
     combined blocks once, runs the h part once a (b, s) and the t part once a
     (b, n), and for each (b, n, s) pair only ``h * t``, its product with
     ``w_d``, the sum of the three parts, the later layers and its share of the
-    pool. The concat form, which the kernel computes, runs all of ``w_0`` for
-    every pair. Bytes: his, tgt, valid and the weights read once, the result
-    written once."""
+    pool. The split form, which the kernel computes, runs the h part for
+    every pair instead. The concat form runs all of ``w_0`` for every pair.
+    Bytes: his, tgt, valid and the weights read once, the result written
+    once."""
     dims = [4 * e, *hidden, 1]
     h1 = dims[1]
     later = sum(dims[i] * dims[i + 1] for i in range(1, len(dims) - 1))
     pairs = b * n * s
-    least = (2 * e * h1 + 2 * e * h1 * (b * s + b * n)
-             + pairs * (e + 2 * e * h1 + h1 + 2 * later + 2 * e))
+    combine = 2 * e * h1  # w_a + w_c and w_b - w_c
+    t_part = 2 * e * h1 * b * n
+    least = combine + t_part + 2 * e * h1 * b * s + pairs * (e + 2 * e * h1 + h1 + 2 * later + 2 * e)
+    split = combine + t_part + pairs * (e + 4 * e * h1 + h1 + 2 * later + 2 * e)
     concat = pairs * 2 * (4 * e * h1 + later + e)
     weights = sum(dims[i] * dims[i + 1] + dims[i + 1] for i in range(len(dims) - 1))
-    return least, concat, 4 * (b * s * e + 2 * b * n * e + b * s + weights)
+    return least, split, concat, 4 * (b * s * e + 2 * b * n * e + b * s + weights)
 
 
 def check_and_time_din(gen: torch.Generator):
     """Phase 17, the pooling kernel: against plain at every case, forward and
     backward through its Function against plain autograd at the training
     shape, then kernel and plain timed (CUDA events, median of 3 interleaved
-    rounds) with the bound (``din_pool_work``'s least work; the concat form's
-    beside it), at the training and the serving shape. Returns (max abs error
-    at DIN's shapes, gradient error, timings)."""
+    rounds) with the bound (``din_pool_work``'s least work; the split form's,
+    which the kernel runs, and the concat form's beside it) and the block's
+    shared memory, at the training and the serving shape. Returns (max abs
+    error at DIN's shapes, gradient error, timings)."""
     worst = 0.0
     for label, b, n, s, e, hidden, activation, spread in DIN_POOL_CASES:
         his, tgt, valid, params = din_pool_inputs(gen, b, n, s, e, hidden, spread)
@@ -1777,6 +1798,8 @@ def check_and_time_din(gen: torch.Generator):
           f"(output, his, tgt and {len(params)} weights)")
 
     timings = {}
+    tile = din_tile_plan(DIN_EMB, DIN_STEPS, DIN_ATT,
+                         torch.cuda.get_device_properties(0).shared_memory_per_block_optin)
     for key, (b, n) in (("train", (DIN_BATCH, DIN_CAND)), ("serve", (1024, DIN_LOO))):
         his, tgt, valid, params = din_pool_inputs(gen, b, n, DIN_STEPS, DIN_EMB, DIN_ATT)
         runs = {"ms": [], "plain_ms": []}
@@ -1785,20 +1808,23 @@ def check_and_time_din(gen: torch.Generator):
                                         iters=20))
             runs["plain_ms"].append(time_cuda(
                 lambda: din_attention_pool_plain(his, tgt, valid, params), iters=10))
-        flops, concat, nbytes = din_pool_work(b, n, DIN_STEPS, DIN_EMB, DIN_ATT)
+        flops, split, concat, nbytes = din_pool_work(b, n, DIN_STEPS, DIN_EMB, DIN_ATT)
         ops_ms, bytes_ms = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES_S
+        # the kernels line takes the measured times and the bound only
         timings[key] = {k: float(np.median(v)) for k, v in runs.items()}
+        ms = timings[key]["ms"]
         timings[key].update(bound_ms=max(ops_ms, bytes_ms), library_ms=None,
-                            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                            concat_bound_ms=1e3 * concat / PEAK_F32_FLOPS)
+                            bound_by="operations" if ops_ms >= bytes_ms else "bytes")
         print(f"din_attention_pool at [{b}, {n}, {DIN_STEPS}, {DIN_EMB}] {DIN_ATT}: kernel "
-              f"{timings[key]['ms']:.4f} ms, plain {timings[key]['plain_ms']:.4f} ms, bound "
-              f"{timings[key]['bound_ms']:.4f} ms ({flops / 1e9:.3f} GFLOP with w_0 split, "
-              f"{nbytes / 1e6:.1f} MB; {100 * timings[key]['bound_ms'] / timings[key]['ms']:.1f}% "
-              f"of the kernel's time); the concat form the kernel runs "
-              f"{concat / 1e9:.2f} GFLOP, {timings[key]['concat_bound_ms']:.4f} ms "
-              f"({concat / 1e9 / timings[key]['ms']:.1f} TFLOP/s); no single PyTorch call "
-              f"computes MLP-scored attention pooling; rounds {runs}")
+              f"{ms:.4f} ms, plain {timings[key]['plain_ms']:.4f} ms, bound "
+              f"{timings[key]['bound_ms']:.4f} ms ({flops / 1e9:.3f} GFLOP, the least work, "
+              f"{nbytes / 1e6:.1f} MB; {100 * timings[key]['bound_ms'] / ms:.1f}% of the "
+              f"kernel's time); the split form the kernel runs {split / 1e9:.3f} GFLOP, "
+              f"{1e3 * split / PEAK_F32_FLOPS:.4f} ms ({split / 1e9 / ms:.1f} TFLOP/s); the "
+              f"concat form {concat / 1e9:.2f} GFLOP, {1e3 * concat / PEAK_F32_FLOPS:.4f} ms "
+              f"({concat / 1e9 / ms:.1f} TFLOP/s at this time); {tile.rows} rows a tile, "
+              f"{tile.smem_bytes} B of shared memory a block; no single PyTorch call computes "
+              f"MLP-scored attention pooling; rounds {runs}")
     return worst, grad_err, timings
 
 
@@ -2333,8 +2359,8 @@ def int8_rows_agree(tag: str, path: str, card, cpu, emb: int) -> str:
 
 def card_against_cpu(spec: ModelSpec, table: str, leaves: dict, rng: np.random.Generator,
                      seed: int) -> None:
-    """Phases 8, 11, 16, 21 and 31: 2 steps at batch 1024 (DIN 512) on the
-    card and on the CPU (plain versions) from the same state:
+    """Phases 8, 11, 16 and 31: 2 steps at batch 1024 on the card and on the
+    CPU (plain versions) from the same state:
     losses rtol 1e-5, dense parameters
     rtol 1e-4 / atol 1e-6 (DeepFM's int8 set-up keeps its linear table
     there, whose card gradient sums by atomics in no fixed order); each
@@ -2395,18 +2421,20 @@ def adam_values_agree(label: str, got: torch.Tensor, want: torch.Tensor, v_hat: 
     return err, int((got[ill] != want[ill]).sum())
 
 
-def tt_card_against_cpu(table: str, leaves: dict, rng: np.random.Generator, seed: int) -> None:
-    """Phase 26: ``TT_CPU_SPEC``'s 2 steps at batch 512 on the card and on the
-    CPU (plain versions), each step from a common state: after step 1 the
-    card's trainer takes the CPU's tables, moments and dense optimizer state.
-    Checked after every step: the loss rtol 1e-5; the moments, the int8 rows
-    (``int8_rows_agree``) and every Adam-updated value rtol 1e-4 / atol 1e-6
-    (``adam_values_agree``: values whose gradient sits in Adam's eps window
-    are counted and bounded instead). Stepping from a common state keeps one
-    such value's rounding from steering the next step: run freely, two
-    correct implementations drift apart there by a share of ``lr``, as two CPU
-    runs whose weights differ in their last bits do."""
-    spec = TT_CPU_SPEC
+def stepped_card_against_cpu(spec: ModelSpec, table: str, leaves: dict,
+                             rng: np.random.Generator, seed: int) -> None:
+    """Phases 21 and 26: the spec's 2 steps at its CPU batch (512 for DIN and
+    the two-tower model) on the card and on the CPU (plain versions), each
+    step from a common state: after step 1 the card's trainer takes the CPU's
+    tables, moments and dense optimizer state. Checked after every step: the
+    loss rtol 1e-5; the packed moments, the int8 rows (``int8_rows_agree``)
+    and every Adam-updated value rtol 1e-4 / atol 1e-6 (``adam_values_agree``:
+    values whose gradient sits in Adam's eps window are counted and bounded
+    instead); the dense moments as ``MOMENT_CHECKS`` says, which holds each
+    gradient, in the eps window too, to rtol 1e-4 / ``GRAD_ATOL``. Stepping from a common state keeps one such value's rounding
+    from steering the next step: run freely, two correct implementations
+    drift apart there by a share of ``lr``, as two CPU runs whose weights
+    differ in their last bits do."""
     tag = f"[{spec.name} {table}]"
     host = [spec.batch(rng, spec.cpu_rows) for _ in range(CPU_STEPS)]
     card, cpu = (make_trainer(spec, table, device, leaves, host[0], seed)
@@ -2417,7 +2445,9 @@ def tt_card_against_cpu(table: str, leaves: dict, rng: np.random.Generator, seed
         bias = 1.0 - ADAM_BETA2 ** step
         optimizer = cpu.state.optimizer
         card_params = dict(card.model.named_parameters())
+        card_moments = card.state.optimizer.state
         dense_err, exempt, notes = 0.0, 0, []
+        moment_err = dict.fromkeys(MOMENT_CHECKS, 0.0)
         for name, param in cpu.model.named_parameters():
             if param not in optimizer.state:  # a table: the packed update trains it
                 continue
@@ -2425,6 +2455,13 @@ def tt_card_against_cpu(table: str, leaves: dict, rng: np.random.Generator, seed
                                        card_params[name].detach().cpu(), param.detach(),
                                        optimizer.state[param]["exp_avg_sq"] / bias, spec.lr)
             dense_err, exempt = max(dense_err, err), exempt + n
+            for key, (form, atol) in MOMENT_CHECKS.items():
+                try:
+                    err = close(form(card_moments[card_params[name]][key].cpu()),
+                                form(optimizer.state[param][key]), atol=atol)
+                except AssertionError as fault:
+                    raise AssertionError(f"{tag} step {step} {name} {key}: {fault}") from None
+                moment_err[key] = max(moment_err[key], err)
         for path, packed in cpu.state.packed.items():
             touched = torch.from_numpy(np.unique(spec.table_ids(path, batch)))
             got, want = card.state.packed[path][touched.cuda()].cpu(), packed[touched]
@@ -2439,9 +2476,10 @@ def tt_card_against_cpu(table: str, leaves: dict, rng: np.random.Generator, seed
             notes.append(f"{path} values {err:.3e}, moments {moments:.3e} ({touched.shape[0]} "
                          f"rows)")
         print(f"{tag} card vs CPU, step {step} of {CPU_STEPS} at batch {spec.cpu_rows}: losses "
-              f"{card_loss:.6f} / {cpu_loss:.6f}; max abs err: dense params {dense_err:.3e}; "
-              f"touched packed rows: {'; '.join(notes)}; {exempt} values in Adam's eps window "
-              f"differ (each within 2.01 lr)")
+              f"{card_loss:.6f} / {cpu_loss:.6f}; max abs err: dense params {dense_err:.3e}, "
+              f"their exp_avg {moment_err['exp_avg']:.3e} and sqrt(exp_avg_sq) "
+              f"{moment_err['exp_avg_sq']:.3e}; touched packed rows: {'; '.join(notes)}; "
+              f"{exempt} values in Adam's eps window differ (each within 2.01 lr)")
         with torch.no_grad():  # the next step starts from the CPU's state on both
             for path, packed in cpu.state.packed.items():
                 card.state.packed[path].copy_(packed)
@@ -2609,7 +2647,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 21 (f32). DIN f32 card against CPU
-    card_against_cpu(DIN_SPEC, "f32", leaves, rng, args.seed)
+    stepped_card_against_cpu(DIN_SPEC, "f32", leaves, rng, args.seed)
     del leaves
     torch.cuda.empty_cache()
 
@@ -2621,7 +2659,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 21 (int8). DIN int8 card against CPU
-    card_against_cpu(DIN_SPEC, "int8", leaves, rng, args.seed)
+    stepped_card_against_cpu(DIN_SPEC, "int8", leaves, rng, args.seed)
     del leaves
     torch.cuda.empty_cache()
 
@@ -2647,7 +2685,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 26 (f32). two-tower f32 card against CPU
-    tt_card_against_cpu("f32", leaves, rng, args.seed)
+    stepped_card_against_cpu(TT_CPU_SPEC, "f32", leaves, rng, args.seed)
     del leaves
     torch.cuda.empty_cache()
 
@@ -2659,7 +2697,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 26 (int8). two-tower int8 card against CPU
-    tt_card_against_cpu("int8", leaves, rng, args.seed)
+    stepped_card_against_cpu(TT_CPU_SPEC, "int8", leaves, rng, args.seed)
     del leaves
     torch.cuda.empty_cache()
 

@@ -12,11 +12,16 @@ weighting the history rows. A row with no valid step gives NaN, as in JAX.
 The kernel (``csrc/din_attention.cu``) keeps the weights in shared memory
 for the whole launch and runs every (candidate, step) pair of a tile of rows
 through the MLP, the softmax and the pooling without writing anything but the
-result. It is bound by operations. The least work splits ``w_0`` by its
-row blocks (the h part once a (b, s), the t part once a (b, n)): 3.7 GFLOP
-at the training step's ``[4096, 2, 20]`` with E=64 and hidden (80, 40),
-0.055 ms on the H100. The kernel runs the concat form, 7.8 GFLOP there.
-A layer may be as wide as the device's shared memory allows.
+result. It is bound by operations. Since ``[h, t, h - t, h * t] w_0 =
+h (w_a + w_c) + t (w_b - w_c) + (h * t) w_d`` (``w_0``'s four row blocks),
+the kernel runs this split form: it forms the three blocks in f32 as it
+loads them, the t part once a (b, n) row of a tile, and for each pair
+``h (w_a + w_c) + (h * t) w_d``: 4.6 GFLOP at the training step's
+``[4096, 2, 20]`` with E=64 and hidden (80, 40), where the concat form is
+7.8. The least work also runs the h part once a (b, s) across the
+candidates: 3.7 GFLOP there, 0.055 ms on the H100. Left open: that h part,
+the lanes idle where a layer's width is not a multiple of 32, and tensor
+cores. A layer may be as wide as the device's shared memory allows.
 
 The activation (``"sigmoid"`` or ``"relu"``) is an argument of the kernel as
 of the plain version. The JAX kernel ignores it and always applies sigmoid,
@@ -41,7 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -49,6 +54,8 @@ from pytorchrec_tpu_torch.ops.kernels import launches_kernel
 from pytorchrec_tpu_torch.ops.kernels.build import library
 
 ACTIVATIONS = {"sigmoid": 0, "relu": 1}  # the kernel's codes
+CHUNK = 128  # (n, s) pairs a block runs through the MLP at once: 16 warps of 8
+MAX_HIDDEN, MAX_STEPS = 7, 8192
 
 
 def din_attention_pool_plain(his: torch.Tensor, tgt: torch.Tensor, valid: torch.Tensor,
@@ -75,14 +82,52 @@ def din_attention_pool_plain(his: torch.Tensor, tgt: torch.Tensor, valid: torch.
 def _kernel():
     lib = library("din_attention")
     lib.din_attention_fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
-                                      + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                                      + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.din_attention_fwd.restype = ctypes.c_int
     lib.din_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                                             ctypes.c_int]
+                                             ctypes.c_int, ctypes.c_int]
     lib.din_attention_smem_bytes.restype = ctypes.c_longlong
     lib.din_attention_error_string.argtypes = [ctypes.c_int]
     lib.din_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+class TilePlan(NamedTuple):
+    rows: int  # (b, n) rows a tile
+    smem_bytes: int  # shared memory a block
+
+
+def smem_bytes(e: int, s: int, hidden: Sequence[int], rows: int) -> int:
+    """The shared memory a block of the kernel takes at width E=``e``, S=``s``
+    steps, the score MLP's ``hidden`` widths and ``rows`` (b, n) rows a tile,
+    as ``plan`` in ``csrc/din_attention.cu`` lays it out: the weights (``w_0``
+    as three ``[E, H_1]`` blocks) padded to 16 bytes, a chunk's history rows,
+    the tile's candidate rows and t parts, two activation buffers and the
+    tile's scores."""
+    dims = [4 * e, *hidden, 1]
+    weights = 3 * e * dims[1] + sum(dims[i] * dims[i + 1] for i in range(1, len(dims) - 1))
+    weights = -(-(weights + sum(dims[1:])) // 4) * 4
+    return 4 * (weights + CHUNK * e + rows * (e + dims[1]) + 2 * CHUNK * max(hidden) + rows * s)
+
+
+def tile_plan(e: int, s: int, hidden: Sequence[int], limit: int) -> TilePlan:
+    """The kernel's tile at width E=``e``, S=``s`` steps and the score MLP's
+    ``hidden`` widths, on a device that allows ``limit`` bytes of shared
+    memory a block: as many whole (b, n) rows as fill a chunk, at least one,
+    and fewer where a block of that many would not fit (each row holds its
+    candidate, its t part and its scores, so a wide first layer at a small S
+    takes fewer rows). Raises ``ValueError`` outside the kernel's limits."""
+    if not 1 <= len(hidden) <= MAX_HIDDEN or not 1 <= s <= MAX_STEPS:
+        raise ValueError(f"din_attention_pool kernel takes 1 to {MAX_HIDDEN} hidden layers and "
+                         f"1 <= S <= {MAX_STEPS}; got widths {list(hidden)}, S={s}")
+    per_row = smem_bytes(e, s, hidden, 1) - smem_bytes(e, s, hidden, 0)
+    fit = (limit - smem_bytes(e, s, hidden, 0)) // per_row
+    rows = min(CHUNK // s if s < CHUNK else 1, fit)
+    if rows < 1:
+        raise ValueError(f"din_attention_pool kernel needs {smem_bytes(e, s, hidden, 1)} B of "
+                         f"shared memory at E={e}, S={s}, widths {list(hidden)} with one row a "
+                         f"tile; the device allows {limit} B a block")
+    return TilePlan(rows, smem_bytes(e, s, hidden, rows))
 
 
 def _check(his, tgt, valid, params, activation) -> None:
@@ -131,24 +176,18 @@ def _launch(his, tgt, valid, params, activation) -> torch.Tensor:
         return out
     if b >= 2**31 or n >= 2**31:
         raise ValueError(f"B={b}, N={n} exceed the kernel's int32 counts")
-    lib = _kernel()
     layers = len(params) // 2
     dims = (ctypes.c_int * (layers + 1))(*[p.shape[0] for p in params[0::2]], 1)
-    smem = lib.din_attention_smem_bytes(e, s, dims, layers)
-    if smem < 0:
-        raise ValueError(f"din_attention_pool kernel takes 1 to 7 hidden layers and S <= 8192; "
-                         f"got widths {list(dims)}, S={s}")
     limit = torch.cuda.get_device_properties(his.device).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(f"din_attention_pool kernel needs {smem} B of shared memory at E={e}, "
-                         f"widths {list(dims)}; the device allows {limit} B a block")
+    plan = tile_plan(e, s, list(dims)[1:-1], limit)
+    lib = _kernel()
     weights = (ctypes.c_void_p * layers)(*[p.data_ptr() for p in params[0::2]])
     biases = (ctypes.c_void_p * layers)(*[p.data_ptr() for p in params[1::2]])
     with torch.cuda.device(his.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.din_attention_fwd(his.data_ptr(), tgt.data_ptr(), valid.data_ptr(), weights,
                                     biases, dims, layers, out.data_ptr(), b, n, s, e,
-                                    ACTIVATIONS[activation], stream)
+                                    ACTIVATIONS[activation], plan.rows, stream)
     if err != 0:
         raise RuntimeError("din_attention_pool kernel launch failed: "
                            + lib.din_attention_error_string(err).decode())
