@@ -40,7 +40,13 @@ Phases; any failure ends the run with a non-zero exit and no result line:
 6. training kernels against plain, on the card: the segmented scan at the
    packed update's shape (851,968 rows of E=16, ids drawn as ``bench.py``
    draws them), a Zipf-skewed case with segments of 10k+ rows, 1 and
-   1000 rows, and rows of E = 257, 300 and 512 (chunks of 256 columns); the scatter-set into a [2.6M, 64] f32 table (bit-exact); the
+   1000 rows, its look-back's edges at the f32 and the int8 update's layout
+   (one segment over all 851,968 rows, and three calls back to back without
+   a sync, exact on values whose sums are exact in f32; two calls on the
+   path's own values, bit-equal), and rows of
+   E = 257, 300 and 512 (chunks of 256 columns), with the launch (floats a
+   load, tiles, registers, status bytes); the scatter-set into a [2.6M, 64]
+   f32 table (bit-exact); the
    cross network's gradient through its autograd Function against autograd
    through the plain version at B=4096; then each kernel's time beside its
    plain version, a PyTorch yardstick where one exists, and its bound, at
@@ -78,7 +84,7 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    through the plain version at B=4096, then each kernel's time beside its
    plain version and its bound at [32768, 39, 16]; the segmented scan at
    the linear table's shape (851,968 rows of E=1, row stride 64), checked
-   and timed;
+   (its look-back's edges too) and timed;
 13. DeepFM serving at the same Criteo width (the FM over 39 field vectors of
    E=16, deep MLP 256-128 over their 624 values, ``deep_head`` with no
    bias), the requests of phase 4, with the f32 tables (both packed leaves,
@@ -106,7 +112,7 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    and its shared memory a block, at the training and the serving shape. The scan
    and scatter kernels at DIN's step shape (90,112 item ids of E=64: scan
    row stride 256 and 96, scatter of 1 KB f32 and 384-byte rows), checked
-   and timed;
+   (the scan's look-back's edges too) and timed;
 18. DIN serving at the "DIN on Amazon" scale of ``scripts/din_sparse_ab.py``
    (1,048,576 items and 65,536 users of E=64, attention (80, 40), MLP
    (200, 80)), weights from ``--seed`` in the flax leaf layout through
@@ -161,13 +167,17 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    accidental-hit masking, planted duplicate positives and a logQ column,
    each step from a common state, with Adam's eps window counted
    (``stepped_card_against_cpu`` says why);
-27. B8 against plain, on the card, bit for bit (q and scale): the stochastic
-   quantize kernel at the classic step's shape (the dedup of a
-   ``bench.py`` batch's 851,968 ids, E=16, the table's step-1 id-keyed
-   bits), at ``[1, 1]``, ``[7, 1]`` and ``[1000, 64]``, and on edge rows (all
-   zero, quotients on integers, bits of 2**31 and above, values past 127
-   before the clip); then its time beside its plain version and its bound,
-   the id-keyed hash's, the dedup's and the q and scale scatter-sets'
+27. B8 against plain, on the card, bit for bit (q and scale), in its keyed
+   form (the kernel hashes the rows' ids and the salt) at the classic step's
+   shape (the dedup of a ``bench.py`` batch's 851,968 ids, E=16, the
+   table's step-1 salt), at ``[1, 1]``, ``[7, 1]``, ``[1000, 64]`` and
+   ``[1000, 100]`` (ids up to 2**31 - 1, salts of 2**31 and above) and on
+   edge rows (all zero, quotients on integers, values past 127 before the
+   clip), and with given bits (the TPU kernel's contract) at the classic
+   step's shape, ``[1000, 64]`` of random bits and the edge rows; the
+   launch (lanes a row, registers, local memory); then both forms' times
+   beside their plain versions and bounds, the torch hash's (the pass the
+   keyed form replaces), the dedup's and the q and scale scatter-sets'
    times, and the whole classic update of a ``[2.6M, 16]`` int8 table timed
    alone;
 28. classic int8 serving: phase 4's requests for DCN-v2 and DeepFM with the
@@ -176,9 +186,10 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    B8 never launches;
 29. classic int8 DCN-v2 training: phase 7 under ``QuantizedEmbeddingTrainer
    (packed_tables=False)`` (dedup of the row grads, rowwise Adagrad, id-keyed
-   stochastic requantization through B8, scatter-set of q and scale, the
-   accumulator's masked add); every step launches the cross kernel, the
-   scan and B8 once each and the scatter twice;
+   stochastic requantization through B8's keyed form, scatter-set of q and
+   scale, the accumulator's masked add); every step launches the cross
+   kernel, the scan and B8 once each and the scatter twice, and the torch
+   id-keyed hash runs never;
 30. classic int8 DeepFM training: phase 29 for DeepFM (the FM forward and
    backward once a step in place of the cross kernel);
 31. classic card against CPU: phases 8 and 11 for both models' classic
@@ -187,7 +198,7 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    same weights and table on ids unique within each field; q and scale
    bit-equal, accumulators rtol 1e-6 (B8 against B3);
 33. classic int4 and two scale groups: phase 29 for each, no B8 launch (no
-   TPU kernel covers them);
+   TPU kernel covers them: the torch hash runs);
 34. DCN-v2 at E=64, the configuration of ``scripts/int8_e64_ab.py`` (26
    fields of 100k ids, E=64, 13 dense, so the cross network's D = 1677, 3
    cross layers, MLP 256-128) with the f32 and the int8 packed tables:
@@ -199,8 +210,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
 
 then a ``two_tower`` JSON line (ms/step,
 fused and exact ms a request, recall, index build ms), a ``classic_int8``
-line (ms/step of the classic formats, B8's time, the hash's, the dedup's and
-the update's, phase 32's verdict) and a ``{"kernels": [...]}`` line with
+line (ms/step of the classic formats, B8's keyed and given-bits times, the
+torch hash's, the dedup's and the update's, phase 32's verdict) and a
+``{"kernels": [...]}`` line with
 every kernel at its main-path shape (``launches``: for B1–B4 the DCN-v2 int8
 training run's, for the FM kernels the DeepFM f32 training run's, for the
 pooling kernel the DIN f32 training run's, for B7 the two-tower serving
@@ -254,12 +266,14 @@ from pytorchrec_tpu_torch.ops.kernels.fm import (
 )
 from pytorchrec_tpu_torch.ops.kernels.quantize import (
     id_keyed_rounding_bits,
+    quantize_launch_info,
     quantize_rows,
     requantize_launch_info,
     requantize_rows,
     requantize_rows_plain,
     rounding_bits_i32,
     stochastic_quantize_rows,
+    stochastic_quantize_rows_keyed_plain,
     stochastic_quantize_rows_plain,
     table_rounding_salt,
 )
@@ -273,6 +287,7 @@ from pytorchrec_tpu_torch.ops.kernels.retrieval_topk import (
 )
 from pytorchrec_tpu_torch.ops.kernels.scatter import scatter_set_rows, scatter_set_rows_plain
 from pytorchrec_tpu_torch.ops.kernels.seg_scan import (
+    seg_scan_launch_info,
     segmented_sum_scan,
     segmented_sum_scan_plain,
 )
@@ -287,6 +302,7 @@ from pytorchrec_tpu_torch.ops.sparse_update import dedup_row_grads, packed_spars
 from pytorchrec_tpu_torch.serving import build_item_index, make_retrieve_fn
 from pytorchrec_tpu_torch.serving import retrieval as retrieval_module
 from pytorchrec_tpu_torch.training import QuantizedEmbeddingTrainer, SparseEmbeddingTrainer, Trainer
+from pytorchrec_tpu_torch.training import quantized_trainer as quantized_trainer_module
 from pytorchrec_tpu_torch.training.quantized_trainer import classic_quantized_update
 from pytorchrec_tpu_torch.utils import params_from_jax
 from pytorchrec_tpu_torch.utils.rng import prng_key, split
@@ -338,6 +354,7 @@ DIN_CPU_BATCH = 512
 DIN_TABLES = {"f32": "i_embeddings/embedding", "int8": "i_q"}  # the item table's leaf
 DIN_TABLE_LR = 2e-2  # DIN's table_lr_hint: the int8 table's rowwise-Adagrad lr
 DIN_REQUANTIZE_SEED = 21  # offset of phase 9's generators for DIN's rows
+SCAN_EDGES_SEED = 22  # the seed of B2's look-back checks' values (scan_edges)
 DIN_ROW_SCALE = 10.0  # table rows N(0, 0.1), ten times the init's (din_leaves says why)
 
 # two-tower retrieval at scripts/retrieval_bench.py:31-57's scale, no cut:
@@ -1182,7 +1199,9 @@ def scan_input(ids: np.ndarray, gen: torch.Generator, table: str = "f32"):
 
 def check_seg_scan(rng: np.random.Generator, gen: torch.Generator):
     """Phase 6, scan: kernel against plain at the main-path shape, with Zipf
-    skew and at 1 and 1000 rows; returns the main-path error and inputs."""
+    skew and at 1 and 1000 rows; its look-back's edges at the main-path
+    shape (``scan_edges``); E = 257, 300 and 512. Returns the main-path error
+    and inputs."""
     main_ids = unified_ids(make_train_batch(rng))
     # per-field Zipf(2) ids: each field's hottest id fills ~20k rows
     hot = {f"c_{i}": np.minimum(rng.zipf(2.0, TRAIN_BATCH), VOCAB) - 1 for i in range(N_SPARSE)}
@@ -1200,6 +1219,7 @@ def check_seg_scan(rng: np.random.Generator, gen: torch.Generator):
               f"longest segment {longest:6d}: max abs err {err:.3e} (atol {atol})")
         if main is None:
             main = (err, x, heads)
+    scan_edges("bench ids", main[1], main[2])
     for e in (257, 300, 512):  # chunks of 256 columns
         ids = main_ids[:100_000]
         wide = torch.randn((ids.shape[0], e + 12), device="cuda", generator=gen)
@@ -1211,15 +1231,71 @@ def check_seg_scan(rng: np.random.Generator, gen: torch.Generator):
     return main
 
 
+def dyadic_like(x: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    """A tensor laid out as ``x`` (the same row stride and offset in its rows)
+    holding multiples of 1/16 in [-0.5, 0.5]: every partial sum of up to a
+    million rows is exact in f32, so any summation order gives the same
+    bits."""
+    n, e = x.shape
+    stride, start = x.stride(0), x.storage_offset() % x.stride(0)
+    wide = torch.randint(-8, 9, (n, stride), device="cuda", generator=gen).float() / 16
+    return wide[:, start:start + e]
+
+
+def scan_edges(label: str, x: torch.Tensor, heads: torch.Tensor) -> None:
+    """B2's look-back at ``x``'s shape and layout, exact against plain on
+    dyadic values (``dyadic_like``, from a generator of their own, so that
+    the later phases' inputs stay as they were): one segment over every
+    row, so each tile's carry comes down the whole chain of predecessors;
+    then three calls queued back to back without a sync (one segment, the
+    path's heads, one segment again), each handed scratch the call before
+    freed, so a status word or ticket not zeroed would show; then, on ``x``
+    itself, whose sums round, one segment and the path's heads each twice
+    over, the same bits both times (the look-back's order is fixed). Prints
+    the launch: floats a load, tiles, registers and local memory a thread,
+    status bytes."""
+    values = dyadic_like(x, torch.Generator(device="cuda").manual_seed(SCAN_EDGES_SEED))
+    one = torch.zeros_like(heads)
+    one[0] = True
+    torch.cuda.synchronize()
+    calls = [(values, one), (values, heads), (values, one)]
+    outs = [segmented_sum_scan(v, h) for v, h in calls]
+    torch.cuda.synchronize()
+    for k, ((v, h), out) in enumerate(zip(calls, outs)):
+        if not torch.equal(out, segmented_sum_scan_plain(v, h)):
+            raise AssertionError(f"B2 {label}: call {k} of 3 back to back differs from plain on "
+                                 f"exact sums")
+    for name, h in (("one segment", one), ("the path's heads", heads)):
+        first, again = segmented_sum_scan(x, h), segmented_sum_scan(x, h)
+        if not torch.equal(first, again):
+            raise AssertionError(f"B2 {label}: two calls on the same input ({name}) give "
+                                 f"different bits")
+    info = seg_scan_launch_info(x)
+    print(f"segmented_sum_scan kernel vs plain  {label} n={x.shape[0]} E={x.shape[1]} row stride "
+          f"{x.stride(0)}: one segment over every row exact; 3 calls back to back without a "
+          f"sync exact; repeated calls bit-equal; launch {info}")
+
+
 def time_seg_scan(x: torch.Tensor, heads: torch.Tensor) -> dict:
     """Kernel and plain version (CUDA events, median of 3 interleaved rounds)
-    and the bound: read x and the flags once, write the result once."""
-    runs = {"ms": [], "plain_ms": []}
+    and the bound: read x and the flags once, write the result once. The
+    look-back's status words (zeroed, published, read: three times their
+    bytes at least) are scratch of this design, not bytes the scan needs:
+    printed beside the bound with their share of it, never counted in it.
+    Beside them
+    ``slice_copy_ms``: torch's copy of the slice into a contiguous tensor,
+    the same reads and writes without the scan, which a slice of 16 floats
+    in 64 (or 1 in 64) cannot take at the bound's rate."""
+    runs = {"ms": [], "plain_ms": [], "slice_copy_ms": []}
+    copied = torch.empty(x.shape, device="cuda")
     for _ in range(3):
         runs["ms"].append(time_cuda(lambda: segmented_sum_scan(x, heads)))
         runs["plain_ms"].append(time_cuda(lambda: segmented_sum_scan_plain(x, heads), iters=10))
+        runs["slice_copy_ms"].append(time_cuda(lambda: copied.copy_(x)))
     n, e = x.shape
     nbytes = 2 * n * e * 4 + n
+    status = 3 * seg_scan_launch_info(x)["status_bytes"]
+    share = status / nbytes
     ops_ms, bytes_ms = 1e3 * n * e / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES_S
     timing = {k: float(np.median(v)) for k, v in runs.items()}
     timing.update(library_ms=None, bound_ms=max(ops_ms, bytes_ms),
@@ -1227,7 +1303,11 @@ def time_seg_scan(x: torch.Tensor, heads: torch.Tensor) -> dict:
     print(f"segmented_sum_scan at n={n} E={e} row stride {x.stride(0)}: kernel "
           f"{timing['ms']:.4f} ms, plain "
           f"{timing['plain_ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms "
-          f"({nbytes / 1e6:.1f} MB); no single PyTorch call computes it; rounds {runs}")
+          f"({nbytes / 1e6:.2f} MB; beside it the status words' {status / 1e6:.3f} MB, "
+          f"{100 * share:.2f}%, not counted), {100 * timing['bound_ms'] / timing['ms']:.0f}% "
+          f"of the bound; no single PyTorch call computes it; the slice copied to a contiguous "
+          f"tensor (copy_, the same reads and writes without the scan) "
+          f"{timing['slice_copy_ms']:.4f} ms; rounds {runs}")
     return timing
 
 
@@ -1461,11 +1541,20 @@ def b8_edge_rows(emb: int = EMB):
     return rows, bits
 
 
-def b8_agree(label: str, rows: torch.Tensor, bits: torch.Tensor) -> float:
-    """B8 against its plain version on the card, bit for bit (q and scale);
-    returns the max abs error of the dequantized rows (0)."""
-    q, scale = stochastic_quantize_rows(rows, bits)
-    want_q, want_scale = stochastic_quantize_rows_plain(rows, bits)
+def b8_agree(label: str, rows: torch.Tensor, bits: Optional[torch.Tensor] = None,
+             ids: Optional[torch.Tensor] = None, salt: Optional[int] = None) -> float:
+    """B8 against its plain version on the card, bit for bit (q and scale),
+    with given bits or keyed by ``ids`` and ``salt`` (the kernel's hash
+    against the torch hash); returns the max abs error of the dequantized
+    rows (0)."""
+    if bits is not None:
+        q, scale = stochastic_quantize_rows(rows, bits)
+        want_q, want_scale = stochastic_quantize_rows_plain(rows, bits)
+        form = f"given bits, {int((bits < 0).sum())} bit patterns of 2**31 and above"
+    else:
+        q, scale = stochastic_quantize_rows(rows, ids=ids, salt=salt)
+        want_q, want_scale = stochastic_quantize_rows_keyed_plain(rows, ids, salt)
+        form = f"keyed, salt {salt:#010x}, ids up to {int(ids.max())}"
     torch.cuda.synchronize()
     q_off = int((q != want_q).sum())
     s_off = int((scale.view(torch.int32) != want_scale.view(torch.int32)).sum())
@@ -1473,21 +1562,33 @@ def b8_agree(label: str, rows: torch.Tensor, bits: torch.Tensor) -> float:
         raise AssertionError(f"B8 vs plain {label}: {q_off} q values and {s_off} scales differ")
     err = float((q.float() * scale[:, None] - want_q.float() * want_scale[:, None]).abs().max())
     print(f"stochastic_quantize_rows kernel vs plain  {label:28s} [{rows.shape[0]}, "
-          f"{rows.shape[1]}]: q and scale bit-equal; {int((bits < 0).sum())} bit patterns of "
-          f"2**31 and above, {int((scale == 1).sum())} scales of 1")
+          f"{rows.shape[1]}]: q and scale bit-equal; {form}, {int((scale == 1).sum())} scales "
+          f"of 1")
     return err
 
 
+def b8_bound(n: int, e: int, keyed: bool) -> dict:
+    """B8's bound: each input read once, each output written once. Keyed:
+    rows (4e bytes) and the id (4) read, q (e) and the scale (4) written;
+    given: the bits (4e) read in place of the id."""
+    nbytes = n * (4 * e + (4 if keyed else 4 * e) + e + 4)
+    return {"bound_ms": 1e3 * nbytes / PEAK_BYTES_S, "bound_by": "bytes", "bytes": nbytes}
+
+
 def check_and_time_b8(rng: np.random.Generator, gen: torch.Generator, seed: int):
-    """Phase 27: B8 against its plain version bit for bit at the classic
-    step's shape (the dedup of a ``bench.py`` batch's 851,968 ids, rows
-    N(0, 0.01), the step-1 id-keyed bits of the table), at ``[1, 1]``,
-    ``[7, 1]`` and ``[1000, 64]`` and on the edge rows; then B8, its plain
-    version, the id-keyed hash and the dedup timed (CUDA events, median of 3
-    interleaved rounds) beside B8's bound, and the step's two scatter-sets
-    and the whole classic update of a ``[2.6M, 16]`` int8 table timed
-    alone. Returns (error, B8's timing, the
-    step's parts in ms)."""
+    """Phase 27: B8 against its plain version bit for bit, keyed (the kernel
+    hashes the ids) at the classic step's shape (the dedup of a ``bench.py``
+    batch's 851,968 ids, rows N(0, 0.01), the table's step-1 salt), at
+    ``[1, 1]``, ``[7, 1]``, ``[1000, 64]`` and ``[1000, 100]`` with ids up to
+    2**31 - 1 and salts of 2**31 and above, and on the edge rows; with given
+    bits (the TPU kernel's contract) at the classic step's shape (the same
+    bits, hashed in torch), at ``[1000, 64]`` of random bits and on the edge
+    rows. Then both forms, their plain versions, the id-keyed hash in torch
+    (the pass the keyed form replaces) and the dedup timed (CUDA events,
+    median of 3 interleaved rounds) beside B8's bounds, the registers a
+    thread, and the step's two scatter-sets and the whole classic update of
+    a ``[2.6M, 16]`` int8 table timed alone. Returns (error, B8's keyed
+    timing with the given form's beside it, the step's parts in ms)."""
     ids = torch.from_numpy(unified_ids(make_train_batch(rng)).astype(np.int32)).cuda()
     dvec = torch.randn((ids.shape[0], EMB), device="cuda", generator=gen) * 1e-2
     grads = dedup_row_grads(ids, dvec)
@@ -1498,35 +1599,62 @@ def check_and_time_b8(rng: np.random.Generator, gen: torch.Generator, seed: int)
 
     bits = hashed()
     rows = torch.randn((ids.shape[0], EMB), device="cuda", generator=gen) * 0.01
+    err = b8_agree("bench ids, keyed", rows, ids=grads.ids, salt=salt)
+    err = max(err, b8_agree("bench ids, given id-keyed bits", rows, bits))
+    big_ids = torch.randint(0, 2**31 - 1, (1000,), dtype=torch.int32, device="cuda",
+                            generator=gen)
+    big_ids[0] = 2**31 - 1
+    keyed_cases = (("1 x 1", rows[:1, :1], 2**31), ("7 x 1", rows[:7, :1], 2**31 + 7),
+                   ("1000 x 64", torch.randn((1000, 64), device="cuda", generator=gen) * 0.01,
+                    0xFFFFFFFF),
+                   ("1000 x 100", torch.randn((1000, 100), device="cuda", generator=gen) * 0.01,
+                    0x9E3779B9))
+    for label, r, key_salt in keyed_cases:
+        err = max(err, b8_agree(f"{label}, keyed", r.contiguous(), ids=big_ids[:r.shape[0]],
+                                salt=key_salt))
+    edge_rows, edge_bits = b8_edge_rows()
+    edge_ids = torch.tensor([0, 1, 2**31 - 1, 77, 2**30, 123_456_789], dtype=torch.int32,
+                            device="cuda")
+    err = max(err, b8_agree("edge rows, keyed", edge_rows, ids=edge_ids, salt=0xFFFFFFFF))
     wide = torch.randn((1000, 64), device="cuda", generator=gen) * 0.01
     wide_bits = torch.randint(-2**31, 2**31 - 1, (1000, 64), dtype=torch.int32, device="cuda",
                               generator=gen)
-    err = b8_agree("bench ids, id-keyed bits", rows, bits)
-    for label, r, b in (("1 x 1", rows[:1, :1], bits[:1, :1]),
-                        ("7 x 1", rows[:7, :1], bits[:7, :1]),
-                        ("1000 x 64", wide, wide_bits), ("edge rows", *b8_edge_rows())):
-        err = max(err, b8_agree(label, r.contiguous(), b.contiguous()))
-    edge_q, _ = stochastic_quantize_rows(*b8_edge_rows())
+    for label, r, b in (("1000 x 64, given bits", wide, wide_bits),
+                        ("edge rows, given bits", edge_rows, edge_bits)):
+        err = max(err, b8_agree(label, r, b))
+    edge_q, _ = stochastic_quantize_rows(edge_rows, edge_bits)
     if edge_q[3, 0] != 127 or edge_q[4, 0] != -127 or edge_q[2, :-1].tolist() != list(
             range(1, EMB)):
         raise AssertionError(f"B8 edge rows: {edge_q.tolist()}")
+    for keyed in (True, False):
+        print(f"stochastic_quantize_rows launch at E={EMB}, {'keyed' if keyed else 'given bits'}: "
+              f"{quantize_launch_info(EMB, keyed)}; at E=1: {quantize_launch_info(1, keyed)}")
 
-    runs = {"ms": [], "plain_ms": [], "hash_ms": [], "dedup_ms": []}
+    runs = {"ms": [], "plain_ms": [], "given_ms": [], "given_plain_ms": [], "hash_ms": [],
+            "dedup_ms": []}
     for _ in range(3):
-        runs["ms"].append(time_cuda(lambda: stochastic_quantize_rows(rows, bits)))
-        runs["plain_ms"].append(time_cuda(lambda: stochastic_quantize_rows_plain(rows, bits),
-                                          iters=10))
+        runs["ms"].append(time_cuda(lambda: stochastic_quantize_rows(rows, ids=grads.ids,
+                                                                     salt=salt)))
+        runs["plain_ms"].append(time_cuda(
+            lambda: stochastic_quantize_rows_keyed_plain(rows, grads.ids, salt), iters=10))
+        runs["given_ms"].append(time_cuda(lambda: stochastic_quantize_rows(rows, bits)))
+        runs["given_plain_ms"].append(time_cuda(lambda: stochastic_quantize_rows_plain(rows, bits),
+                                                iters=10))
         runs["hash_ms"].append(time_cuda(hashed, iters=10))
         runs["dedup_ms"].append(time_cuda(lambda: dedup_row_grads(ids, dvec), iters=10))
     n = rows.shape[0]
-    nbytes = n * EMB * (4 + 4 + 1) + 4 * n  # rows and bits read, q and scale written
-    timing = {k: float(np.median(runs[k])) for k in ("ms", "plain_ms")}
-    timing.update(library_ms=None, bound_ms=1e3 * nbytes / PEAK_BYTES_S, bound_by="bytes")
-    parts = {k: float(np.median(runs[k])) for k in ("hash_ms", "dedup_ms")}
+    med = {k: float(np.median(v)) for k, v in runs.items()}
+    keyed_bound, given_bound = b8_bound(n, EMB, True), b8_bound(n, EMB, False)
+    timing = {"ms": med["ms"], "plain_ms": med["plain_ms"], "library_ms": None,
+              "bound_ms": keyed_bound["bound_ms"], "bound_by": "bytes",
+              "given_bits": {"ms": med["given_ms"], "plain_ms": med["given_plain_ms"],
+                             "library_ms": None, "bound_ms": given_bound["bound_ms"],
+                             "bound_by": "bytes"}}
+    parts = {k: med[k] for k in ("hash_ms", "dedup_ms")}
     q_table, s_table = quantize_rows(torch.randn((N_SPARSE * VOCAB, EMB), device="cuda",
                                                  generator=gen) * 0.01)
     acc = torch.zeros((N_SPARSE * VOCAB,), device="cuda")
-    q_new, s_new = stochastic_quantize_rows(rows, bits)
+    q_new, s_new = stochastic_quantize_rows(rows, ids=grads.ids, salt=salt)
     safe = torch.where(grads.mask > 0, grads.ids, N_SPARSE * VOCAB).to(torch.int32)
 
     def scatters():  # the step's two B4 launches: q rows, then scales
@@ -1538,16 +1666,46 @@ def check_and_time_b8(rng: np.random.Generator, gen: torch.Generator, seed: int)
         lambda: classic_quantized_update(q_table, s_table, acc, ids, dvec, TRAIN_LR, salt),
         iters=10, warmup=2) for _ in range(3)]))
     del q_table, s_table, acc
-    print(f"stochastic_quantize_rows at n={n} E={EMB}: kernel {timing['ms']:.4f} ms, plain "
-          f"{timing['plain_ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} "
-          f"MB); no single PyTorch call computes it; rounds {runs['ms']} / plain "
+    print(f"stochastic_quantize_rows keyed at n={n} E={EMB}: kernel {med['ms']:.4f} ms, plain "
+          f"(the torch hash, then the plain quantization) {med['plain_ms']:.4f} ms, bound "
+          f"{keyed_bound['bound_ms']:.4f} ms ({keyed_bound['bytes'] / 1e6:.1f} MB: rows and ids "
+          f"read, q and scale written), {100 * keyed_bound['bound_ms'] / med['ms']:.0f}% of the "
+          f"bound; no single PyTorch call computes it; rounds {runs['ms']} / plain "
           f"{runs['plain_ms']}")
-    print(f"classic update parts at n={n}: id-keyed hash (int64, to int32 patterns) "
-          f"{parts['hash_ms']:.4f} ms, dedup_row_grads {parts['dedup_ms']:.4f} ms, the q and "
-          f"scale scatter-sets {parts['scatters_ms']:.4f} ms, the whole "
-          f"classic_quantized_update of a [{N_SPARSE * VOCAB}, {EMB}] int8 table "
+    print(f"stochastic_quantize_rows given bits at n={n} E={EMB}: kernel {med['given_ms']:.4f} "
+          f"ms, plain {med['given_plain_ms']:.4f} ms, bound {given_bound['bound_ms']:.4f} ms "
+          f"({given_bound['bytes'] / 1e6:.1f} MB), "
+          f"{100 * given_bound['bound_ms'] / med['given_ms']:.0f}% of the bound; rounds "
+          f"{runs['given_ms']}")
+    print(f"classic update parts at n={n}: the id-keyed hash in torch (int64, to int32 "
+          f"patterns), the pass the kernel replaces, {parts['hash_ms']:.4f} ms; dedup_row_grads "
+          f"{parts['dedup_ms']:.4f} ms, the q and scale scatter-sets {parts['scatters_ms']:.4f} "
+          f"ms, the whole classic_quantized_update of a [{N_SPARSE * VOCAB}, {EMB}] int8 table "
           f"{parts['update_ms']:.4f} ms; rounds {runs['hash_ms']} / {runs['dedup_ms']}")
     return err, timing, parts
+
+
+@contextlib.contextmanager
+def counting_hash():
+    """Inside: every call of the torch id-keyed hash by the classic trainer
+    is counted (``calls[0]``). At int8 with one scale a row B8 hashes the
+    ids itself and the trainer calls it never; int4 and scale groups hash in
+    torch."""
+    calls = [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return id_keyed_rounding_bits(*args, **kwargs)
+
+    with swapped(quantized_trainer_module, "id_keyed_rounding_bits", counted):
+        yield calls
+
+
+def check_no_torch_hash(label: str, calls: int) -> None:
+    """Raises unless a classic int8 training run called the torch hash never."""
+    if calls:
+        raise AssertionError(f"[train {label}] the torch id-keyed hash ran {calls} times")
+    print(f"[train {label}] the torch id-keyed hash ran 0 times: B8 hashes the ids itself")
 
 
 def packed_from_classic(leaves: dict) -> np.ndarray:
@@ -1682,7 +1840,7 @@ def check_and_time_lin_scan(rng: np.random.Generator, gen: torch.Generator) -> d
     """Phase 12, B2 at the DeepFM linear table's shape: E=1 read through a
     row stride of 64 (the staging column of ``[n, 64]`` packed rows under
     Adam, column 3), kernel against plain at bench ids and at 1 and 1000
-    rows, then timed."""
+    rows, its look-back's edges (``scan_edges``), then timed."""
     ids = unified_ids(make_train_batch(rng))
     _, heads, _ = segments(ids)
     wide = torch.randn((ids.shape[0], PACKED_W), device="cuda", generator=gen)
@@ -1692,6 +1850,7 @@ def check_and_time_lin_scan(rng: np.random.Generator, gen: torch.Generator) -> d
                     segmented_sum_scan_plain(x[:rows], heads[:rows]), rtol=1e-5, atol=1e-5)
         print(f"segmented_sum_scan kernel vs plain  linear table n={rows:7d} E=1 row stride "
               f"{x.stride(0)}: max abs err {err:.3e}")
+    scan_edges("linear table", x, heads)
     return time_seg_scan(x, heads)
 
 
@@ -1833,7 +1992,8 @@ def check_and_time_din_update(rng: np.random.Generator, gen: torch.Generator) ->
     90,112 ids of a batch, E=64): the scan over the f32 rows' staging columns
     (row stride 256) and the int8 rows' (row stride 96), the scatter of 1 KB
     f32 rows into ``[1048576, 256]`` and of 384-byte rows; each against
-    plain, then timed (the requantization of DIN's rows is phase 9's)."""
+    plain (the scan also at its look-back's edges, ``scan_edges``), then
+    timed (the requantization of DIN's rows is phase 9's)."""
     ids = din_item_ids(make_din_batch(rng))
     _, heads, _ = segments(ids)
     heads = torch.from_numpy(heads).cuda()
@@ -1846,6 +2006,7 @@ def check_and_time_din_update(rng: np.random.Generator, gen: torch.Generator) ->
                     atol=1e-5)
         print(f"segmented_sum_scan kernel vs plain  DIN ids n={ids.shape[0]} E={DIN_EMB} row "
               f"stride {x.stride(0)}: max abs err {err:.3e}")
+        scan_edges(f"DIN {kind} rows", x, heads)
         timings[f"scan_{kind}"] = time_seg_scan(x, heads)
         _, timings[f"scatter_{kind}"] = check_and_time_scatter(
             rng, gen, kind, ids=ids, vocab_rows=DIN_ITEMS, widths=(DIN_PACKED_W, DIN_Q_W))
@@ -2546,6 +2707,7 @@ def main() -> int:
                 segmented_sum_scan_plain(scan_x, scan_heads), rtol=1e-5, atol=1e-5)
     print(f"segmented_sum_scan kernel vs plain  bench ids, int8 rows (row stride "
           f"{scan_x.stride(0)}): max abs err {err:.3e}")
+    scan_edges("bench ids, int8 rows", scan_x, scan_heads)
     scan_timing_int8 = time_seg_scan(scan_x, scan_heads)
     del scan_x, scan_heads
     scatter_err, scatter_timing = check_and_time_scatter(rng, gen, "f32")
@@ -2723,7 +2885,9 @@ def main() -> int:
     # 29 and 31. classic int8 DCN-v2 training, with launch counts from zero,
     # and the card against the CPU
     leaves = flax_leaves(np.random.default_rng(args.seed + 12), "classic")
-    classic_launches, classic_ms, _ = train(DCNV2_SPEC, "classic", leaves, rng, args.seed)
+    with counting_hash() as hashes:
+        classic_launches, classic_ms, _ = train(DCNV2_SPEC, "classic", leaves, rng, args.seed)
+    check_no_torch_hash("dcnv2 classic", hashes[0])
     torch.cuda.empty_cache()
     card_against_cpu(DCNV2_SPEC, "classic", leaves, rng, args.seed)
     del leaves
@@ -2732,7 +2896,10 @@ def main() -> int:
     # 30 and 31. classic int8 DeepFM training, with launch counts from zero,
     # and the card against the CPU
     leaves = deepfm_leaves(np.random.default_rng(args.seed + 13), "classic")
-    fm_classic_launches, fm_classic_ms, _ = train(DEEPFM_SPEC, "classic", leaves, rng, args.seed)
+    with counting_hash() as hashes:
+        fm_classic_launches, fm_classic_ms, _ = train(DEEPFM_SPEC, "classic", leaves, rng,
+                                                      args.seed)
+    check_no_torch_hash("deepfm classic", hashes[0])
     torch.cuda.empty_cache()
     card_against_cpu(DEEPFM_SPEC, "classic", leaves, rng, args.seed)
     del leaves
@@ -2746,7 +2913,11 @@ def main() -> int:
     other_ms = {}
     for offset, table in enumerate(("classic_int4", "classic_g2")):
         leaves = flax_leaves(np.random.default_rng(args.seed + 15 + offset), table)
-        _, other_ms[table], _ = train(DCNV2_SPEC, table, leaves, rng, args.seed)
+        with counting_hash() as hashes:
+            _, other_ms[table], _ = train(DCNV2_SPEC, table, leaves, rng, args.seed)
+        if not hashes[0]:
+            raise AssertionError(f"[train dcnv2 {table}] the torch id-keyed hash never ran")
+        print(f"[train dcnv2 {table}] the torch id-keyed hash ran {hashes[0]} times (no B8)")
         del leaves
         torch.cuda.empty_cache()
     print(f"[train dcnv2] classic int8 {classic_ms:.3f} ms/step, int4 "
@@ -2873,7 +3044,9 @@ def main() -> int:
          "source": "pytorchrec_tpu_torch/csrc/quantize.cu",
          "replaces": "pytorchrec_tpu/ops/kernels/quantize.py:119",
          "launches": classic_launches["stochastic_quantize_rows"], "max_abs_err": b8_err,
-         **b8_timing, "shape": f"rows [{n_scan}, {EMB}] f32, bits [{n_scan}, {EMB}] uint32",
+         **b8_timing, "shape": f"rows [{n_scan}, {EMB}] f32, ids [{n_scan}] int32, the id-keyed "
+                               f"bits made in the kernel (given_bits: bits [{n_scan}, {EMB}] "
+                               f"uint32 from memory)",
          "deepfm_classic_train_launches": fm_classic_launches["stochastic_quantize_rows"],
          "serving_launches": 0,
          "library_note": "no single PyTorch call computes absmax, scale and stochastic "
@@ -2905,7 +3078,8 @@ def main() -> int:
         "dcnv2_ms_per_step": classic_ms, "deepfm_ms_per_step": fm_classic_ms,
         "dcnv2_int4_ms_per_step": other_ms["classic_int4"],
         "dcnv2_two_groups_ms_per_step": other_ms["classic_g2"], "batch": TRAIN_BATCH,
-        "b8_ms": b8_timing["ms"], **classic_parts, "served": classic_served,
+        "b8_ms": b8_timing["ms"], "b8_given_bits_ms": b8_timing["given_bits"]["ms"],
+        **classic_parts, "served": classic_served,
         "classic_vs_packed": classic_vs_packed}}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -8,6 +8,7 @@
 //   acc'  = acc + sum(g^2) / e
 //   row_c = q_c * scale - lr * g_c / (sqrt(acc') + eps)
 //   u_c   = (mix(id * 0x9E3779B1 + c * 0x85EBCA77 ^ salt) >> 8) * 2^-24
+//           (id_hash.cuh)
 //   scale'= absmax(row) > 0 ? absmax(row) / 127 : 1
 //   q'_c  = clip(floor(row_c / scale' + u_c), -127, 127)
 // as q' || scale' || acc', then zero bytes to W (uint32 arithmetic wraps).
@@ -49,22 +50,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "id_hash.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int MAX_WIDTH = 4096;  // bytes a row
 constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ uint32_t mix_u32(uint32_t x) {
-  x ^= x >> 17;
-  x *= 0xED5AD4BBu;
-  x ^= x >> 11;
-  x *= 0xAC4C1B51u;
-  x ^= x >> 15;
-  x *= 0x31848BABu;
-  x ^= x >> 14;
-  return x;
-}
 
 // 4 little-endian bytes at any alignment.
 __device__ __forceinline__ uint32_t load_word(const uint8_t* p) {
@@ -192,7 +184,7 @@ requantize_rows_kernel(const uint8_t* __restrict__ moved, const float* __restric
       absmax = fmaxf(absmax, __shfl_xor_sync(FULL, absmax, off, G));
     const float scale_new = absmax > 0.f ? __fdiv_rn(absmax, 127.f) : 1.f;
 
-    const uint32_t id_mix = id * 0x9E3779B1u;
+    const uint32_t key = id_key(id);
     uint32_t qout[WPL];
 #pragma unroll
     for (int s = 0; s < WPL; ++s) {
@@ -201,8 +193,7 @@ requantize_rows_kernel(const uint8_t* __restrict__ moved, const float* __restric
       if (wi < nqw) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const uint32_t c = (uint32_t)(4 * wi + i);
-          const uint32_t bits = mix_u32((id_mix + c * 0x85EBCA77u) ^ salt);
+          const uint32_t bits = id_keyed_bits(key, (uint32_t)(4 * wi + i), salt);
           const float u = (float)(bits >> 8) * (1.f / 16777216.f);  // exact: 24 bits, power of 2
           float q = floorf(__fadd_rn(__fdiv_rn(val[s][i], scale_new), u));
           q = fminf(fmaxf(q, -127.f), 127.f);

@@ -8,16 +8,19 @@ or stochastic rounding from given bits (``quantize_rows``, every format),
 dequantization, the id-keyed rounding bits and the per-step salt they take.
 
 Kernel B8. ``stochastic_quantize_rows`` replaces ``_quantize_kernel`` (the
-``pl.pallas_call`` of ``quantize_rows_pallas``): f32 rows and their uint32
-rounding bits (held in int32) give int8 rows and one scale a row,
-``quantize_rows(rows, bits, bits=8, col_groups=1)`` bit for bit. The classic
-quantized-row trainer runs it once a step on each int8 table
-(``training/quantized_trainer.py``); round-to-nearest, int4 and column
+``pl.pallas_call`` of ``quantize_rows_pallas``): f32 rows give int8 rows and
+one scale a row, ``quantize_rows(rows, bits, bits=8, col_groups=1)`` bit for
+bit, with the rounding bits either given (uint32 held in int32, the TPU
+kernel's contract) or keyed by the rows' global ids and a salt, which the
+kernel hashes itself (``id_keyed_rounding_bits``, ``csrc/id_hash.cuh``). The
+classic quantized-row trainer runs the keyed form once a step on each int8
+table (``training/quantized_trainer.py``); round-to-nearest, int4 and column
 groups stay plain torch, as no TPU kernel covers them. The kernel
-(``csrc/quantize.cu``) gives each row a group of up to 32 threads. It is
-bound by bytes: rows and bits read, q and scale written, 126.1 MB at the
-classic step's shape (851,968 rows, E=16), 0.0376 ms on the H100 at
-3.35 TB/s.
+(``csrc/quantize.cu``) gives each row a group of lanes, 4 columns a lane
+read once with a 16-byte load where E is a multiple of 4 up to 128
+(``quantize_geometry``). It is bound by bytes: keyed, rows and ids read, q
+and scale written, 75.0 MB at the classic step's shape (851,968 rows,
+E=16), 0.0224 ms on the H100 at 3.35 TB/s.
 
 Kernel B3. ``requantize_rows`` replaces ``_requantize_kernel`` (the
 ``pl.pallas_call`` of ``requantize_rows_pallas``): over the permuted packed
@@ -50,6 +53,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import numbers
 import zlib
 from typing import Optional, Tuple
 
@@ -376,26 +380,84 @@ def stochastic_quantize_rows_plain(rows: torch.Tensor, rng_bits: torch.Tensor
     return quantize_rows(rows, rng_bits=rng_bits, bits=8, col_groups=1)
 
 
+def stochastic_quantize_rows_keyed_plain(rows: torch.Tensor, ids: torch.Tensor, salt: int
+                                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of B8's keyed form: the id-keyed bits of
+    ``ids`` and ``salt`` (the int64 hash), then the given-bits version."""
+    bits = rounding_bits_i32(id_keyed_rounding_bits(ids, rows.shape[1], salt))
+    return stochastic_quantize_rows_plain(rows, bits)
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizeGeometry:
+    """How B8 lays out one call: ``group`` lanes a row (``32 // group`` rows
+    a warp); ``words`` False for the scalar path (a column at a time, the row
+    read twice), True for the words path (a lane holds 4 columns, read once
+    with a 16-byte load and stored as one 32-bit q word)."""
+
+    group: int
+    words: bool
+
+
+def quantize_geometry(e: int, aligned: bool = True) -> QuantizeGeometry:
+    """B8's layout for rows of ``e`` columns. Plain Python: the tests check it
+    on the CPU. Where ``e`` is a multiple of 4, at most 128 (32 lanes of one
+    word), and the rows (and given bits) start at 16-byte aligned addresses
+    (``aligned``), a row takes its words' count of lanes, rounded up to a
+    power of two; otherwise the scalar path gives a row the smallest power
+    of two >= e lanes, at most 32."""
+    if e < 1:
+        raise ValueError(f"B8 takes rows of at least one column, got e={e}")
+    if e % 4 or e > 128 or not aligned:
+        return QuantizeGeometry(min(32, 1 << (e - 1).bit_length()), False)
+    return QuantizeGeometry(1 << (e // 4 - 1).bit_length(), True)
+
+
 @functools.cache
 def _quantize_kernel():
     lib = library("quantize")
-    lib.quantize_rows_launch.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    lib.quantize_rows_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_uint32] + [
+        ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_void_p]
     lib.quantize_rows_launch.restype = ctypes.c_int
+    lib.quantize_kernel_attributes.argtypes = [ctypes.c_int, ctypes.c_int,
+                                               ctypes.POINTER(ctypes.c_int),
+                                               ctypes.POINTER(ctypes.c_int)]
+    lib.quantize_kernel_attributes.restype = ctypes.c_int
     lib.quantize_error_string.argtypes = [ctypes.c_int]
     lib.quantize_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch_quantize(rows: torch.Tensor, rng_bits: torch.Tensor
+def quantize_launch_info(e: int, keyed: bool = True) -> dict:
+    """B8's launch at ``e`` columns (aligned rows) on the current card: the
+    geometry, the registers a thread and its local memory (stack and spills)
+    in bytes."""
+    geometry = quantize_geometry(e)
+    lib = _quantize_kernel()
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    err = lib.quantize_kernel_attributes(int(keyed), int(geometry.words), ctypes.byref(regs),
+                                         ctypes.byref(local))
+    if err != 0:
+        raise RuntimeError("stochastic_quantize_rows kernel attributes: "
+                           + lib.quantize_error_string(err).decode())
+    return {"group": geometry.group, "rows_per_warp": 32 // geometry.group,
+            "words": geometry.words, "registers": regs.value, "local_bytes": local.value}
+
+
+def _launch_quantize(rows: torch.Tensor, rng_bits: Optional[torch.Tensor],
+                     ids: Optional[torch.Tensor], salt: Optional[int]
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    for name, t in (("rows", rows), ("rng_bits", rng_bits)):
+    name, given = ("rng_bits", rng_bits) if rng_bits is not None else ("ids", ids)
+    for label, t in (("rows", rows), (name, given)):
         if not t.is_contiguous():
-            raise ValueError(f"stochastic_quantize_rows kernel takes contiguous tensors; {name} "
+            raise ValueError(f"stochastic_quantize_rows kernel takes contiguous tensors; {label} "
                              f"is not")
-    if rng_bits.device != rows.device:
-        raise ValueError(f"rng_bits is on {rng_bits.device}, rows on {rows.device}")
+    if given.device != rows.device:
+        raise ValueError(f"{name} is on {given.device}, rows on {rows.device}")
     n, e = rows.shape
+    aligned = rows.data_ptr() % 16 == 0 and (rng_bits is None or rng_bits.data_ptr() % 16 == 0)
+    geometry = quantize_geometry(e, aligned)
     q = torch.empty((n, e), dtype=torch.int8, device=rows.device)
     scale = torch.empty((n,), dtype=torch.float32, device=rows.device)
     if n == 0:
@@ -403,8 +465,10 @@ def _launch_quantize(rows: torch.Tensor, rng_bits: torch.Tensor
     lib = _quantize_kernel()
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.quantize_rows_launch(rows.data_ptr(), rng_bits.data_ptr(), q.data_ptr(),
-                                       scale.data_ptr(), n, e, stream)
+        err = lib.quantize_rows_launch(
+            rows.data_ptr(), None if rng_bits is None else rng_bits.data_ptr(),
+            None if ids is None else ids.data_ptr(), 0 if salt is None else salt, q.data_ptr(),
+            scale.data_ptr(), n, e, geometry.group, int(geometry.words), stream)
     if err != 0:
         raise RuntimeError("stochastic_quantize_rows kernel launch failed: "
                            + lib.quantize_error_string(err).decode())
@@ -412,20 +476,50 @@ def _launch_quantize(rows: torch.Tensor, rng_bits: torch.Tensor
     return q, scale
 
 
-def stochastic_quantize_rows(rows: torch.Tensor, rng_bits: torch.Tensor
+def _check_quantize(rows: torch.Tensor, rng_bits: Optional[torch.Tensor],
+                    ids: Optional[torch.Tensor], salt) -> None:
+    if (rng_bits is None) == (ids is None and salt is None):
+        raise ValueError("pass rng_bits, or ids and salt, not both and not neither")
+    if rows.dim() != 2 or rows.shape[1] < 1:
+        raise ValueError(f"want rows [n, E >= 1]; got {tuple(rows.shape)}")
+    if rows.dtype != torch.float32:
+        raise TypeError(f"want rows float32; got {rows.dtype}")
+    if rng_bits is not None:
+        if tuple(rng_bits.shape) != tuple(rows.shape):
+            raise ValueError(f"want rng_bits of the rows' shape {tuple(rows.shape)}; got "
+                             f"{tuple(rng_bits.shape)}")
+        if rng_bits.dtype != torch.int32:
+            raise TypeError(f"want rng_bits int32; got {rng_bits.dtype}")
+        return
+    if ids is None or salt is None:
+        raise ValueError("the keyed form takes ids and salt together")
+    if tuple(ids.shape) != (rows.shape[0],):
+        raise ValueError(f"want ids [{rows.shape[0]}]; got {tuple(ids.shape)}")
+    if ids.dtype != torch.int32:
+        raise TypeError(f"want ids int32; got {ids.dtype}")
+    if isinstance(salt, bool) or not isinstance(salt, numbers.Integral) or \
+            not 0 <= int(salt) <= _U32:
+        raise ValueError(f"salt must be an int in [0, 2**32); got {salt!r}")
+
+
+def stochastic_quantize_rows(rows: torch.Tensor, rng_bits: Optional[torch.Tensor] = None, *,
+                             ids: Optional[torch.Tensor] = None, salt: Optional[int] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B8: ``rows [n, E]`` f32 and ``rng_bits [n, E]`` int32 (uint32 bit
-    patterns, ``rounding_bits_i32``) -> ``(q [n, E] int8, scale [n] f32)``:
+    """B8: ``rows [n, E]`` f32 -> ``(q [n, E] int8, scale [n] f32)``:
     ``scale = absmax / 127`` (1 for an all-zero row) and
-    ``q = clip(floor(row / scale + (bits >> 8) * 2**-24), -127, 127)``."""
-    if rows.dim() != 2 or tuple(rng_bits.shape) != tuple(rows.shape) or rows.shape[1] < 1:
-        raise ValueError(f"want rows [n, E >= 1] and rng_bits of the same shape; got "
-                         f"{tuple(rows.shape)}, {tuple(rng_bits.shape)}")
-    if rows.dtype != torch.float32 or rng_bits.dtype != torch.int32:
-        raise TypeError(f"want rows float32, rng_bits int32; got {rows.dtype}, {rng_bits.dtype}")
-    if launches_kernel(rows, rng_bits):
-        return _launch_quantize(rows, rng_bits)
-    return stochastic_quantize_rows_plain(rows, rng_bits)
+    ``q = clip(floor(row / scale + (bits >> 8) * 2**-24), -127, 127)``.
+    The bits are either given, ``rng_bits [n, E]`` int32 (uint32 bit
+    patterns, ``rounding_bits_i32``), or keyed: ``ids [n]`` int32 global row
+    ids and ``salt`` a uint32, the bits ``id_keyed_rounding_bits(ids, E,
+    salt)``, which the kernel makes itself. Pass one form, not both."""
+    _check_quantize(rows, rng_bits, ids, salt)
+    if rng_bits is not None:
+        if launches_kernel(rows, rng_bits):
+            return _launch_quantize(rows, rng_bits, None, None)
+        return stochastic_quantize_rows_plain(rows, rng_bits)
+    if launches_kernel(rows, ids):
+        return _launch_quantize(rows, None, ids, int(salt))
+    return stochastic_quantize_rows_keyed_plain(rows, ids, int(salt))
 
 
 stochastic_quantize_rows.launches = 0

@@ -50,7 +50,6 @@ from pytorchrec_tpu_torch.ops.kernels.quantize import (
     id_keyed_rounding_bits,
     mean_square_rows,
     quantize_rows,
-    rounding_bits_i32,
     stochastic_quantize_rows,
     table_rounding_salt,
 )
@@ -80,8 +79,9 @@ def classic_quantized_update(q: torch.Tensor, scale: torch.Tensor, acc: torch.Te
     The duplicates' grads are summed (``dedup_row_grads``), then for each
     unique id ``acc' = acc + mean(g^2)`` and
     ``row = deq(q, scale) - lr * g / (sqrt(acc') + eps)``, requantized with
-    the id-keyed bits of ``rng_salt``: through B8 at int8 with one scale a
-    row, through ``quantize_rows`` otherwise. ``q`` and ``scale`` are
+    the id-keyed bits of ``rng_salt``: at int8 with one scale a row through
+    B8's keyed form, which hashes the ids itself; otherwise the bits are
+    hashed in torch for ``quantize_rows``. ``q`` and ``scale`` are
     scatter-set with every padding slot routed to ``V`` and dropped, so no
     padding slot overwrites the update of the id it aliases; the
     accumulator takes ``acc += (acc' - acc) * mask``, as JAX stores it."""
@@ -93,12 +93,12 @@ def classic_quantized_update(q: torch.Tensor, scale: torch.Tensor, acc: torch.Te
     delta = lr * g.rows / (torch.sqrt(acc_new)[:, None] + eps)
     current = dequantize_rows(q.index_select(0, g.ids), scale.index_select(0, g.ids),
                               bits=bits, col_groups=col_groups)
-    rng_bits = id_keyed_rounding_bits(g.ids, e, rng_salt)
     if bits == 8 and col_groups == 1:
-        q_new, s_new = stochastic_quantize_rows(current - delta, rounding_bits_i32(rng_bits))
+        q_new, s_new = stochastic_quantize_rows(current - delta, ids=g.ids, salt=rng_salt)
     else:
-        q_new, s_new = quantize_rows(current - delta, rng_bits=rng_bits, bits=bits,
-                                     col_groups=col_groups)
+        q_new, s_new = quantize_rows(current - delta,
+                                     rng_bits=id_keyed_rounding_bits(g.ids, e, rng_salt),
+                                     bits=bits, col_groups=col_groups)
     safe_ids = torch.where(g.mask > 0, g.ids, v).to(torch.int32)
     scatter_set_rows(q, q_new, safe_ids)
     scatter_set_rows(scale.view(v, -1), s_new.reshape(g.ids.shape[0], -1), safe_ids)

@@ -8,8 +8,9 @@ machine need not have):
 
     python -m pytest -p no:cacheprovider --noconftest -m gpu tests/test_torch_quantize_gpu.py
 
-Tolerances: B8 against plain bit for bit (q and scale equal: the kernel
-divides and adds as torch does, and a max is exact in any order); two
+Tolerances: B8 against plain bit for bit, in both forms (given bits, and
+keyed: the kernel's hash against the torch hash), q and scale equal (the
+kernel divides and adds as torch does, and a max is exact in any order); two
 classic steps card against CPU: losses rtol 1e-5, dense parameters rtol 1e-4
 / atol 1e-6, touched rows' scale and accumulator rtol 1e-4 / atol 1e-6, q
 values off by one in at most 0.1% of them (f32 sums in another order); one
@@ -29,6 +30,7 @@ from pytorchrec_tpu_torch.ops.kernels.quantize import (
     requantize_rows,
     rounding_bits_i32,
     stochastic_quantize_rows,
+    stochastic_quantize_rows_keyed_plain,
     stochastic_quantize_rows_plain,
 )
 from pytorchrec_tpu_torch.ops.kernels.scatter import scatter_set_rows
@@ -77,6 +79,50 @@ def test_b8_matches_plain_bit_for_bit(n, e):
     assert float(scale[n // 2]) == 1.0 and not q[n // 2].any()
 
 
+def _keyed_and_compare(rows, ids, salt):
+    before = stochastic_quantize_rows.launches
+    q, scale = stochastic_quantize_rows(rows, ids=ids, salt=salt)
+    torch.cuda.synchronize()
+    assert stochastic_quantize_rows.launches == before + 1
+    want_q, want_scale = stochastic_quantize_rows_keyed_plain(rows, ids, salt)
+    assert q.dtype == torch.int8 and scale.dtype == torch.float32
+    assert torch.equal(q, want_q)
+    assert torch.equal(scale.view(torch.int32), want_scale.view(torch.int32))
+    return q, scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e", [1, 7, 16, 64, 100])
+@pytest.mark.parametrize("n", [1, 1000, 851_968])
+def test_keyed_b8_matches_keyed_plain_bit_for_bit(n, e):
+    """The keyed form (the kernel hashes ids and salt itself) against the
+    int64 torch hash and the plain quantization: the words path at E = 16,
+    64 and 100, the scalar path at E = 1 and 7; ids up to 2**31 - 1, salts
+    of 2**31 and above."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(n * 3 + e)
+    rows = torch.randn((n, e), device="cuda", generator=gen) * 0.01
+    rows[n // 2] = 0.0  # all zero: scale 1
+    ids = torch.randint(0, 2**31 - 1, (n,), dtype=torch.int32, device="cuda", generator=gen)
+    ids[0] = 2**31 - 1
+    for salt in (2**31, 0xFFFFFFFF, 0x1234567):
+        q, scale = _keyed_and_compare(rows, ids, salt)
+        assert float(scale[n // 2]) == 1.0 and not q[n // 2].any()
+
+
+@pytest.mark.gpu
+def test_keyed_b8_on_unaligned_rows_takes_the_scalar_path():
+    """Rows that start 4 bytes past a 16-byte boundary cannot take 16-byte
+    loads: the wrapper picks the scalar path, with the same bits."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    wide = torch.randn((1000 * 16 + 1,), device="cuda", generator=gen) * 0.01
+    rows = wide[1:].view(1000, 16)
+    assert rows.is_contiguous() and rows.data_ptr() % 16 == 4
+    ids = torch.arange(1000, dtype=torch.int32, device="cuda") * 2_603
+    _keyed_and_compare(rows, ids, 0x9E3779B9)
+
+
 @pytest.mark.gpu
 def test_b8_edge_rows():
     """Quotients that land on integers, bits of 2**31 and above, and values
@@ -98,6 +144,9 @@ def test_b8_edge_rows():
     q, scale = _quantize_and_compare(rows, bits)
     assert q[0, :-1].tolist() == list(range(1, e)) and int(q[0, -1]) == 127
     assert int(q[1, 0]) == 127 and int(q[2, 0]) == -127
+    # the keyed form on the same rows: the ids' own bits
+    ids = torch.tensor([0, 1, 2**31 - 1, 123_456_789], dtype=torch.int32, device="cuda")
+    _keyed_and_compare(rows, ids, 2**31 + 5)
 
 
 @pytest.mark.gpu
@@ -109,6 +158,12 @@ def test_b8_raises_on_what_it_cannot_take():
         stochastic_quantize_rows(rows.t(), bits.t())  # not contiguous
     with pytest.raises(ValueError):
         stochastic_quantize_rows(rows, bits.cpu())  # two kinds of device
+    ids = torch.zeros((8,), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        stochastic_quantize_rows(rows, ids=ids.cpu(), salt=1)  # two kinds of device
+    with pytest.raises(ValueError):
+        stochastic_quantize_rows(rows, ids=torch.zeros((8, 2), dtype=torch.int32,
+                                                       device="cuda")[:, 0], salt=1)
 
 
 def _model(device, packed=False, bits=8, groups=1):

@@ -15,6 +15,7 @@ import torch
 from pytorchrec_tpu.ops.kernels.seg_scan import segmented_sum_scan_pallas
 from pytorchrec_tpu.ops.sparse_update import _segmented_sum_scan
 from pytorchrec_tpu_torch.ops.kernels.seg_scan import (
+    scan_vector_width,
     segmented_sum_scan,
     segmented_sum_scan_plain,
 )
@@ -79,3 +80,19 @@ def test_strided_column_slice_needs_no_copy_of_the_input():
 def test_wrapper_rejects_bad_inputs(x_shape, start_shape, dtype):
     with pytest.raises((ValueError, TypeError)):
         segmented_sum_scan(torch.zeros(x_shape), torch.zeros(start_shape, dtype=dtype))
+
+
+@pytest.mark.parametrize("address,stride,e,want", [
+    (4096 + 192, 64, 16, 4),   # the f32 update's staging slice: 16-byte loads
+    (4096 + 24, 32, 16, 2),    # the int8 update's, 24 bytes into 128-byte rows
+    (4096 + 12, 64, 1, 1),     # DeepFM's linear table, E=1
+    (4096 + 72, 96, 64, 2),    # DIN's int8 rows, 72 bytes into 384-byte rows
+    (4096 + 768, 256, 64, 4),  # DIN's f32 rows
+    (4096, 300, 300, 4),
+    (4096, 257, 257, 1),
+    (4096 + 20, 76, 64, 1),    # 4-byte aligned only
+    (4096, 66, 64, 2),         # the stride allows no more
+])
+def test_scan_vector_width(address, stride, e, want):
+    """B2's loads: the widest of 4, 2, 1 floats the slice allows."""
+    assert scan_vector_width(address, stride, e) == want

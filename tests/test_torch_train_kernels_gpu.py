@@ -8,7 +8,8 @@ machine need not have):
     python -m pytest -p no:cacheprovider --noconftest -m gpu tests/test_torch_train_kernels_gpu.py
 
 Tolerances: the scan rtol 1e-5 / atol 1e-5 (sums in another order; atol
-1e-4 where segments run 10k rows), the scatter bit-exact, the gradient
+1e-4 where segments run 10k rows; exact on values whose partial sums are all
+exact in f32), the scatter bit-exact, the gradient
 rtol 1e-4 / atol 1e-6 (the kernel's forward against cuBLAS).
 """
 
@@ -53,6 +54,120 @@ def test_seg_scan_kernel_matches_plain(n, e, skew):
     assert segmented_sum_scan.launches == before + 1
     atol = 1e-4 if skew else 1e-5
     torch.testing.assert_close(got, segmented_sum_scan_plain(x, heads), rtol=1e-5, atol=atol)
+
+
+def _scan_and_compare(x, heads, atol=1e-5):
+    before = segmented_sum_scan.launches
+    got = segmented_sum_scan(x, heads)
+    torch.cuda.synchronize()
+    assert segmented_sum_scan.launches == before + 1
+    assert got.shape == x.shape and got.is_contiguous()
+    torch.testing.assert_close(got, segmented_sum_scan_plain(x, heads), rtol=1e-5, atol=atol)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e", [1, 16, 64, 257, 300])
+@pytest.mark.parametrize("n_from_tile", ["1", "tile-1", "tile", "tile+1", "3 tiles+1"])
+def test_look_back_scan_at_tile_edges(e, n_from_tile):
+    """n at one row and at a tile's size (B2's rows a tile at E's first
+    chunk) minus one, plus none and plus one, and past a few tiles, with
+    segments that cross tile borders."""
+    _need_card()
+    from pytorchrec_tpu_torch.ops.kernels.seg_scan import _kernel
+    tile = _kernel().seg_scan_tile_rows(min(e, 256))
+    n = {"1": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+         "3 tiles+1": 3 * tile + 1}[n_from_tile]
+    rng = np.random.default_rng(n * 7 + e)
+    heads = torch.from_numpy(_sorted_heads(rng.integers(0, max(2, n // 50), n))).cuda()
+    wide = torch.from_numpy(rng.normal(size=(n, e + 12)).astype(np.float32)).cuda()
+    _scan_and_compare(wide[:, 4:4 + e], heads)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,e", [(851_968, 16), (851_968, 1), (90_112, 64), (20_000, 300)])
+def test_look_back_scan_one_segment_over_every_row(n, e):
+    """One segment over every row: each tile's carry comes from the whole
+    chain of predecessors. The values are multiples of 1/16 in [-0.5, 0.5],
+    so every partial sum is exact in f32 and any summation order gives the
+    plain version's bits: the check is exact."""
+    _need_card()
+    rng = np.random.default_rng(n + e)
+    heads = torch.zeros((n,), dtype=torch.bool, device="cuda")
+    heads[0] = True
+    x = torch.from_numpy(rng.integers(-8, 9, (n, e)).astype(np.float32) / 16).cuda()
+    got = _scan_and_compare(x, heads, atol=0.0)
+    assert torch.equal(got, segmented_sum_scan_plain(x, heads))
+    # and with no head at all: the same sums (row 0 starts the running sum)
+    assert torch.equal(segmented_sum_scan(x, torch.zeros_like(heads)), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,e", [(851_968, 16), (851_968, 1), (90_112, 64), (20_000, 300)])
+@pytest.mark.parametrize("segments", ["one", "skewed"])
+def test_look_back_scan_repeats_its_bits(n, e, segments):
+    """Normal values, whose sums round: the look-back adds its predecessors'
+    aggregates in an order fixed by the heads, so ten calls on one input
+    give one result, bit for bit."""
+    _need_card()
+    rng = np.random.default_rng(n + 3 * e)
+    if segments == "one":
+        heads = torch.zeros((n,), dtype=torch.bool, device="cuda")
+        heads[0] = True
+    else:
+        heads = torch.from_numpy(_sorted_heads(np.minimum(rng.zipf(1.2, n), 1000))).cuda()
+    x = torch.from_numpy(rng.normal(size=(n, e)).astype(np.float32)).cuda()
+    first = segmented_sum_scan(x, heads)
+    for _ in range(9):
+        assert torch.equal(segmented_sum_scan(x, heads), first)
+
+
+@pytest.mark.gpu
+def test_look_back_scan_takes_no_rows():
+    _need_card()
+    x = torch.zeros((0, 16), device="cuda")
+    out = segmented_sum_scan(x, torch.zeros((0,), dtype=torch.bool, device="cuda"))
+    assert out.shape == (0, 16)
+
+
+@pytest.mark.gpu
+def test_look_back_scans_back_to_back_without_a_sync():
+    """Calls queued one after another on the stream, the caching allocator
+    handing each the scratch the one before freed: each call zeroes its
+    ticket and status words on the stream, so each gives the plain version's
+    bits. The values are multiples of 1/16 in [-0.5, 0.5], so every partial
+    sum is exact in f32 and the check is exact: a status word left from the
+    call before would show."""
+    _need_card()
+    rng = np.random.default_rng(11)
+    inputs = []
+    for k in range(4):  # the update's shape, then skewed ids: segments of 50k rows
+        n = 200_000 if k % 2 else 851_968
+        ids = np.minimum(rng.zipf(1.2, n), 1000) if k % 2 else rng.integers(0, 2_600_000, n)
+        heads = torch.from_numpy(_sorted_heads(ids)).cuda()
+        wide = torch.from_numpy(rng.integers(-8, 9, (n, 64)).astype(np.float32) / 16).cuda()
+        inputs.append((wide[:, 48:64], heads))
+    torch.cuda.synchronize()
+    outs = [segmented_sum_scan(x, heads) for x, heads in inputs + inputs]
+    torch.cuda.synchronize()
+    for k, (x, heads) in enumerate(inputs + inputs):
+        assert torch.equal(outs[k], segmented_sum_scan_plain(x, heads))
+
+
+@pytest.mark.gpu
+def test_look_back_scan_on_the_int8_rows_slice():
+    """The int8 update's scan: f32 columns 24 bytes into 128-byte rows (8-byte
+    aligned: loads of 2 floats)."""
+    _need_card()
+    from pytorchrec_tpu_torch.ops.kernels.seg_scan import scan_vector_width
+    rng = np.random.default_rng(24)
+    n, e = 851_968, 16
+    heads = torch.from_numpy(_sorted_heads(rng.integers(0, 2_600_000, n))).cuda()
+    rows = torch.from_numpy(rng.normal(size=(n, 32)).astype(np.float32)).cuda()
+    x = rows.view(torch.uint8)[:, 24:24 + 4 * e].view(torch.float32)
+    assert x.stride() == (32, 1) and x.data_ptr() % 16 == 8
+    assert scan_vector_width(x.data_ptr(), x.stride(0), e) == 2
+    _scan_and_compare(x, heads)
 
 
 @pytest.mark.gpu
