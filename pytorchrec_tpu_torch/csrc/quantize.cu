@@ -11,7 +11,9 @@
 // and scale. The bits come in two forms, two instances of one kernel:
 //   keyed: the kernel makes them from the row's global id (int32, read as
 //          uint32) and the per-step salt, bits_c = id_keyed_bits(id, c,
-//          salt) of id_hash.cuh. The classic quantized-row trainer runs this
+//          salt) of id_hash.cuh. The salt is read from a device word (one
+//          uint32), so a CUDA graph that captured the launch reads each
+//          step's salt at replay. The classic quantized-row trainer runs this
 //          form once a step on each int8 table, so no pass over [n, e] bits
 //          runs before it.
 //   given: bits [n, e] uint32 from memory, the TPU kernel's own contract.
@@ -66,8 +68,9 @@ __device__ __forceinline__ float group_max(float v, int group) {
 template <bool KEYED>
 __global__ void __launch_bounds__(THREADS)
 quantize_rows_words(const float* __restrict__ rows, const uint32_t* __restrict__ bits,
-                    const int* __restrict__ ids, uint32_t salt, int8_t* __restrict__ q,
-                    float* __restrict__ scale, long long n, int e, int group) {
+                    const int* __restrict__ ids, const uint32_t* __restrict__ salt_word,
+                    int8_t* __restrict__ q, float* __restrict__ scale, long long n, int e,
+                    int group) {
   const int glane = threadIdx.x & (group - 1);
   const long long row = ((long long)blockIdx.x * THREADS + threadIdx.x) / group;
   // lanes past the last row or the row's last word stay for the shuffles and
@@ -83,6 +86,7 @@ quantize_rows_words(const float* __restrict__ rows, const uint32_t* __restrict__
     uint4 b;
     if constexpr (KEYED) {
       const uint32_t key = id_key((uint32_t)__ldg(ids + row)), c = 4u * glane;
+      const uint32_t salt = __ldg(salt_word);
       b = make_uint4(id_keyed_bits(key, c, salt), id_keyed_bits(key, c + 1, salt),
                      id_keyed_bits(key, c + 2, salt), id_keyed_bits(key, c + 3, salt));
     } else {
@@ -98,8 +102,9 @@ quantize_rows_words(const float* __restrict__ rows, const uint32_t* __restrict__
 template <bool KEYED>
 __global__ void __launch_bounds__(THREADS)
 quantize_rows_scalar(const float* __restrict__ rows, const uint32_t* __restrict__ bits,
-                     const int* __restrict__ ids, uint32_t salt, int8_t* __restrict__ q,
-                     float* __restrict__ scale, long long n, int e, int group) {
+                     const int* __restrict__ ids, const uint32_t* __restrict__ salt_word,
+                     int8_t* __restrict__ q, float* __restrict__ scale, long long n, int e,
+                     int group) {
   const int sub = threadIdx.x & (group - 1);
   const long long row = ((long long)blockIdx.x * THREADS + threadIdx.x) / group;
   const bool live = row < n;
@@ -111,6 +116,7 @@ quantize_rows_scalar(const float* __restrict__ rows, const uint32_t* __restrict_
   if (!live) return;
   const float sc = absmax > 0.f ? __fdiv_rn(absmax, 127.f) : 1.f;
   const uint32_t key = KEYED ? id_key((uint32_t)__ldg(ids + row)) : 0u;
+  const uint32_t salt = KEYED ? __ldg(salt_word) : 0u;
   int8_t* dst = q + row * e;
   for (int c = sub; c < e; c += group) {
     const uint32_t b = KEYED ? id_keyed_bits(key, (uint32_t)c, salt) : __ldg(bits + row * e + c);
@@ -121,8 +127,8 @@ quantize_rows_scalar(const float* __restrict__ rows, const uint32_t* __restrict_
 
 bool power_of_two(int g) { return g >= 1 && g <= 32 && (g & (g - 1)) == 0; }
 
-using Kernel = void (*)(const float*, const uint32_t*, const int*, uint32_t, int8_t*, float*,
-                        long long, int, int);
+using Kernel = void (*)(const float*, const uint32_t*, const int*, const uint32_t*, int8_t*,
+                        float*, long long, int, int);
 
 // The instance of a (keyed, words) pair: words false the scalar path, true
 // the words path.
@@ -137,16 +143,18 @@ extern "C" {
 
 // rows [n, e] f32, q [n, e] int8, scale [n] f32, all contiguous; exactly one
 // of bits ([n, e] uint32, contiguous: the given form) and ids ([n] int32:
-// the keyed form, with salt) is not null. group lanes a row (a power of two
+// the keyed form, with salt: one uint32 word on the device) is not null.
+// group lanes a row (a power of two
 // <= 32); words 0 takes the scalar path, 1 the words path (e % 4 == 0,
 // e <= 4 * group, so e <= 128; rows and bits 16-byte aligned, q 4-byte
 // aligned).
 // Launch on `stream`; returns the cudaError_t (0 = success).
-int quantize_rows_launch(const void* rows, const void* bits, const void* ids, uint32_t salt,
+int quantize_rows_launch(const void* rows, const void* bits, const void* ids, const void* salt,
                          void* q, void* scale, long long n, int e, int group, int words,
                          void* stream) {
   const bool keyed = ids != nullptr;
   if (n < 0 || e < 1 || !power_of_two(group) || keyed == (bits != nullptr) ||
+      keyed != (salt != nullptr) || reinterpret_cast<uintptr_t>(salt) % 4 ||
       (words != 0 && words != 1))
     return (int)cudaErrorInvalidValue;
   if (words && (e % 4 || 4 * group < e ||
@@ -159,8 +167,8 @@ int quantize_rows_launch(const void* rows, const void* bits, const void* ids, ui
   const Kernel kernel = instance(keyed, words != 0);
   kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
       static_cast<const float*>(rows), static_cast<const uint32_t*>(bits),
-      static_cast<const int*>(ids), salt, static_cast<int8_t*>(q), static_cast<float*>(scale), n,
-      e, group);
+      static_cast<const int*>(ids), static_cast<const uint32_t*>(salt), static_cast<int8_t*>(q),
+      static_cast<float*>(scale), n, e, group);
   return (int)cudaGetLastError();
 }
 

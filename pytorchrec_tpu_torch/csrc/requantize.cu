@@ -12,6 +12,8 @@
 //   scale'= absmax(row) > 0 ? absmax(row) / 127 : 1
 //   q'_c  = clip(floor(row_c / scale' + u_c), -127, 127)
 // as q' || scale' || acc', then zero bytes to W (uint32 arithmetic wraps).
+// The salt is read from a device word (one uint32), not passed by value, so
+// a CUDA graph that captured the launch reads each step's salt at replay.
 //
 // Bound: each input byte the function needs read once and each output byte
 // written once: the q || scale || acc bytes (e + 8), the grads (4e) and the
@@ -94,8 +96,10 @@ template <int G, int WPL, int UNIT>
 __global__ void __launch_bounds__(THREADS)
 requantize_rows_kernel(const uint8_t* __restrict__ moved, const float* __restrict__ g,
                        const int* __restrict__ ids, uint8_t* __restrict__ out, long long n,
-                       int w, int e, uint32_t salt, float lr, float eps) {
+                       int w, int e, const uint32_t* __restrict__ salt_word, float lr,
+                       float eps) {
   constexpr int ROWS = THREADS / G;  // rows a block takes at once
+  const uint32_t salt = __ldg(salt_word);
   const int glane = threadIdx.x & (G - 1);
   const int nqw = (e + 3) >> 2;  // q words a row
   const bool words_aligned = (e & 3) == 0;
@@ -301,12 +305,13 @@ extern "C" {
 // out [n, w] u8 (16-byte aligned where unit == 16), all contiguous;
 // e + 8 <= w <= MAX_WIDTH; group lanes a row and words q words a lane, an
 // instance of REQUANTIZE_INSTANCES with group * words * 4 >= e; unit 16
-// (w % 16 == 0) or 4. Launch on `stream`; returns the cudaError_t
-// (0 = success).
+// (w % 16 == 0) or 4; salt one uint32 word on the device. Launch on
+// `stream`; returns the cudaError_t (0 = success).
 int requantize_rows_launch(const void* moved, const void* g, const void* ids, void* out,
-                           long long n, int w, int e, uint32_t salt, float lr, float eps,
+                           long long n, int w, int e, const void* salt, float lr, float eps,
                            int group, int words, int unit, void* stream) {
   if (n < 0 || e < 1 || w % 4 || e + 8 > w || w > MAX_WIDTH || group * words * 4 < e ||
+      salt == nullptr || reinterpret_cast<uintptr_t>(salt) % 4 ||
       (unit != 16 && unit != 4) ||
       (unit == 16 && (w % 16 || reinterpret_cast<uintptr_t>(out) % 16)) ||
       reinterpret_cast<uintptr_t>(moved) % 4 || instance_query(group, words, unit, false) == -2)
@@ -318,15 +323,16 @@ int requantize_rows_launch(const void* moved, const void* g, const void* ids, vo
   const auto* gg = static_cast<const float*>(g);
   const auto* ii = static_cast<const int*>(ids);
   auto* o = static_cast<uint8_t*>(out);
+  const auto* word = static_cast<const uint32_t*>(salt);
   const auto s = (cudaStream_t)stream;
 #define LAUNCH(G_, W_)                                                                          \
   if (group == G_ && words == W_) {                                                             \
     if (unit == 16)                                                                             \
       requantize_rows_kernel<G_, W_, 16><<<(unsigned)blocks, THREADS, 0, s>>>(m, gg, ii, o, n, w, \
-                                                                              e, salt, lr, eps); \
+                                                                              e, word, lr, eps); \
     else                                                                                        \
       requantize_rows_kernel<G_, W_, 4><<<(unsigned)blocks, THREADS, 0, s>>>(m, gg, ii, o, n, w,  \
-                                                                             e, salt, lr, eps);  \
+                                                                             e, word, lr, eps);  \
     return (int)cudaGetLastError();                                                             \
   }
   REQUANTIZE_INSTANCES(LAUNCH)

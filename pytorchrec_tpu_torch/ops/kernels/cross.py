@@ -49,7 +49,7 @@ from typing import Optional
 
 import torch
 
-from pytorchrec_tpu_torch.ops.kernels import launches_kernel
+from pytorchrec_tpu_torch.ops.kernels import count_launch, launches_kernel
 from pytorchrec_tpu_torch.ops.kernels.build import library
 
 
@@ -268,7 +268,7 @@ def _launch(x0: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor) -> torch.Tenso
     if err != 0:
         raise RuntimeError(f"cross_network {plan.form} kernel launch failed: "
                            + lib.cross_network_error_string(err).decode())
-    cross_network.launches += 1
+    count_launch(cross_network)
     return out
 
 

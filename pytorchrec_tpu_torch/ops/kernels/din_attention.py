@@ -50,7 +50,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from pytorchrec_tpu_torch.ops.kernels import launches_kernel
+from pytorchrec_tpu_torch.ops.kernels import count_launch, launches_kernel
 from pytorchrec_tpu_torch.ops.kernels.build import library
 
 ACTIVATIONS = {"sigmoid": 0, "relu": 1}  # the kernel's codes
@@ -191,7 +191,7 @@ def _launch(his, tgt, valid, params, activation) -> torch.Tensor:
     if err != 0:
         raise RuntimeError("din_attention_pool kernel launch failed: "
                            + lib.din_attention_error_string(err).decode())
-    din_attention_pool.launches += 1
+    count_launch(din_attention_pool)
     return out
 
 

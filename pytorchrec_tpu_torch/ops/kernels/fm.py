@@ -33,7 +33,7 @@ import functools
 
 import torch
 
-from pytorchrec_tpu_torch.ops.kernels import launches_kernel
+from pytorchrec_tpu_torch.ops.kernels import count_launch, launches_kernel
 from pytorchrec_tpu_torch.ops.kernels.build import library
 
 
@@ -97,7 +97,7 @@ def _launch_forward(v: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel().fm_fwd(v.data_ptr(), out.data_ptr(), batch, fields, emb, stream)
     _raise_on(err, "fm_fwd")
-    fm_interaction.launches += 1
+    count_launch(fm_interaction)
     return out
 
 
@@ -117,7 +117,7 @@ def _launch_backward(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         err = _kernel().fm_bwd(v.data_ptr(), g.data_ptr(), dv.data_ptr(), batch, fields, emb,
                                stream)
     _raise_on(err, "fm_bwd")
-    fm_interaction_backward.launches += 1
+    count_launch(fm_interaction_backward)
     return dv
 
 

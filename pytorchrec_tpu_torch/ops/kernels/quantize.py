@@ -55,11 +55,11 @@ import dataclasses
 import functools
 import numbers
 import zlib
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
-from pytorchrec_tpu_torch.ops.kernels import launches_kernel
+from pytorchrec_tpu_torch.ops.kernels import count_launch, launches_kernel
 from pytorchrec_tpu_torch.ops.kernels.build import library
 from pytorchrec_tpu_torch.ops.sparse_update import bytes_to_f32
 from pytorchrec_tpu_torch.utils.rng import fold_in, random_bits_u32
@@ -160,15 +160,42 @@ def _mix_u32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 14)
 
 
-def id_keyed_rounding_bits(ids: torch.Tensor, e: int, salt: int) -> torch.Tensor:
+def id_keyed_rounding_bits(ids: torch.Tensor, e: int,
+                           salt: Union[int, torch.Tensor]) -> torch.Tensor:
     """Stochastic-rounding bits keyed by (row id, column, salt): ``ids [n]``
-    integers (taken mod 2**32), ``salt`` a uint32 -> ``[n, e]`` int64 values
-    in ``[0, 2**32)``. They depend on the global row id, never on the slot
-    or the device, so every layout rounds a row alike."""
+    integers (taken mod 2**32), ``salt`` a uint32, or its device word (a
+    one-element int32 tensor holding its bits, ``salt_word``, which a CUDA
+    graph reads at replay) -> ``[n, e]`` int64 values in ``[0, 2**32)``.
+    They depend on the global row id, never on the slot or the device, so
+    every layout rounds a row alike."""
     idv = ids.to(torch.int64) & _U32
     cols = torch.arange(e, dtype=torch.int64, device=ids.device)
     x = (_mul_u32(idv, 0x9E3779B1)[:, None] + _mul_u32(cols, 0x85EBCA77)[None, :]) & _U32
+    if isinstance(salt, torch.Tensor):
+        return _mix_u32(x ^ (salt.reshape(1, 1).to(torch.int64) & _U32))
     return _mix_u32(x ^ (int(salt) & _U32))
+
+
+def salt_word(salt: Union[int, torch.Tensor], device) -> torch.Tensor:
+    """The salt as the kernels read it: one device word, a ``[1]`` int32
+    tensor holding the uint32's bits. A tensor (the trainer passes a slot of
+    its step scalars) must be one int32 value on ``device`` and is returned
+    as it is; an int in ``[0, 2**32)`` is copied to ``device`` (from pinned
+    memory, so the copy waits for nothing queued before it)."""
+    if isinstance(salt, torch.Tensor):
+        if salt.dtype != torch.int32 or salt.numel() != 1:
+            raise TypeError(f"a salt tensor is one int32 word; got {salt.dtype} "
+                            f"{tuple(salt.shape)}")
+        if salt.device != torch.device(device):
+            raise ValueError(f"the salt word is on {salt.device}, the rows on {device}")
+        return salt.reshape(1)
+    if isinstance(salt, bool) or not isinstance(salt, numbers.Integral) or \
+            not 0 <= int(salt) <= _U32:
+        raise ValueError(f"salt must be an int in [0, 2**32) or its int32 word; got {salt!r}")
+    word = torch.tensor([int(salt) - ((int(salt) >> 31) << 32)], dtype=torch.int32)
+    if torch.device(device).type == "cuda":  # an asynchronous copy: no wait for the stream
+        return word.pin_memory().to(device, non_blocking=True)
+    return word
 
 
 def rounding_bits_i32(bits: torch.Tensor) -> torch.Tensor:
@@ -229,8 +256,9 @@ def requantize_rows_chain(moved: torch.Tensor, g: torch.Tensor, rng_bits: torch.
                       moved.new_zeros((n, w - sb - 4))], dim=1)
 
 
-def requantize_rows_plain(moved: torch.Tensor, g: torch.Tensor, ids: torch.Tensor, salt: int,
-                          lr: float, e: int, eps: float = 1e-6) -> torch.Tensor:
+def requantize_rows_plain(moved: torch.Tensor, g: torch.Tensor, ids: torch.Tensor,
+                          salt: Union[int, torch.Tensor], lr: float, e: int,
+                          eps: float = 1e-6) -> torch.Tensor:
     """The plain PyTorch version of the kernel: the chain at bits=8, one
     scale a row, with the id-keyed bits of ``ids`` and ``salt``."""
     return requantize_rows_chain(moved, g, id_keyed_rounding_bits(ids, e, salt), lr, e, eps)
@@ -283,7 +311,7 @@ def requantize_geometry(w: int, e: int) -> RequantizeGeometry:
 def _kernel():
     lib = library("requantize")
     lib.requantize_rows_launch.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_float,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_float,
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.requantize_rows_launch.restype = ctypes.c_int
     lib.requantize_grid.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int]
@@ -327,8 +355,8 @@ def _check(moved: torch.Tensor, g: torch.Tensor, ids: torch.Tensor, e: int) -> N
                          f"an accumulator")
 
 
-def _launch(moved: torch.Tensor, g: torch.Tensor, ids: torch.Tensor, salt: int, lr: float,
-            e: int, eps: float) -> torch.Tensor:
+def _launch(moved: torch.Tensor, g: torch.Tensor, ids: torch.Tensor, salt: torch.Tensor,
+            lr: float, e: int, eps: float) -> torch.Tensor:
     for name, t in (("moved", moved), ("g", g), ("ids", ids)):
         if not t.is_contiguous():
             raise ValueError(f"requantize_rows kernel takes contiguous tensors; {name} is not")
@@ -346,25 +374,28 @@ def _launch(moved: torch.Tensor, g: torch.Tensor, ids: torch.Tensor, salt: int, 
     with torch.cuda.device(moved.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.requantize_rows_launch(moved.data_ptr(), g.data_ptr(), ids.data_ptr(),
-                                         out.data_ptr(), n, w, e, int(salt) & _U32, lr, eps,
+                                         out.data_ptr(), n, w, e, salt.data_ptr(), lr, eps,
                                          geometry.group, geometry.words, geometry.unit, stream)
     if err != 0:
         raise RuntimeError("requantize_rows kernel launch failed: "
                            + lib.requantize_error_string(err).decode())
-    requantize_rows.launches += 1
+    count_launch(requantize_rows)
     return out
 
 
-def requantize_rows(moved: torch.Tensor, g: torch.Tensor, ids: torch.Tensor, salt: int,
-                    lr: float, e: int, eps: float = 1e-6) -> torch.Tensor:
+def requantize_rows(moved: torch.Tensor, g: torch.Tensor, ids: torch.Tensor,
+                    salt: Union[int, torch.Tensor], lr: float, e: int,
+                    eps: float = 1e-6) -> torch.Tensor:
     """Rowwise Adagrad and id-keyed stochastic requantization of int8 packed
     rows with one scale a row: ``moved [n, W]`` u8 permuted
     ``q || scale || acc || ...`` rows, ``g [n, e]`` f32 summed grads,
-    ``ids [n]`` int32 global row ids, ``salt`` a uint32 -> a new ``[n, W]``
+    ``ids [n]`` int32 global row ids, ``salt`` a uint32 or its device word
+    (``salt_word``; the kernel reads the salt from it) -> a new ``[n, W]``
     u8, ``q' || scale' || acc'`` then zeros. Needs ``e + 8 <= W``; on the
     card also ``e <= REQUANTIZE_MAX_E`` (512) and ``W <= 4096``, a multiple
     of 4, the rows at a 4-byte aligned address (``requantize_geometry``)."""
     _check(moved, g, ids, e)
+    salt = salt_word(salt, moved.device)
     if launches_kernel(moved, g, ids):
         return _launch(moved, g, ids, salt, lr, e, eps)
     return requantize_rows_plain(moved, g, ids, salt, lr, e, eps)
@@ -380,7 +411,8 @@ def stochastic_quantize_rows_plain(rows: torch.Tensor, rng_bits: torch.Tensor
     return quantize_rows(rows, rng_bits=rng_bits, bits=8, col_groups=1)
 
 
-def stochastic_quantize_rows_keyed_plain(rows: torch.Tensor, ids: torch.Tensor, salt: int
+def stochastic_quantize_rows_keyed_plain(rows: torch.Tensor, ids: torch.Tensor,
+                                         salt: Union[int, torch.Tensor]
                                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of B8's keyed form: the id-keyed bits of
     ``ids`` and ``salt`` (the int64 hash), then the given-bits version."""
@@ -416,9 +448,8 @@ def quantize_geometry(e: int, aligned: bool = True) -> QuantizeGeometry:
 @functools.cache
 def _quantize_kernel():
     lib = library("quantize")
-    lib.quantize_rows_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_uint32] + [
-        ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                ctypes.c_void_p]
+    lib.quantize_rows_launch.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.quantize_rows_launch.restype = ctypes.c_int
     lib.quantize_kernel_attributes.argtypes = [ctypes.c_int, ctypes.c_int,
                                                ctypes.POINTER(ctypes.c_int),
@@ -446,7 +477,7 @@ def quantize_launch_info(e: int, keyed: bool = True) -> dict:
 
 
 def _launch_quantize(rows: torch.Tensor, rng_bits: Optional[torch.Tensor],
-                     ids: Optional[torch.Tensor], salt: Optional[int]
+                     ids: Optional[torch.Tensor], salt: Optional[torch.Tensor]
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     name, given = ("rng_bits", rng_bits) if rng_bits is not None else ("ids", ids)
     for label, t in (("rows", rows), (name, given)):
@@ -467,12 +498,12 @@ def _launch_quantize(rows: torch.Tensor, rng_bits: Optional[torch.Tensor],
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.quantize_rows_launch(
             rows.data_ptr(), None if rng_bits is None else rng_bits.data_ptr(),
-            None if ids is None else ids.data_ptr(), 0 if salt is None else salt, q.data_ptr(),
-            scale.data_ptr(), n, e, geometry.group, int(geometry.words), stream)
+            None if ids is None else ids.data_ptr(), None if salt is None else salt.data_ptr(),
+            q.data_ptr(), scale.data_ptr(), n, e, geometry.group, int(geometry.words), stream)
     if err != 0:
         raise RuntimeError("stochastic_quantize_rows kernel launch failed: "
                            + lib.quantize_error_string(err).decode())
-    stochastic_quantize_rows.launches += 1
+    count_launch(stochastic_quantize_rows)
     return q, scale
 
 
@@ -497,29 +528,29 @@ def _check_quantize(rows: torch.Tensor, rng_bits: Optional[torch.Tensor],
         raise ValueError(f"want ids [{rows.shape[0]}]; got {tuple(ids.shape)}")
     if ids.dtype != torch.int32:
         raise TypeError(f"want ids int32; got {ids.dtype}")
-    if isinstance(salt, bool) or not isinstance(salt, numbers.Integral) or \
-            not 0 <= int(salt) <= _U32:
-        raise ValueError(f"salt must be an int in [0, 2**32); got {salt!r}")
 
 
 def stochastic_quantize_rows(rows: torch.Tensor, rng_bits: Optional[torch.Tensor] = None, *,
-                             ids: Optional[torch.Tensor] = None, salt: Optional[int] = None
+                             ids: Optional[torch.Tensor] = None,
+                             salt: Union[int, torch.Tensor, None] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B8: ``rows [n, E]`` f32 -> ``(q [n, E] int8, scale [n] f32)``:
     ``scale = absmax / 127`` (1 for an all-zero row) and
     ``q = clip(floor(row / scale + (bits >> 8) * 2**-24), -127, 127)``.
     The bits are either given, ``rng_bits [n, E]`` int32 (uint32 bit
     patterns, ``rounding_bits_i32``), or keyed: ``ids [n]`` int32 global row
-    ids and ``salt`` a uint32, the bits ``id_keyed_rounding_bits(ids, E,
+    ids and ``salt`` a uint32 or its device word (``salt_word``; the kernel
+    reads the salt from it), the bits ``id_keyed_rounding_bits(ids, E,
     salt)``, which the kernel makes itself. Pass one form, not both."""
     _check_quantize(rows, rng_bits, ids, salt)
     if rng_bits is not None:
         if launches_kernel(rows, rng_bits):
             return _launch_quantize(rows, rng_bits, None, None)
         return stochastic_quantize_rows_plain(rows, rng_bits)
+    salt = salt_word(salt, rows.device)
     if launches_kernel(rows, ids):
-        return _launch_quantize(rows, None, ids, int(salt))
-    return stochastic_quantize_rows_keyed_plain(rows, ids, int(salt))
+        return _launch_quantize(rows, None, ids, salt)
+    return stochastic_quantize_rows_keyed_plain(rows, ids, salt)
 
 
 stochastic_quantize_rows.launches = 0

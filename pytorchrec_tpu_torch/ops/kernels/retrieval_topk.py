@@ -45,7 +45,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from pytorchrec_tpu_torch.ops.kernels import launches_kernel
+from pytorchrec_tpu_torch.ops.kernels import count_launch, launches_kernel
 from pytorchrec_tpu_torch.ops.kernels.build import library
 
 LANES = 128
@@ -182,7 +182,7 @@ def _launch(queries: torch.Tensor, items: torch.Tensor, tc: int,
     if err != 0:
         raise RuntimeError("bin_max_scores kernel launch failed: "
                            + lib.bin_max_error_string(err).decode())
-    bin_max_scores.launches += 1
+    count_launch(bin_max_scores)
     return vals, idx
 
 

@@ -25,7 +25,7 @@ import functools
 
 import torch
 
-from pytorchrec_tpu_torch.ops.kernels import launches_kernel
+from pytorchrec_tpu_torch.ops.kernels import count_launch, launches_kernel
 from pytorchrec_tpu_torch.ops.kernels.build import library
 
 
@@ -78,7 +78,7 @@ def _launch(table: torch.Tensor, rows: torch.Tensor, ids: torch.Tensor) -> torch
     if err != 0:
         raise RuntimeError("scatter_set_rows kernel launch failed: "
                            + _kernel().scatter_error_string(err).decode())
-    scatter_set_rows.launches += 1
+    count_launch(scatter_set_rows)
     return table
 
 

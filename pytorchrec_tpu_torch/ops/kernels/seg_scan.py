@@ -35,7 +35,7 @@ import functools
 
 import torch
 
-from pytorchrec_tpu_torch.ops.kernels import launches_kernel
+from pytorchrec_tpu_torch.ops.kernels import count_launch, launches_kernel
 from pytorchrec_tpu_torch.ops.kernels.build import library
 
 
@@ -148,7 +148,7 @@ def _launch(x: torch.Tensor, is_start: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError("segmented_sum_scan kernel launch failed: "
                            + lib.seg_scan_error_string(err).decode())
-    segmented_sum_scan.launches += 1
+    count_launch(segmented_sum_scan)
     return out
 
 

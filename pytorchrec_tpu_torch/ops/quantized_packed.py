@@ -18,7 +18,7 @@ scatter.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -111,7 +111,7 @@ def packed_quantized_update(
     bits: int = 8,
     col_groups: int = 1,
     eps: float = 1e-6,
-    rng_salt: Optional[int] = None,    # uint32: id-keyed bits (see below)
+    rng_salt: Union[int, torch.Tensor, None] = None,  # uint32 or its word: id-keyed bits
     ids_offset: int = 0,      # local id -> global id shift for the bit keying
 ) -> torch.Tensor:
     """Rowwise Adagrad and stochastic requantization of the touched packed
@@ -126,7 +126,9 @@ def packed_quantized_update(
 
     Rounding bits: positional ``rng_bits``, taken in id-sorted slot order,
     or ``rng_salt``, from which the bits derive as
-    ``id_keyed_rounding_bits(sorted ids + ids_offset, E, salt)``.
+    ``id_keyed_rounding_bits(sorted ids + ids_offset, E, salt)``: a uint32,
+    or its device word (a slot of the trainer's step scalars, which a CUDA
+    graph reads at each replay; ``ops/kernels/quantize.py::salt_word``).
 
     Kernels: on the card the scan and the scatter always launch their
     kernels. The requantization launches ``requantize_rows`` for the format

@@ -21,7 +21,7 @@ so that packed leaves convert without reshaping.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -34,6 +34,8 @@ PACKED_COLS = {"adam": lambda e: 3 * e, "adagrad": lambda e: 2 * e,
                "rowwise_adagrad": lambda e: e + 1}
 
 _FAST_WIDTH = 64
+# the packed tables' Adam betas (the JAX update's defaults)
+ADAM_B1, ADAM_B2 = 0.9, 0.999
 
 
 class SparseRowGrad(NamedTuple):
@@ -123,16 +125,23 @@ def _bias_correction(beta: float, step: int) -> float:
     return float(np.float32(1.0) - np.float32(beta) ** np.float32(step))
 
 
+def bias_corrections(step: int, b1: float = ADAM_B1, b2: float = ADAM_B2) -> np.ndarray:
+    """Adam's bias corrections of the 1-based ``step``, ``[1 - b1**step,
+    1 - b2**step]`` as numpy f32 (``_bias_correction``): what the host
+    writes into a step's scalars for the packed update to read."""
+    return np.array([_bias_correction(b1, step), _bias_correction(b2, step)], dtype=np.float32)
+
+
 def packed_sparse_update(
     packed: torch.Tensor,   # [V, W] table || moments || staging rows (pack_table)
     rows: torch.Tensor,     # [n, W] the forward gather of packed at ids
     ids: torch.Tensor,      # [n] int32 per-occurrence ids (duplicates allowed)
     dvec: torch.Tensor,     # [n, E] per-occurrence row grads
-    step: int,              # global step, 1-based (adam's bias correction)
+    bias_correction: Union[torch.Tensor, int, None],  # adam: the step's corrections (below)
     lr: float,
     optimizer: str = "adam",
-    b1: float = 0.9,
-    b2: float = 0.999,
+    b1: float = ADAM_B1,
+    b2: float = ADAM_B2,
     eps: float = 1e-8,
 ) -> torch.Tensor:
     """Row-sparse lazy update of a packed table, in place; returns ``packed``.
@@ -145,7 +154,13 @@ def packed_sparse_update(
     same along a segment, since they came from one row), run the optimizer
     on every row, and scatter-set each segment's last row into the table.
     Other slots route to ``V + slot`` and drop. Untouched rows keep their
-    moments (lazy Adam); Adam's bias correction uses the global ``step``.
+    moments (lazy Adam); Adam's bias correction uses the global step:
+    ``bias_correction`` is ``[1 - b1**step, 1 - b2**step]``, an f32 ``[2]``
+    tensor on the table's device (a slot of the trainer's step scalars,
+    ``training/state.py::StepScalars``, which a CUDA graph reads at each
+    replay), or the 1-based step as an int, whose corrections
+    (``bias_corrections``) are copied to the device here. Other optimizers
+    take None.
 
     The JAX function returns a new table and relies on the caller donating
     the old one; the port writes into ``packed`` itself, so the trainer's
@@ -172,11 +187,14 @@ def packed_sparse_update(
     t_old = moved[:, :e]
 
     if optimizer == "adam":
+        if not isinstance(bias_correction, torch.Tensor):
+            bias_correction = torch.from_numpy(
+                bias_corrections(int(bias_correction), b1, b2)).to(packed.device)
         m_old, v_old = moved[:, e:2 * e], moved[:, 2 * e:3 * e]
         new_m = b1 * m_old + (1.0 - b1) * g
         new_v = b2 * v_old + (1.0 - b2) * torch.square(g)
-        delta = lr * (new_m / _bias_correction(b1, step)) / (
-            torch.sqrt(new_v / _bias_correction(b2, step)) + eps)
+        delta = lr * (new_m / bias_correction[0:1]) / (
+            torch.sqrt(new_v / bias_correction[1:2]) + eps)
         pieces = [t_old - delta, new_m, new_v]
     elif optimizer == "adagrad":
         new_acc = moved[:, e:2 * e] + torch.square(g)

@@ -12,7 +12,11 @@ adam, over the parameters they are given.
 
 On the card both take PyTorch's fused single-kernel update, on the CPU the
 single-tensor loop: ``fused`` and ``foreach`` are set explicitly, never left
-to PyTorch's defaults.
+to PyTorch's defaults. On the card ``adam`` is also ``capturable``: its step
+count lives on the device, so one optimizer serves the eager step and the
+CUDA graphs of ``Trainer.fit_steps`` (the fused update computes the same
+values either way). ``sgd`` has no step count and no such flag: its fused
+update is captured as it is.
 
 ``adamw`` and ``adagrad`` come with the optimizer registry (A9) and raise
 until then. Their hazards: optax.adagrad starts its accumulator at 0.1 and
@@ -38,8 +42,13 @@ def _sgd(params: list, lr: float, weight_decay: float = 0.0) -> torch.optim.Opti
 
 def _adam(params: list, lr: float, weight_decay: float = 0.0, b1: float = 0.9,
           b2: float = 0.999, eps: float = 1e-8) -> torch.optim.Optimizer:
-    return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps, weight_decay=weight_decay,
-                            foreach=False, fused=_fused(params))
+    fused = _fused(params)
+    optimizer = torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps,
+                                 weight_decay=weight_decay, foreach=False, fused=fused,
+                                 capturable=fused)
+    # eager steps on the card are meant: no warning that they run uncaptured
+    optimizer._warned_capturable_if_run_uncaptured = True
+    return optimizer
 
 
 OPTIMIZERS: Dict[str, Callable[..., torch.optim.Optimizer]] = {"sgd": _sgd, "adam": _adam}

@@ -25,7 +25,9 @@ A train step:
    buffers, so they take no part: the port's form of ``optax.masked``); a
    model with a linear term keeps its f32 ``unified_lin`` table there, with
    a dense gradient, as the JAX trainer does;
-4. updates each table in place, salted from the state's key:
+4. updates each table in place, salted from the state's key (the salt
+   is a slot of the step's row of scalars, ``StepScalars``, so the step is
+   the same eagerly and in a CUDA graph):
    classic, ``classic_quantized_update`` (dedup of the row grads, rowwise
    Adagrad, id-keyed stochastic requantization, B8 at int8 with one scale a
    row, scatter-set of ``q`` and ``scale``, the accumulator's masked add);
@@ -40,7 +42,7 @@ bits from the same seed.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Tuple, Union
 
 import torch
 
@@ -51,7 +53,6 @@ from pytorchrec_tpu_torch.ops.kernels.quantize import (
     mean_square_rows,
     quantize_rows,
     stochastic_quantize_rows,
-    table_rounding_salt,
 )
 from pytorchrec_tpu_torch.ops.kernels.scatter import scatter_set_rows
 from pytorchrec_tpu_torch.ops.quantized_packed import (
@@ -63,14 +64,15 @@ from pytorchrec_tpu_torch.ops.quantized_packed import (
 from pytorchrec_tpu_torch.ops.sparse_update import dedup_row_grads
 from pytorchrec_tpu_torch.optim import build_optimizer
 from pytorchrec_tpu_torch.training.sparse_trainer import resolve_table_lr
-from pytorchrec_tpu_torch.training.state import QuantizedTrainState
+from pytorchrec_tpu_torch.training.state import QuantizedTrainState, StepScalars
 from pytorchrec_tpu_torch.training.trainer import Batch, Trainer
 from pytorchrec_tpu_torch.utils.rng import prng_key, split
 
 
 def classic_quantized_update(q: torch.Tensor, scale: torch.Tensor, acc: torch.Tensor,
-                             ids: torch.Tensor, dvec: torch.Tensor, lr: float, rng_salt: int,
-                             bits: int = 8, col_groups: int = 1, eps: float = 1e-6) -> None:
+                             ids: torch.Tensor, dvec: torch.Tensor, lr: float,
+                             rng_salt: Union[int, torch.Tensor], bits: int = 8,
+                             col_groups: int = 1, eps: float = 1e-6) -> None:
     """Rowwise Adagrad and stochastic requantization of a classic table's
     touched rows, in place (the JAX trainer's unpacked step):
     ``q [V, E or E/2]`` int8, ``scale [V]`` or ``[V, G]`` f32, ``acc [V]``
@@ -79,7 +81,8 @@ def classic_quantized_update(q: torch.Tensor, scale: torch.Tensor, acc: torch.Te
     The duplicates' grads are summed (``dedup_row_grads``), then for each
     unique id ``acc' = acc + mean(g^2)`` and
     ``row = deq(q, scale) - lr * g / (sqrt(acc') + eps)``, requantized with
-    the id-keyed bits of ``rng_salt``: at int8 with one scale a row through
+    the id-keyed bits of ``rng_salt`` (a uint32, or its device word: a slot
+    of the trainer's step scalars): at int8 with one scale a row through
     B8's keyed form, which hashes the ids itself; otherwise the bits are
     hashed in torch for ``quantize_rows``. ``q`` and ``scale`` are
     scatter-set with every padding slot routed to ``V`` and dropped, so no
@@ -164,9 +167,11 @@ class QuantizedEmbeddingTrainer(Trainer):
             self._specs[name] = info
         optimizer = build_optimizer(self.optimizer_name, self.model.parameters(), self.lr,
                                     self.weight_decay)
-        seed = rng.initial_seed()
-        return QuantizedTrainState(optimizer=optimizer, rng=rng, packed=packed,
-                                   rng_key=split(prng_key(seed))[1], table_acc=table_acc)
+        key = split(prng_key(rng.initial_seed()))[1]
+        scalars = StepScalars(salted_tables=[info["q_path"] for info in self._specs.values()],
+                              rng_key=key)
+        return QuantizedTrainState(optimizer=optimizer, rng=rng, scalars=scalars, packed=packed,
+                                   rng_key=key, table_acc=table_acc)
 
     def _gather(self, info: dict, ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The batch's rows of one table, dequantized: (the packed byte rows,
@@ -179,12 +184,11 @@ class QuantizedEmbeddingTrainer(Trainer):
         return None, dequantize_rows(q.index_select(0, ids), scale.index_select(0, ids),
                                      **formats)
 
-    def train_step(self, batch: Batch) -> torch.Tensor:
+    def _step(self, batch: Dict[str, torch.Tensor], scalars: torch.Tensor) -> torch.Tensor:
         """One step: gather and dequantization, forward with injected rows,
-        backward, dense optimizer, quantized table update. Returns the loss
-        (a device scalar, not synchronised)."""
-        state = self._assert_state()
-        batch = self._to_device(batch)
+        backward, dense optimizer, quantized table update salted from the
+        step's scalars. Returns the loss (a device scalar)."""
+        state = self.state
         injected = dict(batch)
         gathered = []
         for name, spec in self.model.quantized_table_spec(batch).items():
@@ -200,9 +204,8 @@ class QuantizedEmbeddingTrainer(Trainer):
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.optimizer.step()
-        state.step += 1
         for name, info, ids, rows, leaf in gathered:
-            salt = table_rounding_salt(state.rng_key, state.step, info["q_path"])
+            salt = state.scalars.salt(scalars, info["q_path"])
             formats = dict(bits=info["bits"], col_groups=info["col_groups"], eps=self.table_eps)
             if self.packed_tables:
                 packed_quantized_update(state.packed[info["q_path"]], rows, ids, leaf.grad, None,

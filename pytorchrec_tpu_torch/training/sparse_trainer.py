@@ -18,7 +18,9 @@ A train step:
 3. steps the dense optimizer over the dense parameters only;
 4. runs ``packed_sparse_update`` (sort, permute, segmented scan, lazy Adam
    or Adagrad, scatter-set) for each table with its pre-update rows, in
-   place on its packed buffer, which is never reallocated.
+   place on its packed buffer, which is never reallocated; Adam's bias
+   corrections come from the step's row of scalars (``StepScalars``), so
+   the step is the same eagerly and in a CUDA graph (``Trainer.fit_steps``).
 
 The model's table parameter becomes a strided view of the buffer's first E
 columns (no grad), so serving and ``unpacked_params`` read the trained table
@@ -43,7 +45,7 @@ from pytorchrec_tpu_torch.ops.sparse_update import (
     unpack_table,
 )
 from pytorchrec_tpu_torch.optim import build_optimizer
-from pytorchrec_tpu_torch.training.state import SparseTrainState
+from pytorchrec_tpu_torch.training.state import SparseTrainState, StepScalars
 from pytorchrec_tpu_torch.training.trainer import Batch, Trainer
 
 logger = logging.getLogger(__name__)
@@ -125,14 +127,14 @@ class SparseEmbeddingTrainer(Trainer):
             table_params.add(f"{module_name}.{param_name}")
         dense = [p for name, p in self.model.named_parameters() if name not in table_params]
         optimizer = build_optimizer(self.optimizer_name, dense, self.lr, self.weight_decay)
-        return SparseTrainState(optimizer=optimizer, rng=rng, packed=packed)
+        scalars = StepScalars(adam_tables=sorted(packed) if self.table_optimizer == "adam" else ())
+        return SparseTrainState(optimizer=optimizer, rng=rng, scalars=scalars, packed=packed)
 
-    def train_step(self, batch: Batch) -> torch.Tensor:
+    def _step(self, batch: Dict[str, torch.Tensor], scalars: torch.Tensor) -> torch.Tensor:
         """One step: packed gather, forward with injected rows, backward,
-        dense optimizer, packed sparse update. Returns the loss (a device
-        scalar, not synchronised)."""
-        state = self._assert_state()
-        batch = self._to_device(batch)
+        dense optimizer, packed sparse update, whose Adam bias corrections
+        come from the step's scalars. Returns the loss (a device scalar)."""
+        state = self.state
         injected = dict(batch)
         gathered = []
         for spec in self.model.sharded_table_specs(batch).values():
@@ -148,9 +150,10 @@ class SparseEmbeddingTrainer(Trainer):
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.optimizer.step()
-        state.step += 1
+        adam = self.table_optimizer == "adam"
         for path, ids, rows, leaf in gathered:
-            packed_sparse_update(state.packed[path], rows, ids, leaf.grad, state.step,
+            bias_correction = state.scalars.bias_correction(scalars, path) if adam else None
+            packed_sparse_update(state.packed[path], rows, ids, leaf.grad, bias_correction,
                                  lr=self._table_lr, optimizer=self.table_optimizer)
         return loss.detach()
 

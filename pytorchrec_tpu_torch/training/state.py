@@ -10,17 +10,73 @@ step counter, for packed tables the packed
 ``scale`` buffer of the model) their rowwise-Adagrad accumulators.
 
 ``step`` starts at 0 and counts finished train steps, as JAX's
-``state.step``; a step's packed update takes ``step + 1`` (1-based, for
-Adam's bias correction).
+``state.step``; it is the host's count. What a step computes from it (the
+1-based step, Adam's bias corrections, the rounding salts) a step reads from
+its row of ``StepScalars``, which the host fills before each call, so that a
+CUDA graph of the step reads each step's values at replay.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+
+from pytorchrec_tpu_torch.ops.kernels.quantize import table_rounding_salt
+from pytorchrec_tpu_torch.ops.sparse_update import bias_corrections
+
+
+class StepScalars:
+    """The per-step scalars of a train step, laid out as the rows of an
+    int32 ``[K, n]`` buffer, a row a step (the JAX step's traced scalars):
+    column 0 the 1-based step; for each table that ``adam_tables`` names,
+    its two bias corrections ``1 - b1**step`` and ``1 - b2**step`` (f32
+    bits); for each table that ``salted_tables`` names, its rounding salt
+    (uint32 bits) from the state's key ``rng_key``. ``host_rows`` computes
+    each value as the eager step always has (``bias_corrections``, numpy
+    f32; ``table_rounding_salt``), so the device reads the same bits."""
+
+    def __init__(self, adam_tables: Sequence[str] = (), salted_tables: Sequence[str] = (),
+                 rng_key: Optional[np.ndarray] = None):
+        if salted_tables and rng_key is None:
+            raise ValueError("salted tables need the state's rng_key")
+        self.rng_key = rng_key
+        self._bias_col: Dict[str, int] = {}
+        self._salt_col: Dict[str, int] = {}
+        width = 1
+        for path in adam_tables:
+            self._bias_col[path], width = width, width + 2
+        for path in salted_tables:
+            self._salt_col[path], width = width, width + 1
+        self.width = width
+
+    def host_rows(self, first_step: int, k: int) -> np.ndarray:
+        """The rows of steps ``first_step .. first_step + k - 1`` (1-based):
+        ``[k, width]`` int32."""
+        rows = np.zeros((k, self.width), dtype=np.int32)
+        for i in range(k):
+            step = first_step + i
+            rows[i, 0] = step
+            for path, col in self._bias_col.items():
+                rows[i, col:col + 2] = bias_corrections(step).view(np.int32)
+            for path, col in self._salt_col.items():
+                salt = table_rounding_salt(self.rng_key, step, path)
+                rows[i, col] = np.uint32(salt).view(np.int32)
+        return rows
+
+    def bias_correction(self, row: torch.Tensor, path: str) -> torch.Tensor:
+        """A step's ``[2]`` f32 bias corrections of table ``path``, a view of
+        its row."""
+        col = self._bias_col[path]
+        return row[col:col + 2].view(torch.float32)
+
+    def salt(self, row: torch.Tensor, path: str) -> torch.Tensor:
+        """A step's rounding salt of table ``path``: its ``[1]`` int32 word,
+        a view of its row."""
+        col = self._salt_col[path]
+        return row[col:col + 1]
 
 
 @dataclass
@@ -28,6 +84,7 @@ class TrainState:
     optimizer: torch.optim.Optimizer  # over the dense parameters
     rng: torch.Generator  # dropout masks; it drew the initial parameters first
     step: int = 0
+    scalars: StepScalars = field(default_factory=StepScalars)
 
 
 @dataclass

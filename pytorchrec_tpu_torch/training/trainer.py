@@ -1,33 +1,52 @@
 """Trainer (port of ``pytorchrec_tpu/training/trainer.py``): compile,
 init_state, train_step, fit_steps and serving.
 
-``Trainer(model, device=None)`` places the model on the card (or on the CPU
-when asked). ``compile(optimizer, loss, lr, weight_decay)`` picks the dense
-optimizer and the loss; ``init_state(sample_batch, seed)`` draws every
-parameter from a ``torch.Generator`` seeded with ``seed`` (normal(0, 0.01),
-the framework's init) and builds the optimizer; ``train_step(batch)`` runs
-one forward, backward and optimizer step and returns the loss;
-``fit_steps(batches, steps, log_every)`` runs ``steps`` of them and logs the
-loss at the end of each ``log_every`` window. ``make_serving_fn()`` returns
-the scorer ``fn(batch) -> prediction``.
+``Trainer(model, device=None, packed_transfer=None)`` places the model on
+the card (or on the CPU when asked). ``compile(optimizer, loss, lr,
+weight_decay)`` picks the dense optimizer and the loss;
+``init_state(sample_batch, seed)`` draws every parameter from a
+``torch.Generator`` seeded with ``seed`` (normal(0, 0.01), the framework's
+init) and builds the optimizer; ``train_step(batch)`` runs one eager
+forward, backward and optimizer step and returns the loss;
+``fit_steps(batches, steps, log_every, steps_per_call=K)`` runs ``steps`` of
+them and logs the loss at the end of each ``log_every`` window.
+``make_serving_fn()`` returns the scorer ``fn(batch) -> prediction``.
 
-Batches are dicts of numpy arrays or tensors; each step moves them to the
-device (a no-op for tensors already there). Metrics, evaluation, callbacks
-and the host input pipeline come with the fit loop (A7) and raise until
-then. The JAX trainer jits one pure step over a donated state; the port runs
-eagerly and updates the model's parameters in place.
+The JAX trainer never runs a step eagerly: it jits one pure step over a
+donated state, over the packed batch (``packed_transfer``, the default on
+one device: one int32 and one float32 buffer a batch, ``data/packing.py``),
+and with ``steps_per_call = K`` fuses K steps into one device call with
+``lax.scan``. The port's twin is a CUDA graph. On the card ``fit_steps``
+packs each batch on the prefetch thread (``data/prefetch.py``), copies it
+into static device buffers on the compute stream, writes each step's
+scalars (``state.py::StepScalars``) beside it, and replays a graph that
+captured K steps over those buffers (``_StepGraph``): one step of a new
+batch layout first runs eagerly, as a real step (the warm-up: optimizer
+state, cuBLAS handles, kernel attributes), then K steps, or the shorter
+tail, are captured once and replayed. The parameters, optimizer state and
+tables are updated in place, so a replay reads and writes them where the
+capture found them. A capture or a replay that fails raises; nothing
+returns to eager steps. On the CPU the same step bodies run eagerly over
+the same buffers. ``train_step`` stays the eager single step on both.
+
+Batches are dicts of numpy arrays or tensors. Metrics, evaluation and
+callbacks come with the fit loop (A7) and raise until then.
 """
 
 from __future__ import annotations
 
-from itertools import chain
-from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Union
+from itertools import chain, islice
+from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Sequence, Union
 
 import torch
 
+from pytorchrec_tpu_torch.data.packing import BatchPacker, batch_signature
+from pytorchrec_tpu_torch.data.prefetch import PackedBatch, device_put_prefetch
 from pytorchrec_tpu_torch.loss import get_loss
 from pytorchrec_tpu_torch.models.base import RecModel
 from pytorchrec_tpu_torch.ops.embedding import INIT_STD
+from pytorchrec_tpu_torch.ops.kernels import add_tally, capture_tally
+from pytorchrec_tpu_torch.ops.mlp import Dense
 from pytorchrec_tpu_torch.optim import OPTIMIZERS, build_optimizer
 from pytorchrec_tpu_torch.training.callbacks import History
 from pytorchrec_tpu_torch.training.state import TrainState
@@ -35,13 +54,71 @@ from pytorchrec_tpu_torch.utils.device import resolve_device
 
 Batch = Dict[str, Any]
 
+PREFETCH = 2  # batches the prefetch thread packs ahead (the JAX trainer's size)
+
+
+class _StepInputs:
+    """The static device buffers that one batch layout's steps read, ``rows``
+    steps deep: the packed batches ``ints [rows, I]`` and ``floats [rows, F]``
+    (or, unpacked, one batch's tensors by key), the step scalars
+    ``[rows, n]`` and the losses ``[rows]``. Step i of a call reads row i."""
+
+    def __init__(self, rows: int, device: torch.device, scalar_width: int,
+                 packer: Optional[BatchPacker], example: Batch):
+        self.rows, self.packer = rows, packer
+        if packer is not None:
+            self.ints = torch.zeros((rows, packer.int_size), dtype=torch.int32, device=device)
+            self.floats = torch.zeros((rows, packer.float_size), dtype=torch.float32,
+                                      device=device)
+        else:
+            self.batch = {k: torch.zeros_like(torch.as_tensor(v), device=device)
+                          for k, v in example.items()}
+        self.scalars = torch.zeros((rows, scalar_width), dtype=torch.int32, device=device)
+        self.losses = torch.zeros((rows,), dtype=torch.float32, device=device)
+
+    def batch_of(self, i: int) -> Dict[str, torch.Tensor]:
+        if self.packer is None:
+            return self.batch
+        return self.packer.unpack(self.ints[i], self.floats[i])
+
+    def load(self, i: int, item) -> None:
+        """Copy one batch into row i on the current stream: a ``PackedBatch``
+        from the prefetch ring, an ``(ints, floats)`` pair packed by this
+        layout's packer, or (unpacked) a dict."""
+        if isinstance(item, PackedBatch):
+            item.copy_to(self.ints[i], self.floats[i])
+        elif isinstance(item, tuple):
+            ints, floats = item
+            self.ints[i].copy_(ints, non_blocking=True)
+            self.floats[i].copy_(floats, non_blocking=True)
+        else:
+            for key, value in item.items():
+                self.batch[key].copy_(torch.as_tensor(value), non_blocking=True)
+
+
+class _StepGraph:
+    """A CUDA graph of ``n`` steps over static inputs (kept alive with it),
+    and the kernel launches it makes at each replay
+    (``ops/kernels/__init__.py``)."""
+
+    def __init__(self, graph, tally: dict, inputs: _StepInputs):
+        self.graph, self.tally, self.inputs = graph, tally, inputs
+
+    def replay(self) -> None:
+        self.graph.replay()
+        add_tally(self.tally)
+
+
+def _uses_dropout(model: torch.nn.Module) -> bool:
+    return any(isinstance(m, Dense) and m.dropout > 0.0 for m in model.modules())
+
 
 class Trainer:
     """Owns one model on one device, its optimizer and its step counter."""
 
     trains_quantized_tables = False
 
-    def __init__(self, model: RecModel, device=None):
+    def __init__(self, model: RecModel, device=None, packed_transfer: Optional[bool] = None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # everything runs in full f32, as the JAX reference does: no TF32
@@ -49,10 +126,20 @@ class Trainer:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.model = model.to(self.device)
+        # one device: the packed transfer is the default, as in the JAX trainer
+        self.packed_transfer = True if packed_transfer is None else bool(packed_transfer)
         self.state: Optional[TrainState] = None
         self.history: Optional[History] = None
         self.loss_fn: Optional[Callable] = None
         self._compiled = False
+        # every loss of the last fit_steps call, on the device
+        self.step_losses: Optional[torch.Tensor] = None
+        self._packer: Optional[BatchPacker] = None
+        self._layout = None  # the batch signature the inputs and graphs are for
+        self._inputs: Optional[_StepInputs] = None
+        self._graphs: Dict[int, _StepGraph] = {}  # steps a call -> its graph
+        self._warm = False  # a step of the layout ran on the card
+        self._stream: Optional[torch.cuda.Stream] = None  # warm-up and capture
 
     # ------------------------------------------------------------------
     # compile / init
@@ -92,10 +179,11 @@ class Trainer:
         optimizer; the same generator then draws the dropout masks (and, for
         a quantized trainer, its table, which is a buffer). The step
         counter starts at 0. ``sample_batch`` names the tables a batch reads
-        (the sparse trainer's protocol)."""
+        (the sparse trainer's protocol). Captured graphs are dropped."""
         self._assert_compiled()
         if self.model.has_quantized_table and not self.trains_quantized_tables:
             raise ValueError("a quantized table trains under QuantizedEmbeddingTrainer")
+        self._set_layout(None)
         generator = torch.Generator(device=self.device).manual_seed(seed)
         with torch.no_grad():
             for param in self.model.parameters():
@@ -111,42 +199,207 @@ class Trainer:
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                 for k, v in batch.items()}
 
-    def train_step(self, batch: Batch) -> torch.Tensor:
-        """One step of the loss's gradient over every parameter; returns the
-        loss (a device scalar, not synchronised)."""
-        state = self._assert_state()
-        prediction, target = self.model(self._to_device(batch), train=True, generator=state.rng)
+    def _step(self, batch: Dict[str, torch.Tensor], scalars: torch.Tensor) -> torch.Tensor:
+        """One step over a batch on the device and its row of step scalars
+        (``state.py::StepScalars``); returns the loss (a device scalar).
+        Capture-safe: no host sync, no copy from host memory and no host
+        value that changes from step to step, so a CUDA graph replays it.
+        The host's step count is the caller's to advance."""
+        state = self.state
+        prediction, target = self.model(batch, train=True, generator=state.rng)
         loss = self.loss_fn(prediction, target)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.optimizer.step()
-        state.step += 1
         return loss.detach()
 
+    def _write_scalars(self, out: torch.Tensor, first_step: int) -> torch.Tensor:
+        """Fill ``out [k, n]`` with the scalars of steps ``first_step`` on
+        (1-based), computed on the host; on the card an asynchronous copy
+        from pinned memory on the current stream."""
+        rows = torch.from_numpy(self.state.scalars.host_rows(first_step, out.shape[0]))
+        if out.device.type == "cuda":
+            rows = rows.pin_memory()
+        return out.copy_(rows, non_blocking=True)
+
+    def train_step(self, batch: Batch) -> torch.Tensor:
+        """One eager step of the loss's gradient over every parameter;
+        returns the loss (a device scalar, not synchronised)."""
+        state = self._assert_state()
+        scalars = torch.empty((1, state.scalars.width), dtype=torch.int32, device=self.device)
+        loss = self._step(self._to_device(batch), self._write_scalars(scalars, state.step + 1)[0])
+        state.step += 1
+        return loss
+
+    # ------------------------------------------------------------------
+    # fit_steps: packed batches, static buffers, CUDA graphs
+    # ------------------------------------------------------------------
+
+    def batch_packer(self, example: Batch) -> BatchPacker:
+        """The packer of ``example``'s layout, which ``fit_steps`` takes
+        batches packed by (``pack(batch)``: an ``(ints, floats)`` pair, on
+        the host or the device). A new layout drops the captured graphs."""
+        if self._packer is None or self._packer.signature != batch_signature(example):
+            self._set_layout(BatchPacker(example, pin_memory=self.device.type == "cuda"))
+        return self._packer
+
+    def _set_layout(self, packer: Optional[BatchPacker], example: Optional[Batch] = None) -> None:
+        """Adopt a batch layout (a packer, or an unpacked example): drop the
+        static inputs and every graph, and warm up again on the card."""
+        self._packer = packer
+        self._layout = packer.signature if packer is not None else (
+            None if example is None else batch_signature(example))
+        self._unpacked_example = example
+        self._inputs = None
+        self._graphs.clear()
+        self._warm = False
+
+    def _inputs_for(self, item, rows: int) -> _StepInputs:
+        """The static inputs of ``item``'s layout, at least ``rows`` deep
+        (deeper inputs drop the graphs over the old ones)."""
+        if isinstance(item, PackedBatch):
+            if item.packer.signature != self._layout:
+                self._set_layout(item.packer)
+        elif isinstance(item, tuple):
+            if self._packer is None:
+                raise ValueError("a packed batch needs its layout's packer: pass a dict batch "
+                                 "first, or pack with trainer.batch_packer(example)")
+        elif batch_signature(item) != self._layout:  # unpacked
+            self._set_layout(None, item)
+        if self._inputs is None or self._inputs.rows < rows:
+            self._inputs = _StepInputs(rows, self.device, self.state.scalars.width,
+                                       self._packer, self._unpacked_example)
+            self._graphs.clear()
+        return self._inputs
+
+    def _steps(self, inputs: _StepInputs, n: int) -> None:
+        """The body of a call: steps 0..n-1 over the inputs' rows, each loss
+        into its slot. A graph captures exactly this."""
+        for i in range(n):
+            inputs.losses[i].copy_(self._step(inputs.batch_of(i), inputs.scalars[i]))
+
+    def _side_stream(self) -> torch.cuda.Stream:
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return self._stream
+
+    def _warm_up(self, inputs: _StepInputs, n: int) -> None:
+        """A layout's first step (``_call`` runs one) on the card, eagerly,
+        on the stream the captures use."""
+        stream = self._side_stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            self._steps(inputs, n)
+        torch.cuda.current_stream().wait_stream(stream)
+        self._warm = True
+
+    def _capture(self, inputs: _StepInputs, n: int) -> _StepGraph:
+        """Capture n steps over the inputs. The dropout generator is
+        registered with the graph, so each replay draws new masks, as the
+        eager steps would; without that, a model with dropout raises. A
+        capture that fails raises, and PyTorch then leaves the generators it
+        registered (its default CUDA generator among them) in capture mode:
+        the process cannot draw from them again."""
+        graph = torch.cuda.CUDAGraph()
+        register = getattr(graph, "register_generator_state", None)
+        if register is not None:
+            register(self.state.rng)
+        elif _uses_dropout(self.model):
+            raise RuntimeError("this torch cannot register the dropout generator with a CUDA "
+                               "graph: fit_steps on the card takes no dropout here")
+        with capture_tally() as tally:
+            with torch.cuda.graph(graph, stream=self._side_stream(),
+                                  capture_error_mode="thread_local"):
+                self._steps(inputs, n)
+        return _StepGraph(graph, dict(tally), inputs)
+
+    def _run(self, inputs: _StepInputs, n: int) -> None:
+        """n steps over the loaded rows: on the card the replay of their
+        graph (captured at first use), on the CPU the same body eagerly."""
+        state = self.state
+        self._write_scalars(inputs.scalars[:n], state.step + 1)
+        if self.device.type == "cpu":
+            self._steps(inputs, n)
+        elif not self._warm:
+            self._warm_up(inputs, n)
+        else:
+            graph = self._graphs.get(n)
+            if graph is None:
+                graph = self._graphs[n] = self._capture(inputs, n)
+            graph.replay()
+        state.step += n
+
+    def _call(self, items: Iterator, k: int, losses: torch.Tensor) -> int:
+        """Up to k steps over the next batches, as one call: their losses go
+        to ``losses[:n]``; returns n (0 when the batches are spent). On the
+        card a new layout's first step runs alone first (the warm-up), and
+        the rest of the call after it. Each batch is copied in as it comes,
+        which frees its prefetch slot."""
+        first = next(items, None)
+        if first is None:
+            return 0
+        inputs = self._inputs_for(first, k)
+        done, pending = 0, [first]
+        if self.device.type == "cuda" and not self._warm:
+            inputs.load(0, first)
+            self._run(inputs, 1)
+            losses[0].copy_(inputs.losses[0])
+            done, pending = 1, []
+        n = 0
+        for item in chain(pending, islice(items, k - done - len(pending))):
+            if self._inputs_for(item, k) is not inputs:
+                raise ValueError("the batches of one call must share one layout")
+            inputs.load(n, item)
+            n += 1
+        if n:
+            self._run(inputs, n)
+            losses[done:done + n].copy_(inputs.losses[:n])
+        return done + n
+
     def fit_steps(self, batches: Iterable[Batch], steps: int, log_every: int = 100,
-                  callbacks=None, seed: int = 2020) -> History:
-        """``steps`` train steps over ``batches``; ``history["loss"]`` holds
-        the loss at the end of each ``log_every`` window (and of a shorter
-        last one). Without a state, the first batch initialises it."""
+                  callbacks=None, steps_per_call: int = 1, seed: int = 2020) -> History:
+        """``steps`` train steps over ``batches`` (dicts, or ``(ints,
+        floats)`` pairs packed by ``batch_packer``), ``steps_per_call`` of
+        them a call: on the card one replay of a captured graph, on the CPU
+        the same steps eagerly. ``history["loss"]`` holds the loss after the
+        call that ends each ``log_every`` window (and after a shorter last
+        one), as in the JAX trainer; ``step_losses`` every step's loss, on
+        the device. ``steps_per_call > 1`` needs the packed transfer.
+        Without a state, the first batch initialises it."""
         self._assert_compiled()
         if callbacks is not None:
             raise NotImplementedError("callbacks come with the fit loop, not ported yet")
+        if steps_per_call < 1:
+            raise ValueError(f"steps_per_call must be at least 1, got {steps_per_call}")
+        if steps_per_call > 1 and not self.packed_transfer:
+            raise ValueError("steps_per_call > 1 requires packed_transfer")
         iterator = iter(batches)
         if self.state is None:
             first = next(iterator)
             self.init_state(first, seed=seed)
             iterator = chain([first], iterator)
         history = History()
-        window, loss = 0, None
-        for step, batch in enumerate(iterator):
-            if step >= steps:
-                break
-            loss = self.train_step(batch)
-            if (step + 1) % log_every == 0:
-                history.on_epoch_end(window, {"loss": float(loss)})
-                window += 1
-        if loss is not None and steps % log_every:
-            history.on_epoch_end(window, {"loss": float(loss)})
+        losses = torch.zeros((max(steps, 0),), dtype=torch.float32, device=self.device)
+        window = since_log = done = 0
+        items = (device_put_prefetch(iterator, PREFETCH, pin_memory=self.device.type == "cuda")
+                 if self.packed_transfer else iterator)
+        try:
+            while done < steps:
+                n = self._call(items, min(steps_per_call, steps - done), losses[done:])
+                if n == 0:
+                    break
+                done += n
+                since_log += n
+                if since_log >= log_every:
+                    history.on_epoch_end(window, {"loss": float(losses[done - 1])})
+                    since_log = 0
+                    window += 1
+        finally:
+            if self.packed_transfer:
+                items.close()
+        if done and since_log:
+            history.on_epoch_end(window, {"loss": float(losses[done - 1])})
+        self.step_losses = losses[:done]
         self.history = history
         return history
 
