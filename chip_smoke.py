@@ -28,11 +28,15 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    through ``params_from_jax``. It scores requests of 1, 1000, 4096 and 32768
    rows and one candidate request [256, 100], once with the f32 table (the
    packed ``table || moments`` leaf) and once with the int8 packed byte-row
-   table. Launch counts are zeroed just before and read just after; each
-   request must launch the cross kernel once, give finite scores of the right
-   shape and agree with the same model run with the plain cross network on
-   the card and, for the 1000-row request, on the CPU. One more 1-row and
-   one more 32768-row request run under torch.profiler, which prints the
+   table, through ``make_serving_fn``'s captured scorer: a request shape's
+   first request runs eagerly, its second captures a CUDA graph, and the
+   timed requests replay it. Launch counts are zeroed just before and read
+   just after; each request must launch the cross kernel once (a replay
+   through its graph's tally), give finite scores of the right shape and
+   agree with the same model run with the plain cross network on the card
+   (through a scorer made inside the swap, whose eager requests launch no
+   kernel) and, for the 1000-row request, on the CPU. One more 1-row and
+   one more 32768-row replay run under torch.profiler, which prints the
    device time by kernel and copy against the request's wall time;
 5. cross timings: the cross kernel's time at 1, 1000, 4096 and 32768 rows,
    at D=429 and at D=1677, beside its plain version, the per-layer cuBLAS
@@ -88,10 +92,11 @@ Phases; any failure ends the run with a non-zero exit and no result line:
 13. DeepFM serving at the same Criteo width (the FM over 39 field vectors of
    E=16, deep MLP 256-128 over their 624 values, ``deep_head`` with no
    bias), the requests of phase 4, with the f32 tables (both packed leaves,
-   sliced) and with the int8 table beside the f32 linear table; each request
-   launches the FM forward kernel once and its backward never, and agrees
-   with the same model run with the plain FM on the card and, for the
-   1000-row request, on the CPU;
+   sliced) and with the int8 table beside the f32 linear table, captured as
+   in phase 4; each request launches the FM forward kernel once and its
+   backward never, and agrees with the same model run with the plain FM on
+   the card (a scorer made inside the swap) and, for the 1000-row request,
+   on the CPU;
 14. DeepFM f32 training: phase 7 for DeepFM, with two packed tables
    (``unified_emb`` and ``unified_lin``, ``[2.6M, 64]`` each); every step
    launches the FM forward and backward once each and the scan and the
@@ -118,9 +123,10 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    (200, 80)), weights from ``--seed`` in the flax leaf layout through
    ``params_from_jax``: point-wise requests of 1, 1000 and 4096 rows and
    candidate requests ``[1, 100]``, ``[256, 100]`` and ``[1024, 100]``, with
-   the f32 tables and with the int8 item table; each request launches the
-   pooling kernel once and agrees with the same model run with the plain
-   pool on the card and, for ``[256, 100]``, on the CPU;
+   the f32 tables and with the int8 item table, captured as in phase 4;
+   each request launches the pooling kernel once and agrees with the same
+   model run with the plain pool on the card (a scorer made inside the
+   swap) and, for ``[256, 100]``, on the CPU;
 19. DIN f32 training: phase 7 for DIN at batch 4096 (2 candidates, positive
    first, 20 history steps; batches made as ``scripts/din_sparse_ab.py``
    makes them), two packed tables (``[65536, 256]`` and ``[1048576, 256]``):
@@ -150,13 +156,16 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    cut (1M users and 1M items of E=64, towers (256, 128), normalized,
    temperature 0.05), weights from ``--seed`` in the flax leaf layout through
    ``params_from_jax``: the bf16 item index built and timed, fused requests
-   of 1, 256 and 4096 queries at k=100 (each launches B7 once and agrees with
-   the plain version on the card, the 256-query one with the CPU too; their
+   of 1, 256 and 4096 queries at k=100, a CUDA graph each from its second
+   request (each launches B7 once and agrees with the plain version on the
+   card, through a retrieve function made inside the swap, which launches
+   no kernel; the 256-query one with the CPU too; their
    scores are the exact scores of their ids; the 4096-query recall against
    the exact path is at least 0.975), one fused request on an f32 index,
    ``approx=True`` (the exact path), point-wise and candidate scoring through
-   ``make_serving_fn`` (no B7), a profile of the 4096-query request; the same
-   with the int8 item table;
+   ``make_serving_fn`` (no B7), a profile of the 4096-query replay; the same
+   with the int8 item table; the retrieve functions are dropped with the
+   index their graphs hold;
 24. two-tower f32 training: phase 7 for the two-tower model at batch 4096
    (``iid [B, 1]``: 4095 in-batch negatives a row), the softmax loss, lr
    1e-2, two packed ``[1000000, 256]`` f32 tables: every step launches the
@@ -184,8 +193,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    alone;
 28. classic int8 serving: phase 4's requests for DCN-v2 and DeepFM with the
    classic ``unified_q`` int8 ``[2.6M, 16]`` and ``unified_scale`` f32
-   ``[2.6M]`` leaves (``table_packed=False``, the JAX package's default);
-   B8 never launches;
+   ``[2.6M]`` leaves (``table_packed=False``, the JAX package's default),
+   captured and checked against plain as in phase 4; B8 never launches;
 29. classic int8 DCN-v2 training: phase 7 under ``QuantizedEmbeddingTrainer
    (packed_tables=False)`` (dedup of the row grads, rowwise Adagrad, id-keyed
    stochastic requantization through B8's keyed form, scatter-set of q and
@@ -223,18 +232,33 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    clock over 20 steps, the captured ones over batches packed on the
    device; eager, 1 a replay, 4 a replay, 1 a replay, eager) and a
    profiled replay of 4 steps beside a profiled eager step;
+36. captured requests and evaluation, launch counts from zero: every
+   request of phases 4 and 13 for DCN-v2 (f32, int8, classic) and DeepFM
+   f32, and of phase 18 for DIN f32, through the eager model call
+   (``serve.eager``) and through the captured scorer: bit-equal, the host
+   clock's median of 5 each, a profiled replay's device time and a
+   replay's launches (its graph's tally), and the memory the graphs hold;
+   fused retrieval of 1, 256 and 4096 users and the exact 4096-user request
+   the same way (scores and ids bit-equal), with recall@100 of the captured
+   fused request against the captured exact one at least 0.975; then
+   ``predict`` and ``evaluate`` (``ndcg@10``, ``hit@10``, ``auc``,
+   ``logloss``, ``user_sample_n=100``) over 8 DIN batches of 1024
+   leave-one-out rows of 100 candidates: ``predict`` bit-equal to the eager
+   scorer, ``evaluate`` exactly ``MetricList`` of ``predict``'s output,
+   ``streaming=True`` within 1e-4 for AUC and rtol 1e-6 for the others;
 
 then a ``two_tower`` JSON line (ms/step,
 fused and exact ms a request, recall, index build ms), a ``classic_int8``
 line (ms/step of the classic formats, B8's keyed and given-bits times, the
 torch hash's, the dedup's and the update's, phase 32's verdict), a
-``capture`` line (phase 35's times, busy shares and verdicts by path) and a
+``capture`` line (phase 35's times, busy shares and verdicts by path), a
+``capture_requests`` line (phase 36's times, memory and metrics) and a
 ``{"kernels": [...]}`` line with
 every kernel at its main-path shape (``launches``: for B1–B4 the DCN-v2 int8
 training run's, for the FM kernels the DeepFM f32 training run's, for the
 pooling kernel the DIN f32 training run's, for B7 the two-tower serving
 run's, for B8 the DCN-v2 classic training run's; the other paths' counts
-beside). Each path (serving, each training run) zeroes every launch count
+beside, the serving ones from captured requests). Each path (serving, each training run) zeroes every launch count
 just before it and reads them just after.
 The last line is ``{"ok": true, "device": {...}}``.
 Needs one CUDA card; no JAX and nothing of the JAX package is imported.
@@ -323,6 +347,7 @@ from pytorchrec_tpu_torch.serving import retrieval as retrieval_module
 from pytorchrec_tpu_torch.training import QuantizedEmbeddingTrainer, SparseEmbeddingTrainer, Trainer
 from pytorchrec_tpu_torch.training import quantized_trainer as quantized_trainer_module
 from pytorchrec_tpu_torch.training.quantized_trainer import classic_quantized_update
+from pytorchrec_tpu_torch.training.trainer import request_signature
 from pytorchrec_tpu_torch.utils import params_from_jax
 from pytorchrec_tpu_torch.utils.rng import prng_key, split
 
@@ -994,7 +1019,8 @@ def profile_call(fn, label: str, launches=None, top: int = 6, host_top: int = 0)
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    check_launches(f"{label}: profiled call", before, launches or {cross_network: 1})
+    check_launches(f"{label}: profiled call", before,
+                   {cross_network: 1} if launches is None else launches)
     # the device's own events (kernels, copies); CPU ops repeat their kernels' time
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
@@ -1022,9 +1048,15 @@ def profile_call(fn, label: str, launches=None, top: int = 6, host_top: int = 0)
 
 def serve_table(spec: ModelSpec, table: str, requests: list, seed: int,
                 profiled=PROFILED_SHAPES) -> int:
-    """Phases 4, 13, 18 and 28 for one model and table format: every request must
-    launch the model's forward kernel once and no other kernel. Returns the
-    number of requests served."""
+    """Phases 4, 13, 18, 28 and 34 for one model and table format: every
+    request must launch the model's forward kernel once and no other kernel.
+    Requests go through ``make_serving_fn``'s captured scorer: each request
+    shape's first request runs eagerly, its second captures a CUDA graph and
+    replays it, and the timed and profiled requests are replays. The plain
+    comparison scores through a second scorer made inside the swap: its one
+    request of each shape runs eagerly, so the plain version runs, and no
+    kernel counter may move (a captured graph would ignore the swap).
+    Returns the number of requests served with the kernel."""
     tag = f"[{spec.name} {table}]"
     kernel = spec.forward_kernel
     rng = np.random.default_rng(seed + (1 if table == "f32" else 2))
@@ -1035,15 +1067,16 @@ def serve_table(spec: ModelSpec, table: str, requests: list, seed: int,
     big = functools.reduce(getattr, path.split("/"), model)
     print(f"{tag} table {path} {big.nbytes / 1e6:.1f} MB on the card")
 
-    def request(label, req):
+    def request(label, req, fn=serve, want=None):
         before = counts()
-        out = serve(req)
+        out = fn(req)
         torch.cuda.synchronize()
-        check_launches(f"{tag} {label}", before, {kernel: 1})
+        check_launches(f"{tag} {label}", before, {kernel: 1} if want is None else want)
         return out
 
-    for name, req, _ in requests:  # warm-up: cuBLAS handles and heuristics
+    for name, req, _ in requests:  # warm-up (eager), then the capture and its replay
         request(f"warm-up {name}", req)
+        request(f"capture {name}", req)
 
     scores = {}
     for name, req, shape in requests:
@@ -1059,24 +1092,25 @@ def serve_table(spec: ModelSpec, table: str, requests: list, seed: int,
         ms = 1e3 * float(np.median(times))
         examples = int(np.prod(shape))
         print(f"{tag} {name:18s} median {ms:8.3f} ms  min {1e3 * min(times):8.3f} ms  "
-              f"{examples / (ms / 1e3):12.0f} ex/s  (host clock, {REPEATS} requests)")
+              f"{examples / (ms / 1e3):12.0f} ex/s  (host clock, {REPEATS} captured requests)")
 
     for name, req, shape in requests:
         if shape in profiled:
-            profile_call(lambda: serve(req), f"{tag} {name}", {kernel: 1})
+            profile_call(lambda: serve(req), f"{tag} {name} (replay)", {kernel: 1})
 
     with spec.plain_forward(model):
+        plain = Trainer(model).make_serving_fn()  # its first request of a shape runs eagerly
         for name, req, _ in requests:
-            err = close(scores[name], serve(req))
+            err = close(scores[name], request(f"{name} plain", req, plain, {}))
             print(f"{tag} {name:18s} kernel vs plain {kernel.__name__} on the card: "
-                  f"max abs err {err:.3e}")
+                  f"max abs err {err:.3e} (no kernel launched in the plain run)")
 
     cpu_model = params_from_jax(leaves, spec.make(table, "cpu", seed))
     name, req, _ = requests[spec.cpu_request]
     want = Trainer(cpu_model, device="cpu").make_serving_fn()(req)
     err = close(scores[name].cpu(), want)
     print(f"{tag} {name:18s} card vs CPU (plain) port: max abs err {err:.3e}")
-    return (1 + REPEATS) * len(requests) + sum(shape in profiled for _, _, shape in requests)
+    return (2 + REPEATS) * len(requests) + sum(shape in profiled for _, _, shape in requests)
 
 
 def time_cuda(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -2283,7 +2317,13 @@ def serve_two_tower(seed: int) -> dict:
     4096-query request's recall against the exact path is at least 0.975.
     Then ``approx=True`` (the exact path), point-wise and candidate scoring
     through ``make_serving_fn`` (no B7), and a profile of the 4096-query
-    request. The caller zeroes the counts. Returns the measurements."""
+    request. Each retrieve function captures a CUDA graph a request shape
+    at its second request and replays it after: the warm-up runs each
+    request twice, and the timed and profiled requests are replays. The
+    plain comparisons run through a retrieve function made inside the swap,
+    whose first request of a shape runs eagerly (the plain version), with no
+    kernel launched. The caller zeroes the counts. Returns the
+    measurements."""
     out = {"fused_ms": {}, "recall": {}, "index_build_ms": {}, "fused_calls": 0}
     rng = np.random.default_rng(seed + 9)
     theory = 1 - (TT_K - 1) / (2 * -(-TT_ITEMS // (DEFAULT_TC * DEFAULT_GROUP)) * LANES)
@@ -2304,13 +2344,15 @@ def serve_two_tower(seed: int) -> dict:
               f"{tuple(index.shape)}, {index.nbytes / 1e6:.1f} MB, {build[0]:.1f} ms (first), "
               f"{build[1]:.1f} ms")
         fused = make_retrieve_fn(model, approx="fused")
+        fused32 = make_retrieve_fn(model, approx="fused")  # the f32 index's graphs
 
         def request(label, n, fn=fused, idx=index):
             before = counts()
             result = fn(idx, requests[n], TT_K)
             torch.cuda.synchronize()
-            check_launches(f"{tag} {label}", before, {bin_max_scores: 1} if fn is fused else {})
-            out["fused_calls"] += fn is fused
+            fused_path = fn is fused or fn is fused32
+            check_launches(f"{tag} {label}", before, {bin_max_scores: 1} if fused_path else {})
+            out["fused_calls"] += fused_path
             scores, ids = result
             if (tuple(ids.shape) != (n, TT_K) or not torch.isfinite(scores).all()
                     or int(ids.min()) < 0 or int(ids.max()) >= TT_ITEMS):
@@ -2320,6 +2362,7 @@ def serve_two_tower(seed: int) -> dict:
         results = {}
         for n in TT_REQUESTS:
             request(f"warm-up {n}", n)
+            request(f"capture {n}", n)
             times = []
             for _ in range(REPEATS):
                 t0 = time.perf_counter()
@@ -2328,11 +2371,18 @@ def serve_two_tower(seed: int) -> dict:
             out["fused_ms"][f"{table} {n}"] = float(np.median(times))
             print(f"{tag} fused request of {n:4d} queries, k={TT_K}: median "
                   f"{np.median(times):8.3f} ms, min {min(times):8.3f} ms (host clock, {REPEATS} "
-                  f"requests)")
-        with swapped(retrieval_module, "bin_max_scores", bin_max_scores_plain):
-            for n in TT_REQUESTS:
-                retrieval_agree(f"{tag} fused {n} queries, kernel vs plain on the card",
-                                results[n], fused(index, requests[n], TT_K))
+                  f"captured requests)")
+
+        def plain_request(label, n, idx):
+            """A fused request through the plain bin max: a retrieve function
+            made inside the swap, whose first request of a shape is eager."""
+            with swapped(retrieval_module, "bin_max_scores", bin_max_scores_plain):
+                return request(label, n, fn=make_retrieve_fn(model, approx="fused"), idx=idx)
+
+        for n in TT_REQUESTS:
+            retrieval_agree(f"{tag} fused {n} queries, kernel vs plain on the card (no kernel "
+                            f"launched in the plain run)", results[n],
+                            plain_request(f"plain {n}", n, index))
         for n in TT_REQUESTS:
             scores_exact(f"{tag} fused {n} queries", model, index, requests[n], *results[n])
 
@@ -2367,12 +2417,12 @@ def serve_two_tower(seed: int) -> dict:
             del cpu_model
             index32 = build_item_index(model, TT_ITEMS, batch_size=TT_INDEX_BATCH,
                                        dtype=torch.float32)
-            result32 = request("fused 256 queries, f32 index", 256, idx=index32)
+            result32 = request("fused 256 queries, f32 index", 256, fn=fused32, idx=index32)
             scores_exact(f"{tag} fused 256 queries on the f32 index", model, index32,
                          requests[256], *result32)
-            with swapped(retrieval_module, "bin_max_scores", bin_max_scores_plain):
-                retrieval_agree(f"{tag} fused 256 queries on the f32 index, kernel vs plain",
-                                result32, fused(index32, requests[256], TT_K))
+            retrieval_agree(f"{tag} fused 256 queries on the f32 index, kernel vs plain",
+                            result32, plain_request("plain 256, f32 index", 256, index32))
+            fused32.graphs.clear()  # its graphs hold index32
             del index32
             profile_call(lambda: fused(index, requests[4096], TT_K),
                          f"{tag} fused 4096-query request", {bin_max_scores: 1}, top=8)
@@ -2390,7 +2440,8 @@ def serve_two_tower(seed: int) -> dict:
                 raise AssertionError(f"{tag} make_serving_fn {shape}: {tuple(got.shape)}")
         print(f"{tag} make_serving_fn point-wise [1|1000|4096] and candidates [256, 100]: finite "
               f"scores, no B7 launch")
-        del model, index, leaves
+        # the retrieve functions' graphs hold the 256 MB index: drop them too
+        del model, index, leaves, fused, exact, fused32
         torch.cuda.empty_cache()
     return out
 
@@ -2868,6 +2919,289 @@ def capture_phase(rng: np.random.Generator, seed: int) -> dict:
     return capture
 
 
+# phase 36: captured requests against eager ones, and evaluation on the card
+REQUEST_PATHS = ((DCNV2_SPEC, "f32"), (DCNV2_SPEC, "int8"), (DCNV2_SPEC, "classic"),
+                 (DEEPFM_SPEC, "f32"), (DIN_SPEC, "f32"))
+EVAL_BATCHES, EVAL_ROWS = 8, 1024  # DIN leave-one-out rows of DIN_LOO candidates
+EVAL_METRICS = ("ndcg@10", "hit@10", "auc", "logloss")
+STREAMING_AUC_BOUND = 1e-4  # the JAX docstring's bound for 16384 bins on spread scores
+
+
+REPLAY_TIMED = 20  # replays timed by CUDA events for a request's device time
+
+
+def memory_mb() -> dict:
+    """The card's memory in MB once the caching allocator has returned every
+    block no tensor or graph holds: what the live tensors and the graphs'
+    pools keep."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"allocated_mb": torch.cuda.memory_allocated() / 1e6,
+            "reserved_mb": torch.cuda.memory_reserved() / 1e6}
+
+
+def replay_device_ms(cache, key, iters: int = REPLAY_TIMED) -> float:
+    """A request's device time: CUDA events around ``iters`` replays of its
+    graph queued behind a device spin (``time_cuda``), without the request's
+    copies. Each replay adds its graph's tally to the counts."""
+    return time_cuda(lambda: cache.replay(key), iters=iters, warmup=1)
+
+
+def host_times(fn, label: str, want: dict, repeats: int = REPEATS):
+    """``repeats`` calls of ``fn`` on the host clock, each to a synchronize,
+    each launching what ``want`` says: (median ms, the last result)."""
+    times, out = [], None
+    for _ in range(repeats):
+        before = counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        check_launches(label, before, want)
+    return float(np.median(times)), out
+
+
+def results_equal(label: str, got, want) -> None:
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    for g, w in pairs:
+        if g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"{label}: the captured request is not bit-equal to the eager "
+                                 f"one ({int((g != w).sum())} values differ)")
+
+
+def captured_requests(spec: ModelSpec, table: str, requests: list, seed: int) -> tuple:
+    """Phase 36 for one model and table: each request through the eager
+    model call (``serve.eager``) and through the captured scorer, on the
+    host clock (median of ``REPEATS`` each, after a warm-up), bit-equal; a
+    replay's device time (CUDA events) and a profiled replay, and the
+    launches of a replay (its graph's tally); the memory the graphs hold.
+    Returns (a row a request, kernel launches made)."""
+    tag = f"[capture serving {spec.name} {table}]"
+    kernel = spec.forward_kernel
+    leaves = spec.leaves(np.random.default_rng(seed + 30), table)
+    model = params_from_jax(leaves, spec.make(table, "cuda", seed))
+    del leaves
+    trainer = Trainer(model)
+    serve = trainer.make_serving_fn()
+    base = memory_mb()
+    torch.cuda.reset_peak_memory_stats()
+    rows, launched = {}, 0
+    for name, req, shape in requests:
+        one = {kernel: 1}
+        serve.eager(req)  # cuBLAS handles and heuristics for the shape
+        eager_ms, want = host_times(lambda: serve.eager(req), f"{tag} {name} eager", one)
+        serve(req)  # the warm-up, then the capture and its first replay
+        serve(req)
+        captured_ms, got = host_times(lambda: serve(req), f"{tag} {name} captured", one)
+        results_equal(f"{tag} {name}", got, want)
+        signature = request_signature(req)
+        tally = trainer._scores.tally(signature)
+        if tally != one:
+            raise AssertionError(f"{tag} {name}: a replay launches {names(tally)}")
+        device = replay_device_ms(trainer._scores, signature)
+        wall, profiled = profile_call(lambda: serve(req), f"{tag} {name} replay", one,
+                                      host_top=6 if shape == (1,) else 0)
+        launched += 2 * REPEATS + 4 + REPLAY_TIMED + 1
+        rows[name] = {"eager_ms": eager_ms, "captured_ms": captured_ms, "device_ms": device,
+                      "profiled_wall_ms": wall, "profiled_device_ms": profiled,
+                      "replay_launches": names(tally), "examples": int(np.prod(shape))}
+        print(f"{tag} {name:18s} eager {eager_ms:8.3f} ms, captured {captured_ms:8.3f} ms "
+              f"(host clock, median of {REPEATS}); a replay's device time {device:.3f} ms (CUDA "
+              f"events); bit-equal; a replay launches {names(tally)}")
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    graphs = memory_mb()
+    held = graphs["reserved_mb"] - base["reserved_mb"]
+    print(f"{tag} the {trainer._scores.graphs()} graphs (one pool) and their static inputs hold "
+          f"{held:.1f} MB of the card ({base['reserved_mb']:.1f} MB before the first request, "
+          f"{graphs['reserved_mb']:.1f} after the last); peak allocated over the requests "
+          f"{peak:.1f} MB")
+    rows["memory"] = {"before": base, "after": graphs, "graphs_hold_mb": held,
+                      "peak_allocated_mb": peak}
+    del serve, trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, launched
+
+
+def captured_retrieval(seed: int) -> tuple:
+    """Phase 36 for the two-tower model: fused requests of 1, 256 and 4096
+    users at k=100 over the 1M-item bf16 index, eager against captured
+    (host clock, median of ``REPEATS``), scores and ids bit-equal; a
+    profiled replay each; the exact 4096-user request the same way, and
+    recall@100 of the captured fused request against it. Returns (rows,
+    B7 launches made)."""
+    tag = "[capture retrieval two_tower f32]"
+    rng = np.random.default_rng(seed + 31)
+    model = params_from_jax(tt_leaves(rng, "f32"), make_two_tower("f32", "cuda", seed))
+    index = build_item_index(model, TT_ITEMS, batch_size=TT_INDEX_BATCH)
+    base = memory_mb()
+    torch.cuda.reset_peak_memory_stats()
+    fused, exact = make_retrieve_fn(model, approx="fused"), make_retrieve_fn(model)
+    rows, launched = {}, 0
+    paths = [(f"fused {n}", fused, n) for n in TT_REQUESTS] + [("exact 4096", exact, 4096)]
+    results = {}
+    for name, fn, n in paths:
+        u_ids = rng.integers(0, TT_USERS, size=n).astype(np.int32) if name != "exact 4096" \
+            else results["fused 4096"][0]
+        one = {bin_max_scores: 1} if fn is fused else {}
+        fn.eager(index, u_ids, TT_K)
+        eager_ms, want = host_times(lambda: fn.eager(index, u_ids, TT_K), f"{tag} {name} eager",
+                                    one)
+        fn(index, u_ids, TT_K)
+        fn(index, u_ids, TT_K)
+        captured_ms, got = host_times(lambda: fn(index, u_ids, TT_K), f"{tag} {name} captured",
+                                      one)
+        results_equal(f"{tag} {name}", got, want)
+        key = (id(index), (n,), TT_K)
+        tally = fn.graphs.tally(key)
+        if tally != one:
+            raise AssertionError(f"{tag} {name}: a replay launches {names(tally)}")
+        iters = REPLAY_TIMED if fn is fused else 3
+        device = replay_device_ms(fn.graphs, key, iters)
+        wall, profiled = profile_call(lambda: fn(index, u_ids, TT_K), f"{tag} {name} replay",
+                                      one, top=8)
+        launched += (2 * REPEATS + 4 + iters + 1) * (fn is fused)
+        results[name] = (u_ids, got)
+        rows[name] = {"eager_ms": eager_ms, "captured_ms": captured_ms, "device_ms": device,
+                      "profiled_wall_ms": wall, "profiled_device_ms": profiled,
+                      "replay_launches": names(tally)}
+        print(f"{tag} {name:11s} eager {eager_ms:8.3f} ms, captured {captured_ms:8.3f} ms (host "
+              f"clock, median of {REPEATS}); a replay's device time {device:.3f} ms (CUDA "
+              f"events); scores and ids bit-equal")
+    recall = recall_at_k(results["fused 4096"][1][1], results["exact 4096"][1][1])
+    if recall < TT_RECALL_MIN:
+        raise AssertionError(f"{tag} recall@{TT_K} {recall:.5f} below {TT_RECALL_MIN}")
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    graphs = memory_mb()
+    held = {"fused_and_exact": graphs["reserved_mb"] - base["reserved_mb"]}
+    exact.graphs.clear()
+    held["fused"] = memory_mb()["reserved_mb"] - base["reserved_mb"]
+    rows.update(recall=recall, memory={"index_mb": index.nbytes / 1e6, "before": base,
+                                       "after": graphs, "graphs_hold_mb": held,
+                                       "peak_allocated_mb": peak})
+    print(f"{tag} recall@{TT_K} of the captured fused 4096-user request against the captured "
+          f"exact one: {recall:.5f}; the graphs (fused: 3, one pool; exact: 1) hold "
+          f"{held['fused_and_exact']:.1f} MB of the card beside the {index.nbytes / 1e6:.1f} MB "
+          f"index they keep alive ({held['fused']:.1f} MB the fused ones alone); peak "
+          f"allocated over the requests {peak:.1f} MB")
+    del fused, exact, index, model, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, launched
+
+
+class ArrayReader:
+    """The reader protocol ``evaluate`` and ``predict`` read: one split of
+    columns of numpy arrays."""
+
+    def __init__(self, split: dict):
+        self.split = split
+
+    def get_dataset_size(self, split: str) -> int:
+        return len(self.split["uid"])
+
+    def get_batch(self, split: str, indices) -> dict:
+        return {k: v[indices] for k, v in self.split.items()}
+
+
+def spread_din_leaves(rng: np.random.Generator) -> dict:
+    """``din_leaves`` with the MLP's and the head's kernels N(0, 2 / fan_in):
+    at N(0, 0.01) every score lies within 1e-3 of 0, so every sigmoid falls
+    in one or two of the 16384 bins of the streaming AUC, which then says
+    0.5 whatever the order; the JAX docstring's 1e-4 holds for scores that
+    spread."""
+    leaves = din_leaves(rng, "f32")
+    for path, value in leaves.items():
+        if path.startswith(("mlp/", "head/")) and path.endswith("kernel"):
+            leaves[path] = he_leaf(rng, *value.shape)
+    return leaves
+
+
+def captured_evaluation(seed: int) -> tuple:
+    """Phase 36's evaluation: ``predict`` and ``evaluate`` on the card over
+    ``EVAL_BATCHES`` DIN batches of ``EVAL_ROWS`` leave-one-out rows of 100
+    candidates at the full DIN width. ``predict`` bit-equal to the eager
+    scorer on those batches; ``evaluate`` exactly ``MetricList`` of
+    ``predict``'s output; ``streaming=True`` within ``STREAMING_AUC_BOUND``
+    for AUC and rtol 1e-6 for NDCG, Hit and logloss. Returns (results, B5
+    launches made)."""
+    tag = "[capture evaluate din f32]"
+    rng = np.random.default_rng(seed + 32)
+    model = params_from_jax(spread_din_leaves(rng), make_din("f32", "cuda", seed))
+    rows = EVAL_BATCHES * EVAL_ROWS
+    split = make_din_batch(rng, rows)
+    del split["label"]
+    split["pos_his"][np.arange(DIN_STEPS)[None, :] >= split["pos_his_len"][:, None]] = 0
+    split["iid"] = rng.integers(0, DIN_ITEMS, size=(rows, DIN_LOO)).astype(np.int32)
+    reader = ArrayReader(split)
+    trainer = Trainer(model)
+    trainer.compile(metrics=EVAL_METRICS, user_sample_n=DIN_LOO)
+    kernel = {din_attention_pool: EVAL_BATCHES}
+    _, predictions = host_times(lambda: trainer.predict(reader, batch_size=EVAL_ROWS),
+                                f"{tag} predict, the first (warm-up, capture)", kernel, 1)
+    predict_ms, predictions = host_times(lambda: trainer.predict(reader, batch_size=EVAL_ROWS),
+                                         f"{tag} predict", kernel, 3)
+    serve = trainer.make_serving_fn()
+    want = np.concatenate([serve.eager(reader.get_batch("test", np.arange(s, s + EVAL_ROWS)))
+                           .cpu().numpy() for s in range(0, rows, EVAL_ROWS)])
+    if predictions.shape != (rows, DIN_LOO) or not np.array_equal(predictions, want):
+        raise AssertionError(f"{tag} predict is not bit-equal to the eager scorer")
+    targets = np.zeros_like(predictions)
+    targets[:, 0] = 1.0
+    evaluate_ms, logs = host_times(lambda: trainer.evaluate(reader, batch_size=EVAL_ROWS,
+                                                            verbose=0),
+                                   f"{tag} evaluate", kernel, 1)
+    exact = trainer.metrics(predictions, targets)
+    if logs != exact:
+        raise AssertionError(f"{tag} evaluate {logs} is not MetricList of predict's output "
+                             f"{exact}")
+    streaming_ms, streamed = host_times(
+        lambda: trainer.evaluate(reader, batch_size=EVAL_ROWS, verbose=0, streaming=True),
+        f"{tag} evaluate(streaming=True)", kernel, 1)
+    for name, value in exact.items():
+        err = abs(streamed[name] - value)
+        bound = STREAMING_AUC_BOUND if name == "auc" else 1e-6 * abs(value)
+        if not err <= bound:
+            raise AssertionError(f"{tag} streaming {name} {streamed[name]} against {value}: "
+                                 f"{err:.3e} over {bound:.1e}")
+    spread = float(np.std(predictions))
+    print(f"{tag} predict over {EVAL_BATCHES} x [{EVAL_ROWS}, {DIN_LOO}]: {predict_ms:.3f} ms "
+          f"(host clock, median of 3), {rows / (predict_ms / 1e3):.0f} rows/s, "
+          f"{rows * DIN_LOO / (predict_ms / 1e3):.0f} scored candidates/s; bit-equal to the "
+          f"eager scorer; score std {spread:.3f}")
+    print(f"{tag} evaluate {evaluate_ms:.3f} ms = MetricList of predict's output exactly: "
+          f"{logs}; streaming {streaming_ms:.3f} ms: {streamed}")
+    out = {"predict_ms": predict_ms, "predict_rows_per_s": rows / (predict_ms / 1e3),
+           "predict_candidates_per_s": rows * DIN_LOO / (predict_ms / 1e3),
+           "evaluate_ms": evaluate_ms, "streaming_ms": streaming_ms, "metrics": logs,
+           "streaming": streamed, "rows": rows, "candidates": DIN_LOO}
+    del trainer, model, serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, (1 + 3 + 1 + 1) * EVAL_BATCHES + EVAL_BATCHES
+
+
+def request_capture_phase(requests: list, din_requests: list, seed: int) -> dict:
+    """Phase 36: captured requests against eager ones for every serving
+    path, then evaluation on the card; launch counts from zero, read at
+    the end."""
+    zero_counts()
+    want = {}
+    out = {}
+    for spec, table in REQUEST_PATHS:
+        rows, n = captured_requests(spec, table, din_requests if spec is DIN_SPEC else requests,
+                                    seed)
+        out[f"{spec.name}_{table}"] = rows
+        want[spec.forward_kernel] = want.get(spec.forward_kernel, 0) + n
+    out["two_tower_f32"], n = captured_retrieval(seed)
+    want[bin_max_scores] = n
+    out["evaluate_din_f32"], n = captured_evaluation(seed)
+    want[din_attention_pool] += n
+    check_launches("phase 36", {k: 0 for k in ALL_KERNELS}, want)
+    print(f"phase 36: launches {names(counts())}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3163,6 +3497,10 @@ def main() -> int:
     # 35. captured steps against eager ones, with launch counts from zero
     capture = capture_phase(rng, args.seed)
 
+    # 36. captured requests against eager ones, and evaluation, with launch
+    # counts from zero
+    requests_capture = request_capture_phase(requests, din_requests, args.seed)
+
     n_scan = TRAIN_BATCH * N_SPARSE
     vocab_rows = N_SPARSE * VOCAB
     fm_shape = f"[{TRAIN_BATCH}, {FM_FIELDS}, {EMB}] f32"
@@ -3300,6 +3638,7 @@ def main() -> int:
         **classic_parts, "served": classic_served,
         "classic_vs_packed": classic_vs_packed}}))
     print(json.dumps({"capture": capture}))
+    print(json.dumps({"capture_requests": requests_capture}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

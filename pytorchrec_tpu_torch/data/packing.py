@@ -75,9 +75,16 @@ class BatchPacker:
         int32, float64 rounds to float32)."""
         ints, floats = self.empty() if out is None else out
         for slots, buffer in ((self.int_slots, ints), (self.float_slots, floats)):
+            # host buffers take numpy columns through a numpy view: one numpy
+            # assignment a column instead of four torch calls
+            view = buffer.numpy() if buffer.device.type == "cpu" else None
             for slot in slots:
-                value = torch.as_tensor(batch[slot.key])
-                buffer[slot.offset:slot.offset + slot.size].copy_(value.reshape(-1))
+                value = batch[slot.key]
+                if view is not None and not isinstance(value, torch.Tensor):
+                    view[slot.offset:slot.offset + slot.size] = np.asarray(value).reshape(-1)
+                else:
+                    value = torch.as_tensor(value)
+                    buffer[slot.offset:slot.offset + slot.size].copy_(value.reshape(-1))
         return ints, floats
 
     def unpack(self, ints: torch.Tensor, floats: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -21,6 +21,16 @@ bf16 by default), and ``make_retrieve_fn`` answers queries against it:
 Every top-k puts equal scores at the lower column first, as ``lax.top_k``
 does (``top_k``). Returned ids are int32, as in JAX. The corpus-sharded
 functions come with multi-device serving.
+
+JAX jits the user tower and ``_fused_topk`` / ``_topk_scores`` with ``k``
+static. The port's twin is one CUDA graph per ``(item_index, B, k)``
+(``utils/graphs.py``): the user tower, then B7, the temperature, the pad-bin
+mask and the top-k (or the exact chunked path), over a static buffer of the
+query ids. The first call of a key runs eagerly, the second captures, later
+ones replay; the scores and ids are copied out. A graph reads the index
+tensor it was captured with and keeps it alive (``retrieve.graphs.clear()``
+lets it go); another index tensor gets graphs of its own.
+``retrieve.eager(item_index, u_ids, k)`` runs the same calls eagerly.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from pytorchrec_tpu_torch.ops.kernels.retrieval_topk import bin_max_scores, ordered_scores
+from pytorchrec_tpu_torch.utils.graphs import GraphCache, StaticInputs
 
 Retrieve = Callable[[torch.Tensor, object, int], Tuple[torch.Tensor, torch.Tensor]]
 
@@ -90,19 +101,32 @@ def make_retrieve_fn(model, temperature: Optional[float] = None, chunk_items: in
     scale = temperature if temperature is not None else (
         model.temperature if model.normalize else None)
     device = _device_of(model)
+    graphs = GraphCache(device)
 
-    def user_tower(u_ids) -> torch.Tensor:
-        return model.user_vectors(torch.as_tensor(u_ids).to(device))
+    def scores(item_index, u_ids, k):
+        u_vec = model.user_vectors(u_ids)
+        if approx == "fused":
+            return _fused_topk(u_vec, item_index, k, scale, fused_group)
+        return _topk_scores(u_vec, item_index, k, scale, chunk_items)
 
-    if approx == "fused":
-        def retrieve(item_index, u_ids, k):
-            with torch.inference_mode():
-                return _fused_topk(user_tower(u_ids), item_index, k, scale, fused_group)
-        return retrieve
+    def inputs(item_index, shape, k) -> StaticInputs:
+        ids = StaticInputs([torch.zeros(shape, dtype=torch.int64, device=device)],
+                           lambda u_ids, out: out[0].copy_(u_ids))
+        ids.index, ids.k = item_index, k  # the graph holds the index alive
+        return ids
 
     def retrieve(item_index, u_ids, k):
+        u_ids = torch.as_tensor(u_ids)
+        key = (id(item_index), tuple(u_ids.shape), int(k))
+        return graphs.run(key, lambda ids: ids.load(u_ids, (u_ids,)),
+                          lambda: inputs(item_index, u_ids.shape, int(k)),
+                          lambda ids: scores(ids.index, ids.buffers[0], ids.k))
+
+    def eager(item_index, u_ids, k):
         with torch.inference_mode():
-            return _topk_scores(user_tower(u_ids), item_index, k, scale, chunk_items)
+            return scores(item_index, torch.as_tensor(u_ids).to(device), k)
+
+    retrieve.eager, retrieve.graphs = eager, graphs
     return retrieve
 
 

@@ -10,7 +10,9 @@ init) and builds the optimizer; ``train_step(batch)`` runs one eager
 forward, backward and optimizer step and returns the loss;
 ``fit_steps(batches, steps, log_every, steps_per_call=K)`` runs ``steps`` of
 them and logs the loss at the end of each ``log_every`` window.
-``make_serving_fn()`` returns the scorer ``fn(batch) -> prediction``.
+``make_serving_fn()`` returns the scorer ``fn(batch) -> prediction``;
+``evaluate(reader, split, ...)`` the metrics chosen at ``compile`` over a
+split, and ``predict(reader, split, ...)`` its predictions.
 
 The JAX trainer never runs a step eagerly: it jits one pure step over a
 donated state, over the packed batch (``packed_transfer``, the default on
@@ -29,28 +31,44 @@ capture found them. A capture or a replay that fails raises; nothing
 returns to eager steps. On the CPU the same step bodies run eagerly over
 the same buffers. ``train_step`` stays the eager single step on both.
 
-Batches are dicts of numpy arrays or tensors. Metrics, evaluation and
-callbacks come with the fit loop (A7) and raise until then.
+Scoring is the JAX trainer's jitted ``_eval_step`` and ``make_serving_fn``:
+``model(batch, train=False)`` under ``torch.inference_mode()``, one CUDA
+graph a request signature (keys, shapes and dtypes, ``request_signature``)
+over static inputs that hold the packed batch (``utils/graphs.py``): the
+first request of a signature runs eagerly, the second captures, and every
+later one replays. The prediction (and the target, where the batch has a
+label) is copied out before it is returned. The tables that training writes
+in place are what a replay reads, so a graph scores the current state;
+``init_state`` and a new training layout drop the graphs. ``serve.eager``
+(on ``make_serving_fn``'s scorer) runs the same model call eagerly, without
+static inputs, for comparison.
+
+Batches are dicts of numpy arrays or tensors. The fit loop and its
+callbacks come with A3 and raise until then.
 """
 
 from __future__ import annotations
 
 from itertools import chain, islice
-from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Sequence, Union
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
+from pytorchrec_tpu_torch.data.loader import eval_batches
 from pytorchrec_tpu_torch.data.packing import BatchPacker, batch_signature
 from pytorchrec_tpu_torch.data.prefetch import PackedBatch, device_put_prefetch
 from pytorchrec_tpu_torch.loss import get_loss
+from pytorchrec_tpu_torch.metric import MetricList
 from pytorchrec_tpu_torch.models.base import RecModel
 from pytorchrec_tpu_torch.ops.embedding import INIT_STD
 from pytorchrec_tpu_torch.ops.kernels import add_tally, capture_tally
 from pytorchrec_tpu_torch.ops.mlp import Dense
 from pytorchrec_tpu_torch.optim import OPTIMIZERS, build_optimizer
-from pytorchrec_tpu_torch.training.callbacks import History
+from pytorchrec_tpu_torch.training.callbacks import Callback, CallbackList, History
 from pytorchrec_tpu_torch.training.state import TrainState
 from pytorchrec_tpu_torch.utils.device import resolve_device
+from pytorchrec_tpu_torch.utils.graphs import GraphCache, StaticInputs
 
 Batch = Dict[str, Any]
 
@@ -109,6 +127,43 @@ class _StepGraph:
         add_tally(self.tally)
 
 
+def request_signature(batch: Batch) -> tuple:
+    """What keys a scorer's graph: each key's shape and dtype, in sorted key
+    order (a labelled batch and an unlabelled one differ by the label)."""
+    out = []
+    for key in sorted(batch):
+        value = batch[key]
+        if isinstance(value, torch.Tensor):
+            out.append((key, tuple(value.shape), str(value.dtype)))
+        else:
+            array = np.asarray(value)
+            out.append((key, array.shape, str(array.dtype)))
+    return tuple(out)
+
+
+def _score_inputs(example: Batch, device: torch.device, packed: bool) -> StaticInputs:
+    """Static device inputs of ``example``'s signature: the packed ``(ints,
+    floats)`` pair of its ``BatchPacker`` (``inputs.batch``: the views the
+    model reads), or one tensor a key."""
+    if packed:
+        packer = BatchPacker(example)
+        buffers = (torch.zeros(packer.int_size, dtype=torch.int32, device=device),
+                   torch.zeros(packer.float_size, dtype=torch.float32, device=device))
+        inputs = StaticInputs(buffers, lambda batch, out: packer.pack(batch, out=out))
+        inputs.batch = packer.unpack(*buffers)
+        return inputs
+    keys = sorted(example)
+    buffers = [torch.zeros_like(torch.as_tensor(example[k]), device=device) for k in keys]
+
+    def write(batch, out):
+        for key, buffer in zip(keys, out):
+            buffer.copy_(torch.as_tensor(batch[key]))
+
+    inputs = StaticInputs(buffers, write)
+    inputs.batch = dict(zip(keys, buffers))
+    return inputs
+
+
 def _uses_dropout(model: torch.nn.Module) -> bool:
     return any(isinstance(m, Dense) and m.dropout > 0.0 for m in model.modules())
 
@@ -140,24 +195,26 @@ class Trainer:
         self._graphs: Dict[int, _StepGraph] = {}  # steps a call -> its graph
         self._warm = False  # a step of the layout ran on the card
         self._stream: Optional[torch.cuda.Stream] = None  # warm-up and capture
+        self.metrics: Optional[MetricList] = None
+        self._scores = GraphCache(self.device)  # the scorer's graphs by request signature
 
     # ------------------------------------------------------------------
     # compile / init
     # ------------------------------------------------------------------
 
     def compile(self, optimizer: str = "adam", loss: Union[str, Callable] = "bce",
-                metrics: Sequence[str] = (), lr: float = 1e-3,
-                weight_decay: float = 0.0) -> None:
-        """Choose the dense optimizer (by name) and the loss (by name, or
-        ``fn(prediction, target) -> scalar``)."""
-        if tuple(metrics):
-            raise NotImplementedError("metrics come with the evaluation loop, not ported yet; "
-                                      "pass metrics=()")
+                metrics: Sequence[str] = ("ndcg@10", "hit@10"), lr: float = 1e-3,
+                weight_decay: float = 0.0, user_sample_n: int = 100) -> None:
+        """Choose the dense optimizer (by name), the loss (by name, or
+        ``fn(prediction, target) -> scalar``) and the metrics ``evaluate``
+        reports (``metric/metrics.py``; ``user_sample_n`` is the width of a
+        candidate row)."""
         if optimizer not in OPTIMIZERS:
             raise NotImplementedError(f"optimizer {optimizer!r} is not ported yet; ported: "
                                       f"{sorted(OPTIMIZERS)}")
         self.optimizer_name, self.lr, self.weight_decay = optimizer, lr, weight_decay
         self.loss_fn = get_loss(loss) if isinstance(loss, str) else loss
+        self.metrics = MetricList(list(metrics), user_sample_n=user_sample_n)
         self._compiled = True
 
     def _assert_compiled(self) -> None:
@@ -253,6 +310,7 @@ class Trainer:
         self._inputs = None
         self._graphs.clear()
         self._warm = False
+        self._scores.clear()
 
     def _inputs_for(self, item, rows: int) -> _StepInputs:
         """The static inputs of ``item``'s layout, at least ``rows`` deep
@@ -404,19 +462,114 @@ class Trainer:
         return history
 
     # ------------------------------------------------------------------
-    # serving
+    # scoring: one CUDA graph a request signature
     # ------------------------------------------------------------------
+
+    def _score_body(self, inputs: StaticInputs) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        return self.model(inputs.batch, train=False)
+
+    def _eval_step(self, batch: Batch) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """``(prediction, target)`` of one batch on the device (target None
+        without a label), fresh tensors: on the card the replay of the
+        batch signature's graph (see the module docstring), on the CPU the
+        same body eagerly over the same static inputs."""
+        signature = request_signature(batch)
+        packed = self.packed_transfer
+        return self._scores.run(
+            signature, lambda inputs: inputs.load(batch, batch.values()),
+            lambda: _score_inputs(batch, self.device, packed), self._score_body)
+
+    def _score_eager(self, batch: Batch) -> torch.Tensor:
+        with torch.inference_mode():
+            prediction, _ = self.model(self._to_device(batch), train=False)
+        return prediction
 
     def make_serving_fn(self) -> Callable[[Batch], torch.Tensor]:
         """Scorer over the model's current parameters: moves the batch to the
         device and returns the prediction there (``[B]``, or ``[B, N]`` for
-        candidate rows). It needs no label column."""
-        model = self.model
+        candidate rows), a fresh tensor. It needs no label column. On the
+        card a request signature's second request captures a CUDA graph and
+        every later one replays it; ``serve.eager(batch)`` runs the same
+        model call eagerly."""
 
         def serve(batch: Batch) -> torch.Tensor:
-            tensors = self._to_device(batch)
-            with torch.inference_mode():
-                prediction, _ = model(tensors, train=False)
-            return prediction
+            return self._eval_step(batch)[0]
 
+        serve.eager = self._score_eager
         return serve
+
+    # ------------------------------------------------------------------
+    # evaluate / predict
+    # ------------------------------------------------------------------
+
+    def _callbacks(self, callbacks, reader, split: str, batch_size: int,
+                   verbose: int) -> CallbackList:
+        if isinstance(callbacks, CallbackList):
+            return callbacks
+        size = reader.get_dataset_size(split)
+        return CallbackList(callbacks, add_progbar=verbose != 0, trainer=self, verbose=verbose,
+                            epochs=1, batches=-(-size // batch_size))
+
+    def _collect_predictions(self, reader, split: str, batch_size: int, callbacks: CallbackList,
+                             hooks: str) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """Score a split; ``(predictions, targets)`` on the host. The device
+        parts, cut to each batch's valid rows, are concatenated there and
+        copied to the host once."""
+        preds: List[torch.Tensor] = []
+        targets: List[torch.Tensor] = []
+        on_begin = getattr(callbacks, f"on_{hooks}_batch_begin")
+        on_end = getattr(callbacks, f"on_{hooks}_batch_end")
+        for b, (batch, valid) in enumerate(eval_batches(reader, split, batch_size)):
+            on_begin(b)
+            prediction, target = self._eval_step(batch)
+            preds.append(prediction[:valid])
+            if target is not None:
+                targets.append(target[:valid])
+            on_end(b)
+        predictions = torch.cat(preds).cpu().numpy()
+        return predictions, torch.cat(targets).cpu().numpy() if targets else None
+
+    def _collect_metric_partials(self, reader, split: str, batch_size: int,
+                                 callbacks: CallbackList) -> Dict[str, float]:
+        """Streaming evaluation: each batch folds into a fixed-size metric
+        accumulator on the device (``MetricList.partial_update``), so memory
+        does not grow with the split; one small host copy at the end."""
+        state = self.metrics.partial_init(self.device)
+        for b, (batch, valid) in enumerate(eval_batches(reader, split, batch_size)):
+            callbacks.on_test_batch_begin(b)
+            prediction, target = self._eval_step(batch)
+            state = self.metrics.partial_update(state, prediction, target, valid)
+            callbacks.on_test_batch_end(b)
+        return self.metrics.partial_finalize(state)
+
+    def evaluate(self, reader, split: str = "test", batch_size: int = 256, verbose: int = 1,
+                 callbacks: Optional[Union[List[Callback], CallbackList]] = None,
+                 streaming: bool = False) -> Dict[str, float]:
+        """The compiled metrics over ``split`` of ``reader`` (any object with
+        ``get_dataset_size(split)`` and ``get_batch(split, indices)``), in
+        fixed-shape batches whose last one is padded and cut
+        (``data/loader.py``). ``streaming=True`` accumulates metric partials
+        on the device: exact for the rank metrics, logloss and MSE, AUC
+        binned to about 1e-4."""
+        self._assert_compiled()
+        callbacks = self._callbacks(callbacks, reader, split, batch_size, verbose)
+        callbacks.on_test_begin()
+        if streaming:
+            logs = self._collect_metric_partials(reader, split, batch_size, callbacks)
+        else:
+            predictions, targets = self._collect_predictions(reader, split, batch_size,
+                                                             callbacks, "test")
+            logs = self.metrics(predictions, targets)
+        callbacks.on_test_end(logs)
+        return logs
+
+    def predict(self, reader, split: str = "test", batch_size: int = 256, verbose: int = 0,
+                callbacks: Optional[Union[List[Callback], CallbackList]] = None) -> np.ndarray:
+        """The predictions over ``split`` of ``reader``, on the host."""
+        self._assert_compiled()
+        callbacks = self._callbacks(callbacks, reader, split, batch_size, verbose)
+        callbacks.on_predict_begin()
+        predictions, _ = self._collect_predictions(reader, split, batch_size, callbacks,
+                                                   "predict")
+        callbacks.on_predict_end()
+        return predictions

@@ -221,8 +221,10 @@ def test_trainer_surface_raises_on_what_is_not_ported():
         with pytest.raises(NotImplementedError):
             TorchSparseTrainer(model, device="cpu", **kwargs)
     trainer = TorchSparseTrainer(model, device="cpu", packed_tables=True)
-    with pytest.raises(NotImplementedError):
-        trainer.compile(metrics=("auc",))
+    trainer.compile(metrics=("auc",))  # ported: evaluate reports them
+    assert [m.name for m in trainer.metrics.metrics] == ["auc"]
+    with pytest.raises(ValueError):
+        trainer.compile(metrics=("nope",))
     with pytest.raises(NotImplementedError):
         trainer.compile(optimizer="adamw")
     with pytest.raises(RuntimeError):

@@ -25,7 +25,13 @@ across zero cannot agree to rel 1e-4 of what is left of it. Values in
 Adam's eps window (``sqrt(v_hat) < 1e-6``: a gradient that summed to
 nearly nothing, where the last bits of the sum set the step) agree within N
 lr (``chip_smoke.py::adam_values_agree`` holds them to 2.01 lr for one
-step). The per-step scalars the port writes for the device are bit-equal
+step). What the wider atol covers: one value, a row of the f32 table
+(1 of its 1200 values, at k = 1 and 3) that 7 steps left at about 9.6e-4,
+off JAX's by 2.8e-6 where rtol 1e-4 / atol 1e-6 allow 1.1e-6; the dense
+parameters and the int8 and classic runs need none of it. It is drift, not
+a fault of the step: ``tests/test_torch_fit_steps_stepped.py`` takes each
+of the 7 steps from JAX's state and holds every value it moves to rtol
+1e-4 / atol 1e-6. The per-step scalars the port writes for the device are bit-equal
 to the eager step's host values.
 """
 

@@ -46,7 +46,9 @@ def test_every_training_module_is_walked():
             "pytorchrec_tpu_torch.ops.attention", "pytorchrec_tpu_torch.ops.seq_utils",
             "pytorchrec_tpu_torch.models.din", "pytorchrec_tpu_torch.models.two_tower",
             "pytorchrec_tpu_torch.serving", "pytorchrec_tpu_torch.serving.retrieval",
-            "pytorchrec_tpu_torch.ops.kernels.retrieval_topk"} <= modules
+            "pytorchrec_tpu_torch.ops.kernels.retrieval_topk", "pytorchrec_tpu_torch.metric",
+            "pytorchrec_tpu_torch.metric.metrics", "pytorchrec_tpu_torch.data.loader",
+            "pytorchrec_tpu_torch.utils.graphs"} <= modules
 
 
 def test_importing_every_port_module_loads_no_jax():
