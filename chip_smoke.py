@@ -246,19 +246,46 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    leave-one-out rows of 100 candidates: ``predict`` bit-equal to the eager
    scorer, ``evaluate`` exactly ``MetricList`` of ``predict``'s output,
    ``streaming=True`` within 1e-4 for AUC and rtol 1e-6 for the others;
+37. the fit loop (``Trainer.fit``) at DCN-v2's full width (``bench.py``'s,
+   no cut) over an in-memory reader of 8 train batches of 32768 rows and
+   49,152 dev rows (2 dev batches, the last short), f32 and int8 packed:
+   2 epochs with the dev AUC and logloss after each, from a saved state,
+   launch counts from zero (every step a replay of the captured step after
+   the warm-up, each dev batch through the captured scorer; the second
+   epoch captures nothing), every loss and value bit-equal to ``fit_steps``
+   over the same shuffled batches from the same state, the dev metrics
+   equal to that trainer's ``evaluate``; ms/step (CUDA events around whole
+   calls, in turns) of ``fit`` with no batch hooks, with ``TerminateOnNaN``
+   (a loss copied to the host each step) and of ``fit_steps`` over the same
+   reader's batches, unshuffled and shuffled, beside phase 35's captured
+   ms/step and the host's time to gather and pack one shuffled batch; f32:
+   ``EarlyStopping(patience=0, restore_best_weights=True)`` with
+   ``ModelCheckpoint(None)`` on the dev AUC stops at the first epoch that
+   does not improve, and the restored weights score the dev split bit-equal
+   to the best epoch's scores; ``load_weights`` after captured steps and
+   requests moves no tensor, a captured request then scores as when the file
+   was written, and one more captured step equals an eager ``train_step``
+   from the same state. Resume, int8 packed and classic (B8): 2 + 1 epochs
+   against 2, ``save_checkpoint``, a restore in place into a trainer from
+   another seed whose steps are captured already, and 1: every loss, table,
+   accumulator, dense parameter and Adam moment bit-equal, the checkpoint's
+   size and its save and restore seconds. Checkpoints are written to a
+   temporary directory under the process's ``TMPDIR`` and removed;
 
 then a ``two_tower`` JSON line (ms/step,
 fused and exact ms a request, recall, index build ms), a ``classic_int8``
 line (ms/step of the classic formats, B8's keyed and given-bits times, the
 torch hash's, the dedup's and the update's, phase 32's verdict), a
 ``capture`` line (phase 35's times, busy shares and verdicts by path), a
-``capture_requests`` line (phase 36's times, memory and metrics) and a
+``capture_requests`` line (phase 36's times, memory and metrics), a ``fit``
+line (phase 37's launches, times and checkpoints) and a
 ``{"kernels": [...]}`` line with
 every kernel at its main-path shape (``launches``: for B1–B4 the DCN-v2 int8
 training run's, for the FM kernels the DeepFM f32 training run's, for the
 pooling kernel the DIN f32 training run's, for B7 the two-tower serving
 run's, for B8 the DCN-v2 classic training run's; the other paths' counts
-beside, the serving ones from captured requests). Each path (serving, each training run) zeroes every launch count
+beside, the serving ones from captured requests; ``fit_launches``: phase
+37's runs). Each path (serving, each training run) zeroes every launch count
 just before it and reads them just after.
 The last line is ``{"ok": true, "device": {...}}``.
 Needs one CUDA card; no JAX and nothing of the JAX package is imported.
@@ -273,14 +300,17 @@ import dataclasses
 import functools
 import gc
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
+from pytorchrec_tpu_torch.data import BatchPacker, TrainMode, train_batches
 from pytorchrec_tpu_torch.feature_column import CategoricalColumnWithIdentity, NumericColumn
 from pytorchrec_tpu_torch.models import DIN, DCNv2, DeepFM, TwoTower
 from pytorchrec_tpu_torch.models import ctr as ctr_module
@@ -344,7 +374,15 @@ from pytorchrec_tpu_torch.ops.quantized_packed import (
 from pytorchrec_tpu_torch.ops.sparse_update import dedup_row_grads, packed_sparse_update
 from pytorchrec_tpu_torch.serving import build_item_index, make_retrieve_fn
 from pytorchrec_tpu_torch.serving import retrieval as retrieval_module
-from pytorchrec_tpu_torch.training import QuantizedEmbeddingTrainer, SparseEmbeddingTrainer, Trainer
+from pytorchrec_tpu_torch.training import (
+    Callback,
+    EarlyStopping,
+    ModelCheckpoint,
+    QuantizedEmbeddingTrainer,
+    SparseEmbeddingTrainer,
+    TerminateOnNaN,
+    Trainer,
+)
 from pytorchrec_tpu_torch.training import quantized_trainer as quantized_trainer_module
 from pytorchrec_tpu_torch.training.quantized_trainer import classic_quantized_update
 from pytorchrec_tpu_torch.training.trainer import request_signature
@@ -2447,7 +2485,7 @@ def serve_two_tower(seed: int) -> dict:
 
 
 def make_trainer(spec: ModelSpec, table: str, device: str, leaves: dict, sample: dict,
-                 seed: int):
+                 seed: int, metrics=("ndcg@10", "hit@10")):
     """bench.py's training set-up for ``table``: f32, packed ``table || m || v``
     rows under lazy Adam (``SparseEmbeddingTrainer``; DeepFM's linear table
     too); int8, packed ``q || scale || acc`` rows under rowwise Adagrad with
@@ -2456,11 +2494,11 @@ def make_trainer(spec: ModelSpec, table: str, device: str, leaves: dict, sample:
     the model's ``unified_q`` and ``unified_scale`` buffers and the state's
     accumulator (``packed_tables=False``). Dense Adam, the spec's loss and
     lr (BCE and 1e-3 but for the two-tower model); weights from ``leaves``
-    (flax layout)."""
+    (flax layout); ``metrics`` for ``evaluate``."""
     model = spec.make(table, device, seed)
     cls = SparseEmbeddingTrainer if table == "f32" else QuantizedEmbeddingTrainer
     trainer = cls(model, device=device, packed_tables=table not in CLASSIC)
-    trainer.compile(optimizer="adam", lr=spec.lr, loss=spec.loss)
+    trainer.compile(optimizer="adam", lr=spec.lr, loss=spec.loss, metrics=metrics)
     trainer.init_state(sample, seed=seed)
     return params_from_jax(leaves, trainer)
 
@@ -3202,6 +3240,375 @@ def request_capture_phase(requests: list, din_requests: list, seed: int) -> dict
     return out
 
 
+# phase 37: the fit loop on the captured step, its callbacks, state restored in place
+FIT_TRAIN_BATCHES = 8  # train batches of TRAIN_BATCH rows an epoch
+FIT_DEV_ROWS = TRAIN_BATCH + TRAIN_BATCH // 2  # 2 dev batches, the last short (padded)
+FIT_METRICS = ("auc", "logloss")
+FIT_TIMED_EPOCHS = 3  # epochs in each timed fit
+FIT_STOP_EPOCHS = 8  # the most epochs of the early-stopping run
+FIT_RESUME_TABLES = ("int8", "classic")
+
+
+class FitReader:
+    """The reader protocol ``fit`` reads, in memory: ``FIT_TRAIN_BATCHES``
+    train batches and ``FIT_DEV_ROWS`` dev rows made as ``bench.py`` makes
+    its batches, point-wise."""
+
+    train_mode = TrainMode.POINT_WISE
+
+    def __init__(self, rng: np.random.Generator):
+        self.splits = {"train": make_train_batch(rng, FIT_TRAIN_BATCHES * TRAIN_BATCH),
+                       "dev": make_train_batch(rng, FIT_DEV_ROWS)}
+
+    def get_dataset_size(self, split: str) -> int:
+        return len(self.splits[split]["label"])
+
+    def get_train_dataset_size(self) -> int:
+        return self.get_dataset_size("train")
+
+    def get_batch(self, split: str, indices) -> dict:
+        return {k: v[indices] for k, v in self.splits[split].items()}
+
+
+class GraphSnapshot(Callback):
+    """At each epoch's end: the trainer's step graphs by layout and the
+    scorer's graph count (an epoch that captures nothing leaves both as
+    they were)."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def on_epoch_end(self, epoch, logs=None):
+        self.seen.append(({key: {n: g.graph for n, g in layout.graphs.items()}
+                           for key, layout in self.trainer._layouts.items()},
+                          self.trainer._scores.graphs()))
+
+
+def state_tensors(trainer) -> dict:
+    """Every tensor training moves and a load writes (what a captured graph
+    reads), by name: the model's parameters and buffers, the tables and
+    accumulators (``trained_tables``) and the dense Adam's state."""
+    out = {f"param {k}": v for k, v in trainer.model.state_dict().items()}
+    out.update({f"table {k}": v for k, v in trained_tables(trainer).items()})
+    names_of = {id(p): n for n, p in trainer.model.named_parameters()}
+    for param, entry in trainer.state.optimizer.state.items():
+        out.update({f"adam {names_of[id(param)]} {k}": v for k, v in entry.items()})
+    return out
+
+
+def fit_state(trainer) -> dict:
+    return {k: v.detach().clone() for k, v in state_tensors(trainer).items()}
+
+
+def pointers(trainer) -> dict:
+    return {k: v.data_ptr() for k, v in state_tensors(trainer).items()}
+
+
+def states_equal(label: str, got: dict, want: dict) -> None:
+    """Raises unless both hold the same names and every value bit-equal."""
+    differ = [k for k in want if k not in got or not torch.equal(got[k], want[k])]
+    if differ or set(got) != set(want):
+        raise AssertionError(f"{label}: differ in {differ[:8]} ({len(differ)} of {len(want)})"
+                             f"; names {sorted(set(got) ^ set(want))[:4]}")
+
+
+def time_fit(fn, steps: int):
+    """CUDA events (and the host clock) around ``fn``, a whole fit or
+    fit_steps call: (device-clock ms a step, host ms a step)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / steps, 1e3 * (time.perf_counter() - t0) / steps
+
+
+def fit_against_fit_steps(table: str, reader: FitReader, seed: int, tmp: str):
+    """``fit`` for 2 epochs (dev AUC and logloss after each) from a saved
+    state, launch counts from zero, against ``fit_steps`` over the same
+    shuffled batches from the same state: every loss and value bit-equal;
+    the second epoch captures nothing; the dev metrics are the stepped
+    trainer's ``evaluate``. Returns (the fitted trainer, its launches)."""
+    tag = f"[fit dcnv2 {table}]"
+    sample = reader.get_batch("train", np.arange(2))
+    fitted = make_trainer(DCNV2_SPEC, table, "cuda",
+                          flax_leaves(np.random.default_rng(seed + 40), table), sample, seed,
+                          metrics=FIT_METRICS)
+    start = os.path.join(tmp, f"start_{table}.pt")
+    fitted.save_checkpoint(start)
+    stepped = make_trainer(DCNV2_SPEC, table, "cuda",
+                           flax_leaves(np.random.default_rng(seed + 41), table), sample,
+                           seed + 1, metrics=FIT_METRICS)
+    stepped.restore_checkpoint(start)  # the same state, from the file
+    snapshot = GraphSnapshot()
+    steps = 2 * FIT_TRAIN_BATCHES
+    zero_counts()
+    t0 = time.perf_counter()
+    history = fitted.fit(reader, batch_size=TRAIN_BATCH, epochs=2, verbose=0, seed=seed,
+                         callbacks=[snapshot])
+    fit_s = time.perf_counter() - t0
+    dev_batches = -(-FIT_DEV_ROWS // TRAIN_BATCH)
+    want = {k: n * steps for k, n in DCNV2_SPEC.per_step[table].items()}
+    want[cross_network] += 2 * dev_batches  # the dev scorer
+    check_launches(f"{tag} fit: 2 epochs of {FIT_TRAIN_BATCHES} steps and 2 dev evaluations",
+                   {k: 0 for k in ALL_KERNELS}, want)
+    launches = names(counts())
+    (first, scorer), (second, scorer_again) = snapshot.seen
+    if second != first or scorer_again != scorer or not all(list(g) == [1]
+                                                            for g in first.values()):
+        raise AssertionError(f"{tag} the second epoch captured: graphs {first} then {second}, "
+                             f"scorer {scorer} then {scorer_again}")
+    logs = {k: v[-1] for k, v in history.history.items()}
+    finite = np.isfinite(list(logs.values())).all()
+    if list(history.history) != ["loss", *FIT_METRICS] or not finite:
+        raise AssertionError(f"{tag} history {history.history}")
+    rng = np.random.default_rng(seed)
+    batches = [b for _ in range(2) for b in train_batches(reader, TRAIN_BATCH, rng)]
+    stepped.fit_steps(iter(batches), steps=steps, log_every=FIT_TRAIN_BATCHES)
+    if not torch.equal(fitted.step_losses, stepped.step_losses):
+        raise AssertionError(f"{tag} fit's losses differ from fit_steps': "
+                             f"{int((fitted.step_losses != stepped.step_losses).sum())} of {steps}")
+    states_equal(f"{tag} fit against fit_steps", fit_state(fitted), fit_state(stepped))
+    dev = stepped.evaluate(reader, split="dev", batch_size=TRAIN_BATCH, verbose=0)
+    if dev != {k: logs[k] for k in FIT_METRICS}:
+        raise AssertionError(f"{tag} dev metrics {logs} against the stepped trainer's {dev}")
+    print(f"{tag} fit, 2 epochs of {FIT_TRAIN_BATCHES} x {TRAIN_BATCH} rows with dev AUC and "
+          f"logloss ({dev_batches} dev batches, the last short) from a saved state: launches "
+          f"{launches}; each layout's graphs {[list(g) for g in first.values()]}, the scorer's "
+          f"{scorer}, none captured in epoch 2; {steps} losses and every value bit-equal to "
+          f"fit_steps over the same batches; dev {dev} (the stepped trainer's evaluate); "
+          f"{fit_s:.2f} s with warm-ups and captures")
+    del stepped
+    return fitted, launches
+
+
+def fit_times(trainer, reader: FitReader, seed: int, tag: str) -> dict:
+    """ms/step of ``fit`` without batch hooks, with ``TerminateOnNaN`` (a
+    loss copied to the host each step) and of ``fit_steps`` over the same
+    reader's batches: CUDA events around each whole call of
+    ``FIT_TIMED_EPOCHS`` epochs, in turns, over unshuffled batches (each a
+    contiguous slice of the reader's columns) and once each over shuffled
+    ones; beside them the host's time to assemble one shuffled batch
+    (``get_batch``: a gather of 32768 random rows from each column) and to
+    pack it."""
+    steps = FIT_TIMED_EPOCHS * FIT_TRAIN_BATCHES
+
+    def fit(callbacks, shuffle):
+        return lambda: trainer.fit(reader, batch_size=TRAIN_BATCH, epochs=FIT_TIMED_EPOCHS,
+                                   verbose=0, seed=seed, eval_dev=False, callbacks=callbacks,
+                                   shuffle=shuffle)
+
+    def stepped(shuffle):
+        def run():
+            rng = np.random.default_rng(seed)
+            batches = (b for _ in range(FIT_TIMED_EPOCHS)
+                       for b in train_batches(reader, TRAIN_BATCH, rng, shuffle))
+            trainer.fit_steps(batches, steps=steps, log_every=FIT_TRAIN_BATCHES)
+        return run
+
+    order = (("fit", fit(None, False)), ("fit_nan", fit([TerminateOnNaN()], False)),
+             ("fit_steps", stepped(False)), ("fit_steps", stepped(False)),
+             ("fit_nan", fit([TerminateOnNaN()], False)), ("fit", fit(None, False)),
+             ("shuffled_fit", fit(None, True)), ("shuffled_fit_steps", stepped(True)))
+    out = {}
+    for name, fn in order:
+        ms, host = time_fit(fn, steps)
+        out.setdefault(f"{name}_ms", []).append(ms)
+        out.setdefault(f"{name}_host_ms", []).append(host)
+    indices = np.random.default_rng(seed).permutation(reader.get_train_dataset_size())
+    packer = BatchPacker(reader.get_batch("train", indices[:TRAIN_BATCH]),
+                         pin_memory=trainer.device.type == "cuda")
+    gather, pack = [], []
+    for i in range(5):
+        t0 = time.perf_counter()
+        batch = reader.get_batch("train", indices[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH])
+        t1 = time.perf_counter()
+        packer.pack(batch)
+        gather.append(1e3 * (t1 - t0))
+        pack.append(1e3 * (time.perf_counter() - t1))
+    out["get_batch_ms"], out["pack_ms"] = float(np.median(gather)), float(np.median(pack))
+    print(f"{tag} ms/step over {steps} steps (CUDA events around each call, in turns), "
+          f"unshuffled: fit {out['fit_ms']}, fit with TerminateOnNaN {out['fit_nan_ms']}, "
+          f"fit_steps over the reader's batches {out['fit_steps_ms']}; shuffled: fit "
+          f"{out['shuffled_fit_ms']}, fit_steps {out['shuffled_fit_steps_ms']}; host clock "
+          f"{out['fit_host_ms']}, {out['fit_nan_host_ms']}, {out['fit_steps_host_ms']}; a "
+          f"shuffled batch's get_batch {out['get_batch_ms']:.3f} ms and pack "
+          f"{out['pack_ms']:.3f} ms on the host (median of 5)")
+    return out
+
+
+class DevScores(Callback):
+    """The dev split's predictions at each epoch's end (before the callbacks
+    after it in the list act)."""
+
+    def __init__(self, reader):
+        super().__init__()
+        self.reader, self.scores = reader, {}
+
+    def on_epoch_end(self, epoch, logs=None):
+        self.scores[epoch] = self.trainer.predict(self.reader, split="dev",
+                                                  batch_size=TRAIN_BATCH)
+
+
+def fit_early_stop(trainer, reader: FitReader, seed: int, tag: str) -> dict:
+    """``EarlyStopping(patience=0, restore_best_weights=True)`` on the dev
+    AUC with ``ModelCheckpoint(None)``: the run stops at the first epoch that
+    does not improve, and the restored weights score the dev split bit-equal
+    to the scores taken at the best epoch."""
+    scores = DevScores(reader)
+    t0 = time.perf_counter()
+    history = trainer.fit(reader, batch_size=TRAIN_BATCH, epochs=FIT_STOP_EPOCHS, verbose=0,
+                          seed=seed, callbacks=[
+                              scores, EarlyStopping(monitor="auc", mode="max", patience=0,
+                                                    restore_best_weights=True),
+                              ModelCheckpoint(None, monitor="auc", mode="max")])
+    run_s = time.perf_counter() - t0
+    auc = history.history["auc"]
+    stop = len(auc) - 1
+    if not trainer.stop_training or stop < 1 or auc[stop] > auc[stop - 1] or any(
+            auc[i] <= auc[i - 1] for i in range(1, stop)):
+        raise AssertionError(f"{tag} early stopping: stop {trainer.stop_training}, AUC {auc}")
+    best = stop - 1
+    restored = trainer.predict(reader, split="dev", batch_size=TRAIN_BATCH)
+    if trainer.best_params is None or not np.array_equal(restored, scores.scores[best]):
+        raise AssertionError(f"{tag} the restored weights do not score as at epoch {best}")
+    print(f"{tag} EarlyStopping(patience=0, restore_best_weights=True) + ModelCheckpoint(None) "
+          f"on the dev AUC {auc}: stopped after epoch {stop}, the best {best}; the restored "
+          f"weights score the dev split bit-equal to epoch {best}'s scores ({run_s:.2f} s)")
+    return {"auc": auc, "stopped_epoch": stop, "best_epoch": best, "seconds": run_s}
+
+
+def fit_resume(table: str, reader: FitReader, seed: int, tmp: str) -> dict:
+    """Run A: 2 epochs of ``fit``, then 1. Run B: 2 epochs, ``save_checkpoint``;
+    a trainer made from another seed (other weights, generator and key),
+    which has trained an epoch (its steps captured), restores it in place
+    and trains 1 epoch: every loss and value bit-equal to A's; launch counts
+    from zero over that epoch."""
+    tag = f"[fit resume dcnv2 {table}]"
+    leaves = flax_leaves(np.random.default_rng(seed + 42), table)
+    sample = reader.get_batch("train", np.arange(2))
+    fit = dict(batch_size=TRAIN_BATCH, verbose=0, eval_dev=False)
+    a = make_trainer(DCNV2_SPEC, table, "cuda", leaves, sample, seed)
+    a.fit(reader, epochs=2, seed=seed + 1, **fit)
+    a.fit(reader, epochs=1, seed=seed + 2, **fit)
+    want_losses, want = a.step_losses.clone(), fit_state(a)
+    want_key = getattr(a.state, "rng_key", None)
+    del a
+    b = make_trainer(DCNV2_SPEC, table, "cuda", leaves, sample, seed)
+    b.fit(reader, epochs=2, seed=seed + 1, **fit)
+    path = os.path.join(tmp, f"resume_{table}.pt")
+    t0 = time.perf_counter()
+    b.save_checkpoint(path)
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    del b
+    c = make_trainer(DCNV2_SPEC, table, "cuda",
+                     flax_leaves(np.random.default_rng(seed + 43), table), sample, seed + 7)
+    c.fit(reader, epochs=1, seed=seed + 3, **fit)
+    where = pointers(c)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c.restore_checkpoint(path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if pointers(c) != where:
+        raise AssertionError(f"{tag} restore_checkpoint moved a tensor")
+    zero_counts()
+    c.fit(reader, epochs=1, seed=seed + 2, **fit)
+    check_launches(f"{tag} the resumed epoch", {k: 0 for k in ALL_KERNELS},
+                   {k: n * FIT_TRAIN_BATCHES for k, n in DCNV2_SPEC.per_step[table].items()})
+    launches = names(counts())
+    if not torch.equal(c.step_losses, want_losses):
+        raise AssertionError(f"{tag} the resumed epoch's losses differ from the "
+                             f"uninterrupted run's")
+    states_equal(tag, fit_state(c), want)
+    if want_key is not None and not np.array_equal(c.state.rng_key, want_key):
+        raise AssertionError(f"{tag} the rounding key was not restored")
+    print(f"{tag} 2 + 1 epochs against 2, save_checkpoint, restore into a trainer from another "
+          f"seed (captured already, no tensor moved), 1: {FIT_TRAIN_BATCHES} losses and every "
+          f"table, accumulator, dense parameter and Adam moment bit-equal; checkpoint "
+          f"{size / 1e6:.1f} MB, save {save_s:.3f} s, restore {restore_s:.3f} s; launches "
+          f"{launches}")
+    del c
+    return {"bytes": size, "save_s": save_s, "restore_s": restore_s, "launches": launches}
+
+
+def fit_loads_after_capture(trainer, reader: FitReader, seed: int, tmp: str, tag: str) -> None:
+    """After captured steps and requests: ``load_weights`` of an earlier file,
+    then a captured request equals ``serve.eager`` and the scores taken when
+    the file was written, bit for bit; and one more captured step equals an
+    eager ``train_step`` of a trainer restored to the same state."""
+    serve = trainer.make_serving_fn()
+    request = {k: v[:4096] for k, v in reader.splits["dev"].items() if k != "label"}
+    serve(request)  # eager, then captured
+    written = serve(request)
+    path = os.path.join(tmp, "weights.pt")
+    trainer.save_weights(path)
+    trainer.fit(reader, batch_size=TRAIN_BATCH, epochs=1, verbose=0, seed=seed, eval_dev=False)
+    if torch.equal(serve(request), written):
+        raise AssertionError(f"{tag} the weights did not move")
+    where = pointers(trainer)
+    trainer.load_weights(path)
+    if pointers(trainer) != where:
+        raise AssertionError(f"{tag} load_weights moved a tensor")
+    if not torch.equal(serve(request), written) or not torch.equal(serve.eager(request), written):
+        raise AssertionError(f"{tag} after load_weights the captured request does not score "
+                             f"as when the file was written")
+    state_path = os.path.join(tmp, "loaded.pt")
+    trainer.save_checkpoint(state_path)
+    eager = make_trainer(DCNV2_SPEC, "f32", "cuda",
+                         flax_leaves(np.random.default_rng(seed + 44), "f32"),
+                         reader.get_batch("train", np.arange(2)), seed + 9)
+    eager.restore_checkpoint(state_path)
+    batch = reader.get_batch("train", np.arange(TRAIN_BATCH))
+    before = counts()
+    trainer.fit_steps(iter([batch]), steps=1, log_every=1)  # a replay
+    check_launches(f"{tag} one captured step after the load", before,
+                   DCNV2_SPEC.per_step["f32"])
+    loss = eager.train_step(batch)
+    if not torch.equal(trainer.step_losses[0], loss):
+        raise AssertionError(f"{tag} the captured step after the load differs from the eager one")
+    states_equal(f"{tag} captured step after load_weights against eager", fit_state(trainer),
+                 fit_state(eager))
+    print(f"{tag} load_weights after captured steps and requests: no tensor moved; the captured "
+          f"[4096] request bit-equal to serve.eager and to the scores when the file was written; "
+          f"one more captured step bit-equal to an eager train_step from the same state")
+    del eager
+
+
+def fit_phase(capture: dict, seed: int) -> dict:
+    """Phase 37: the fit loop on the captured step at DCN-v2's full width
+    (``bench.py``'s, no cut), f32 and int8 packed; resume for int8 packed
+    and classic; loads after capture. Checkpoints go to a temporary
+    directory (the process's ``TMPDIR``), removed at the end."""
+    reader = FitReader(np.random.default_rng(seed + 39))
+    out = {"train_rows": reader.get_train_dataset_size(), "dev_rows": FIT_DEV_ROWS,
+           "batch": TRAIN_BATCH}
+    with tempfile.TemporaryDirectory() as tmp:
+        for table in ("f32", "int8"):
+            tag = f"[fit dcnv2 {table}]"
+            trainer, launches = fit_against_fit_steps(table, reader, seed, tmp)
+            times = fit_times(trainer, reader, seed + 5, tag)
+            captured_ms = capture[f"dcnv2_{table}"]["captured_ms"]
+            print(f"{tag} phase 35's captured fit_steps (batches packed on the device) "
+                  f"{captured_ms} ms/step in this run")
+            out[table] = {"launches": launches, **times, "phase35_captured_ms": captured_ms}
+            if table == "f32":
+                out[table]["early_stop"] = fit_early_stop(trainer, reader, seed + 6, tag)
+                fit_loads_after_capture(trainer, reader, seed + 8, tmp, tag)
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+        for table in FIT_RESUME_TABLES:
+            out[f"resume_{table}"] = fit_resume(table, reader, seed, tmp)
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3501,6 +3908,10 @@ def main() -> int:
     # counts from zero
     requests_capture = request_capture_phase(requests, din_requests, args.seed)
 
+    # 37. the fit loop on the captured step, callbacks, resume and loads in
+    # place, with launch counts from zero
+    fit = fit_phase(capture, args.seed)
+
     n_scan = TRAIN_BATCH * N_SPARSE
     vocab_rows = N_SPARSE * VOCAB
     fm_shape = f"[{TRAIN_BATCH}, {FM_FIELDS}, {EMB}] f32"
@@ -3621,6 +4032,10 @@ def main() -> int:
          "library_note": "the per-super-chunk cuBLAS score GEMMs (torch.mm, f32 out) without "
                          "the selection; no single PyTorch call computes score + bin max"},
     ]
+    fit_runs = {"f32": fit["f32"]["launches"], "int8": fit["int8"]["launches"],
+                **{f"resume_{t}": fit[f"resume_{t}"]["launches"] for t in FIT_RESUME_TABLES}}
+    for entry in entries:  # phase 37's runs, each counted from zero
+        entry["fit_launches"] = {run: n.get(entry["name"], 0) for run, n in fit_runs.items()}
     print(json.dumps({"deepfm": {"f32_ms_per_step": fm_f32_ms, "int8_ms_per_step": fm_int8_ms,
                                  "table_share_ms": shares},
                       "din": {"f32_ms_per_step": din_f32_ms, "int8_ms_per_step": din_int8_ms,
@@ -3639,6 +4054,7 @@ def main() -> int:
         "classic_vs_packed": classic_vs_packed}}))
     print(json.dumps({"capture": capture}))
     print(json.dumps({"capture_requests": requests_capture}))
+    print(json.dumps({"fit": fit}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

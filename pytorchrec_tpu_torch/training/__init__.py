@@ -1,15 +1,26 @@
 from pytorchrec_tpu_torch.training.callbacks import (
     Callback,
     CallbackList,
+    CSVLogger,
+    EarlyStopping,
     History,
+    ModelCheckpoint,
     Progbar,
     ProgbarLogger,
+    TerminateOnNaN,
+)
+from pytorchrec_tpu_torch.training.checkpoint import (
+    CheckpointCallback,
+    CheckpointManager,
+    PreemptionGuard,
 )
 from pytorchrec_tpu_torch.training.quantized_trainer import QuantizedEmbeddingTrainer
 from pytorchrec_tpu_torch.training.sparse_trainer import SparseEmbeddingTrainer
 from pytorchrec_tpu_torch.training.state import QuantizedTrainState, SparseTrainState, TrainState
 from pytorchrec_tpu_torch.training.trainer import Trainer
 
-__all__ = ["Callback", "CallbackList", "History", "Progbar", "ProgbarLogger",
-           "QuantizedEmbeddingTrainer", "QuantizedTrainState", "SparseEmbeddingTrainer",
-           "SparseTrainState", "TrainState", "Trainer"]
+__all__ = ["Callback", "CallbackList", "CheckpointCallback", "CheckpointManager", "CSVLogger",
+           "EarlyStopping", "History", "ModelCheckpoint", "PreemptionGuard", "Progbar",
+           "ProgbarLogger", "QuantizedEmbeddingTrainer", "QuantizedTrainState",
+           "SparseEmbeddingTrainer", "SparseTrainState", "TerminateOnNaN", "TrainState",
+           "Trainer"]

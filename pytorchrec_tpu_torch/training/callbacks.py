@@ -1,19 +1,25 @@
 """Training callbacks (port of ``pytorchrec_tpu/training/callbacks.py``):
 the hook surface (``Callback``), its fan-out with batch-hook timing
-(``CallbackList``), the per-epoch record (``History``) and the Keras-style
+(``CallbackList``), the per-epoch record (``History``), the Keras-style
 progress bar (``Progbar``, ``ProgbarLogger``: verbose 0 silent, 1 a live
-batch-level bar, 2 one summary line an epoch). ``evaluate`` and ``predict``
-build a ``CallbackList`` with a progress bar when ``verbose != 0``.
+batch-level bar, 2 one summary line an epoch), and the fit loop's
+``ModelCheckpoint`` (weights to a file and the best weights in RAM),
+``EarlyStopping``, ``CSVLogger`` and ``TerminateOnNaN``. ``fit``,
+``evaluate`` and ``predict`` build a ``CallbackList`` with a progress bar
+when ``verbose != 0``.
 
-Callbacks talk to the trainer, which owns the model and its state.
-``ModelCheckpoint``, ``EarlyStopping``, ``CSVLogger`` and ``TerminateOnNaN``
-come with the fit loop.
+Callbacks talk to the trainer, which owns the model and its state. A
+callback that overrides a train-batch hook makes ``fit`` copy each step's
+loss to the host (a sync a step); without one an epoch runs with no host
+sync until its end.
 """
 
 from __future__ import annotations
 
 import collections
+import csv
 import logging
+import os
 import sys
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -72,6 +78,11 @@ class History(Callback):
         super().__init__()
         self.epoch: List[int] = []
         self.history: Dict[str, List[Any]] = {}
+
+    def set_trainer(self, trainer) -> None:
+        """A History needs no trainer, and keeps none: the trainer holds its
+        last History, and a reference back would make a cycle that only
+        Python's collector frees, the trainer's device memory with it."""
 
     def on_train_begin(self, logs=None):
         self.epoch = []
@@ -411,3 +422,171 @@ class ProgbarLogger(Callback):
     def on_predict_end(self, logs=None):
         if self.verbose:
             self._finalize(None)
+
+
+class ModelCheckpoint(Callback):
+    """Save weights each epoch (or every N batches), optionally best-only on a
+    monitored metric; also takes the trainer's in-RAM best-weights copy."""
+
+    def __init__(
+        self,
+        filepath: Optional[str],
+        monitor: str = "loss",
+        mode: str = "min",
+        save_best_only: bool = True,
+        save_freq="epoch",  # "epoch" or int (batches)
+    ):
+        """``filepath=None`` is the in-RAM mode: track the best weights on the
+        trainer (``save_best_weights``, a host copy) without writing any
+        file."""
+        super().__init__()
+        self.filepath = filepath
+        self.monitor = monitor
+        self.mode = mode
+        self.save_best_only = save_best_only
+        self.save_freq = save_freq
+        self.best = -np.inf if mode == "max" else np.inf
+        self._batches_seen = 0
+
+    def implements_train_batch_hooks(self) -> bool:
+        return isinstance(self.save_freq, int)
+
+    def _improved(self, current) -> bool:
+        if self.mode == "max":
+            return current > self.best
+        return current < self.best
+
+    def _save(self, logs: Optional[Logs]) -> None:
+        logs = logs or {}
+        if self.save_best_only:
+            current = logs.get(self.monitor)
+            if current is None:
+                return
+            if not self._improved(current):
+                return
+            self.best = current
+            self.trainer.save_best_weights()
+        if self.filepath is not None:
+            self.trainer.save_weights(self.filepath)
+
+    def on_epoch_end(self, epoch: int, logs=None):
+        if self.save_freq == "epoch":
+            self._save(logs)
+
+    def on_train_batch_end(self, batch: int, logs=None):
+        if isinstance(self.save_freq, int):
+            self._batches_seen += 1
+            if self._batches_seen % self.save_freq == 0:
+                self._save(logs)
+
+
+class EarlyStopping(Callback):
+    """Patience, min_delta and baseline on a monitored value; sets
+    ``trainer.stop_training``, and with ``restore_best_weights`` loads the
+    trainer's best weights (``load_best_weights``, in place)."""
+
+    def __init__(
+        self,
+        monitor: str = "loss",
+        mode: str = "min",
+        patience: int = 0,
+        min_delta: float = 0.0,
+        baseline: Optional[float] = None,
+        restore_best_weights: bool = False,
+    ):
+        super().__init__()
+        self.monitor = monitor
+        self.mode = mode
+        self.patience = patience
+        self.min_delta = abs(min_delta)
+        self.baseline = baseline
+        self.restore_best_weights = restore_best_weights
+        self.wait = 0
+        self.stopped_epoch = 0
+        self.best = -np.inf if mode == "max" else np.inf
+
+    def _improved(self, current) -> bool:
+        if self.mode == "max":
+            return current > self.best + self.min_delta
+        return current < self.best - self.min_delta
+
+    def on_train_begin(self, logs=None):
+        self.wait = 0
+        self.stopped_epoch = 0
+        self.best = -np.inf if self.mode == "max" else np.inf
+        if self.baseline is not None:
+            self.best = self.baseline
+
+    def on_epoch_end(self, epoch: int, logs=None):
+        current = (logs or {}).get(self.monitor)
+        if current is None:
+            return
+        if self._improved(current):
+            self.best = current
+            self.wait = 0
+            return
+        self.wait += 1
+        if self.wait >= self.patience:
+            self.stopped_epoch = epoch
+            self.trainer.stop_training = True
+            if self.restore_best_weights:
+                self.trainer.load_best_weights()
+
+    def on_train_end(self, logs=None):
+        if self.stopped_epoch > 0:
+            logger.info("early stopping at epoch %d", self.stopped_epoch + 1)
+
+
+class CSVLogger(Callback):
+    """A row of the epoch logs an epoch, flushed (tab-separated by default);
+    on an early stop the remaining epochs are written as NA rows."""
+
+    def __init__(self, filename: str, sep: str = "\t", append: bool = False):
+        super().__init__()
+        self.filename = filename
+        self.sep = sep
+        self.append = append
+        self.keys: Optional[List[str]] = None
+        self.writer = None
+        self.file = None
+        self._epochs_written = 0
+
+    def on_train_begin(self, logs=None):
+        os.makedirs(os.path.dirname(self.filename) or ".", exist_ok=True)
+        self.file = open(self.filename, "a" if self.append else "w", newline="")
+        self.writer = None
+        self._epochs_written = 0
+
+    def on_epoch_end(self, epoch: int, logs=None):
+        logs = dict(logs or {})
+        if self.writer is None:
+            self.keys = ["epoch"] + sorted(logs.keys())
+            self.writer = csv.DictWriter(self.file, fieldnames=self.keys, delimiter=self.sep)
+            self.writer.writeheader()
+        row = {"epoch": epoch}
+        for key in self.keys[1:]:
+            value = logs.get(key, "NA")
+            row[key] = float(value) if isinstance(value, (int, float, np.floating)) else value
+        self.writer.writerow(row)
+        self.file.flush()
+        self._epochs_written += 1
+
+    def on_train_end(self, logs=None):
+        total = self.params.get("epochs")
+        if self.writer is not None and total is not None:
+            for epoch in range(self._epochs_written, total):
+                self.writer.writerow({"epoch": epoch, **{k: "NA" for k in self.keys[1:]}})
+        if self.file is not None:
+            self.file.close()
+            self.file = None
+
+
+class TerminateOnNaN(Callback):
+    """Stop on a nan or inf batch loss. Its batch hook makes ``fit`` copy
+    every step's loss to the host."""
+
+    def on_train_batch_end(self, batch: int, logs=None):
+        loss = (logs or {}).get("loss")
+        if loss is not None and not np.isfinite(loss):
+            logger.warning("batch %d: invalid loss %s, terminating training", batch, loss)
+            self.trainer.stop_training = True

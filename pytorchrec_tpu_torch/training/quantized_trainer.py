@@ -37,13 +37,15 @@ A train step:
 
 The state's key is the JAX state's (``split(PRNGKey(seed))[1]``), kept on
 the host (``utils/rng.py``), so the port draws the JAX package's rounding
-bits from the same seed.
+bits from the same seed. A checkpoint holds it and the classic
+accumulators beside the weights (``_extra_checkpoint``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Any, Dict, Tuple, Union
 
+import numpy as np
 import torch
 
 from pytorchrec_tpu_torch.ops.embedding import normal_init
@@ -215,6 +217,27 @@ class QuantizedEmbeddingTrainer(Trainer):
                                          self._buffer(info["scale_path"]), state.table_acc[name],
                                          ids, leaf.grad, self._table_lr, salt, **formats)
         return loss.detach()
+
+    def _extra_checkpoint(self) -> Dict[str, Any]:
+        """A checkpoint's classic accumulators (host copies) and the state's
+        key, which salts every step's rounding bits."""
+        state = self.state
+        return {"table_acc": {name: acc.detach().to("cpu", copy=True)
+                              for name, acc in state.table_acc.items()},
+                "rng_key": [int(word) for word in state.rng_key]}
+
+    def _load_extra_checkpoint(self, payload: Dict[str, Any]) -> None:
+        """The accumulators copied in place; the key into the state and its
+        step scalars (``StepScalars.host_rows`` salts from it)."""
+        state = self.state
+        if set(payload["table_acc"]) != set(state.table_acc):
+            raise KeyError(f"accumulators {sorted(payload['table_acc'])}, the state has "
+                           f"{sorted(state.table_acc)}")
+        with torch.no_grad():
+            for name, acc in state.table_acc.items():
+                acc.copy_(payload["table_acc"][name])
+        key = np.array(payload["rng_key"], dtype=np.uint32)
+        state.rng_key = state.scalars.rng_key = key
 
     def unpacked_quantized(self) -> Dict[str, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
         """Host copies of each packed table's (q int8, scale, acc) triple,

@@ -1,5 +1,6 @@
 """Trainer (port of ``pytorchrec_tpu/training/trainer.py``): compile,
-init_state, train_step, fit_steps and serving.
+init_state, train_step, fit, fit_steps, evaluate, predict, serving, and
+weights and checkpoints.
 
 ``Trainer(model, device=None, packed_transfer=None)`` places the model on
 the card (or on the CPU when asked). ``compile(optimizer, loss, lr,
@@ -8,28 +9,38 @@ weight_decay)`` picks the dense optimizer and the loss;
 ``torch.Generator`` seeded with ``seed`` (normal(0, 0.01), the framework's
 init) and builds the optimizer; ``train_step(batch)`` runs one eager
 forward, backward and optimizer step and returns the loss;
-``fit_steps(batches, steps, log_every, steps_per_call=K)`` runs ``steps`` of
-them and logs the loss at the end of each ``log_every`` window.
-``make_serving_fn()`` returns the scorer ``fn(batch) -> prediction``;
-``evaluate(reader, split, ...)`` the metrics chosen at ``compile`` over a
-split, and ``predict(reader, split, ...)`` its predictions.
+``fit(reader, batch_size, epochs, ...)`` trains epochs over a reader's
+train split with the dev metrics between them and the callbacks' hooks
+(``training/callbacks.py``), as the JAX trainer's ``fit`` does;
+``fit_steps(batches, steps, log_every, steps_per_call=K)`` runs ``steps``
+steps over any batch iterator and logs the loss at the end of each
+``log_every`` window. ``make_serving_fn()`` returns the scorer
+``fn(batch) -> prediction``; ``evaluate(reader, split, ...)`` the metrics
+chosen at ``compile`` over a split, and ``predict(reader, split, ...)`` its
+predictions.
 
 The JAX trainer never runs a step eagerly: it jits one pure step over a
 donated state, over the packed batch (``packed_transfer``, the default on
 one device: one int32 and one float32 buffer a batch, ``data/packing.py``),
 and with ``steps_per_call = K`` fuses K steps into one device call with
-``lax.scan``. The port's twin is a CUDA graph. On the card ``fit_steps``
-packs each batch on the prefetch thread (``data/prefetch.py``), copies it
-into static device buffers on the compute stream, writes each step's
-scalars (``state.py::StepScalars``) beside it, and replays a graph that
-captured K steps over those buffers (``_StepGraph``): one step of a new
-batch layout first runs eagerly, as a real step (the warm-up: optimizer
-state, cuBLAS handles, kernel attributes), then K steps, or the shorter
-tail, are captured once and replayed. The parameters, optimizer state and
-tables are updated in place, so a replay reads and writes them where the
-capture found them. A capture or a replay that fails raises; nothing
-returns to eager steps. On the CPU the same step bodies run eagerly over
-the same buffers. ``train_step`` stays the eager single step on both.
+``lax.scan``. The port's twin is a CUDA graph. On the card ``fit`` and
+``fit_steps`` pack each batch on the prefetch thread
+(``data/prefetch.py``), copy it into static device buffers on the compute
+stream, write each step's scalars (``state.py::StepScalars``) beside it,
+and replay a graph that captured K steps over those buffers
+(``_StepGraph``): one step of a new batch layout first runs eagerly, as a
+real step (the warm-up: optimizer state, cuBLAS handles, kernel
+attributes), the graph of K steps is captured right after it, and the
+shorter tail's at its first use; every later call replays. The static
+inputs and graphs are kept a layout each, for the last ``MAX_LAYOUTS``
+layouts (``_Layout``), as JAX's jit cache keeps a compiled step a shape:
+an epoch that ends on a shorter batch warms up and captures that batch's
+layout once, and from the second epoch on ``fit`` only replays. The
+parameters, optimizer state and tables are updated in place, so a replay
+reads and writes them where the capture found them. A capture or a replay
+that fails raises; nothing returns to eager steps. On the CPU the same step
+bodies run eagerly over the same buffers. ``train_step`` stays the eager
+single step on both.
 
 Scoring is the JAX trainer's jitted ``_eval_step`` and ``make_serving_fn``:
 ``model(batch, train=False)`` under ``torch.inference_mode()``, one CUDA
@@ -39,25 +50,41 @@ first request of a signature runs eagerly, the second captures, and every
 later one replays. The prediction (and the target, where the batch has a
 label) is copied out before it is returned. The tables that training writes
 in place are what a replay reads, so a graph scores the current state;
-``init_state`` and a new training layout drop the graphs. ``serve.eager``
-(on ``make_serving_fn``'s scorer) runs the same model call eagerly, without
-static inputs, for comparison.
+``init_state`` drops the graphs. ``serve.eager`` (on ``make_serving_fn``'s
+scorer) runs the same model call eagerly, without static inputs, for
+comparison.
 
-Batches are dicts of numpy arrays or tensors. The fit loop and its
-callbacks come with A3 and raise until then.
+Weights and checkpoints restore in place. ``save_weights`` writes the
+leaves of ``utils/convert.py::leaves_of`` (keyed by flax path: the dense
+parameters, each packed table's whole rows, a classic table's ``q`` and
+``scale``) with ``torch.save`` to a temporary file renamed over the target;
+``save_checkpoint`` adds the dense optimizer's state (keyed by its
+parameter's flax path), the step, the dropout generator's state and
+(``QuantizedEmbeddingTrainer``) the accumulators and the rounding key.
+``load_weights``, ``load_best_weights`` and ``restore_checkpoint`` copy
+every value into the tensor that holds it: the captured train graphs and
+scorer graphs read those tensors' addresses, and some tables are views of
+others (a sparse trainer's table is a view of its packed buffer, a
+quantized trainer's packed table is the model's buffer). ``best_params``
+is a host copy, as the JAX trainer keeps it. Files hold only what
+``torch.load(weights_only=True)`` reads.
+
+Batches are dicts of numpy arrays or tensors.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from itertools import chain, islice
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from pytorchrec_tpu_torch.data.loader import eval_batches
+from pytorchrec_tpu_torch.data.loader import eval_batches, num_train_batches, train_batches
 from pytorchrec_tpu_torch.data.packing import BatchPacker, batch_signature
 from pytorchrec_tpu_torch.data.prefetch import PackedBatch, device_put_prefetch
+from pytorchrec_tpu_torch.data.schema import TrainMode
 from pytorchrec_tpu_torch.loss import get_loss
 from pytorchrec_tpu_torch.metric import MetricList
 from pytorchrec_tpu_torch.models.base import RecModel
@@ -66,13 +93,16 @@ from pytorchrec_tpu_torch.ops.kernels import add_tally, capture_tally
 from pytorchrec_tpu_torch.ops.mlp import Dense
 from pytorchrec_tpu_torch.optim import OPTIMIZERS, build_optimizer
 from pytorchrec_tpu_torch.training.callbacks import Callback, CallbackList, History
+from pytorchrec_tpu_torch.training.checkpoint import atomic_save
 from pytorchrec_tpu_torch.training.state import TrainState
+from pytorchrec_tpu_torch.utils.convert import flax_path, leaves_of, load_leaves
 from pytorchrec_tpu_torch.utils.device import resolve_device
-from pytorchrec_tpu_torch.utils.graphs import GraphCache, StaticInputs
+from pytorchrec_tpu_torch.utils.graphs import GraphCache, StaticInputs, collector_paused
 
 Batch = Dict[str, Any]
 
 PREFETCH = 2  # batches the prefetch thread packs ahead (the JAX trainer's size)
+MAX_LAYOUTS = 4  # batch layouts whose static inputs and graphs a trainer keeps
 
 
 class _StepInputs:
@@ -125,6 +155,27 @@ class _StepGraph:
     def replay(self) -> None:
         self.graph.replay()
         add_tally(self.tally)
+
+
+class _Layout:
+    """One batch layout's steps: its packer (None for unpacked batches,
+    which ``example`` shapes), its static inputs, its graphs by steps a
+    call, and whether a step of it ran on the card (the warm-up)."""
+
+    def __init__(self, packer: Optional[BatchPacker], example: Optional[Batch] = None):
+        self.packer, self.example = packer, example
+        self.inputs: Optional[_StepInputs] = None
+        self.graphs: Dict[int, _StepGraph] = {}
+        self.warm = False
+
+
+def _announced(items: Iterator, on_begin: Callable[[int], None]) -> Iterator:
+    """``items``, calling ``on_begin(b)`` as item b is handed out: a batch's
+    begin hook runs once its batch has come from the prefetch ring and
+    before its step."""
+    for b, item in enumerate(items):
+        on_begin(b)
+        yield item
 
 
 def request_signature(batch: Batch) -> tuple:
@@ -184,16 +235,16 @@ class Trainer:
         # one device: the packed transfer is the default, as in the JAX trainer
         self.packed_transfer = True if packed_transfer is None else bool(packed_transfer)
         self.state: Optional[TrainState] = None
+        self.best_params: Optional[Dict[str, torch.Tensor]] = None  # host copies, by flax path
+        self.stop_training = False
         self.history: Optional[History] = None
         self.loss_fn: Optional[Callable] = None
         self._compiled = False
-        # every loss of the last fit_steps call, on the device
+        # every loss of the last fit or fit_steps call, on the device
         self.step_losses: Optional[torch.Tensor] = None
-        self._packer: Optional[BatchPacker] = None
-        self._layout = None  # the batch signature the inputs and graphs are for
-        self._inputs: Optional[_StepInputs] = None
-        self._graphs: Dict[int, _StepGraph] = {}  # steps a call -> its graph
-        self._warm = False  # a step of the layout ran on the card
+        # the kept layouts by (packed, batch signature), least recently used first
+        self._layouts: "OrderedDict[tuple, _Layout]" = OrderedDict()
+        self._layout: Optional[_Layout] = None  # the layout of the last batch
         self._stream: Optional[torch.cuda.Stream] = None  # warm-up and capture
         self.metrics: Optional[MetricList] = None
         self._scores = GraphCache(self.device)  # the scorer's graphs by request signature
@@ -240,7 +291,9 @@ class Trainer:
         self._assert_compiled()
         if self.model.has_quantized_table and not self.trains_quantized_tables:
             raise ValueError("a quantized table trains under QuantizedEmbeddingTrainer")
-        self._set_layout(None)
+        self._layouts.clear()
+        self._layout = None
+        self._scores.clear()
         generator = torch.Generator(device=self.device).manual_seed(seed)
         with torch.no_grad():
             for param in self.model.parameters():
@@ -289,46 +342,59 @@ class Trainer:
         return loss
 
     # ------------------------------------------------------------------
-    # fit_steps: packed batches, static buffers, CUDA graphs
+    # captured steps: packed batches, static buffers, CUDA graphs
     # ------------------------------------------------------------------
+
+    @property
+    def _graphs(self) -> Dict[int, _StepGraph]:
+        """The graphs of the current layout, by steps a call."""
+        return {} if self._layout is None else self._layout.graphs
+
+    @property
+    def _packer(self) -> Optional[BatchPacker]:
+        """The packer of the current layout (None: unpacked batches)."""
+        return None if self._layout is None else self._layout.packer
+
+    def _adopt(self, key: tuple, make: Callable[[], _Layout]) -> _Layout:
+        """Make the layout ``key`` current, keeping it if it is known, else
+        ``make()``-ing it; a new one past ``MAX_LAYOUTS`` drops the least
+        recently used one, its static inputs and its graphs."""
+        layout = self._layouts.get(key)
+        if layout is None:
+            layout = self._layouts[key] = make()
+            while len(self._layouts) > MAX_LAYOUTS:
+                self._layouts.popitem(last=False)
+        else:
+            self._layouts.move_to_end(key)
+        self._layout = layout
+        return layout
 
     def batch_packer(self, example: Batch) -> BatchPacker:
         """The packer of ``example``'s layout, which ``fit_steps`` takes
         batches packed by (``pack(batch)``: an ``(ints, floats)`` pair, on
-        the host or the device). A new layout drops the captured graphs."""
-        if self._packer is None or self._packer.signature != batch_signature(example):
-            self._set_layout(BatchPacker(example, pin_memory=self.device.type == "cuda"))
-        return self._packer
-
-    def _set_layout(self, packer: Optional[BatchPacker], example: Optional[Batch] = None) -> None:
-        """Adopt a batch layout (a packer, or an unpacked example): drop the
-        static inputs and every graph, and warm up again on the card."""
-        self._packer = packer
-        self._layout = packer.signature if packer is not None else (
-            None if example is None else batch_signature(example))
-        self._unpacked_example = example
-        self._inputs = None
-        self._graphs.clear()
-        self._warm = False
-        self._scores.clear()
+        the host or the device), and which becomes the current layout."""
+        pin = self.device.type == "cuda"
+        return self._adopt(("packed", batch_signature(example)),
+                           lambda: _Layout(BatchPacker(example, pin_memory=pin))).packer
 
     def _inputs_for(self, item, rows: int) -> _StepInputs:
         """The static inputs of ``item``'s layout, at least ``rows`` deep
-        (deeper inputs drop the graphs over the old ones)."""
+        (deeper inputs drop the layout's graphs over the old ones)."""
         if isinstance(item, PackedBatch):
-            if item.packer.signature != self._layout:
-                self._set_layout(item.packer)
+            layout = self._adopt(("packed", item.packer.signature), lambda: _Layout(item.packer))
         elif isinstance(item, tuple):
-            if self._packer is None:
+            layout = self._layout
+            if layout is None or layout.packer is None:
                 raise ValueError("a packed batch needs its layout's packer: pass a dict batch "
                                  "first, or pack with trainer.batch_packer(example)")
-        elif batch_signature(item) != self._layout:  # unpacked
-            self._set_layout(None, item)
-        if self._inputs is None or self._inputs.rows < rows:
-            self._inputs = _StepInputs(rows, self.device, self.state.scalars.width,
-                                       self._packer, self._unpacked_example)
-            self._graphs.clear()
-        return self._inputs
+        else:  # unpacked
+            layout = self._adopt(("unpacked", batch_signature(item)),
+                                 lambda: _Layout(None, item))
+        if layout.inputs is None or layout.inputs.rows < rows:
+            layout.inputs = _StepInputs(rows, self.device, self.state.scalars.width,
+                                        layout.packer, layout.example)
+            layout.graphs.clear()
+        return layout.inputs
 
     def _steps(self, inputs: _StepInputs, n: int) -> None:
         """The body of a call: steps 0..n-1 over the inputs' rows, each loss
@@ -349,7 +415,7 @@ class Trainer:
         with torch.cuda.stream(stream):
             self._steps(inputs, n)
         torch.cuda.current_stream().wait_stream(stream)
-        self._warm = True
+        self._layout.warm = True
 
     def _capture(self, inputs: _StepInputs, n: int) -> _StepGraph:
         """Capture n steps over the inputs. The dropout generator is
@@ -357,7 +423,8 @@ class Trainer:
         eager steps would; without that, a model with dropout raises. A
         capture that fails raises, and PyTorch then leaves the generators it
         registered (its default CUDA generator among them) in capture mode:
-        the process cannot draw from them again."""
+        the process cannot draw from them again. Python's collector is paused
+        meanwhile (``collector_paused``)."""
         graph = torch.cuda.CUDAGraph()
         register = getattr(graph, "register_generator_state", None)
         if register is not None:
@@ -365,43 +432,49 @@ class Trainer:
         elif _uses_dropout(self.model):
             raise RuntimeError("this torch cannot register the dropout generator with a CUDA "
                                "graph: fit_steps on the card takes no dropout here")
-        with capture_tally() as tally:
+        with collector_paused(), capture_tally() as tally:
             with torch.cuda.graph(graph, stream=self._side_stream(),
                                   capture_error_mode="thread_local"):
                 self._steps(inputs, n)
         return _StepGraph(graph, dict(tally), inputs)
 
     def _run(self, inputs: _StepInputs, n: int) -> None:
-        """n steps over the loaded rows: on the card the replay of their
-        graph (captured at first use), on the CPU the same body eagerly."""
-        state = self.state
+        """n steps over the loaded rows of the current layout: on the card
+        the replay of their graph (captured at first use), on the CPU the
+        same body eagerly."""
+        state, layout = self.state, self._layout
         self._write_scalars(inputs.scalars[:n], state.step + 1)
         if self.device.type == "cpu":
             self._steps(inputs, n)
-        elif not self._warm:
+        elif not layout.warm:
             self._warm_up(inputs, n)
         else:
-            graph = self._graphs.get(n)
+            graph = layout.graphs.get(n)
             if graph is None:
-                graph = self._graphs[n] = self._capture(inputs, n)
+                graph = layout.graphs[n] = self._capture(inputs, n)
             graph.replay()
         state.step += n
 
     def _call(self, items: Iterator, k: int, losses: torch.Tensor) -> int:
         """Up to k steps over the next batches, as one call: their losses go
         to ``losses[:n]``; returns n (0 when the batches are spent). On the
-        card a new layout's first step runs alone first (the warm-up), and
-        the rest of the call after it. Each batch is copied in as it comes,
+        card a new layout's first step runs alone first (the warm-up), the
+        graph of k steps is captured at once after it (a capture runs
+        nothing: the layout's next call of k steps replays it), and the rest
+        of the call runs after them. Each batch is copied in as it comes,
         which frees its prefetch slot."""
         first = next(items, None)
         if first is None:
             return 0
         inputs = self._inputs_for(first, k)
+        layout = self._layout
         done, pending = 0, [first]
-        if self.device.type == "cuda" and not self._warm:
+        if self.device.type == "cuda" and not layout.warm:
             inputs.load(0, first)
             self._run(inputs, 1)
             losses[0].copy_(inputs.losses[0])
+            if k not in layout.graphs:
+                layout.graphs[k] = self._capture(inputs, k)
             done, pending = 1, []
         n = 0
         for item in chain(pending, islice(items, k - done - len(pending))):
@@ -414,19 +487,113 @@ class Trainer:
             losses[done:done + n].copy_(inputs.losses[:n])
         return done + n
 
+    def _feed(self, batches: Iterable) -> Iterator:
+        """The items ``_call`` takes: with the packed transfer, the batches
+        packed on the prefetch thread (a ring to close when done), else the
+        batches themselves."""
+        if self.packed_transfer:
+            return device_put_prefetch(iter(batches), PREFETCH,
+                                       pin_memory=self.device.type == "cuda")
+        return iter(batches)
+
+    # ------------------------------------------------------------------
+    # fit (the JAX trainer's fit) and fit_steps
+    # ------------------------------------------------------------------
+
+    def fit(self, reader, batch_size: int, epochs: int, train_mode: Optional[TrainMode] = None,
+            verbose: int = 1, callbacks: Optional[Union[List[Callback], CallbackList]] = None,
+            shuffle: bool = True, drop_last: bool = True, dev_batch_size: Optional[int] = None,
+            dev_freq: int = 1, seed: int = 2020, eval_dev: bool = True) -> History:
+        """``epochs`` epochs over the train split of ``reader`` (any object
+        with ``get_train_dataset_size()``, ``get_dataset_size(split)``,
+        ``get_batch(split, indices)`` and ``train_mode``; under
+        ``TrainMode.PAIR_WISE`` also ``train_neg_sample()``, called at each
+        epoch's start), shuffled by ``default_rng(seed)``, each step through
+        the captured step (one a call: ``_call``); every ``dev_freq`` epochs
+        the compiled metrics over the dev split (``evaluate``, the captured
+        scorer). The epoch logs are the last batch's ``loss`` and the dev
+        metrics, as the JAX trainer keeps them. Only when a callback has
+        train-batch hooks is each step's loss copied to the host (for
+        ``on_train_batch_end``); else an epoch runs without a host sync until
+        its end. A callback ends the run by setting ``stop_training``.
+        Without a state, the first 2 train rows initialise it.
+        ``step_losses`` holds every step's loss, on the device."""
+        self._assert_compiled()
+        if self.state is None:
+            bootstrap = reader.get_batch("train",
+                                         np.arange(min(2, reader.get_train_dataset_size())))
+            self.init_state(bootstrap, seed=seed)
+        train_mode = train_mode or reader.train_mode
+        batches = num_train_batches(reader.get_train_dataset_size(), batch_size, drop_last)
+        if not isinstance(callbacks, CallbackList):
+            callbacks = CallbackList(callbacks, add_history=True, add_progbar=verbose != 0,
+                                     trainer=self, verbose=verbose, epochs=epochs,
+                                     batches=batches)
+        self.history = callbacks.history
+        shuffle_rng = np.random.default_rng(seed)
+        epoch_losses: List[torch.Tensor] = []
+        self.stop_training = False
+        callbacks.on_train_begin()
+        for epoch in range(epochs):
+            callbacks.on_epoch_begin(epoch)
+            if train_mode == TrainMode.PAIR_WISE:
+                reader.train_neg_sample()
+            losses = torch.zeros((batches,), dtype=torch.float32, device=self.device)
+            n = self._fit_epoch(train_batches(reader, batch_size, shuffle_rng, shuffle, drop_last),
+                                losses, callbacks)
+            epoch_losses.append(losses[:n])
+            epoch_logs = {"loss": float(losses[n - 1])} if n else {}
+            if eval_dev and (epoch + 1) % dev_freq == 0 and not self.stop_training:
+                epoch_logs.update(self.evaluate(reader, split="dev",
+                                                batch_size=dev_batch_size or batch_size,
+                                                verbose=verbose, callbacks=callbacks))
+            callbacks.on_epoch_end(epoch, epoch_logs)
+            if self.stop_training:
+                break
+        callbacks.on_train_end()
+        self.step_losses = torch.cat(epoch_losses) if epoch_losses else None
+        return self.history
+
+    def _fit_epoch(self, batches: Iterator[Batch], losses: torch.Tensor,
+                   callbacks: CallbackList) -> int:
+        """One epoch's steps, one a call, each loss into its slot of
+        ``losses``; with train-batch hooks, the hooks around each step (its
+        loss copied to the host) and a stop after the batch that sets
+        ``stop_training``. Returns the steps taken."""
+        hooks = callbacks.implements_train_batch_hooks()
+        items = self._feed(batches)
+        feed = _announced(items, callbacks.on_train_batch_begin) if hooks else items
+        done = 0
+        try:
+            while self._call(feed, 1, losses[done:]):
+                done += 1
+                if hooks:
+                    callbacks.on_train_batch_end(done - 1, {"loss": float(losses[done - 1])})
+                    if self.stop_training:
+                        break
+        finally:
+            if self.packed_transfer:
+                items.close()
+        return done
+
     def fit_steps(self, batches: Iterable[Batch], steps: int, log_every: int = 100,
-                  callbacks=None, steps_per_call: int = 1, seed: int = 2020) -> History:
+                  callbacks: Optional[Union[List[Callback], CallbackList]] = None,
+                  steps_per_call: int = 1, seed: int = 2020, verbose: int = 0) -> History:
         """``steps`` train steps over ``batches`` (dicts, or ``(ints,
         floats)`` pairs packed by ``batch_packer``), ``steps_per_call`` of
         them a call: on the card one replay of a captured graph, on the CPU
-        the same steps eagerly. ``history["loss"]`` holds the loss after the
-        call that ends each ``log_every`` window (and after a shorter last
-        one), as in the JAX trainer; ``step_losses`` every step's loss, on
-        the device. ``steps_per_call > 1`` needs the packed transfer.
-        Without a state, the first batch initialises it."""
+        the same steps eagerly. Each ``log_every`` window is an "epoch" of
+        the callbacks: ``history["loss"]`` holds the loss after the call
+        that ends each window (and after a shorter last one), as in the JAX
+        trainer; ``step_losses`` every step's loss, on the device. With one
+        step a call, the train-batch hooks run around each step (its loss
+        copied to the host) and ``stop_training`` ends the run after it;
+        with more, only the windows' ends are logged, as the JAX trainer's
+        fused steps do. ``steps_per_call > 1`` needs the packed transfer.
+        ``verbose`` adds a progress bar (the JAX default is 1; here 0, so
+        no callback syncs a step unless asked). Without a state, the first
+        batch initialises it."""
         self._assert_compiled()
-        if callbacks is not None:
-            raise NotImplementedError("callbacks come with the fit loop, not ported yet")
         if steps_per_call < 1:
             raise ValueError(f"steps_per_call must be at least 1, got {steps_per_call}")
         if steps_per_call > 1 and not self.packed_transfer:
@@ -436,30 +603,42 @@ class Trainer:
             first = next(iterator)
             self.init_state(first, seed=seed)
             iterator = chain([first], iterator)
-        history = History()
+        if not isinstance(callbacks, CallbackList):
+            callbacks = CallbackList(callbacks, add_history=True, add_progbar=verbose != 0,
+                                     trainer=self, verbose=verbose,
+                                     epochs=-(-steps // log_every), batches=log_every)
+        self.history = callbacks.history
+        hooks = steps_per_call == 1 and callbacks.implements_train_batch_hooks()
         losses = torch.zeros((max(steps, 0),), dtype=torch.float32, device=self.device)
         window = since_log = done = 0
-        items = (device_put_prefetch(iterator, PREFETCH, pin_memory=self.device.type == "cuda")
-                 if self.packed_transfer else iterator)
+        items = self._feed(iterator)
+        feed = _announced(items, callbacks.on_train_batch_begin) if hooks else items
+        self.stop_training = False
+        callbacks.on_train_begin()
+        callbacks.on_epoch_begin(window)
         try:
-            while done < steps:
-                n = self._call(items, min(steps_per_call, steps - done), losses[done:])
+            while done < steps and not self.stop_training:
+                n = self._call(feed, min(steps_per_call, steps - done), losses[done:])
                 if n == 0:
                     break
                 done += n
                 since_log += n
+                if hooks:
+                    callbacks.on_train_batch_end(done - 1, {"loss": float(losses[done - 1])})
                 if since_log >= log_every:
-                    history.on_epoch_end(window, {"loss": float(losses[done - 1])})
+                    callbacks.on_epoch_end(window, {"loss": float(losses[done - 1])})
                     since_log = 0
                     window += 1
+                    if done < steps:
+                        callbacks.on_epoch_begin(window)
         finally:
             if self.packed_transfer:
                 items.close()
         if done and since_log:
-            history.on_epoch_end(window, {"loss": float(losses[done - 1])})
+            callbacks.on_epoch_end(window, {"loss": float(losses[done - 1])})
+        callbacks.on_train_end()
         self.step_losses = losses[:done]
-        self.history = history
-        return history
+        return self.history
 
     # ------------------------------------------------------------------
     # scoring: one CUDA graph a request signature
@@ -573,3 +752,101 @@ class Trainer:
                                                    "predict")
         callbacks.on_predict_end()
         return predictions
+
+    # ------------------------------------------------------------------
+    # weights and checkpoints, restored in place
+    # ------------------------------------------------------------------
+
+    def save_weights(self, filepath: str) -> None:
+        """The weights (``leaves_of``: host copies by flax path) to
+        ``filepath``, written whole or not at all (``atomic_save``)."""
+        self._assert_state()
+        atomic_save(leaves_of(self), filepath)
+
+    def load_weights(self, filepath: str) -> None:
+        """Copy the weights in ``filepath`` into the trainer's tensors, in
+        place; the step, the optimizer's state and the generator stay."""
+        self._assert_state()
+        load_leaves(torch.load(filepath, map_location="cpu", weights_only=True), self)
+
+    def save_best_weights(self) -> None:
+        """Keep a host copy of the weights as ``best_params``."""
+        self._assert_state()
+        self.best_params = leaves_of(self)
+
+    def load_best_weights(self) -> None:
+        """Copy ``best_params`` back into the trainer's tensors, in place."""
+        if self.best_params is None:
+            raise RuntimeError("no best weights are kept: save_best_weights() first")
+        load_leaves(self.best_params, self)
+
+    def _dense_paths(self) -> Dict[torch.Tensor, str]:
+        """Each parameter of the dense optimizer, with its flax path."""
+        by_id = {id(p): flax_path(name) for name, p in self.model.named_parameters()}
+        return {p: by_id[id(p)] for group in self.state.optimizer.param_groups
+                for p in group["params"]}
+
+    def checkpoint_state(self) -> Dict[str, Any]:
+        """Host copies of the whole train state: ``params`` (the weights),
+        ``opt_state`` (the dense optimizer's state by its parameter's flax
+        path, for each parameter that has one), ``step``, ``rng_state`` (the
+        dropout generator's) and what the trainer's kind adds
+        (``_extra_checkpoint``)."""
+        state = self._assert_state()
+        opt_state = {}
+        for param, path in self._dense_paths().items():
+            entry = state.optimizer.state.get(param)
+            if entry:
+                opt_state[path] = {k: v.detach().to("cpu", copy=True) for k, v in entry.items()}
+        return {"params": leaves_of(self), "opt_state": opt_state, "step": int(state.step),
+                "rng_state": state.rng.get_state(), **self._extra_checkpoint()}
+
+    def load_checkpoint_state(self, payload: Dict[str, Any]) -> None:
+        """Restore ``checkpoint_state``'s dict into the trainer's tensors, in
+        place. A parameter whose optimizer state is absent from the payload
+        gets its state zeroed (a state that never stepped); one that has no
+        state yet here gets new tensors (no graph can have captured them:
+        a step makes them, and the warm-up step precedes every capture)."""
+        state = self._assert_state()
+        paths = self._dense_paths()
+        saved = payload["opt_state"]
+        unknown = sorted(set(saved) - set(paths.values()))
+        if unknown:
+            raise KeyError(f"optimizer state for {unknown}, which the optimizer lacks")
+        load_leaves(payload["params"], self)
+        with torch.no_grad():
+            for param, path in paths.items():
+                entry, values = state.optimizer.state.get(param), saved.get(path)
+                if entry:
+                    for key, tensor in entry.items():
+                        if values is None:
+                            tensor.zero_()
+                        else:
+                            tensor.copy_(values[key])
+                elif values:
+                    state.optimizer.state[param] = {k: v.to(param.device)
+                                                    for k, v in values.items()}
+        state.step = int(payload["step"])
+        state.rng.set_state(payload["rng_state"])
+        self._load_extra_checkpoint(payload)
+
+    def _extra_checkpoint(self) -> Dict[str, Any]:
+        """What a checkpoint holds beyond the weights, the dense optimizer,
+        the step and the generator (none here)."""
+        return {}
+
+    def _load_extra_checkpoint(self, payload: Dict[str, Any]) -> None:
+        """Restore ``_extra_checkpoint``'s entries in place."""
+
+    def save_checkpoint(self, filepath: str) -> None:
+        """The whole train state (``checkpoint_state``) to ``filepath``,
+        written whole or not at all."""
+        atomic_save(self.checkpoint_state(), filepath)
+
+    def restore_checkpoint(self, filepath: str) -> None:
+        """Restore ``save_checkpoint``'s file into this trainer's state, in
+        place (``init_state`` first: its tensors receive the values)."""
+        if self.state is None:
+            raise RuntimeError("init_state() first: a checkpoint restores into the state's "
+                               "tensors")
+        self.load_checkpoint_state(torch.load(filepath, map_location="cpu", weights_only=True))

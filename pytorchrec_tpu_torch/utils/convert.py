@@ -45,12 +45,21 @@ into the model as above, in place. The classic accumulator
 (``state.table_acc``) is train state, not a leaf: it stays as
 ``init_state`` left it, zero. The dense optimizer's state is
 then still empty, as optax's ``init`` leaves it.
+
+The way back: ``flax_path(key)`` names a port state-dict key's flax leaf,
+``leaves_of(target)`` gives a model's or a trainer's leaves as host copies
+keyed by flax path (a packed trainer's packed buffers whole, kernels back
+to ``[in, out]``), and ``load_leaves(flat, target)`` loads such leaves, or
+JAX's, at any step: every value is copied into the tensor that holds it
+(``copy_``), so no tensor is reallocated and a CUDA graph that captured it
+reads the loaded values. ``Trainer.save_weights``, ``load_weights`` and the
+checkpoints store and read these leaves.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -80,8 +89,46 @@ def _port_key(path: str):
     raise KeyError(f"no port counterpart for flax leaf {path!r}")
 
 
+def flax_path(key: str) -> str:
+    """The flax leaf path of port state-dict key ``key`` (the inverse of
+    the rules above; ``_port_key`` of it gives ``key`` back)."""
+    path = re.sub(r"\.layers\.(\d+)\.linear\.", r"/Dense_\1/Dense_0/", key)
+    path = re.sub(r"[./]weight$", "/kernel", path).replace(".", "/")
+    if _port_key(path)[0] != key:
+        raise KeyError(f"no flax leaf for port key {key!r}")
+    return path
+
+
+def _packed_of(target) -> Dict[str, torch.Tensor]:
+    if isinstance(target, nn.Module):
+        return {}
+    if target.state is None:
+        raise ValueError("a trainer's leaves exist after init_state()")
+    return getattr(target.state, "packed", {})
+
+
+def leaves_of(target) -> Dict[str, torch.Tensor]:
+    """Host copies of ``target``'s leaves (a model, or a trainer after
+    ``init_state``), keyed by flax path; what ``load_leaves`` loads."""
+    model = target if isinstance(target, nn.Module) else target.model
+    packed = _packed_of(target)
+    out = {}
+    for key, value in model.state_dict().items():
+        path = flax_path(key)
+        if path in packed:
+            value = packed[path]  # the model's table is a view of it
+        elif _port_key(path)[1] == "transpose":
+            value = value.t()
+        out[path] = value.detach().to("cpu", memory_format=torch.contiguous_format, copy=True)
+    return out
+
+
+def _host_array(value) -> np.ndarray:
+    return value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
+
+
 def _load_packed(path: str, value, packed: torch.Tensor) -> None:
-    tensor = torch.from_numpy(np.array(value, order="C"))
+    tensor = torch.from_numpy(np.array(_host_array(value), order="C"))
     if tuple(tensor.shape) != tuple(packed.shape) or tensor.dtype != packed.dtype:
         raise ValueError(f"flax leaf {path!r} is {tuple(tensor.shape)} {tensor.dtype}; the packed "
                          f"buffer is {tuple(packed.shape)} {packed.dtype}")
@@ -91,13 +138,17 @@ def _load_packed(path: str, value, packed: torch.Tensor) -> None:
 
 def params_from_jax(flat: Mapping[str, np.ndarray], target):
     """Load ``flat`` into ``target``, a model (on whatever device it lives)
-    or a packed trainer; return ``target``."""
+    or a packed trainer right after its ``init_state``; return ``target``."""
+    if not isinstance(target, nn.Module) and (target.state is None or target.state.step != 0):
+        raise ValueError("load into a trainer right after init_state(), before any step")
+    return load_leaves(flat, target)
+
+
+def load_leaves(flat: Mapping[str, Any], target):
+    """Load ``flat`` (flax path -> numpy array or tensor) into ``target``, a
+    model or a trainer with a state, in place; return ``target``."""
     model = target if isinstance(target, nn.Module) else target.model
-    packed: Dict[str, torch.Tensor] = {}
-    if not isinstance(target, nn.Module):
-        if target.state is None or target.state.step != 0:
-            raise ValueError("load into a trainer right after init_state(), before any step")
-        packed = target.state.packed
+    packed = _packed_of(target)
     state = model.state_dict()
     loaded: Dict[str, torch.Tensor] = {}
     filled = set()
@@ -112,7 +163,7 @@ def params_from_jax(flat: Mapping[str, np.ndarray], target):
             filled.add(key)
             continue
         want = state[key]
-        array = np.asarray(value)
+        array = _host_array(value)
         if transform == "transpose":
             array = array.T
         elif transform == "table_columns" and array.ndim == 2 and array.shape[1] > want.shape[1]:

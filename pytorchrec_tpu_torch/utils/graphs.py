@@ -28,6 +28,8 @@ so the host never overwrites a request the card has not read yet.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import torch
@@ -35,6 +37,22 @@ import torch
 from pytorchrec_tpu_torch.ops.kernels import add_tally, capture_tally
 
 Outputs = Tuple[Optional[torch.Tensor], ...]
+
+
+@contextlib.contextmanager
+def collector_paused():
+    """Collect Python's cyclic garbage, then keep the collector off while a
+    graph is captured: garbage that holds a CUDA graph or its memory pool,
+    freed by the collector in the middle of a capture, invalidates the
+    capture (cuBLAS then fails inside it)."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def on_device(values) -> bool:
@@ -161,7 +179,7 @@ class GraphCache:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        with capture_tally() as tally:
+        with collector_paused(), capture_tally() as tally:
             with torch.cuda.graph(graph, pool=self._pool, stream=self._side_stream(),
                                   capture_error_mode="thread_local"):
                 outputs = body(entry.inputs)

@@ -232,8 +232,8 @@ def test_trainer_surface_raises_on_what_is_not_ported():
     trainer.compile()
     with pytest.raises(RuntimeError):
         trainer.train_step(_batches(1)[0])  # no state
-    with pytest.raises(NotImplementedError):
-        trainer.fit_steps(iter(_batches(1)), steps=1, callbacks=[])
+    history = trainer.fit_steps(iter(_batches(1)), steps=1, callbacks=[])  # ported: the fit loop
+    assert len(history.history["loss"]) == 1 and trainer.state.step == 1
     trainer.init_state(_batches(1)[0], seed=0)
     trainer.train_step(_batches(1)[0])
     with pytest.raises(ValueError):

@@ -48,7 +48,11 @@ def test_every_training_module_is_walked():
             "pytorchrec_tpu_torch.serving", "pytorchrec_tpu_torch.serving.retrieval",
             "pytorchrec_tpu_torch.ops.kernels.retrieval_topk", "pytorchrec_tpu_torch.metric",
             "pytorchrec_tpu_torch.metric.metrics", "pytorchrec_tpu_torch.data.loader",
-            "pytorchrec_tpu_torch.utils.graphs"} <= modules
+            "pytorchrec_tpu_torch.utils.graphs", "pytorchrec_tpu_torch.training.checkpoint",
+            "pytorchrec_tpu_torch.data.schema", "pytorchrec_tpu_torch.utils.constants",
+            "pytorchrec_tpu_torch.utils.data_structure", "pytorchrec_tpu_torch.utils.enum_utils",
+            "pytorchrec_tpu_torch.utils.profiling", "pytorchrec_tpu_torch.utils.system",
+            "pytorchrec_tpu_torch.utils.timer", "pytorchrec_tpu_torch.utils.version"} <= modules
 
 
 def test_importing_every_port_module_loads_no_jax():

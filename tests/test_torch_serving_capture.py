@@ -120,6 +120,10 @@ def test_unpacked_inputs_hold_one_buffer_a_key():
 
 
 def test_init_state_and_a_new_layout_drop_the_graphs():
+    """``init_state`` drops the scorer's graphs. A new training layout no
+    longer does: the trainer keeps a layout's steps a layout each, and the
+    scorer's graphs read the tables and weights that every layout's steps
+    update in place, so they score the current state after it."""
     rng = np.random.default_rng(4)
     trainer = SparseEmbeddingTrainer(_dcn(unified=True), device="cpu", packed_tables=True)
     trainer.compile(optimizer="adam", lr=1e-2, loss="bce", metrics=())
@@ -133,8 +137,9 @@ def test_init_state_and_a_new_layout_drop_the_graphs():
     after = serve(bare)
     assert not torch.equal(before, after) and torch.equal(after, serve.eager(bare))
     trainer.fit_steps(iter([_batch(rng, 32)]), steps=1)  # a new training layout
-    assert len(trainer._scores) == 0
-    serve(bare)
+    assert len(trainer._scores) == 1
+    moved = serve(bare)
+    assert not torch.equal(moved, after) and torch.equal(moved, serve.eager(bare))
     trainer.init_state(batch, seed=1)
     assert len(trainer._scores) == 0
 
