@@ -271,6 +271,22 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    accumulator, dense parameter and Adam moment bit-equal, the checkpoint's
    size and its save and restore seconds. Checkpoints are written to a
    temporary directory under the process's ``TMPDIR`` and removed;
+38. the factorization and sequence zoo (FunkSVD, SVD++, NCF, GRU4Rec,
+   SASRec) at ``scripts/din_sparse_ab.py``'s scale (65,536 users, 1,048,576
+   items, E=64, batch 4096 of ``[B, 2]`` candidates, positive first;
+   histories of 50; GRU hidden 64; SASRec 2 shared layers, dropout 0.2; NCF
+   ``layers=(64,)``, dropout 0.2; BPR for the factorization models, BCE for
+   the sequence ones), weights from ``init_state(seed)`` with table rows
+   N(0, 0.1): all five with f32 packed tables and GRU4Rec, SASRec and SVD++
+   (two salted tables a step) with int8 packed item tables, each through
+   phase 35's harness (captured ``fit_steps`` at 1 and 4 steps a replay
+   against eager ``train_step``s, bit-equal, launches of B2, B3 and B4 from
+   zero: the packed tables times the steps); the f32 paths serve ``[1, 500]``
+   and ``[128, 500]`` requests from the trained state, captured against
+   eager, bit-equal, and SASRec's ``evaluate`` (NDCG@10, Hit@10) over 4
+   ``[128, 500]`` batches equals ``MetricList`` of ``predict``; then each
+   path's card-against-CPU check of phase 21, its item tables cut to 65,536
+   rows and dropout 0 (the two generators draw different masks);
 
 then a ``two_tower`` JSON line (ms/step,
 fused and exact ms a request, recall, index build ms), a ``classic_int8``
@@ -278,15 +294,17 @@ line (ms/step of the classic formats, B8's keyed and given-bits times, the
 torch hash's, the dedup's and the update's, phase 32's verdict), a
 ``capture`` line (phase 35's times, busy shares and verdicts by path), a
 ``capture_requests`` line (phase 36's times, memory and metrics), a ``fit``
-line (phase 37's launches, times and checkpoints) and a
-``{"kernels": [...]}`` line with
+line (phase 37's launches, times and checkpoints), a ``zoo`` line (phase
+38's ms/step, replay device ms and busy shares, requests, evaluation and
+seconds) and a ``{"kernels": [...]}`` line with
 every kernel at its main-path shape (``launches``: for B1–B4 the DCN-v2 int8
 training run's, for the FM kernels the DeepFM f32 training run's, for the
 pooling kernel the DIN f32 training run's, for B7 the two-tower serving
 run's, for B8 the DCN-v2 classic training run's; the other paths' counts
 beside, the serving ones from captured requests; ``fit_launches``: phase
-37's runs). Each path (serving, each training run) zeroes every launch count
-just before it and reads them just after.
+37's runs; ``zoo_launches``: phase 38's captured runs). Each path
+(serving, each training run) zeroes every launch count just before it and
+reads them just after.
 The last line is ``{"ok": true, "device": {...}}``.
 Needs one CUDA card; no JAX and nothing of the JAX package is imported.
 """
@@ -312,9 +330,20 @@ import torch
 
 from pytorchrec_tpu_torch.data import BatchPacker, TrainMode, train_batches
 from pytorchrec_tpu_torch.feature_column import CategoricalColumnWithIdentity, NumericColumn
-from pytorchrec_tpu_torch.models import DIN, DCNv2, DeepFM, TwoTower
+from pytorchrec_tpu_torch.models import (
+    DIN,
+    NCF,
+    SVDPP,
+    DCNv2,
+    DeepFM,
+    FunkSVD,
+    GRU4Rec,
+    SASRec,
+    TwoTower,
+)
 from pytorchrec_tpu_torch.models import ctr as ctr_module
 from pytorchrec_tpu_torch.ops import attention as attention_module
+from pytorchrec_tpu_torch.ops.embedding import Embedding
 from pytorchrec_tpu_torch.ops.kernels.build import build
 from pytorchrec_tpu_torch.ops.kernels.cross import (
     FUSED_MAX_WIDTH,
@@ -387,6 +416,7 @@ from pytorchrec_tpu_torch.training import quantized_trainer as quantized_trainer
 from pytorchrec_tpu_torch.training.quantized_trainer import classic_quantized_update
 from pytorchrec_tpu_torch.training.trainer import request_signature
 from pytorchrec_tpu_torch.utils import params_from_jax
+from pytorchrec_tpu_torch.utils.convert import leaves_of
 from pytorchrec_tpu_torch.utils.rng import prng_key, split
 
 # bench.py's Criteo-shaped DCN-v2
@@ -2767,7 +2797,7 @@ def stepped_card_against_cpu(spec: ModelSpec, table: str, leaves: dict,
             if table == "int8":
                 notes.append(int8_rows_agree(tag, path, got, want, spec.emb))
                 continue
-            emb = spec.emb
+            emb = card._emb_dims[path]  # E = 1 for SVD++'s bias tables
             err, n = adam_values_agree(f"{tag} step {step} {path}", got[:, :emb], want[:, :emb],
                                        want[:, 2 * emb:3 * emb] / bias, spec.lr)
             moments = close(got[:, emb:3 * emb], want[:, emb:3 * emb])
@@ -2858,8 +2888,9 @@ def time_captured(trainer, packed: list, steps: int, k: int):
     return start.elapsed_time(end) / steps, 1e3 * (time.perf_counter() - t0) / steps
 
 
-def capture_path(spec: ModelSpec, table: str, leaves: dict, rng: np.random.Generator,
-                 seed: int) -> dict:
+def capture_path(spec: ModelSpec, table: str, leaves: Optional[dict], rng: np.random.Generator,
+                 seed: int, new_trainer: Optional[Callable] = None,
+                 after: Optional[Callable] = None) -> dict:
     """Phase 35 for one model and table: two trainers from one state
     (``params_from_jax``), 2 N eager ``train_step``s against ``fit_steps(N,
     steps_per_call=1)`` then ``fit_steps(N, steps_per_call=4)`` over the
@@ -2869,13 +2900,16 @@ def capture_path(spec: ModelSpec, table: str, leaves: dict, rng: np.random.Gener
     replay against the eager step's. Then eager and captured ms/step (CUDA
     events and the host clock over ``CAPTURE_TIMED`` steps, the captured
     ones over batches packed on the device) and a profiled replay of 4
-    steps."""
+    steps. ``new_trainer(sample)``, where given, makes each trainer in place
+    of ``make_trainer`` from ``leaves``; ``after(captured trainer, host
+    batches, tag)``, where given, runs last and its dict joins the result."""
     tag = f"[capture {spec.name} {table}]"
     per_step = spec.per_step[table]
     host = [spec.batch(rng, spec.train_rows) for _ in range(4)]
     batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()} for b in host]
-    eager = make_trainer(spec, table, "cuda", leaves, host[0], seed)
-    captured = make_trainer(spec, table, "cuda", leaves, host[0], seed)
+    if new_trainer is None:
+        new_trainer = functools.partial(make_trainer, spec, table, "cuda", leaves, seed=seed)
+    eager, captured = new_trainer(host[0]), new_trainer(host[0])
     n = CAPTURE_STEPS
 
     zero_counts()
@@ -2892,6 +2926,7 @@ def capture_path(spec: ModelSpec, table: str, leaves: dict, rng: np.random.Gener
     capture_s = time.perf_counter() - t0
     check_launches(f"{tag} fit_steps {n} + {n} (a warm-up step, then replays)",
                    {k: 0 for k in ALL_KERNELS}, {k: v * 2 * n for k, v in per_step.items()})
+    captured_launches = names(counts())
     for k, graph in sorted(captured._graphs.items()):
         want = {kernel: v * k for kernel, v in per_step.items()}
         if graph.tally != want:
@@ -2932,12 +2967,15 @@ def capture_path(spec: ModelSpec, table: str, leaves: dict, rng: np.random.Gener
            "replay_busy": None if busy is None else busy / wall,
            "eager_device_ms": eager_busy,
            "eager_busy": None if eager_busy is None else eager_busy / eager_wall,
-           "launches_per_step": names(per_step), "bit_equal": not differ, "differ": differ,
+           "launches_per_step": names(per_step), "captured_launches": captured_launches,
+           "bit_equal": not differ, "differ": differ,
            "batch": spec.train_rows}
     print(f"{tag} ms/step (CUDA events over {CAPTURE_TIMED} steps, eager / captured 1 a replay "
           f"/ {CAPTURE_K} a replay / 1 a replay / eager): {eager_ms:.3f} / {one_ms:.3f} / "
           f"{four_ms:.3f} / {one_again:.3f} / {eager_again:.3f}; host clock {eager_host:.3f} / "
           f"{one_host:.3f} / {four_host:.3f}")
+    if after is not None:
+        out.update(after(captured, host, tag))
     del eager, captured, batches, packed
     gc.collect()
     torch.cuda.empty_cache()
@@ -3609,6 +3647,242 @@ def fit_phase(capture: dict, seed: int) -> dict:
     return out
 
 
+# phase 38: the factorization and sequence zoo on the captured trainers
+ZOO_USERS, ZOO_ITEMS, ZOO_EMB = DIN_USERS, DIN_ITEMS, DIN_EMB  # scripts/din_sparse_ab.py:22-23
+ZOO_BATCH, ZOO_CAND = DIN_BATCH, DIN_CAND  # [B, 2], positive first
+ZOO_HIS, ZOO_SASREC_LAYERS = 50, 2  # RESULTS.md:724's SASRec serving configuration
+ZOO_HIDDEN, ZOO_NCF_LAYERS, ZOO_DROPOUT = 64, (64,), 0.2
+ZOO_REQUESTS = ((1, 500), (128, 500))  # candidate requests [B, N], history 50
+ZOO_EVAL_BATCHES = 4  # SASRec's evaluate over this many [128, 500] batches
+ZOO_METRICS = ("ndcg@10", "hit@10")
+ZOO_CPU_ITEMS = 65_536  # the item tables' rows in the card-against-CPU check only
+ZOO_CPU_BATCH = 512
+ZOO_ROW_SCALE = 10.0  # table rows N(0, 0.1), as DIN's (din_leaves says why)
+ZOO_LOSS = {"funk_svd": "bpr", "svdpp": "bpr", "ncf": "bpr", "gru4rec": "bce", "sasrec": "bce"}
+ZOO_FIELDS = {"funk_svd": ("uid", "iid"), "svdpp": ("uid", "iid", "imp"), "ncf": ("uid", "iid"),
+              "gru4rec": ("iid", "his", "his_len"), "sasrec": ("iid", "his", "his_len")}
+# each model's packed tables under the f32 trainer and under the int8 one
+ZOO_PACKED = {"funk_svd": (2, 1), "svdpp": (5, 2), "ncf": (4, 2), "gru4rec": (1, 1),
+              "sasrec": (1, 1)}
+ZOO_PATHS = (("funk_svd", "f32"), ("svdpp", "f32"), ("ncf", "f32"), ("gru4rec", "f32"),
+             ("sasrec", "f32"), ("gru4rec", "int8"), ("sasrec", "int8"), ("svdpp", "int8"))
+
+
+def make_zoo(name: str, table: str, device, seed: int, items: int = ZOO_ITEMS,
+             dropout: float = ZOO_DROPOUT):
+    """One model of the zoo at DIN's scale (65,536 users, ``items`` items,
+    E=64), with f32 or int8 packed item tables: GRU4Rec (hidden 64) and
+    SASRec (history 50, 2 shared layers) over histories of 50; NCF
+    ``layers=(64,)``; NCF's and SASRec's dropout ``dropout``."""
+    col = CategoricalColumnWithIdentity
+    common = dict(emb_size=ZOO_EMB, quantized_table=table == "int8", device=device,
+                  generator=torch.Generator(device=device).manual_seed(seed))
+    if name in ("gru4rec", "sasrec"):
+        cols = dict(iid_column=col("iid", items), his_column=col("his", items),
+                    his_len_column=col("his_len", ZOO_HIS + 1), label_column=LABEL)
+        if name == "gru4rec":
+            return GRU4Rec(**cols, hidden_size=ZOO_HIDDEN, **common)
+        return SASRec(**cols, max_his_len=ZOO_HIS, num_layers=ZOO_SASREC_LAYERS, dropout=dropout,
+                      **common)
+    cols = dict(uid_column=col("uid", ZOO_USERS), iid_column=col("iid", items), label_column=LABEL)
+    if name == "funk_svd":
+        return FunkSVD(**cols, **common)
+    if name == "svdpp":
+        return SVDPP(**cols, iids_column=col("imp", items), **common)
+    return NCF(**cols, layers=ZOO_NCF_LAYERS, dropout=dropout, **common)
+
+
+def skewed_ids(rng: np.random.Generator, shape, items: int) -> np.ndarray:
+    """Item ids in [1, items) under a power law (``items * u**4``), so they
+    repeat within a batch; 0 stays the PAD id."""
+    return (1 + (items - 1) * rng.random(shape) ** 4).astype(np.int32)
+
+
+def zoo_history(rng: np.random.Generator, rows: int, items: int):
+    lengths = rng.integers(1, ZOO_HIS + 1, size=rows).astype(np.int32)
+    his = skewed_ids(rng, (rows, ZOO_HIS), items)
+    his[np.arange(ZOO_HIS)[None, :] >= lengths[:, None]] = 0  # PAD after the history
+    return his, lengths
+
+
+def make_zoo_batch(name: str, rng: np.random.Generator, rows: int, items: int = ZOO_ITEMS,
+                   candidates: int = ZOO_CAND, label: bool = True) -> dict:
+    """The fields ``name`` reads (``ZOO_FIELDS``): users uniform, skewed
+    candidates ``[rows, candidates]`` whose negatives differ from the
+    positive (first), histories of 1-50 ids then PAD (SVD++'s implicit one
+    too), and with ``label`` the one-hot-first label."""
+    iid = skewed_ids(rng, (rows, candidates), items)
+    same = iid[:, 1:] == iid[:, :1]
+    iid[:, 1:][same] = np.broadcast_to(iid[:, :1] % (items - 1) + 1, iid[:, 1:].shape)[same]
+    batch = {"uid": rng.integers(0, ZOO_USERS, size=rows).astype(np.int32), "iid": iid}
+    batch["his"], batch["his_len"] = zoo_history(rng, rows, items)
+    batch["imp"], _ = zoo_history(rng, rows, items)
+    batch = {k: batch[k] for k in ZOO_FIELDS[name]}
+    if label:
+        batch["label"] = np.zeros((rows, candidates), np.int32)
+        batch["label"][:, 0] = 1
+    return batch
+
+
+def zoo_table_ids(path: str, batch: dict) -> np.ndarray:
+    """The ids a zoo batch gathers from the packed table at ``path``: users,
+    SVD++'s implicit history, or the candidates (then the history, for the
+    sequence models: their item table serves both in one gather)."""
+    if path.startswith(("u_", "mf_u", "mlp_u")):
+        ids = batch["uid"]
+    elif path.startswith("implicit"):
+        ids = batch["imp"].reshape(-1)
+    else:
+        ids = batch["iid"].reshape(-1)
+        if "his" in batch:
+            ids = np.concatenate([ids, batch["his"].reshape(-1)])
+    return ids.astype(np.int64)
+
+
+def scale_zoo_rows(trainer) -> None:
+    """Every table's rows times ``ZOO_ROW_SCALE``, in place: f32 tables
+    (``Embedding``s, which the sparse trainer's are views of its packed
+    buffers), and the int8 packed rows' f32 scale field."""
+    with torch.no_grad():
+        for module in trainer.model.modules():
+            if isinstance(module, Embedding):
+                module.embedding.mul_(ZOO_ROW_SCALE)
+        for packed in trainer.state.packed.values():
+            if packed.dtype == torch.uint8:
+                packed.view(torch.float32)[:, ZOO_EMB // 4].mul_(ZOO_ROW_SCALE)
+
+
+def zoo_trainer(name: str, table: str, device: str, seed: int, sample: dict,
+                items: int = ZOO_ITEMS, dropout: float = ZOO_DROPOUT):
+    """The zoo's training set-up: f32 packed tables under lazy Adam
+    (``SparseEmbeddingTrainer``) or int8 packed item tables under rowwise
+    Adagrad (``QuantizedEmbeddingTrainer``, the rest in the dense Adam),
+    dense Adam at lr 1e-3, BPR for the factorization models and BCE for the
+    sequence models; weights drawn by ``init_state(seed)``, table rows
+    scaled to N(0, 0.1)."""
+    model = make_zoo(name, table, device, seed, items, dropout)
+    cls = SparseEmbeddingTrainer if table == "f32" else QuantizedEmbeddingTrainer
+    trainer = cls(model, device=device, packed_tables=True)
+    trainer.compile(optimizer="adam", lr=TRAIN_LR, loss=ZOO_LOSS[name], metrics=ZOO_METRICS,
+                    user_sample_n=ZOO_REQUESTS[-1][1])
+    trainer.init_state(sample, seed=seed)
+    scale_zoo_rows(trainer)
+    return trainer
+
+
+def zoo_spec(name: str) -> ModelSpec:
+    f32_tables, q_tables = ZOO_PACKED[name]
+    return ModelSpec(
+        name=name, make=functools.partial(make_zoo, name), leaves=None,
+        batch=functools.partial(make_zoo_batch, name), table_ids=zoo_table_ids,
+        tables={"f32": None, "int8": None}, q_name="i", forward_kernel=None, plain_forward=None,
+        per_step={"f32": {segmented_sum_scan: f32_tables, scatter_set_rows: f32_tables},
+                  "int8": {segmented_sum_scan: q_tables, requantize_rows: q_tables,
+                           scatter_set_rows: q_tables}},
+        train_rows=ZOO_BATCH, cpu_rows=ZOO_CPU_BATCH, cpu_request=None, emb=ZOO_EMB,
+        scored_key="iid", loss=ZOO_LOSS[name])
+
+
+def zoo_requests(name: str, rng: np.random.Generator) -> list:
+    """The candidate requests (no label) of ``ZOO_REQUESTS``."""
+    return [(f"[{b}, {n}]", make_zoo_batch(name, rng, b, candidates=n, label=False), (b, n))
+            for b, n in ZOO_REQUESTS]
+
+
+def zoo_serve(trainer, name: str, rng: np.random.Generator, tag: str) -> dict:
+    """``make_serving_fn`` on the trained state: each request through the
+    eager model call and through the captured scorer, bit-equal, on the
+    host clock (median of ``REPEATS``), a replay's device time (CUDA
+    events); no kernel launches (no zoo forward reaches one)."""
+    serve = trainer.make_serving_fn()
+    rows = {}
+    for label, req, shape in zoo_requests(name, rng):
+        serve.eager(req)
+        eager_ms, want = host_times(lambda: serve.eager(req), f"{tag} {label} eager", {})
+        serve(req)  # the warm-up, then the capture and its first replay
+        serve(req)
+        captured_ms, got = host_times(lambda: serve(req), f"{tag} {label} captured", {})
+        results_equal(f"{tag} {label}", got, want)
+        if tuple(got.shape) != shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{tag} {label}: scores {tuple(got.shape)}, want {shape}")
+        device = replay_device_ms(trainer._scores, request_signature(req))
+        rows[label] = {"eager_ms": eager_ms, "captured_ms": captured_ms, "device_ms": device}
+        print(f"{tag} serve {label:10s} eager {eager_ms:8.3f} ms, captured {captured_ms:8.3f} ms "
+              f"(host clock, median of {REPEATS}); a replay's device time {device:.3f} ms (CUDA "
+              f"events); bit-equal")
+    return rows
+
+
+def zoo_evaluate(trainer, rng: np.random.Generator, tag: str) -> dict:
+    """SASRec's ``evaluate`` (NDCG@10, Hit@10 over 500 candidates) over
+    ``ZOO_EVAL_BATCHES`` batches of 128 rows of an in-memory reader: exactly
+    ``MetricList`` of ``predict``'s output."""
+    rows, n = ZOO_REQUESTS[-1]
+    split = make_zoo_batch("sasrec", rng, rows * ZOO_EVAL_BATCHES, candidates=n, label=False)
+    split["uid"] = np.arange(rows * ZOO_EVAL_BATCHES, dtype=np.int32)  # ArrayReader's size
+    reader = ArrayReader(split)
+    trainer.predict(reader, batch_size=rows)  # the warm-up, then the capture and its replays
+    predict_ms, predictions = host_times(lambda: trainer.predict(reader, batch_size=rows),
+                                         f"{tag} predict", {}, 3)
+    evaluate_ms, logs = host_times(lambda: trainer.evaluate(reader, batch_size=rows, verbose=0),
+                                   f"{tag} evaluate", {}, 3)
+    exact = trainer.metrics(predictions)
+    if predictions.shape != (rows * ZOO_EVAL_BATCHES, n) or logs != exact:
+        raise AssertionError(f"{tag} evaluate {logs} is not MetricList of predict's output "
+                             f"{exact}")
+    print(f"{tag} evaluate over {ZOO_EVAL_BATCHES} x [{rows}, {n}]: {evaluate_ms:.3f} ms, "
+          f"predict {predict_ms:.3f} ms (host clock, median of 3); {logs} = MetricList of "
+          f"predict's output")
+    return {"evaluate_ms": evaluate_ms, "predict_ms": predict_ms, "metrics": logs}
+
+
+def zoo_path(name: str, table: str, rng: np.random.Generator, seed: int) -> dict:
+    """Phase 38 for one model and table: phase 35's eager steps against
+    captured ones at full width (``capture_path``, launches from zero), and
+    for the f32 paths serving from the trained state and, SASRec, its
+    evaluation; then phase 21's check at ``ZOO_CPU_ITEMS`` items, dropout 0
+    (the card's and the CPU's generators draw different masks)."""
+    spec = zoo_spec(name)
+    new_trainer = functools.partial(zoo_trainer, name, table, "cuda", seed)
+
+    def after(trainer, host, tag):
+        for path, t in trained_tables(trainer).items():
+            print(f"{tag} table {path} {tuple(t.shape)} {t.dtype}, {t.nbytes / 1e6:.1f} MB")
+        if table != "f32":
+            return {}
+        out = {"requests": zoo_serve(trainer, name, rng, tag)}
+        if name == "sasrec":
+            out["evaluate"] = zoo_evaluate(trainer, rng, tag)
+        return out
+
+    out = capture_path(spec, table, None, rng, seed, new_trainer=new_trainer, after=after)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(
+        spec, make=functools.partial(make_zoo, name, items=ZOO_CPU_ITEMS, dropout=0.0),
+        batch=functools.partial(make_zoo_batch, name, items=ZOO_CPU_ITEMS))
+    sample = cut.batch(np.random.default_rng(seed), 2)
+    leaves = leaves_of(zoo_trainer(name, table, "cpu", seed, sample, ZOO_CPU_ITEMS, 0.0))
+    print(f"[zoo {name} {table}] card against CPU with the item tables cut to {ZOO_CPU_ITEMS} "
+          f"rows (from {ZOO_ITEMS}) and dropout 0, at batch {ZOO_CPU_BATCH}")
+    stepped_card_against_cpu(cut, table, leaves, rng, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_phase(rng: np.random.Generator, seed: int) -> dict:
+    """Phase 38: ``zoo_path`` for each of ``ZOO_PATHS``; each path's
+    launches from zero."""
+    t0 = time.perf_counter()
+    out = {}
+    for name, table in ZOO_PATHS:
+        out[f"{name}_{table}"] = zoo_path(name, table, rng, seed)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 38: {len(ZOO_PATHS)} paths in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3912,6 +4186,11 @@ def main() -> int:
     # place, with launch counts from zero
     fit = fit_phase(capture, args.seed)
 
+    # 38. the factorization and sequence zoo: captured steps against eager
+    # ones, serving, SASRec's evaluation and the card against the CPU, each
+    # path's launches from zero
+    zoo = zoo_phase(rng, args.seed)
+
     n_scan = TRAIN_BATCH * N_SPARSE
     vocab_rows = N_SPARSE * VOCAB
     fm_shape = f"[{TRAIN_BATCH}, {FM_FIELDS}, {EMB}] f32"
@@ -4036,6 +4315,10 @@ def main() -> int:
                 **{f"resume_{t}": fit[f"resume_{t}"]["launches"] for t in FIT_RESUME_TABLES}}
     for entry in entries:  # phase 37's runs, each counted from zero
         entry["fit_launches"] = {run: n.get(entry["name"], 0) for run, n in fit_runs.items()}
+    for entry in entries:  # phase 38's captured runs (18 steps a path), each counted from zero
+        if entry["name"] in ("segmented_sum_scan", "requantize_rows", "scatter_set_rows"):
+            entry["zoo_launches"] = {path: zoo[path]["captured_launches"].get(entry["name"], 0)
+                                     for path in (f"{n}_{t}" for n, t in ZOO_PATHS)}
     print(json.dumps({"deepfm": {"f32_ms_per_step": fm_f32_ms, "int8_ms_per_step": fm_int8_ms,
                                  "table_share_ms": shares},
                       "din": {"f32_ms_per_step": din_f32_ms, "int8_ms_per_step": din_int8_ms,
@@ -4055,6 +4338,7 @@ def main() -> int:
     print(json.dumps({"capture": capture}))
     print(json.dumps({"capture_requests": requests_capture}))
     print(json.dumps({"fit": fit}))
+    print(json.dumps({"zoo": zoo}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -35,18 +35,14 @@ from pytorchrec_tpu_torch.models.base import (
     RecModel,
     label_target,
     one_hot_first_target,
+    round_up,
 )
 from pytorchrec_tpu_torch.ops.attention import DINAttentionPool
-from pytorchrec_tpu_torch.ops.embedding import Embedding, normal_init
-from pytorchrec_tpu_torch.ops.kernels.quantize import quantize_rows
+from pytorchrec_tpu_torch.ops.embedding import Embedding
 from pytorchrec_tpu_torch.ops.mlp import MLP, linear
-from pytorchrec_tpu_torch.ops.quantized_packed import pack_quantized_table, packed_gather_dequant
+from pytorchrec_tpu_torch.ops.quantized_packed import packed_gather_dequant, packed_table_init
 from pytorchrec_tpu_torch.ops.seq_utils import get_valid_his_index
 from pytorchrec_tpu_torch.utils.device import resolve_device
-
-
-def _round_up(n: int, multiple: int) -> int:
-    return -(-n // multiple) * multiple
 
 
 class DIN(RecModel):
@@ -87,15 +83,12 @@ class DIN(RecModel):
         self.table_bits = table_bits
         self.scale_col_groups = scale_col_groups
         m = table_row_multiple
-        self.u_embeddings = Embedding(_round_up(uid_column.category_num, m), emb_size, device,
+        self.u_embeddings = Embedding(round_up(uid_column.category_num, m), emb_size, device,
                                       generator)
-        items = _round_up(iid_column.category_num, m)
+        items = round_up(iid_column.category_num, m)
         if quantized_table:
-            q, scale = quantize_rows(normal_init((items, emb_size), device, generator),
-                                     bits=table_bits, col_groups=scale_col_groups)
-            acc = torch.zeros((items,), dtype=torch.float32, device=device)
-            self.register_buffer("i_q", pack_quantized_table(q, scale, acc, emb_size, table_bits,
-                                                             scale_col_groups))
+            self.register_buffer("i_q", packed_table_init(items, emb_size, table_bits,
+                                                          scale_col_groups, device, generator))
         else:
             self.i_embeddings = Embedding(items, emb_size, device, generator)
         self.attention = DINAttentionPool(emb_size, att_hidden_units, device=device,

@@ -46,18 +46,14 @@ from pytorchrec_tpu_torch.models.base import (
     RecModel,
     label_target,
     one_hot_first_target,
+    round_up,
 )
-from pytorchrec_tpu_torch.ops.embedding import Embedding, normal_init
-from pytorchrec_tpu_torch.ops.kernels.quantize import quantize_rows
+from pytorchrec_tpu_torch.ops.embedding import Embedding
 from pytorchrec_tpu_torch.ops.mlp import MLP, linear
-from pytorchrec_tpu_torch.ops.quantized_packed import pack_quantized_table, packed_gather_dequant
+from pytorchrec_tpu_torch.ops.quantized_packed import packed_gather_dequant, packed_table_init
 from pytorchrec_tpu_torch.utils.device import resolve_device
 
 ACCIDENTAL_HIT_LOGIT = -1e9  # a masked column's logit: exp(-1e9) is 0 in the softmax
-
-
-def _round_up(n: int, multiple: int) -> int:
-    return -(-n // multiple) * multiple
 
 
 def drop_diagonal(square: torch.Tensor) -> torch.Tensor:
@@ -113,15 +109,12 @@ class TwoTower(RecModel):
         self.table_bits = table_bits
         self.scale_col_groups = scale_col_groups
         m = table_row_multiple
-        self.u_embeddings = Embedding(_round_up(uid_column.category_num, m), emb_size, device,
+        self.u_embeddings = Embedding(round_up(uid_column.category_num, m), emb_size, device,
                                       generator)
-        items = _round_up(iid_column.category_num, m)
+        items = round_up(iid_column.category_num, m)
         if quantized_table:
-            q, scale = quantize_rows(normal_init((items, emb_size), device, generator),
-                                     bits=table_bits, col_groups=scale_col_groups)
-            acc = torch.zeros((items,), dtype=torch.float32, device=device)
-            self.register_buffer("i_q", pack_quantized_table(q, scale, acc, emb_size, table_bits,
-                                                             scale_col_groups))
+            self.register_buffer("i_q", packed_table_init(items, emb_size, table_bits,
+                                                          scale_col_groups, device, generator))
         else:
             self.i_embeddings = Embedding(items, emb_size, device, generator)
         self.user_mlp = MLP(emb_size, self.layers, activation="relu", device=device,

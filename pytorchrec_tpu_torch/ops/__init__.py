@@ -1,5 +1,11 @@
-from pytorchrec_tpu_torch.ops.attention import DINAttentionPool
+from pytorchrec_tpu_torch.ops.attention import (
+    DINAttentionPool,
+    SASRecBlock,
+    sasrec_encoder,
+    scaled_dot_product_attention,
+)
 from pytorchrec_tpu_torch.ops.embedding import Embedding, normal_init
+from pytorchrec_tpu_torch.ops.gru import MaskedGRU
 from pytorchrec_tpu_torch.ops.interactions import (
     CrossNetworkV2,
     cross_layer_v2,
@@ -14,6 +20,10 @@ __all__ = [
     "normal_init",
     "Dense",
     "MLP",
+    "MaskedGRU",
+    "scaled_dot_product_attention",
+    "SASRecBlock",
+    "sasrec_encoder",
     "cross_layer_v2",
     "CrossNetworkV2",
     "DINAttentionPool",

@@ -2,7 +2,13 @@
 
 The parameter is named ``embedding`` with shape ``[V, E]``, as the flax leaf
 ``<name>/embedding``, so converted weights load 1:1. The lookup is a row
-gather (``index_select``).
+gather, ``F.embedding``, not ``index_select``: on the card
+``index_select``'s backward sums a row's gradients in no fixed order, and
+``F.embedding``'s repeats its bits where each row takes a few of a batch's
+ids (a dense user table, say), so a dense table's steps repeat eagerly and
+in a CUDA graph alike (``scripts/torch_embedding_determinism.py``). Where a
+few rows take thousands of ids each it does not repeat either: SASRec
+reads its position table by a one-hot product instead.
 """
 
 from __future__ import annotations
@@ -10,6 +16,7 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from pytorchrec_tpu_torch.utils.device import resolve_device
@@ -37,5 +44,4 @@ class Embedding(nn.Module):
             normal_init((num_embeddings, features), device, generator))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        rows = torch.index_select(self.embedding, 0, ids.reshape(-1))
-        return rows.reshape(*ids.shape, self.features)
+        return F.embedding(ids, self.embedding)

@@ -22,9 +22,11 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from pytorchrec_tpu_torch.ops.embedding import normal_init
 from pytorchrec_tpu_torch.ops.kernels.quantize import (
     dequantize_rows,
     id_keyed_rounding_bits,
+    quantize_rows,
     requantize_rows,
     requantize_rows_chain,
 )
@@ -68,6 +70,17 @@ def pack_quantized_table(q: torch.Tensor, scale: torch.Tensor, acc: torch.Tensor
         f32_to_bytes(acc[:, None]),
         torch.zeros((v, w - base), dtype=torch.uint8, device=q.device),
     ], dim=1)
+
+
+def packed_table_init(rows: int, emb_dim: int, bits: int = 8, col_groups: int = 1, device=None,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """A new ``[rows, W]`` u8 packed table: normal(0, 0.01) rows from
+    ``generator``, quantized to nearest, accumulator zero (the JAX
+    package's ``packed_table_init``)."""
+    q, scale = quantize_rows(normal_init((rows, emb_dim), device, generator), bits=bits,
+                             col_groups=col_groups)
+    acc = torch.zeros((rows,), dtype=torch.float32, device=q.device)
+    return pack_quantized_table(q, scale, acc, emb_dim, bits, col_groups)
 
 
 def unpack_quantized_table(packed: torch.Tensor, emb_dim: int, bits: int = 8,

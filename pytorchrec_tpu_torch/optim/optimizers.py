@@ -32,20 +32,29 @@ import torch
 
 
 def _fused(params: list) -> bool:
-    return all(p.device.type == "cuda" for p in params)
+    return bool(params) and all(p.device.type == "cuda" for p in params)
+
+
+def _groups(params: list) -> list:
+    """``params``, or one empty group where there is no dense parameter (a
+    model whose every table is packed, as FunkSVD under the sparse trainer):
+    its steps then do nothing, as optax's over an empty tree."""
+    return params or [{"params": []}]
 
 
 def _sgd(params: list, lr: float, weight_decay: float = 0.0) -> torch.optim.Optimizer:
-    return torch.optim.SGD(params, lr=lr, momentum=0.0, weight_decay=weight_decay,
+    return torch.optim.SGD(_groups(params), lr=lr, momentum=0.0, weight_decay=weight_decay,
                            foreach=False, fused=_fused(params))
 
 
 def _adam(params: list, lr: float, weight_decay: float = 0.0, b1: float = 0.9,
           b2: float = 0.999, eps: float = 1e-8) -> torch.optim.Optimizer:
     fused = _fused(params)
-    optimizer = torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps,
+    # capturable also where there is no parameter: a CUDA graph may capture
+    # the step of an empty group, which torch allows only so
+    optimizer = torch.optim.Adam(_groups(params), lr=lr, betas=(b1, b2), eps=eps,
                                  weight_decay=weight_decay, foreach=False, fused=fused,
-                                 capturable=fused)
+                                 capturable=fused or not params)
     # eager steps on the card are meant: no warning that they run uncaptured
     optimizer._warned_capturable_if_run_uncaptured = True
     return optimizer

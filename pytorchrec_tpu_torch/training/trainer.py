@@ -7,7 +7,8 @@ the card (or on the CPU when asked). ``compile(optimizer, loss, lr,
 weight_decay)`` picks the dense optimizer and the loss;
 ``init_state(sample_batch, seed)`` draws every parameter from a
 ``torch.Generator`` seeded with ``seed`` (normal(0, 0.01), the framework's
-init) and builds the optimizer; ``train_step(batch)`` runs one eager
+init, but where a module has its own, as flax does: ``init_parameters``)
+and builds the optimizer; ``train_step(batch)`` runs one eager
 forward, backward and optimizer step and returns the loss;
 ``fit(reader, batch_size, epochs, ...)`` trains epochs over a reader's
 train split with the dev metrics between them and the callbacks' hooks
@@ -90,7 +91,6 @@ from pytorchrec_tpu_torch.metric import MetricList
 from pytorchrec_tpu_torch.models.base import RecModel
 from pytorchrec_tpu_torch.ops.embedding import INIT_STD
 from pytorchrec_tpu_torch.ops.kernels import add_tally, capture_tally
-from pytorchrec_tpu_torch.ops.mlp import Dense
 from pytorchrec_tpu_torch.optim import OPTIMIZERS, build_optimizer
 from pytorchrec_tpu_torch.training.callbacks import Callback, CallbackList, History
 from pytorchrec_tpu_torch.training.checkpoint import atomic_save
@@ -216,7 +216,28 @@ def _score_inputs(example: Batch, device: torch.device, packed: bool) -> StaticI
 
 
 def _uses_dropout(model: torch.nn.Module) -> bool:
-    return any(isinstance(m, Dense) and m.dropout > 0.0 for m in model.modules())
+    """Whether a module draws dropout masks when training (``Dense``,
+    ``SASRecBlock``: a float ``dropout`` rate above 0)."""
+    return any(isinstance(getattr(m, "dropout", None), float) and m.dropout > 0.0
+               for m in model.modules())
+
+
+def init_parameters(model: torch.nn.Module, generator: torch.Generator) -> None:
+    """Draw every parameter from ``generator``: a module with its own
+    ``init_parameters(generator)`` (the masked GRU's uniform, LayerNorm's
+    ones and zeros, SVD++'s zero global bias, as flax initialises them)
+    sets its own parameters first; every other parameter is normal(0, 0.01),
+    in the model's parameter order."""
+    owned = set()
+    with torch.no_grad():
+        for module in model.modules():
+            init = getattr(module, "init_parameters", None)
+            if init is not None:
+                init(generator)
+                owned.update(id(p) for p in module.parameters(recurse=False))
+        for param in model.parameters():
+            if id(param) not in owned:
+                param.normal_(0.0, INIT_STD, generator=generator)
 
 
 class Trainer:
@@ -283,8 +304,8 @@ class Trainer:
             self.optimizer_name, self.model.parameters(), self.lr, self.weight_decay), rng=rng)
 
     def init_state(self, sample_batch: Batch, seed: int = 2020) -> TrainState:
-        """Draw every parameter from ``torch.Generator(seed)`` and build the
-        optimizer; the same generator then draws the dropout masks (and, for
+        """Draw every parameter from ``torch.Generator(seed)``
+        (``init_parameters``) and build the optimizer; the same generator then draws the dropout masks (and, for
         a quantized trainer, its table, which is a buffer). The step
         counter starts at 0. ``sample_batch`` names the tables a batch reads
         (the sparse trainer's protocol). Captured graphs are dropped."""
@@ -295,9 +316,7 @@ class Trainer:
         self._layout = None
         self._scores.clear()
         generator = torch.Generator(device=self.device).manual_seed(seed)
-        with torch.no_grad():
-            for param in self.model.parameters():
-                param.normal_(0.0, INIT_STD, generator=generator)
+        init_parameters(self.model, generator)
         self.state = self._make_state(sample_batch, generator)
         return self.state
 

@@ -16,6 +16,15 @@ them into the port model's state dict:
   buffers, as do DIN's
   attention weights ``attention/w<i>`` and ``attention/b<i>`` (kept
   ``[in, out]``, ``ops/attention.py``);
+* the zoo's (FunkSVD, SVD++, NCF, GRU4Rec, SASRec): the u8 packed item
+  tables ``implicit_i_q``, ``mf_i_q`` and ``mlp_i_q`` beside ``i_q``, SVD++'s
+  scalar ``global_bias``, the masked GRU's ``rnn/w_ih``, ``rnn/w_hh``,
+  ``rnn/b_ih`` and ``rnn/b_hh`` (kept ``[in, 3H]``, ``ops/gru.py``), and
+  SASRec's blocks, ``block_shared/...`` or ``block_<i>/...``:
+  ``{Q,K,W1,W2}/kernel`` (transposed), ``{W1,W2}/bias`` and
+  ``LayerNorm_0/{scale,bias}``; their tables (``p_embeddings`` too) and
+  ``out/kernel``, ``prediction_head/kernel`` and NCF's ``mlp`` take the
+  rules above;
 * TwoTower's leaves need no rule of their own: ``u_embeddings/embedding``
   and ``i_embeddings/embedding`` (plain ``[V, E]`` or packed ``[V, 4E]``),
   ``i_q``, the towers ``user_mlp/Dense_<i>/Dense_0/{kernel,bias}`` and
@@ -76,8 +85,12 @@ _RULES = (
     (r"(\w+)/embedding", r"\1.embedding", "table_columns"),
     (r"cross/(ws|bs)", r"cross.\1", None),
     (r"attention/([wb]\d+)", r"attention.\1", None),
-    (r"(unified_q|unified_scale|i_q)", r"\1", None),
-    (r"(bias|dense_factors|dense_linear)", r"\1", None),
+    (r"(block_shared|block_\d+)/(Q|K|W1|W2)/kernel", r"\1.\2.weight", "transpose"),
+    (r"(block_shared|block_\d+)/(W1|W2)/bias", r"\1.\2.bias", None),
+    (r"(block_shared|block_\d+)/(LayerNorm_0)/(scale|bias)", r"\1.\2.\3", None),
+    (r"rnn/(w_ih|w_hh|b_ih|b_hh)", r"rnn.\1", None),
+    (r"(unified_q|unified_scale|i_q|implicit_i_q|mf_i_q|mlp_i_q)", r"\1", None),
+    (r"(bias|dense_factors|dense_linear|global_bias)", r"\1", None),
 )
 
 

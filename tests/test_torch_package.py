@@ -52,7 +52,10 @@ def test_every_training_module_is_walked():
             "pytorchrec_tpu_torch.data.schema", "pytorchrec_tpu_torch.utils.constants",
             "pytorchrec_tpu_torch.utils.data_structure", "pytorchrec_tpu_torch.utils.enum_utils",
             "pytorchrec_tpu_torch.utils.profiling", "pytorchrec_tpu_torch.utils.system",
-            "pytorchrec_tpu_torch.utils.timer", "pytorchrec_tpu_torch.utils.version"} <= modules
+            "pytorchrec_tpu_torch.utils.timer", "pytorchrec_tpu_torch.utils.version",
+            "pytorchrec_tpu_torch.ops.gru", "pytorchrec_tpu_torch.models.funk_svd",
+            "pytorchrec_tpu_torch.models.svdpp", "pytorchrec_tpu_torch.models.ncf",
+            "pytorchrec_tpu_torch.models.gru4rec", "pytorchrec_tpu_torch.models.sasrec"} <= modules
 
 
 def test_importing_every_port_module_loads_no_jax():
@@ -226,7 +229,12 @@ def test_new_exports():
     from pytorchrec_tpu_torch import loss, models, serving
     from pytorchrec_tpu_torch.ops.kernels import retrieval_topk
 
-    assert {"TwoTower"} <= set(models.__all__) and {"softmax_ce_loss"} <= set(loss.__all__)
+    assert {"TwoTower", "FunkSVD", "SVDPP", "NCF", "GRU4Rec", "SASRec"} <= set(models.__all__)
+    assert {"softmax_ce_loss"} <= set(loss.__all__)
+    from pytorchrec_tpu_torch import ops
+
+    assert {"MaskedGRU", "SASRecBlock", "sasrec_encoder",
+            "scaled_dot_product_attention"} <= set(ops.__all__)
     assert {"build_item_index", "make_retrieve_fn"} <= set(serving.__all__)
     assert retrieval_topk.bin_max_scores.launches >= 0 and get_loss("softmax") is not None
     assert (retrieval_topk.LANES, retrieval_topk.DEFAULT_TC, retrieval_topk.DEFAULT_GROUP,
