@@ -287,6 +287,29 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    ``[128, 500]`` batches equals ``MetricList`` of ``predict``; then each
    path's card-against-CPU check of phase 21, its item tables cut to 65,536
    rows and dropout 0 (the two generators draw different masks);
+39. the dataset path from files: in a temporary work dir
+   (``PYTORCHREC_TPU_WORK_DIR`` under the process's ``TMPDIR``), the port's
+   generators write numpy frames, the processing pipeline makes the split,
+   negative and history files, and a reader feeds ``fit`` and ``evaluate``.
+   DIN at phase 35's width (E=64, attention (80, 40), MLP (200, 80)), f32
+   packed, BPR, on ``generate_synthetic_ml`` at MovieLens-1M's shape (6,040
+   users, 3,706 items, 20 to 311 ratings a user, about 1.0M rows) through a
+   leave-one-out, pair-wise ``HistoryDataReader`` (99 dev and test
+   negatives, histories of 20, the native fast sampler): 2 epochs of batch
+   4096 with NDCG@10 and Hit@10 on dev, scored in ``[1024, 100]`` batches,
+   then test; DCN-v2 at ``bench.py``'s width, f32 packed, BCE, on
+   ``generate_synthetic_ctr`` at ``bench.py``'s Criteo shape (13 dense and
+   26 sparse fields of 100,000 ids, 1,048,576 rows) through a
+   sequential-split, point-wise ``CTRDataReader``: 1 epoch of batch 32768
+   with dev AUC and logloss, then test. Each run's launch counts from zero
+   across ``fit`` and the test ``evaluate`` (B5 or B1 once a step and once
+   a scoring batch, B2 and B4 once a packed table a step), every loss
+   finite, ``fit`` bit-equal to ``fit_steps`` over the same batches from
+   the same saved state, DIN's test Hit@10 above 0.10 (a random ranking of
+   100 candidates) and DCN-v2's dev AUC above 0.5; the generate and
+   reader-build seconds (host clock), ``fit`` ms/step (CUDA events; the
+   first epochs with their captures and dev scoring, then one more epoch)
+   and the test ``evaluate`` ms;
 
 then a ``two_tower`` JSON line (ms/step,
 fused and exact ms a request, recall, index build ms), a ``classic_int8``
@@ -296,13 +319,15 @@ torch hash's, the dedup's and the update's, phase 32's verdict), a
 ``capture_requests`` line (phase 36's times, memory and metrics), a ``fit``
 line (phase 37's launches, times and checkpoints), a ``zoo`` line (phase
 38's ms/step, replay device ms and busy shares, requests, evaluation and
-seconds) and a ``{"kernels": [...]}`` line with
+seconds), a ``files`` line (phase 39's seconds, rows, ms/step, scoring ms,
+metrics and launches) and a ``{"kernels": [...]}`` line with
 every kernel at its main-path shape (``launches``: for B1–B4 the DCN-v2 int8
 training run's, for the FM kernels the DeepFM f32 training run's, for the
 pooling kernel the DIN f32 training run's, for B7 the two-tower serving
 run's, for B8 the DCN-v2 classic training run's; the other paths' counts
 beside, the serving ones from captured requests; ``fit_launches``: phase
-37's runs; ``zoo_launches``: phase 38's captured runs). Each path
+37's runs; ``zoo_launches``: phase 38's captured runs; ``files_launches``:
+phase 39's runs). Each path
 (serving, each training run) zeroes every launch count just before it and
 reads them just after.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -328,7 +353,16 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from pytorchrec_tpu_torch.data import BatchPacker, TrainMode, train_batches
+from pytorchrec_tpu_torch.data import (
+    BatchPacker,
+    CTRDataReader,
+    HistoryDataReader,
+    SplitMode,
+    TrainMode,
+    generate_synthetic_ctr,
+    generate_synthetic_ml,
+    train_batches,
+)
 from pytorchrec_tpu_torch.feature_column import CategoricalColumnWithIdentity, NumericColumn
 from pytorchrec_tpu_torch.models import (
     DIN,
@@ -3883,6 +3917,192 @@ def zoo_phase(rng: np.random.Generator, seed: int) -> dict:
     return out
 
 
+# phase 39: the dataset path, from files made by the port's generators
+# through the processing pipeline and a reader to Trainer.fit and evaluate
+FILES_SEED = 2020
+# MovieLens-1M's shape: 6,040 users, 3,706 items, about 1.0M ratings
+FILES_ML = dict(n_users=6040, n_items=3706, min_interactions=20, max_interactions=311,
+                seed=FILES_SEED)
+# Adam's lr in both runs, as tests/test_torch_fit.py trains: the metric gates
+# need the models to learn from init_state's weights within 2 epochs (DIN)
+# and 1 (DCN-v2)
+FILES_LR = 1e-2
+# bench.py's Criteo shape: 13 dense fields, 26 sparse fields of 100,000 ids
+FILES_CTR = dict(n_rows=1_048_576, n_dense=N_DENSE, seed=FILES_SEED,
+                 sparse_vocab_sizes={f"c_{i}": VOCAB for i in range(N_SPARSE)})
+FILES_RUNS = {
+    "din": dict(generate=generate_synthetic_ml, data=FILES_ML, reader=HistoryDataReader,
+                reader_kwargs=dict(split_mode=SplitMode.LEAVE_K_OUT, warm_n=5, leave_k=1,
+                                   neg_sample_n=DIN_LOO - 1, train_mode=TrainMode.PAIR_WISE,
+                                   max_his_len=DIN_STEPS, neg_sample_mode="fast"),
+                loss="bpr", metrics=("ndcg@10", "hit@10"), batch=DIN_BATCH, epochs=2,
+                score_batch=1024, spec=DIN_SPEC, gate=("hit@10", 1 / 10)),
+    "dcnv2": dict(generate=generate_synthetic_ctr, data=FILES_CTR, reader=CTRDataReader,
+                  reader_kwargs=dict(split_mode=SplitMode.SEQUENTIAL_SPLIT, warm_n=1,
+                                     vt_ratio=0.1, train_mode=TrainMode.POINT_WISE),
+                  loss="bce", metrics=("auc", "logloss"), batch=TRAIN_BATCH, epochs=1,
+                  score_batch=TRAIN_BATCH, spec=DCNV2_SPEC, gate=("auc", 0.5)),
+}
+
+
+def files_model(name: str, columns: dict, seed: int):
+    """The phase's model over a reader's feature columns: DIN at phase 35's
+    width, or DCN-v2 at bench.py's, each with its f32 tables."""
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+    if name == "din":
+        col = CategoricalColumnWithIdentity
+        items = columns["iid"].category_num
+        return DIN(uid_column=columns["uid"], iid_column=columns["iid"],
+                   his_column=col(feature_name="pos_his", category_num=items),
+                   his_len_column=col(feature_name="pos_his_len", category_num=DIN_STEPS + 1),
+                   label_column=columns["label"], emb_size=DIN_EMB, att_hidden_units=DIN_ATT,
+                   mlp_layers=DIN_MLP, device="cuda", generator=generator)
+    return DCNv2(sparse_columns=[columns[f"c_{i}"] for i in range(N_SPARSE)],
+                 dense_columns=[columns[f"d_{i}"] for i in range(N_DENSE)],
+                 label_column=columns["label"], emb_size=EMB, num_cross_layers=CROSS_LAYERS,
+                 layers=MLP_UNITS, unified_embedding=True, device="cuda", generator=generator)
+
+
+def files_trainer(name: str, reader, seed: int):
+    run = FILES_RUNS[name]
+    trainer = SparseEmbeddingTrainer(files_model(name, reader.get_feature_column_dict(), seed),
+                                     device="cuda", packed_tables=True)
+    trainer.compile(optimizer="adam", lr=FILES_LR, loss=run["loss"], metrics=run["metrics"],
+                    user_sample_n=DIN_LOO)
+    trainer.init_state(reader.get_batch("train", np.arange(2)), seed=seed)
+    return trainer
+
+
+def fit_batches(reader, batch_size: int, epochs: int, seed: int) -> list:
+    """The batches ``fit`` deals over ``epochs``: each epoch's pair-wise
+    negatives drawn first, the rows shuffled by one ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    batches = []
+    for _ in range(epochs):
+        if reader.train_mode == TrainMode.PAIR_WISE:
+            reader.train_neg_sample()
+        batches.extend(train_batches(reader, batch_size, rng))
+    return batches
+
+
+def files_run(name: str, seed: int, tmp: str) -> dict:
+    """One run of phase 39: the dataset generated into the work dir, the
+    reader built over it (its split, negative and history files made by the
+    pipeline), ``fit`` with the dev metrics each epoch and ``evaluate`` on
+    test, launch counts from zero across both; then ``fit_steps`` over the
+    same batches from the same saved state, bit-equal; then one more epoch
+    of ``fit`` (no dev), timed."""
+    run = FILES_RUNS[name]
+    tag = f"[files {name}]"
+    t0 = time.perf_counter()
+    run["generate"](f"Files-{name}", **run["data"])
+    generate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reader = run["reader"](f"Files-{name}", random_seed=FILES_SEED, **run["reader_kwargs"])
+    reader_s = time.perf_counter() - t0
+    sizes = {split: reader.get_dataset_size(split) for split in ("train", "dev", "test")}
+    sizes["interactions"] = len(reader.interaction_frame["uid"])
+    print(f"{tag} generated {run['data']} in {generate_s:.2f} s; {type(reader).__name__} "
+          f"{run['reader_kwargs']} built in {reader_s:.2f} s (host clock): rows {sizes}")
+    trainer = files_trainer(name, reader, seed)
+    start = os.path.join(tmp, f"files_{name}.pt")
+    trainer.save_checkpoint(start)
+    epochs, batch, score_batch = run["epochs"], run["batch"], run["score_batch"]
+    steps = epochs * (sizes["train"] // batch)
+    zero_counts()
+    fit_ms, fit_host_ms = time_fit(
+        lambda: trainer.fit(reader, batch_size=batch, epochs=epochs, verbose=0, seed=seed,
+                            dev_batch_size=score_batch), steps)
+    history = trainer.history.history
+    start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start_ev.record()
+    test = trainer.evaluate(reader, split="test", batch_size=score_batch, verbose=0)
+    end_ev.record()
+    torch.cuda.synchronize()
+    test_host_ms = 1e3 * (time.perf_counter() - t0)
+    test_ms = start_ev.elapsed_time(end_ev)
+    scored = epochs * -(-sizes["dev"] // score_batch) + -(-sizes["test"] // score_batch)
+    want = {k: n * steps for k, n in run["spec"].per_step["f32"].items()}
+    want[run["spec"].forward_kernel] += scored
+    check_launches(f"{tag} fit ({steps} steps, {epochs} dev evaluations) and test evaluate",
+                   {k: 0 for k in ALL_KERNELS}, want)
+    launches = names(counts())
+    losses = trainer.step_losses
+    if len(losses) != steps or not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"{tag} {len(losses)} losses for {steps} steps, finite "
+                             f"{bool(torch.isfinite(losses).all())}")
+    if list(history) != ["loss", *run["metrics"]] or not np.isfinite(
+            [v for values in history.values() for v in values]).all():
+        raise AssertionError(f"{tag} history {history}")
+    metric, floor = run["gate"]
+    gated = test[metric] if name == "din" else history[metric][-1]
+    if not gated > floor:
+        raise AssertionError(f"{tag} {metric} {gated} is not above {floor}")
+    print(f"{tag} fit {epochs} epochs x {steps // epochs} steps of {batch} rows, dev "
+          f"{[{k: history[k][e] for k in run['metrics']} for e in range(epochs)]}; test {test}; "
+          f"launches {launches} ({scored} scoring batches of {score_batch} rows)")
+
+    # fit_steps over the same batches from the same state: bit-equal
+    stepped = files_trainer(name, reader, seed + 1)
+    stepped.restore_checkpoint(start)
+    if run["reader_kwargs"]["train_mode"] == TrainMode.PAIR_WISE:
+        reader._fast_epoch = 0  # epoch e's negatives are seeded by (random_seed << 20) + e
+    batches = fit_batches(reader, batch, epochs, seed)
+    stepped.fit_steps(iter(batches), steps=steps, log_every=steps)
+    del batches
+    if not torch.equal(trainer.step_losses, stepped.step_losses):
+        raise AssertionError(f"{tag} fit's losses differ from fit_steps': "
+                             f"{int((trainer.step_losses != stepped.step_losses).sum())} of "
+                             f"{steps}")
+    states_equal(f"{tag} fit against fit_steps", fit_state(trainer), fit_state(stepped))
+    del stepped
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # steady ms/step: one more epoch, its layouts captured already
+    epoch_steps = sizes["train"] // batch
+    ms, host_ms = time_fit(lambda: trainer.fit(reader, batch_size=batch, epochs=1, verbose=0,
+                                               seed=seed + 1, eval_dev=False), epoch_steps)
+    out = {"generate_s": generate_s, "reader_s": reader_s, "rows": sizes, "steps": steps,
+           "batch": batch, "fit_ms_per_step": fit_ms, "fit_host_ms_per_step": fit_host_ms,
+           "epoch_ms_per_step": ms, "epoch_host_ms_per_step": host_ms,
+           "test_ms": test_ms, "test_host_ms": test_host_ms, "score_batch": score_batch,
+           "scoring_batches": scored, "dev": {k: history[k] for k in run["metrics"]},
+           "test": test, "launches": launches}
+    print(f"{tag} {steps} losses and every value bit-equal to fit_steps over the same batches; "
+          f"fit {fit_ms:.3f} ms/step with dev scoring, warm-ups and captures (CUDA events; "
+          f"host {fit_host_ms:.3f}), one more epoch {ms:.3f} ms/step (host {host_ms:.3f}); "
+          f"test evaluate {test_ms:.3f} ms (host {test_host_ms:.3f})")
+    del trainer, reader
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def files_phase(seed: int) -> dict:
+    """Phase 39: ``files_run`` for DIN and DCN-v2, in a temporary work dir
+    (``PYTORCHREC_TPU_WORK_DIR``, under the process's ``TMPDIR``) removed at
+    the end."""
+    t0 = time.perf_counter()
+    previous = os.environ.get("PYTORCHREC_TPU_WORK_DIR")
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.environ["PYTORCHREC_TPU_WORK_DIR"] = tmp
+            for name in FILES_RUNS:
+                out[name] = files_run(name, seed, tmp)
+    finally:
+        if previous is None:
+            os.environ.pop("PYTORCHREC_TPU_WORK_DIR", None)
+        else:
+            os.environ["PYTORCHREC_TPU_WORK_DIR"] = previous
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 39: {len(FILES_RUNS)} runs from files in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4191,6 +4411,10 @@ def main() -> int:
     # path's launches from zero
     zoo = zoo_phase(rng, args.seed)
 
+    # 39. the dataset path: files through the processing pipeline and a
+    # reader to fit and evaluate, DIN and DCN-v2, each run's launches from zero
+    files = files_phase(args.seed)
+
     n_scan = TRAIN_BATCH * N_SPARSE
     vocab_rows = N_SPARSE * VOCAB
     fm_shape = f"[{TRAIN_BATCH}, {FM_FIELDS}, {EMB}] f32"
@@ -4319,6 +4543,9 @@ def main() -> int:
         if entry["name"] in ("segmented_sum_scan", "requantize_rows", "scatter_set_rows"):
             entry["zoo_launches"] = {path: zoo[path]["captured_launches"].get(entry["name"], 0)
                                      for path in (f"{n}_{t}" for n, t in ZOO_PATHS)}
+    for entry in entries:  # phase 39's runs from files, each counted from zero
+        entry["files_launches"] = {run: files[run]["launches"].get(entry["name"], 0)
+                                   for run in FILES_RUNS}
     print(json.dumps({"deepfm": {"f32_ms_per_step": fm_f32_ms, "int8_ms_per_step": fm_int8_ms,
                                  "table_share_ms": shares},
                       "din": {"f32_ms_per_step": din_f32_ms, "int8_ms_per_step": din_int8_ms,
@@ -4339,6 +4566,7 @@ def main() -> int:
     print(json.dumps({"capture_requests": requests_capture}))
     print(json.dumps({"fit": fit}))
     print(json.dumps({"zoo": zoo}))
+    print(json.dumps({"files": files}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

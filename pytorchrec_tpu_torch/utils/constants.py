@@ -63,6 +63,11 @@ ITEM_CSV = "item.csv"
 ITEM_FEATHER = "item.feather"
 USER_CSV = "user.csv"
 USER_FEATHER = "user.feather"
+# the port's tables: one numpy ``.npz`` frame each (data/process/io.py)
+BASE_INTERACTION_FRAME = "base_interaction.npz"
+INTERACTION_FRAME = "interaction.npz"
+ITEM_FRAME = "item.npz"
+USER_FRAME = "user.npz"
 DESCRIPTION_TXT = "description.txt"
 DESCRIPTION_JSON = "description.json"
 

@@ -55,7 +55,17 @@ def test_every_training_module_is_walked():
             "pytorchrec_tpu_torch.utils.timer", "pytorchrec_tpu_torch.utils.version",
             "pytorchrec_tpu_torch.ops.gru", "pytorchrec_tpu_torch.models.funk_svd",
             "pytorchrec_tpu_torch.models.svdpp", "pytorchrec_tpu_torch.models.ncf",
-            "pytorchrec_tpu_torch.models.gru4rec", "pytorchrec_tpu_torch.models.sasrec"} <= modules
+            "pytorchrec_tpu_torch.models.gru4rec", "pytorchrec_tpu_torch.models.sasrec",
+            "pytorchrec_tpu_torch.native", "pytorchrec_tpu_torch.utils.registry",
+            "pytorchrec_tpu_torch.data.adapter", "pytorchrec_tpu_torch.data.process.io",
+            "pytorchrec_tpu_torch.data.process.splits",
+            "pytorchrec_tpu_torch.data.process.vt_negative_sample",
+            "pytorchrec_tpu_torch.data.process.history",
+            "pytorchrec_tpu_torch.data.process.features",
+            "pytorchrec_tpu_torch.data.process.dataset_info",
+            "pytorchrec_tpu_torch.data.process.datasets.synthetic",
+            "pytorchrec_tpu_torch.data.readers.base", "pytorchrec_tpu_torch.data.readers.history",
+            "pytorchrec_tpu_torch.data.readers.svdpp"} <= modules
 
 
 def test_importing_every_port_module_loads_no_jax():
@@ -64,7 +74,8 @@ def test_importing_every_port_module_loads_no_jax():
         f"for name in ['pytorchrec_tpu_torch'] + {_modules()!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'optax', 'pytorchrec_tpu'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'pytorchrec_tpu', 'pandas',\n"
+        "              'pyarrow'))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
@@ -72,6 +83,20 @@ def test_importing_every_port_module_loads_no_jax():
                          text=True, timeout=300)
     assert run.returncode == 0, run.stderr
     assert run.stdout.startswith("ok")
+
+
+def test_no_port_source_imports_pandas_and_only_one_function_pyarrow():
+    """The card's machine has neither: pandas is imported nowhere in the
+    port, pyarrow only inside ``data/process/io.py::frames_from_feather``."""
+    pattern = re.compile(r"^(\s*)(import|from)\s+(pandas|pyarrow)\b", re.MULTILINE)
+    sources = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    found = {str(p.relative_to(ROOT)): [(m.group(1), m.group(3)) for m in
+                                        pattern.finditer(p.read_text())] for p in sources}
+    found = {path: hits for path, hits in found.items() if hits}
+    assert found == {"pytorchrec_tpu_torch/data/process/io.py": [("        ", "pyarrow")]}
+    io_source = (PORT / "data" / "process" / "io.py").read_text()
+    function = io_source[io_source.index("def frames_from_feather"):]
+    assert "from pyarrow import" in function[:function.index("\ndef ")]
 
 
 def test_no_port_source_names_jax_or_the_jax_package():
@@ -248,6 +273,23 @@ def test_new_exports():
     assert callable(quantize.rounding_bits_i32) and callable(sparse_update.dedup_row_grads)
     assert sparse_update.SparseRowGrad._fields == ("ids", "rows", "mask")
     assert callable(quantized_trainer.classic_quantized_update)
+    from pytorchrec_tpu_torch import data
+    from pytorchrec_tpu_torch.data import process
+    from pytorchrec_tpu_torch.data.process import datasets
+    from pytorchrec_tpu_torch.utils import constants
+
+    assert {"DatasetDescription", "FeatureMeta", "DataReader", "SimpleDataReader",
+            "HistoryDataReader", "SVDPPDataReader", "CTRDataReader", "READERS",
+            "data_reader_name_list", "get_data_reader_type", "generate_synthetic_ml",
+            "generate_synthetic_ctr", "frames_from_feather", "read_frame",
+            "write_frame"} <= set(data.__all__)
+    assert set(datasets.__all__) == {"generate_synthetic_ml", "generate_synthetic_ctr"}
+    assert {"generate_sequential_split", "generate_leave_k_out_split",
+            "generate_vt_negative_sample", "generate_interaction_history_list",
+            "check_dataset_info"} <= set(process.__all__)
+    assert (constants.BASE_INTERACTION_FRAME, constants.INTERACTION_FRAME, constants.ITEM_FRAME,
+            constants.USER_FRAME) == ("base_interaction.npz", "interaction.npz", "item.npz",
+                                      "user.npz")
 
 
 def test_unported_losses_raise():

@@ -46,6 +46,9 @@ def test_constants_match_the_jax_package(monkeypatch, tmp_path):
         assert getattr(C, name)() == getattr(JC, name)(), name
     assert C.work_dir() == str(tmp_path) and C.checkpoint_dir() == str(tmp_path / "Checkpoint")
     names = {k: v for k, v in vars(JC).items() if k.isupper()}
+    # the port's tables are numpy frames (data/process/io.py): four names more
+    names.update(BASE_INTERACTION_FRAME="base_interaction.npz", INTERACTION_FRAME="interaction.npz",
+                 ITEM_FRAME="item.npz", USER_FRAME="user.npz")
     assert {k: v for k, v in vars(C).items() if k.isupper()} == names
     monkeypatch.delenv("PYTORCHREC_TPU_WORK_DIR")  # read at each call
     monkeypatch.chdir(tmp_path)
