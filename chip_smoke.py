@@ -310,6 +310,30 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    reader-build seconds (host clock), ``fit`` ms/step (CUDA events; the
    first epochs with their captures and dev scoring, then one more epoch)
    and the test ``evaluate`` ms;
+40. the streaming Criteo path (``pytorchrec_tpu_torch/examples/
+   criteo_end_to_end.py``, the twin of ``examples/criteo_end_to_end.py``)
+   at the example's defaults, in a temporary work dir: ``synth_raw_tsv``
+   writes 500,000 raw rows, ``format_criteo`` 4 ``.npz`` shards (3 to
+   train on, 1 held out). First a bf16 GEMM's output (``torch.mm(...,
+   out_dtype=torch.float32)``) is checked to be f32 and the emulation's
+   product within f32 rounding, not bf16's; then two bf16 trainers from one
+   state, 8 eager ``train_step``s against ``fit_steps`` at 1 and 4 steps a
+   replay over the same streamed batches, every loss and state tensor
+   bit-equal; B1, B2 and B4 against their plain versions on the arguments
+   of the first eager step (x0 ``[8192, 429]``, the scan's ``[8192*26,
+   16]`` gradients at row stride 64, the scatter into ``[2.6M, 64]``).
+   Then four runs of the example over the same shards, each with launch
+   counts from zero: ``matmul_precision="bfloat16"``, None (f32), and bf16
+   with ``--vocab_cap 10000`` and with ``--vocab_cap 700`` (frequency
+   vocabs, 16 OOV buckets; the data's 1,000 raw ids a field reach only
+   the second cap, whose coverage must stay below 1). Each: DCN-v2 (E=16, 3 cross layers, MLP 256-128, the unified
+   ``[2.6M, 64]`` packed f32 table, or the vocabs' rows), 200
+   ``fit_steps`` of batch 8192 with a ``StepTimer``, 11 held-out batches
+   through ``make_serving_fn``; every batch ``[8192]`` in every column, B1
+   launched once a step and once a held-out batch, B2 and B4 once a step,
+   every loss finite, the last window's loss below the first's, held-out
+   AUC above 0.70, and the bf16 run's AUC within 0.01 of the f32 run's;
+   the synth and format seconds, p50 ms/step and examples/s (host clock);
 
 then a ``two_tower`` JSON line (ms/step,
 fused and exact ms a request, recall, index build ms), a ``classic_int8``
@@ -320,14 +344,15 @@ torch hash's, the dedup's and the update's, phase 32's verdict), a
 line (phase 37's launches, times and checkpoints), a ``zoo`` line (phase
 38's ms/step, replay device ms and busy shares, requests, evaluation and
 seconds), a ``files`` line (phase 39's seconds, rows, ms/step, scoring ms,
-metrics and launches) and a ``{"kernels": [...]}`` line with
+metrics and launches), a ``criteo`` line (phase 40's runs) and a
+``{"kernels": [...]}`` line with
 every kernel at its main-path shape (``launches``: for B1–B4 the DCN-v2 int8
 training run's, for the FM kernels the DeepFM f32 training run's, for the
 pooling kernel the DIN f32 training run's, for B7 the two-tower serving
 run's, for B8 the DCN-v2 classic training run's; the other paths' counts
 beside, the serving ones from captured requests; ``fit_launches``: phase
 37's runs; ``zoo_launches``: phase 38's captured runs; ``files_launches``:
-phase 39's runs). Each path
+phase 39's runs; ``criteo_launches``: phase 40's runs). Each path
 (serving, each training run) zeroes every launch count just before it and
 reads them just after.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -348,6 +373,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from itertools import islice
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -363,6 +389,7 @@ from pytorchrec_tpu_torch.data import (
     generate_synthetic_ml,
     train_batches,
 )
+from pytorchrec_tpu_torch.examples import criteo_end_to_end as criteo_twin
 from pytorchrec_tpu_torch.feature_column import CategoricalColumnWithIdentity, NumericColumn
 from pytorchrec_tpu_torch.models import (
     DIN,
@@ -377,7 +404,10 @@ from pytorchrec_tpu_torch.models import (
 )
 from pytorchrec_tpu_torch.models import ctr as ctr_module
 from pytorchrec_tpu_torch.ops import attention as attention_module
+from pytorchrec_tpu_torch.ops import interactions as interactions_module
+from pytorchrec_tpu_torch.ops import sparse_update as sparse_update_module
 from pytorchrec_tpu_torch.ops.embedding import Embedding
+from pytorchrec_tpu_torch.ops.precision import bf16_mm
 from pytorchrec_tpu_torch.ops.kernels.build import build
 from pytorchrec_tpu_torch.ops.kernels.cross import (
     FUSED_MAX_WIDTH,
@@ -4103,6 +4133,224 @@ def files_phase(seed: int) -> dict:
     return out
 
 
+# phase 40: the streaming Criteo path, the example's twin at its defaults
+CRITEO = dict(rows=500_000, steps=200, batch=8192, hash_bucket=VOCAB)
+# "vocab" is the example's cap, which the synthetic data (1,000 raw ids a
+# field) never reaches; "vocab_oov" caps below that, so about 30% of the
+# traffic lands in the OOV buckets
+CRITEO_RUNS = {"bf16": dict(matmul_precision="bfloat16", vocab_cap=0),
+               "f32": dict(matmul_precision=None, vocab_cap=0),
+               "vocab": dict(matmul_precision="bfloat16", vocab_cap=10_000),
+               "vocab_oov": dict(matmul_precision="bfloat16", vocab_cap=700)}
+CRITEO_AUC_MIN = 0.70  # held-out AUC of each run
+CRITEO_AUC_GAP = 0.01  # the bf16 run's held-out AUC against the f32 run's
+CRITEO_CAPTURE_STEPS = 8  # eager against captured bf16 steps: 4 at 1 a replay, 4 at 4
+# a bf16 GEMM with an f32 output against the emulation (operands rounded to
+# bf16, an f32 product): f32 sums in another order, far below bf16's 2**-9
+BF16_GEMM_SHAPE = (8192, DIM, MLP_UNITS[0])
+BF16_GEMM_RTOL = 1e-5
+
+
+def bf16_gemm_check() -> dict:
+    """The card's bf16 GEMM as the trainer runs it (``ops/precision.py::
+    bf16_mm``): an f32 tensor within f32 rounding of the emulation's
+    product (relative to the product's largest value), where a bf16 output
+    would lie a bf16 rounding away."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    m, k, n = BF16_GEMM_SHAPE
+    a = torch.randn(m, k, device="cuda", generator=gen)
+    b = torch.randn(k, n, device="cuda", generator=gen)
+    got = bf16_mm(a, b)
+    emulated = torch.mm(a.bfloat16().float(), b.bfloat16().float())
+    bf16_out = torch.mm(a.bfloat16(), b.bfloat16()).float()
+    scale = float(emulated.abs().max())
+    err = float((got - emulated).abs().max()) / scale
+    bf16_err = float((bf16_out - emulated).abs().max()) / scale
+    if got.dtype != torch.float32 or not err < BF16_GEMM_RTOL < bf16_err:
+        raise AssertionError(f"bf16 GEMM: dtype {got.dtype}, {err:.3e} of the emulation's "
+                             f"largest value (a bf16 output: {bf16_err:.3e})")
+    print(f"[criteo] bf16 GEMM {BF16_GEMM_SHAPE} with an f32 output: within {err:.3e} of the "
+          f"emulation (a bf16 output {bf16_err:.3e})")
+    return {"shape": list(BF16_GEMM_SHAPE), "rel_err": err, "bf16_out_rel_err": bf16_err}
+
+
+def layout_copy(x: torch.Tensor) -> torch.Tensor:
+    """A copy of ``x``; a 2-D view with unit column stride keeps its row
+    stride and its offset within a row (B2 reads its input at the packed
+    table's row stride)."""
+    if x.is_contiguous():
+        return x.clone()
+    assert x.dim() == 2 and x.stride(1) == 1, (x.shape, x.stride())
+    stride, offset = x.stride(0), x.storage_offset() % x.stride(0)
+    rows = torch.zeros((x.shape[0], stride), dtype=x.dtype, device=x.device)
+    return rows[:, offset:offset + x.shape[1]].copy_(x)
+
+
+@contextlib.contextmanager
+def recording(owner, name: str, calls: dict):
+    """Inside: ``owner.name`` runs the kernel as before and keeps copies of
+    its first call's arguments in ``calls[name]``, made before the call
+    (B4 writes into its table)."""
+    kernel = getattr(owner, name)
+
+    def record(*args):
+        if name not in calls:
+            calls[name] = [layout_copy(a.detach()) if isinstance(a, torch.Tensor) else a
+                           for a in args]
+        return kernel(*args)
+
+    with swapped(owner, name, record):
+        yield
+
+
+def criteo_kernels_against_plain(calls: dict) -> dict:
+    """B1, B2 and B4 against their plain versions on the arguments the first
+    eager bf16 step of the example gave them (``recording``): the cross
+    forward on the step's x0 at phase 3's tolerances; the scan on the
+    sorted staged gradients, at the packed table's row stride, rtol 1e-5
+    and atol 1e-5 of the largest |sum| (f32 sums in another order); the
+    scatter of the update's rows into a copy of the table, bit-exact."""
+    tag = "[criteo kernels]"
+    out = {}
+    with torch.no_grad():
+        x0, ws, bs = calls["cross_network"]
+        out["cross_network"] = close(cross_network(x0, ws, bs), cross_network_plain(x0, ws, bs))
+        print(f"{tag} cross_network kernel vs plain  x0 {list(x0.shape)}, {ws.shape[0]} layers "
+              f"({plan_name(x0.shape[0], x0.shape[1])}): max abs err {out['cross_network']:.3e}")
+        x, heads = calls["segmented_sum_scan"]
+        want = segmented_sum_scan_plain(x, heads)
+        scale = float(want.abs().max())
+        out["segmented_sum_scan"] = close(segmented_sum_scan(x, heads), want, rtol=1e-5,
+                                          atol=1e-5 * scale)
+        print(f"{tag} segmented_sum_scan kernel vs plain  {list(x.shape)} at row stride "
+              f"{x.stride(0)}, {int(heads.sum())} segments: max abs err "
+              f"{out['segmented_sum_scan']:.3e} (largest |sum| {scale:.3e})")
+        table, rows, ids = calls["scatter_set_rows"]
+        want = scatter_set_rows_plain(table.clone(), rows, ids)
+        scatter_set_rows(table, rows, ids)
+        torch.cuda.synchronize()
+        if not torch.equal(table, want):
+            raise AssertionError(f"{tag} scatter_set_rows kernel differs from its plain version")
+        out["scatter_set_rows"] = 0.0
+        kept = int((ids < table.shape[0]).sum())
+        print(f"{tag} scatter_set_rows kernel vs plain  {rows.shape[0]} rows ({kept} kept) into "
+              f"{list(table.shape)} {table.dtype}: bit-exact")
+    return out
+
+
+def criteo_captured_against_eager(data: dict, seed: int) -> dict:
+    """Two bf16 trainers of the example from one state (``init_state(seed)``
+    on the first streamed batch): ``CRITEO_CAPTURE_STEPS`` eager
+    ``train_step``s against ``fit_steps`` (a warm-up step, then replays of
+    a 1-step graph, then of a 4-step graph) over the same batches; every
+    loss and state tensor bit-equal, launches of each from zero. The first
+    eager step's kernel arguments go to ``criteo_kernels_against_plain``."""
+    tag = "[criteo capture bf16]"
+    batch, n = CRITEO["batch"], CRITEO_CAPTURE_STEPS
+    sparse, _, _ = criteo_twin.vocab_transform(data["train"], batch, 0, VOCAB)
+    host = list(islice(criteo_twin.train_source(data, batch).batches(), n))
+    eager, captured = (criteo_twin.make_trainer(criteo_twin.make_model(sparse, "cuda"), "cuda",
+                                                "bfloat16") for _ in range(2))
+    for trainer in (eager, captured):
+        trainer.init_state(host[0], seed=seed)
+    states_equal(f"{tag} initial state", fit_state(captured), fit_state(eager))
+    want = {cross_network: n, segmented_sum_scan: n, scatter_set_rows: n}
+    zero_counts()
+    calls = {}
+    with recording(interactions_module, "cross_network", calls), \
+            recording(sparse_update_module, "segmented_sum_scan", calls), \
+            recording(sparse_update_module, "scatter_set_rows", calls):
+        first = eager.train_step(host[0])
+    eager_losses = torch.stack([first, *(eager.train_step(b) for b in host[1:])])
+    check_launches(f"{tag} {n} eager steps", {k: 0 for k in ALL_KERNELS}, want)
+    against_plain = criteo_kernels_against_plain(calls)
+    del calls
+    zero_counts()
+    captured.fit_steps(iter(host[:n // 2]), steps=n // 2, log_every=n)
+    first = captured.step_losses.clone()
+    captured.fit_steps(iter(host[n // 2:]), steps=n - n // 2, log_every=n,
+                       steps_per_call=CAPTURE_K)
+    check_launches(f"{tag} fit_steps {n // 2} + {n - n // 2}", {k: 0 for k in ALL_KERNELS}, want)
+    losses = torch.cat([first, captured.step_losses])
+    if not torch.equal(losses, eager_losses):
+        raise AssertionError(f"{tag} losses differ: {losses.tolist()} / {eager_losses.tolist()}")
+    states_equal(f"{tag} captured against eager", fit_state(captured), fit_state(eager))
+    print(f"{tag} {n} steps eager and captured (graphs of {sorted(captured._graphs)} steps): "
+          f"every loss and state tensor bit-equal")
+    del eager, captured
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"steps": n, "bit_equal": True, "max_abs_err": against_plain}
+
+
+def criteo_run(name: str, data: dict) -> dict:
+    """One run of the example over the prepared shards (``criteo_twin.run``),
+    launch counts from zero, and its checks."""
+    tag = f"[criteo {name}]"
+    zero_counts()
+    out = criteo_twin.run(**CRITEO, **CRITEO_RUNS[name], device="cuda", data=data, verbose=0,
+                          log=lambda message: print(f"{tag} {message}"))
+    trainer, losses = out.pop("trainer"), out.pop("step_losses")
+    steps, batch = CRITEO["steps"], CRITEO["batch"]
+    scored = out["heldout_rows"] // batch
+    check_launches(f"{tag} {steps} steps and {scored} held-out batches",
+                   {k: 0 for k in ALL_KERNELS},
+                   {cross_network: steps + scored, segmented_sum_scan: steps,
+                    scatter_set_rows: steps})
+    windows = out["window_losses"]
+    if len(losses) != steps or not np.isfinite(losses).all() or not windows[-1] < windows[0]:
+        raise AssertionError(f"{tag} {len(losses)} losses, finite {np.isfinite(losses).all()}, "
+                             f"windows {windows}")
+    if scored != criteo_twin.HELDOUT_BATCHES or not out["heldout_auc"] > CRITEO_AUC_MIN:
+        raise AssertionError(f"{tag} held-out AUC {out['heldout_auc']} over {scored} batches")
+    print(f"{tag} {steps} steps of {batch} rows over {out['table_rows']} table rows (coverage "
+          f"{out['coverage']:.4f}): windows {[round(w, 5) for w in windows]}, p50 "
+          f"{out['p50_ms']:.3f} ms/step, {out['examples_per_s']:.0f} examples/s (host clock), "
+          f"held-out AUC {out['heldout_auc']:.4f}; launches {out['launches']}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def criteo_phase(seed: int) -> dict:
+    """Phase 40 in a temporary work dir (``PYTORCHREC_TPU_WORK_DIR`` under
+    the process's ``TMPDIR``), removed at the end."""
+    t0 = time.perf_counter()
+    previous = os.environ.get("PYTORCHREC_TPU_WORK_DIR")
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.environ["PYTORCHREC_TPU_WORK_DIR"] = tmp
+            data = criteo_twin.prepare(CRITEO["rows"], CRITEO["hash_bucket"],
+                                       log=lambda message: print(f"[criteo] {message}"))
+            out["data"] = {k: data[k] for k in ("synth_s", "format_s")}
+            out["data"]["shards"] = len(data["shards"])
+            print(f"[criteo] {CRITEO['rows']} raw rows synthesized in {data['synth_s']:.2f} s, "
+                  f"formatted into {len(data['shards'])} .npz shards in {data['format_s']:.2f} s "
+                  f"(host clock)")
+            out["bf16_gemm"] = bf16_gemm_check()
+            out["capture"] = criteo_captured_against_eager(data, seed)
+            for name in CRITEO_RUNS:
+                out[name] = criteo_run(name, data)
+    finally:
+        if previous is None:
+            os.environ.pop("PYTORCHREC_TPU_WORK_DIR", None)
+        else:
+            os.environ["PYTORCHREC_TPU_WORK_DIR"] = previous
+    if not out["vocab_oov"]["coverage"] < 1.0:
+        raise AssertionError(f"[criteo vocab_oov] coverage {out['vocab_oov']['coverage']}: "
+                             f"no traffic reached the OOV buckets")
+    gap = abs(out["bf16"]["heldout_auc"] - out["f32"]["heldout_auc"])
+    if not gap <= CRITEO_AUC_GAP:
+        raise AssertionError(f"[criteo] bf16 held-out AUC {out['bf16']['heldout_auc']} is "
+                             f"{gap:.4f} from f32's {out['f32']['heldout_auc']}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 40: the streaming Criteo path, {len(CRITEO_RUNS)} runs in "
+          f"{out['seconds']:.1f} s; bf16 AUC {gap:.4f} from f32's")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4415,6 +4663,10 @@ def main() -> int:
     # reader to fit and evaluate, DIN and DCN-v2, each run's launches from zero
     files = files_phase(args.seed)
 
+    # 40. the streaming Criteo path: the example's twin, raw TSV to held-out
+    # AUC, bf16, f32 and two vocab runs, each run's launches from zero
+    criteo = criteo_phase(args.seed)
+
     n_scan = TRAIN_BATCH * N_SPARSE
     vocab_rows = N_SPARSE * VOCAB
     fm_shape = f"[{TRAIN_BATCH}, {FM_FIELDS}, {EMB}] f32"
@@ -4546,6 +4798,9 @@ def main() -> int:
     for entry in entries:  # phase 39's runs from files, each counted from zero
         entry["files_launches"] = {run: files[run]["launches"].get(entry["name"], 0)
                                    for run in FILES_RUNS}
+    for entry in entries:  # phase 40's streaming Criteo runs, each counted from zero
+        entry["criteo_launches"] = {run: criteo[run]["launches"].get(entry["name"], 0)
+                                    for run in CRITEO_RUNS}
     print(json.dumps({"deepfm": {"f32_ms_per_step": fm_f32_ms, "int8_ms_per_step": fm_int8_ms,
                                  "table_share_ms": shares},
                       "din": {"f32_ms_per_step": din_f32_ms, "int8_ms_per_step": din_int8_ms,
@@ -4567,6 +4822,7 @@ def main() -> int:
     print(json.dumps({"fit": fit}))
     print(json.dumps({"zoo": zoo}))
     print(json.dumps({"files": files}))
+    print(json.dumps({"criteo": criteo}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

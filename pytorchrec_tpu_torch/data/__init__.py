@@ -1,11 +1,12 @@
 """Host data path of the port (port of ``pytorchrec_tpu/data``): datasets as
 numpy frames (``process/io.py``), the processing pipeline (``process``:
-splits, negatives, histories), the synthetic generators
-(``process/datasets``), the readers (``readers``: simple, CTR, history,
-SVD++) and the dataset description (``schema.py``); the fixed-shape epoch
-batches over a reader (``loader.py``), the packed batch transfer
-(``packing.py``) and the lookahead prefetch (``prefetch.py``). Vocab,
-streaming and the raw formatters are not ported yet."""
+splits, negatives, histories), the synthetic generators and the raw
+formatters (``process/datasets``), the readers (``readers``:
+simple, CTR, history, SVD++) and the dataset description (``schema.py``);
+the fixed-shape epoch batches over a reader (``loader.py``), the packed
+batch transfer (``packing.py``) and the lookahead prefetch
+(``prefetch.py``); the streaming source over sharded files
+(``streaming.py``) and the frequency vocabs (``vocab.py``)."""
 
 from pytorchrec_tpu_torch.data.schema import DatasetDescription, FeatureMeta, SplitMode, TrainMode
 from pytorchrec_tpu_torch.data.readers import (

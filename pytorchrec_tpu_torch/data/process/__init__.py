@@ -1,7 +1,8 @@
 """The offline processing pipeline (port of ``pytorchrec_tpu/data/process``)
 over numpy frames (``io.py``): splits, dev/test negatives, histories and
-next-state arrays, dataset discovery, and the synthetic generators
-(``datasets/``). The RL samples come with the RL models."""
+next-state arrays, dataset discovery, the synthetic generators and raw
+formatters (``datasets/``) and pandas' text reading without pandas
+(``text.py``). The RL samples come with the RL models."""
 
 from pytorchrec_tpu_torch.data.process.splits import (
     check_leave_k_out_split,

@@ -126,11 +126,11 @@ def write_tsv(path: str, array: np.ndarray) -> None:
     formats a row at a time, and a history array has a row an interaction."""
     table = array[:, None] if array.ndim == 1 else array
     with open(path, "wb") as f:
-        for start in range(0, len(table), _TSV_BLOCK_ROWS):
-            f.write(_tsv_bytes(table[start:start + _TSV_BLOCK_ROWS]))
+        for start in range(0, len(table), TSV_BLOCK_ROWS):
+            f.write(tsv_bytes(table[start:start + TSV_BLOCK_ROWS]))
 
 
-_TSV_BLOCK_ROWS = 65536
+TSV_BLOCK_ROWS = 65536
 _TSV_TABLE_SPAN = 1 << 16  # a block whose numbers span less gathers their cells from a table
 _POWERS = 10 ** np.arange(9, -1, -1, dtype=np.int64)  # an int32 has at most 10 digits
 
@@ -150,7 +150,7 @@ def _cells(values: np.ndarray):
     return cells, keep
 
 
-def _tsv_bytes(block: np.ndarray) -> bytes:
+def tsv_bytes(block: np.ndarray) -> bytes:
     """A block of rows as text: each number and a tab, the row's last one a
     newline."""
     columns = block.shape[1]

@@ -51,6 +51,7 @@ import torch
 
 from pytorchrec_tpu_torch.ops.kernels import count_launch, launches_kernel
 from pytorchrec_tpu_torch.ops.kernels.build import library
+from pytorchrec_tpu_torch.ops.precision import current_precision, precision_mm
 
 
 def cross_network_plain(x0: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor) -> torch.Tensor:
@@ -279,18 +280,20 @@ def _forward(x0: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor) -> torch.Tens
 
 
 def cross_network_backward(x0: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor,
-                           g: torch.Tensor):
+                           g: torch.Tensor, precision: Optional[str] = None):
     """``(dx0, dws, dbs)`` for the upstream gradient ``g = dL/dx_L``.
 
     With ``u_l = x_l W_l + b_l``: ``dW_l = x_l^T (g_l * x0)``,
     ``db_l = sum_rows(g_l * x0)``, ``dx0 += g_l * u_l`` and
     ``g_{l-1} = (g_l * x0) W_l^T + g_l``; ``x_0`` is ``x0``, so the walked-back
     ``g`` lands on ``dx0`` at the end. ``u_l`` is kept from the recompute, so
-    the backward runs 3 products a layer."""
+    the backward runs 3 products a layer, each at ``precision``
+    (``ops/precision.py``: the matmul precision of the forward's train
+    step)."""
     xs, us = [], []
     xl = x0
     for layer in range(ws.shape[0]):
-        u = torch.addmm(bs[layer], xl, ws[layer])
+        u = precision_mm(xl, ws[layer], precision, bias=bs[layer])
         xs.append(xl)
         us.append(u)
         xl = x0 * u + xl
@@ -298,26 +301,28 @@ def cross_network_backward(x0: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor,
     dws, dbs = [None] * len(xs), [None] * len(xs)
     for layer in reversed(range(len(xs))):
         gx0 = g * x0
-        dws[layer] = torch.mm(xs[layer].t(), gx0)
+        dws[layer] = precision_mm(xs[layer].t(), gx0, precision)
         dbs[layer] = gx0.sum(dim=0)
         dx0 = dx0 + g * us[layer]
-        g = torch.mm(gx0, ws[layer].t()) + g
+        g = precision_mm(gx0, ws[layer].t(), precision) + g
     return dx0 + g, torch.stack(dws), torch.stack(dbs)
 
 
 class CrossNetworkFunction(torch.autograd.Function):
     """The kernel (or, on the CPU, the plain version) forward with the
-    closed-form backward of ``cross_network_backward``."""
+    closed-form backward of ``cross_network_backward``, at the matmul
+    precision the forward ran under (the forward itself is f32)."""
 
     @staticmethod
     def forward(ctx, x0, ws, bs):
         ctx.save_for_backward(x0, ws, bs)
+        ctx.precision = current_precision()
         return _forward(x0, ws, bs)
 
     @staticmethod
     def backward(ctx, g):
         x0, ws, bs = ctx.saved_tensors
-        return cross_network_backward(x0, ws, bs, g.contiguous())
+        return cross_network_backward(x0, ws, bs, g.contiguous(), ctx.precision)
 
 
 def cross_network(x0: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor) -> torch.Tensor:

@@ -6,6 +6,8 @@ converter (``utils/convert.py``) transposes it. Dropout acts only when
 ``train=True`` (serving never drops) and draws its mask from the
 ``torch.Generator`` the caller passes (the trainer's), as flax draws from
 the ``dropout`` key; kept values scale by ``1 / (1 - rate)``, as in flax.
+Every layer built by ``linear`` runs its product at the train step's
+matmul precision (``ops/precision.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pytorchrec_tpu_torch.ops.embedding import INIT_STD
+from pytorchrec_tpu_torch.ops.precision import dense_linear
 from pytorchrec_tpu_torch.utils.device import resolve_device
 
 _ACTIVATIONS = {
@@ -35,11 +38,19 @@ def get_activation(name: str) -> Callable:
     return _ACTIVATIONS[name]
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` whose product follows the matmul precision
+    (``dense_linear``): full f32 unless a train step runs it under
+    ``"bfloat16"``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense_linear(x, self.weight, self.bias)
+
+
 def linear(in_features: int, out_features: int, use_bias: bool = True,
-           device=None, generator: Optional[torch.Generator] = None) -> nn.Linear:
-    """``nn.Linear`` with the framework's normal(0, 0.01) weight and bias."""
-    layer = nn.Linear(in_features, out_features, bias=use_bias,
-                      device=resolve_device(device))
+           device=None, generator: Optional[torch.Generator] = None) -> Linear:
+    """``Linear`` with the framework's normal(0, 0.01) weight and bias."""
+    layer = Linear(in_features, out_features, bias=use_bias, device=resolve_device(device))
     with torch.no_grad():
         layer.weight.normal_(0.0, INIT_STD, generator=generator)
         if use_bias:

@@ -4,7 +4,10 @@ weights and checkpoints.
 
 ``Trainer(model, device=None, packed_transfer=None)`` places the model on
 the card (or on the CPU when asked). ``compile(optimizer, loss, lr,
-weight_decay)`` picks the dense optimizer and the loss;
+weight_decay, matmul_precision)`` picks the dense optimizer, the loss and
+the train step's matmul precision (``ops/precision.py``: ``"bfloat16"``
+runs the step's dense products on bf16 operands with f32 results; serving
+stays f32);
 ``init_state(sample_batch, seed)`` draws every parameter from a
 ``torch.Generator`` seeded with ``seed`` (normal(0, 0.01), the framework's
 init, but where a module has its own, as flax does: ``init_parameters``)
@@ -91,6 +94,7 @@ from pytorchrec_tpu_torch.metric import MetricList
 from pytorchrec_tpu_torch.models.base import RecModel
 from pytorchrec_tpu_torch.ops.embedding import INIT_STD
 from pytorchrec_tpu_torch.ops.kernels import add_tally, capture_tally
+from pytorchrec_tpu_torch.ops.precision import check_precision, matmul_precision as precision_scope
 from pytorchrec_tpu_torch.optim import OPTIMIZERS, build_optimizer
 from pytorchrec_tpu_torch.training.callbacks import Callback, CallbackList, History
 from pytorchrec_tpu_torch.training.checkpoint import atomic_save
@@ -268,6 +272,7 @@ class Trainer:
         self._layout: Optional[_Layout] = None  # the layout of the last batch
         self._stream: Optional[torch.cuda.Stream] = None  # warm-up and capture
         self.metrics: Optional[MetricList] = None
+        self.matmul_precision: Optional[str] = None
         self._scores = GraphCache(self.device)  # the scorer's graphs by request signature
 
     # ------------------------------------------------------------------
@@ -276,17 +281,25 @@ class Trainer:
 
     def compile(self, optimizer: str = "adam", loss: Union[str, Callable] = "bce",
                 metrics: Sequence[str] = ("ndcg@10", "hit@10"), lr: float = 1e-3,
-                weight_decay: float = 0.0, user_sample_n: int = 100) -> None:
+                weight_decay: float = 0.0, user_sample_n: int = 100,
+                matmul_precision: Optional[str] = None) -> None:
         """Choose the dense optimizer (by name), the loss (by name, or
-        ``fn(prediction, target) -> scalar``) and the metrics ``evaluate``
+        ``fn(prediction, target) -> scalar``), the metrics ``evaluate``
         reports (``metric/metrics.py``; ``user_sample_n`` is the width of a
-        candidate row)."""
+        candidate row) and the train step's matmul precision (None,
+        ``"float32"`` or ``"highest"``: full f32; ``"bfloat16"``; anything
+        else raises). The captured train steps are dropped, as the JAX
+        trainer drops its traced step: the next step captures anew."""
         if optimizer not in OPTIMIZERS:
             raise NotImplementedError(f"optimizer {optimizer!r} is not ported yet; ported: "
                                       f"{sorted(OPTIMIZERS)}")
+        precision = check_precision(matmul_precision)
         self.optimizer_name, self.lr, self.weight_decay = optimizer, lr, weight_decay
         self.loss_fn = get_loss(loss) if isinstance(loss, str) else loss
         self.metrics = MetricList(list(metrics), user_sample_n=user_sample_n)
+        self.matmul_precision = precision
+        self._layouts.clear()
+        self._layout = None
         self._compiled = True
 
     def _assert_compiled(self) -> None:
@@ -356,7 +369,9 @@ class Trainer:
         returns the loss (a device scalar, not synchronised)."""
         state = self._assert_state()
         scalars = torch.empty((1, state.scalars.width), dtype=torch.int32, device=self.device)
-        loss = self._step(self._to_device(batch), self._write_scalars(scalars, state.step + 1)[0])
+        with precision_scope(self.matmul_precision):
+            loss = self._step(self._to_device(batch),
+                              self._write_scalars(scalars, state.step + 1)[0])
         state.step += 1
         return loss
 
@@ -417,9 +432,11 @@ class Trainer:
 
     def _steps(self, inputs: _StepInputs, n: int) -> None:
         """The body of a call: steps 0..n-1 over the inputs' rows, each loss
-        into its slot. A graph captures exactly this."""
-        for i in range(n):
-            inputs.losses[i].copy_(self._step(inputs.batch_of(i), inputs.scalars[i]))
+        into its slot, at the compiled matmul precision. A graph captures
+        exactly this."""
+        with precision_scope(self.matmul_precision):
+            for i in range(n):
+                inputs.losses[i].copy_(self._step(inputs.batch_of(i), inputs.scalars[i]))
 
     def _side_stream(self) -> torch.cuda.Stream:
         if self._stream is None:
