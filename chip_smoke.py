@@ -334,6 +334,30 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    every loss finite, the last window's loss below the first's, held-out
    AUC above 0.70, and the bf16 run's AUC within 0.01 of the f32 run's;
    the synth and format seconds, p50 ms/step and examples/s (host clock);
+41. DLRM and the sparse trainer's other table formats (``dlrm_phase``):
+   DLRM at phase 35's Criteo width (26 fields of 100,000 ids, 13 dense
+   columns, E=16, bottom (64,), top (256, 128): 27 field vectors, 351
+   interactions, a top input of 367; rows N(0, 0.1)) served through the
+   captured scorer at 1, 256 and 4096 rows with the f32 and int8 tables
+   (no kernel a request; captured against eager, 256 rows against the
+   CPU); then ``phase41_path`` for each training path: one eager step
+   whose update kernels' arguments are recorded (``recording_shapes``),
+   then 25 captured ``fit_steps`` at batch 32768 with launch counts from
+   zero (B2 and B4 once a table a step, B3 or B8 once a step), serving from
+   the trained state, and the captured ms/step; DLRM with the packed f32,
+   int8 packed and classic int8 tables, and with 26 per-field unpacked
+   tables under lazy Adam (``SparseEmbeddingTrainer(model)``, the JAX
+   default: a B2 and 3 B4 a table a step), plus one recorded rowwise
+   Adagrad step (its ``[V]`` accumulators, B4 on 4-byte rows). Then
+   ``scripts/packed_bytes_ab.py``'s seven contenders (DCN-v2, the unified
+   ``[2.6M, 16]`` table under f32, byte and bf16 rows, Adam or rowwise
+   Adagrad, bf16 at 128 columns; bf16 matmuls, as that script compiles)
+   from the same rows over the same batches, timed in 2 interleaved
+   rounds of 20 captured steps, bytes/adam against f32/adam bit for bit;
+   ``stepped_card_against_cpu`` at batch 512 for DLRM's per-field
+   unpacked Adam and for DCN-v2's bf16 rows; every recorded B2, B3, B4 and
+   B8 call against its plain version (B2 rtol 1e-5, the others
+   bit-exact);
 
 then a ``two_tower`` JSON line (ms/step,
 fused and exact ms a request, recall, index build ms), a ``classic_int8``
@@ -344,15 +368,17 @@ torch hash's, the dedup's and the update's, phase 32's verdict), a
 line (phase 37's launches, times and checkpoints), a ``zoo`` line (phase
 38's ms/step, replay device ms and busy shares, requests, evaluation and
 seconds), a ``files`` line (phase 39's seconds, rows, ms/step, scoring ms,
-metrics and launches), a ``criteo`` line (phase 40's runs) and a
-``{"kernels": [...]}`` line with
+metrics and launches), a ``criteo`` line (phase 40's runs), a ``phase41``
+line (its runs' launches and ms/step, the contenders' ranking, the plain
+checks) and a ``{"kernels": [...]}`` line with
 every kernel at its main-path shape (``launches``: for B1–B4 the DCN-v2 int8
 training run's, for the FM kernels the DeepFM f32 training run's, for the
 pooling kernel the DIN f32 training run's, for B7 the two-tower serving
 run's, for B8 the DCN-v2 classic training run's; the other paths' counts
 beside, the serving ones from captured requests; ``fit_launches``: phase
 37's runs; ``zoo_launches``: phase 38's captured runs; ``files_launches``:
-phase 39's runs; ``criteo_launches``: phase 40's runs). Each path
+phase 39's runs; ``criteo_launches``: phase 40's runs;
+``phase41_launches``: phase 41's captured runs). Each path
 (serving, each training run) zeroes every launch count just before it and
 reads them just after.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -393,6 +419,7 @@ from pytorchrec_tpu_torch.examples import criteo_end_to_end as criteo_twin
 from pytorchrec_tpu_torch.feature_column import CategoricalColumnWithIdentity, NumericColumn
 from pytorchrec_tpu_torch.models import (
     DIN,
+    DLRM,
     NCF,
     SVDPP,
     DCNv2,
@@ -405,6 +432,7 @@ from pytorchrec_tpu_torch.models import (
 from pytorchrec_tpu_torch.models import ctr as ctr_module
 from pytorchrec_tpu_torch.ops import attention as attention_module
 from pytorchrec_tpu_torch.ops import interactions as interactions_module
+from pytorchrec_tpu_torch.ops import quantized_packed as quantized_packed_module
 from pytorchrec_tpu_torch.ops import sparse_update as sparse_update_module
 from pytorchrec_tpu_torch.ops.embedding import Embedding
 from pytorchrec_tpu_torch.ops.precision import bf16_mm
@@ -464,7 +492,12 @@ from pytorchrec_tpu_torch.ops.quantized_packed import (
     packed_q_width,
     unpack_quantized_table,
 )
-from pytorchrec_tpu_torch.ops.sparse_update import dedup_row_grads, packed_sparse_update
+from pytorchrec_tpu_torch.ops.sparse_update import (
+    dedup_row_grads,
+    pack_table,
+    pack_table_bytes,
+    packed_sparse_update,
+)
 from pytorchrec_tpu_torch.serving import build_item_index, make_retrieve_fn
 from pytorchrec_tpu_torch.serving import retrieval as retrieval_module
 from pytorchrec_tpu_torch.training import (
@@ -504,8 +537,17 @@ Q_W = packed_q_width(EMB, 8, 1)  # 128 bytes: int8 q || scale || acc || staging
 Q_BASE = packed_q_base(EMB, 8, 1)  # 24: the int8 rows' staging offset
 # the classic (unpacked) quantized tables: format -> (bits, scale column groups)
 CLASSIC = {"classic": (8, 1), "classic_int4": (4, 1), "classic_g2": (8, 2)}
+# the sparse trainer's table formats (phase 41): name -> SparseEmbeddingTrainer
+# arguments; "f32" is the packed f32 rows of every earlier phase, "per_field"
+# the default, unpacked tables (DLRM's per-field tables)
+SPARSE_FORMATS = {"f32": dict(packed_tables=True), "per_field": {},
+                  "bytes": dict(packed_bytes=True),
+                  "bf16": dict(packed_tables=True, packed_dtype="bfloat16"),
+                  "bf16w128": dict(packed_tables=True, packed_dtype="bfloat16",
+                                   packed_min_width=128)}
 # DCN-v2's packed leaf, or the classic table's q leaf
-TABLES = {"f32": "unified_emb/embedding", "int8": "unified_q", **{t: "unified_q" for t in CLASSIC}}
+TABLES = {**{t: "unified_emb/embedding" for t in SPARSE_FORMATS}, "int8": "unified_q",
+          **{t: "unified_q" for t in CLASSIC}}
 LIN = "unified_lin/embedding"  # DeepFM's linear table, packed [V, 64] under the f32 trainer
 CPU_BATCH, CPU_STEPS = 1024, 2  # card against CPU
 LABEL = CategoricalColumnWithIdentity(feature_name="label", category_num=2)
@@ -846,7 +888,8 @@ def make_ctr(cls, table: str, device, seed: int, emb: int = EMB):
     dense = [NumericColumn(feature_name=f"d_{i}") for i in range(N_DENSE)]
     bits, groups = CLASSIC.get(table, (8, 1))
     kwargs = dict(sparse_columns=sparse, dense_columns=dense, label_column=LABEL, emb_size=emb,
-                  layers=MLP_UNITS, unified_embedding=True, quantized_embedding=table != "f32",
+                  layers=MLP_UNITS, unified_embedding=True,
+                  quantized_embedding=table not in SPARSE_FORMATS,
                   table_packed=table == "int8", table_bits=bits, scale_col_groups=groups,
                   device=device, generator=torch.Generator(device=device).manual_seed(seed))
     if cls is DCNv2:
@@ -1234,8 +1277,9 @@ def serve_table(spec: ModelSpec, table: str, requests: list, seed: int,
         plain = Trainer(model).make_serving_fn()  # its first request of a shape runs eagerly
         for name, req, _ in requests:
             err = close(scores[name], request(f"{name} plain", req, plain, {}))
-            print(f"{tag} {name:18s} kernel vs plain {kernel.__name__} on the card: "
-                  f"max abs err {err:.3e} (no kernel launched in the plain run)")
+            what = f"kernel vs plain {kernel.__name__}" if kernel else "captured vs eager"
+            print(f"{tag} {name:18s} {what} on the card: max abs err {err:.3e} (no kernel "
+                  f"launched in the plain run)")
 
     cpu_model = params_from_jax(leaves, spec.make(table, "cpu", seed))
     name, req, _ = requests[spec.cpu_request]
@@ -2579,20 +2623,28 @@ def serve_two_tower(seed: int) -> dict:
 
 
 def make_trainer(spec: ModelSpec, table: str, device: str, leaves: dict, sample: dict,
-                 seed: int, metrics=("ndcg@10", "hit@10")):
+                 seed: int, metrics=("ndcg@10", "hit@10"), table_optimizer: str = "adam",
+                 matmul_precision: Optional[str] = None):
     """bench.py's training set-up for ``table``: f32, packed ``table || m || v``
     rows under lazy Adam (``SparseEmbeddingTrainer``; DeepFM's linear table
     too); int8, packed ``q || scale || acc`` rows under rowwise Adagrad with
     stochastic requantization (``QuantizedEmbeddingTrainer``; DeepFM's f32
     linear table in the dense optimizer); a classic format, the same with
     the model's ``unified_q`` and ``unified_scale`` buffers and the state's
-    accumulator (``packed_tables=False``). Dense Adam, the spec's loss and
-    lr (BCE and 1e-3 but for the two-tower model); weights from ``leaves``
-    (flax layout); ``metrics`` for ``evaluate``."""
+    accumulator (``packed_tables=False``); another of ``SPARSE_FORMATS``,
+    the sparse trainer with its arguments and ``table_optimizer`` (phase
+    41). Dense Adam, the spec's loss and lr (BCE and 1e-3 but for the
+    two-tower model); weights from ``leaves`` (flax layout); ``metrics``
+    for ``evaluate``."""
     model = spec.make(table, device, seed)
-    cls = SparseEmbeddingTrainer if table == "f32" else QuantizedEmbeddingTrainer
-    trainer = cls(model, device=device, packed_tables=table not in CLASSIC)
-    trainer.compile(optimizer="adam", lr=spec.lr, loss=spec.loss, metrics=metrics)
+    if table in SPARSE_FORMATS:
+        trainer = SparseEmbeddingTrainer(model, device=device, table_optimizer=table_optimizer,
+                                         **SPARSE_FORMATS[table])
+    else:
+        trainer = QuantizedEmbeddingTrainer(model, device=device,
+                                            packed_tables=table not in CLASSIC)
+    trainer.compile(optimizer="adam", lr=spec.lr, loss=spec.loss, metrics=metrics,
+                    matmul_precision=matmul_precision)
     trainer.init_state(sample, seed=seed)
     return params_from_jax(leaves, trainer)
 
@@ -2600,8 +2652,12 @@ def make_trainer(spec: ModelSpec, table: str, device: str, leaves: dict, sample:
 def trained_tables(trainer) -> dict:
     """The tables a trainer updates in place, by name: each packed buffer;
     for a classic table its ``q`` and ``scale`` buffers and its
-    accumulator."""
+    accumulator; an unpacked table and its moments."""
     tables = dict(trainer.state.packed)
+    for path, moments in getattr(trainer.state, "table_moments", {}).items():
+        if moments:
+            tables[path] = trainer.model.get_parameter(path.replace("/", "."))
+            tables.update({f"{path} {key}": t for key, t in moments.items()})
     for name, acc in getattr(trainer.state, "table_acc", {}).items():
         info = trainer._specs[name]
         for path in (info["q_path"], info["scale_path"]):
@@ -2814,20 +2870,47 @@ def adam_values_agree(label: str, got: torch.Tensor, want: torch.Tensor, v_hat: 
     return err, int((got[ill] != want[ill]).sum())
 
 
+def bf16_values_agree(label: str, got: torch.Tensor, want: torch.Tensor, v_hat: torch.Tensor,
+                      lr: float):
+    """bf16 ``table || m || v`` columns, card against CPU after one step from
+    a common state: each value within one bf16 ulp of the CPU's (the f32
+    arithmetic's last bits may round the other way) or within ``ATOL`` (as
+    the f32 check holds the moments: a gradient that cancels to 0 on one
+    side leaves a moment of 1e-16 on the other), or, for a table value in
+    Adam's eps window (``adam_values_agree``), within two steps (2.01 lr).
+    Returns (values one ulp apart, window values that differ)."""
+    g, w = got.float(), want.float()
+    _, exponent = torch.frexp(w)
+    ulp = torch.where(w == 0, 0.0, torch.ldexp(torch.ones_like(w), exponent - 8))
+    ulp = torch.clamp(ulp, min=ATOL)
+    diff = (g - w).abs()
+    emb = v_hat.shape[1]
+    ill = torch.zeros_like(w, dtype=torch.bool)
+    ill[:, :emb] = v_hat.sqrt() < ADAM_EPS_WINDOW
+    bad = (diff > ulp) & ~(ill & (diff <= 2.01 * lr))
+    if bool(bad.any()):
+        raise AssertionError(f"{label}: {int(bad.sum())} bf16 values more than one ulp from the "
+                             f"CPU's, max abs err {float(diff[bad].max()):.3e}")
+    return int(((diff > 0) & ~ill).sum()), int(((diff > 0) & ill).sum())
+
+
 def stepped_card_against_cpu(spec: ModelSpec, table: str, leaves: dict,
                              rng: np.random.Generator, seed: int) -> None:
-    """Phases 21 and 26: the spec's 2 steps at its CPU batch (512 for DIN and
-    the two-tower model) on the card and on the CPU (plain versions), each
-    step from a common state: after step 1 the card's trainer takes the CPU's
-    tables, moments and dense optimizer state. Checked after every step: the
-    loss rtol 1e-5; the packed moments, the int8 rows (``int8_rows_agree``)
-    and every Adam-updated value rtol 1e-4 / atol 1e-6 (``adam_values_agree``:
-    values whose gradient sits in Adam's eps window are counted and bounded
-    instead); the dense moments as ``MOMENT_CHECKS`` says, which holds each
-    gradient, in the eps window too, to rtol 1e-4 / ``GRAD_ATOL``. Stepping from a common state keeps one such value's rounding
-    from steering the next step: run freely, two correct implementations
-    drift apart there by a share of ``lr``, as two CPU runs whose weights
-    differ in their last bits do."""
+    """Phases 21, 26 and 41: the spec's 2 steps at its CPU batch (512 for DIN,
+    the two-tower model and phase 41) on the card and on the CPU (plain
+    versions), each step from a common state: after step 1 the card's
+    trainer takes the CPU's tables, moments and dense optimizer state.
+    Checked after every step: the loss rtol 1e-5; the packed moments, an
+    unpacked table's moments, the int8 rows (``int8_rows_agree``) and every
+    Adam-updated value rtol 1e-4 / atol 1e-6 (``adam_values_agree``: values
+    whose gradient sits in Adam's eps window are counted and bounded
+    instead); bf16 rows within one bf16 ulp or atol 1e-6
+    (``bf16_values_agree``); the dense moments as ``MOMENT_CHECKS`` says,
+    which holds each gradient, in the eps window too, to rtol 1e-4 /
+    ``GRAD_ATOL``. Stepping from a common state keeps one such value's
+    rounding from steering the next step: run freely, two correct
+    implementations drift apart there by a share of ``lr``, as two CPU runs
+    whose weights differ in their last bits do."""
     tag = f"[{spec.name} {table}]"
     host = [spec.batch(rng, spec.cpu_rows) for _ in range(CPU_STEPS)]
     card, cpu = (make_trainer(spec, table, device, leaves, host[0], seed)
@@ -2862,12 +2945,34 @@ def stepped_card_against_cpu(spec: ModelSpec, table: str, leaves: dict,
                 notes.append(int8_rows_agree(tag, path, got, want, spec.emb))
                 continue
             emb = card._emb_dims[path]  # E = 1 for SVD++'s bias tables
+            v_hat = want[:, 2 * emb:3 * emb].float() / bias
+            if packed.dtype == torch.bfloat16:
+                ulps, n = bf16_values_agree(f"{tag} step {step} {path}", got[:, :3 * emb],
+                                            want[:, :3 * emb], v_hat, spec.lr)
+                exempt += n
+                notes.append(f"{path} bf16: {ulps} values one ulp apart ({touched.shape[0]} "
+                             f"rows)")
+                continue
             err, n = adam_values_agree(f"{tag} step {step} {path}", got[:, :emb], want[:, :emb],
-                                       want[:, 2 * emb:3 * emb] / bias, spec.lr)
+                                       v_hat, spec.lr)
             moments = close(got[:, emb:3 * emb], want[:, emb:3 * emb])
             exempt += n
             notes.append(f"{path} values {err:.3e}, moments {moments:.3e} ({touched.shape[0]} "
                          f"rows)")
+        for path, moments in cpu.state.table_moments.items():
+            if not moments:  # a packed table's moments ride in its rows
+                continue
+            touched = torch.from_numpy(np.unique(spec.table_ids(path, batch)))
+            name = path.replace("/", ".")
+            got = card_params[name].detach()[touched.cuda()].cpu()
+            err, n = adam_values_agree(f"{tag} step {step} {path}", got,
+                                       dict(cpu.model.named_parameters())[name].detach()[touched],
+                                       moments["v"][touched] / bias, spec.lr)
+            moment_errs = [close(card.state.table_moments[path][k][touched.cuda()].cpu(),
+                                 moments[k][touched]) for k in ("m", "v")]
+            exempt += n
+            notes.append(f"{path} values {err:.3e}, moments {max(moment_errs):.3e} "
+                         f"({touched.shape[0]} rows)")
         print(f"{tag} card vs CPU, step {step} of {CPU_STEPS} at batch {spec.cpu_rows}: losses "
               f"{card_loss:.6f} / {cpu_loss:.6f}; max abs err: dense params {dense_err:.3e}, "
               f"their exp_avg {moment_err['exp_avg']:.3e} and sqrt(exp_avg_sq) "
@@ -2876,6 +2981,9 @@ def stepped_card_against_cpu(spec: ModelSpec, table: str, leaves: dict,
         with torch.no_grad():  # the next step starts from the CPU's state on both
             for path, packed in cpu.state.packed.items():
                 card.state.packed[path].copy_(packed)
+            for path, moments in cpu.state.table_moments.items():
+                for key, moment in moments.items():
+                    card.state.table_moments[path][key].copy_(moment)
             for name, param in cpu.model.named_parameters():
                 card_params[name].copy_(param)
         state = copy.deepcopy(cpu.state.optimizer.state_dict())  # never shared with the CPU's
@@ -4351,6 +4459,381 @@ def criteo_phase(seed: int) -> dict:
     return out
 
 
+# phase 41: DLRM and the sparse trainer's other table formats
+DLRM_BOTTOM, DLRM_TOP = (64,), MLP_UNITS  # the JAX model's defaults, (64,) and (256, 128)
+DLRM_PAIRS = (N_SPARSE + 1) * N_SPARSE // 2  # 27 field vectors: 351 interactions
+DLRM_TOP_IN = EMB + DLRM_PAIRS  # 367
+DLRM_REQUESTS = (1, 256, 4096)
+# DLRM's rows N(0, 0.1), as DIN's (din_leaves says why): at N(0, 0.01) a
+# row's gradient, a sum over the other 26 vectors, lies in Adam's eps window
+DLRM_ROW_SCALE = 10.0
+FORMAT_STEPS = 25  # captured fit_steps of each phase-41 training path, launches from zero
+FORMAT_ROUNDS = 2  # timed rounds over the contenders, interleaved
+FORMAT_CPU_BATCH = 512  # the stepped card-against-CPU checks
+# scripts/packed_bytes_ab.py:79-90's contenders, (table format, table
+# optimizer), at its DCN-v2 configuration (bf16 matmuls, as its compile)
+CONTENDERS = (("f32", "adam"), ("bytes", "adam"), ("bytes", "rowwise_adagrad"),
+              ("f32", "rowwise_adagrad"), ("bf16", "adam"), ("bf16", "rowwise_adagrad"),
+              ("bf16w128", "adam"))
+CONTENDER_PRECISION = "bfloat16"
+
+
+def contender_name(table: str, optimizer: str) -> str:
+    return f"{table}/{'rowwise' if optimizer == 'rowwise_adagrad' else optimizer}"
+
+
+def dlrm_leaves(rng: np.random.Generator, table: str) -> dict:
+    """Random DLRM parameters in the flax leaf layout: the MLPs N(0, 0.01)
+    with ``bottom_proj`` and ``top_head`` biases zero (flax's ``nn.Dense``
+    default), the table rows N(0, 0.1): 26 per-field ``[100000, 16]``
+    tables (``"per_field"``) or the unified table as ``table_leaves`` lays
+    it out."""
+    leaves = {}
+    width = N_DENSE
+    for i, units in enumerate(DLRM_BOTTOM):
+        leaves[f"bottom/Dense_{i}/Dense_0/kernel"] = normal_leaf(rng, width, units)
+        leaves[f"bottom/Dense_{i}/Dense_0/bias"] = normal_leaf(rng, units)
+        width = units
+    leaves["bottom_proj/kernel"] = normal_leaf(rng, width, EMB)
+    leaves["bottom_proj/bias"] = np.zeros(EMB, np.float32)
+    width = DLRM_TOP_IN
+    for i, units in enumerate(DLRM_TOP):
+        leaves[f"top/Dense_{i}/Dense_0/kernel"] = normal_leaf(rng, width, units)
+        leaves[f"top/Dense_{i}/Dense_0/bias"] = normal_leaf(rng, units)
+        width = units
+    leaves["top_head/kernel"] = normal_leaf(rng, width, 1)
+    leaves["top_head/bias"] = np.zeros(1, np.float32)
+    if table == "per_field":
+        for i in range(N_SPARSE):
+            leaves[f"emb_c_{i}/embedding"] = normal_leaf(rng, VOCAB, EMB) * np.float32(
+                DLRM_ROW_SCALE)
+        return leaves
+    rows = normal_leaf(rng, N_SPARSE * VOCAB, EMB) * np.float32(DLRM_ROW_SCALE)
+    if table == "f32":
+        leaves["unified_emb/embedding"] = packed_f32_leaf(rows, PACKED_W)
+    elif table == "int8":
+        leaves["unified_q"] = packed_q_leaf(rows, Q_W)
+    else:
+        leaves.update(classic_q_leaves(rows, *CLASSIC[table]))
+    return leaves
+
+
+def make_dlrm(table: str, device, seed: int) -> DLRM:
+    """DLRM at phase 35's Criteo width: 26 fields of 100,000 ids, 13 dense
+    columns, E=16, bottom (64,), top (256, 128); per-field tables for
+    ``"per_field"``, else the unified table of ``table``."""
+    sparse = [CategoricalColumnWithIdentity(feature_name=f"c_{i}", category_num=VOCAB)
+              for i in range(N_SPARSE)]
+    dense = [NumericColumn(feature_name=f"d_{i}") for i in range(N_DENSE)]
+    quantized = table not in SPARSE_FORMATS
+    return DLRM(sparse_columns=sparse, dense_columns=dense, label_column=LABEL, emb_size=EMB,
+                bottom_layers=DLRM_BOTTOM, top_layers=DLRM_TOP,
+                unified_embedding=table != "per_field", quantized_embedding=quantized,
+                table_packed=table == "int8", device=device,
+                generator=torch.Generator(device=device).manual_seed(seed))
+
+
+def dlrm_table_ids(path: str, batch: dict) -> np.ndarray:
+    """The ids a DLRM batch gathers from the table at ``path``."""
+    if path.startswith("emb_"):
+        return batch[path.split("/")[0][len("emb_"):]].astype(np.int64)
+    return unified_ids(batch)
+
+
+DLRM_SPEC = dataclasses.replace(
+    DCNV2_SPEC, name="dlrm", make=make_dlrm, leaves=dlrm_leaves, table_ids=dlrm_table_ids,
+    forward_kernel=None,
+    plain_forward=lambda model: contextlib.nullcontext(),
+    per_step={"f32": {segmented_sum_scan: 1, scatter_set_rows: 1},
+              "int8": {segmented_sum_scan: 1, requantize_rows: 1, scatter_set_rows: 1},
+              "classic": {segmented_sum_scan: 1, stochastic_quantize_rows: 1,
+                          scatter_set_rows: 2},
+              # unpacked lazy Adam of 26 tables: each a dedup scan and the
+              # scatter-sets of the table, m and v
+              "per_field": {segmented_sum_scan: N_SPARSE, scatter_set_rows: 3 * N_SPARSE}},
+    cpu_rows=FORMAT_CPU_BATCH)
+FORMATS_SPEC = dataclasses.replace(
+    DCNV2_SPEC, name="dcnv2 formats",
+    per_step={t: DCNV2_SPEC.per_step["f32"] for t in SPARSE_FORMATS},
+    cpu_rows=FORMAT_CPU_BATCH)
+
+
+def format_leaves(leaves: dict, table: str, optimizer: str) -> dict:
+    """``leaves`` (DCN-v2's, the packed f32 table under Adam) with the table in
+    ``table``'s layout under ``optimizer``: the same rows, zero moments
+    (the port's own packing)."""
+    rows = torch.from_numpy(leaves[TABLES["f32"]][:, :EMB])
+    args = SPARSE_FORMATS[table]
+    min_width = args.get("packed_min_width", 64)
+    if args.get("packed_bytes"):
+        leaf = pack_table_bytes(rows, optimizer, min_width)
+    else:
+        dtype = torch.bfloat16 if args.get("packed_dtype") else None
+        leaf = pack_table(rows, optimizer, min_width, dtype)
+    return {**leaves, TABLES["f32"]: leaf}
+
+
+def recorded_key(name: str, args) -> tuple:
+    """A kernel call's key: its name and each tensor argument's shape, dtype
+    and row stride (calls that differ only in values share it)."""
+    return (name, *((tuple(a.shape), str(a.dtype), a.stride(0) if a.dim() > 1 else 1)
+                    for a in args if isinstance(a, torch.Tensor)))
+
+
+@contextlib.contextmanager
+def recording_shapes(owners, name: str, calls: dict):
+    """Inside: each ``owner.name`` runs the kernel as before and keeps copies
+    of the arguments of its first call of each shape (``recorded_key``) in
+    ``calls``, made before the call; keyword arguments too (B8's ids and
+    salt)."""
+    kernel = getattr(owners[0], name)
+
+    def copy_of(a):
+        return layout_copy(a.detach()) if isinstance(a, torch.Tensor) else a
+
+    def record(*args, **kwargs):
+        key = recorded_key(name, (*args, *kwargs.values()))
+        if key not in calls:
+            calls[key] = ([copy_of(a) for a in args], {k: copy_of(v) for k, v in kwargs.items()})
+        return kernel(*args, **kwargs)
+
+    with contextlib.ExitStack() as stack:
+        for owner in owners:
+            stack.enter_context(swapped(owner, name, record))
+        yield
+
+
+@contextlib.contextmanager
+def recording_update_kernels(calls: dict):
+    """``recording_shapes`` for B2, B3, B4 and B8 where the table updates call
+    them: the sparse, int8 packed and classic updates."""
+    modules = (sparse_update_module, quantized_packed_module, quantized_trainer_module)
+    with contextlib.ExitStack() as stack:
+        for name in ("segmented_sum_scan", "scatter_set_rows", "requantize_rows",
+                     "stochastic_quantize_rows"):
+            owners = [m for m in modules if hasattr(m, name)]
+            stack.enter_context(recording_shapes(owners, name, calls))
+        yield
+
+
+def update_kernels_against_plain(calls: dict) -> dict:
+    """Each recorded call against its plain version on the same arguments:
+    B2 rtol 1e-5 and atol 1e-5 of the largest |sum| (f32 sums in another
+    order), B3, B4 and B8 bit-exact. B2 and B4, whose row widths here are
+    new, are timed too (``time_cuda``, median of 3 rounds) beside their
+    bytes' bound: B2 reads x and writes its sums, B4 reads the ids and each
+    kept row and writes it. Returns each kernel's max abs error and the
+    calls checked."""
+    tag = "[phase 41 kernels]"
+    out = {}
+    with torch.no_grad():
+        for key, (args, kwargs) in calls.items():
+            name, shapes = key[0], [list(k[0]) for k in key[1:]]
+            timing = {}
+            if name == "segmented_sum_scan":
+                want = segmented_sum_scan_plain(*args)
+                scale = max(float(want.abs().max()), 1e-30)
+                err = close(segmented_sum_scan(*args), want, rtol=1e-5, atol=1e-5 * scale)
+                note = f"row stride {args[0].stride(0)}, largest |sum| {scale:.3e}"
+                timing = {"ms": float(np.median([time_cuda(lambda: segmented_sum_scan(*args))
+                                                  for _ in range(3)])),
+                          "bound_ms": 1e3 * 2 * args[0].numel() * 4 / PEAK_BYTES_S}
+            elif name == "scatter_set_rows":
+                table, rows, ids = args
+                want = scatter_set_rows_plain(table.clone(), rows, ids)
+                scatter_set_rows(table, rows, ids)
+                torch.cuda.synchronize()
+                if not torch.equal(table, want):
+                    raise AssertionError(f"{tag} scatter_set_rows {shapes} {table.dtype} differs "
+                                         f"from its plain version")
+                err = 0.0
+                kept = int((ids < table.shape[0]).sum())
+                row_bytes = table.shape[1] * table.element_size()
+                note = f"{row_bytes}-byte {table.dtype} rows, {kept} kept"
+                timing = {"ms": float(np.median([time_cuda(lambda: scatter_set_rows(*args))
+                                                  for _ in range(3)])),
+                          "bound_ms": 1e3 * (4 * ids.numel() + 2 * kept * row_bytes)
+                          / PEAK_BYTES_S}
+            elif name == "requantize_rows":
+                got, want = requantize_rows(*args), requantize_rows_plain(*args)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{tag} requantize_rows {shapes} differs from plain")
+                err, note = 0.0, f"rows of {args[0].shape[1]} bytes"
+            else:
+                (rows,), keyed = args, kwargs
+                got = stochastic_quantize_rows(rows, ids=keyed["ids"], salt=keyed["salt"])
+                want = stochastic_quantize_rows_keyed_plain(rows, keyed["ids"], keyed["salt"])
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"{tag} stochastic_quantize_rows {shapes} differs")
+                err, note = 0.0, "keyed"
+            out.setdefault(name, {"max_abs_err": 0.0, "calls": []})
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+            out[name]["calls"].append({"shapes": shapes, "note": note, **timing})
+            times = (f"; {timing['ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms (bytes)"
+                     if timing else "")
+            print(f"{tag} {name} kernel vs plain {shapes} ({note}): max abs err {err:.3e}{times}")
+    return out
+
+
+def phase41_path(spec: ModelSpec, table: str, leaves: dict, rng: np.random.Generator, seed: int,
+                 calls: dict, optimizer: str = "adam", precision: Optional[str] = None,
+                 host: Optional[list] = None):
+    """One phase-41 training path: the trainer from ``leaves``, one eager
+    step whose update kernels' arguments are recorded (``calls``), then
+    ``FORMAT_STEPS`` captured ``fit_steps`` (a warm-up step, then replays of
+    a 1-step graph) with launch counts from zero, serving from the trained
+    state, the captured ms/step over ``CAPTURE_TIMED`` steps of batches
+    packed on the device and a profiled replay. Returns (trainer, packed
+    batches, result)."""
+    tag = f"[phase 41 {spec.name} {contender_name(table, optimizer)}]"
+    per_step = spec.per_step[table]
+    host = host or [spec.batch(rng, spec.train_rows) for _ in range(4)]
+    trainer = make_trainer(spec, table, "cuda", leaves, host[0], seed, table_optimizer=optimizer,
+                           matmul_precision=precision)
+    addresses = {path: t.data_ptr() for path, t in trained_tables(trainer).items()}
+    with recording_update_kernels(calls):
+        first = float(trainer.train_step(host[0]))
+    zero_counts()
+    trainer.fit_steps((host[i % 4] for i in range(FORMAT_STEPS)), steps=FORMAT_STEPS,
+                      log_every=FORMAT_STEPS)
+    check_launches(f"{tag} fit_steps({FORMAT_STEPS})", {k: 0 for k in ALL_KERNELS},
+                   {k: n * FORMAT_STEPS for k, n in per_step.items()})
+    launches = names(counts())
+    losses = trainer.step_losses.cpu()
+    if not torch.isfinite(losses).all() or not np.isfinite(first):
+        raise AssertionError(f"{tag} losses {first}, {losses.tolist()}")
+    if {path: t.data_ptr() for path, t in trained_tables(trainer).items()} != addresses:
+        raise AssertionError(f"{tag} a table was reallocated")
+    request = {k: v[:1000] for k, v in host[1].items() if k != "label"}
+    before = counts()
+    scores = trainer.make_serving_fn()(request)
+    torch.cuda.synchronize()
+    check_launches(f"{tag} serving from the trained state", before,
+                   {spec.forward_kernel: 1} if spec.forward_kernel else {})
+    if scores.dtype != torch.float32 or tuple(scores.shape) != (1000,) or \
+            not torch.isfinite(scores).all():
+        raise AssertionError(f"{tag} serving from the trained state: {scores.dtype} "
+                             f"{tuple(scores.shape)}")
+    packer = trainer.batch_packer(host[0])
+    packed = [tuple(t.cuda() for t in packer.pack(b)) for b in host]
+    ms, host_ms = time_captured(trainer, packed, CAPTURE_TIMED, 1)
+    wall, busy = profile_call(
+        lambda: trainer.fit_steps(iter(packed[:1]), steps=1, log_every=1),
+        f"{tag} one captured step", per_step, top=8)
+    tables = {path: [list(t.shape), str(t.dtype).replace("torch.", "")]
+              for path, t in trained_tables(trainer).items()}
+    print(f"{tag} {FORMAT_STEPS} captured steps at batch {spec.train_rows}, launches {launches}; "
+          f"losses {first:.6f} -> {float(losses[-1]):.6f}; {ms:.3f} ms/step (CUDA events over "
+          f"{CAPTURE_TIMED} captured steps), host clock {host_ms:.3f}; tables "
+          f"{dict(list(tables.items())[:3])}{' ...' if len(tables) > 3 else ''}")
+    return trainer, packed, {"launches": launches, "ms_per_step": ms, "host_ms_per_step": host_ms,
+                             "replay_device_ms": busy,
+                             "replay_busy": None if busy is None else busy / wall,
+                             "batch": spec.train_rows, "tables": len(tables),
+                             "table_shapes": dict(list(tables.items())[:3])}
+
+
+def bytes_equal_f32(tag: str, f32, as_bytes) -> None:
+    """The byte-row trainer against the f32 one after the same steps from
+    the same state: every loss, table field and dense parameter bit-equal."""
+    path = TABLES["f32"]
+    c = 3 * EMB
+    if not torch.equal(as_bytes.state.packed[path].view(torch.float32)[:, :c],
+                       f32.state.packed[path][:, :c]):
+        raise AssertionError(f"{tag} the byte rows' fields differ from the f32 rows'")
+    theirs = as_bytes.model.state_dict()
+    for key, value in f32.model.state_dict().items():
+        if key.replace(".", "/") != path and not torch.equal(value, theirs[key]):
+            raise AssertionError(f"{tag} {key} differs")
+    # the recorded eager step, fit_steps, the timed and profiled steps, the rounds
+    steps = 1 + FORMAT_STEPS + CAPTURE_TIMED + 1 + FORMAT_ROUNDS * CAPTURE_TIMED
+    print(f"{tag} bytes/adam against f32/adam after the same {steps} steps from one state: "
+          f"every table field and dense parameter bit-equal")
+
+
+def format_contenders(rng: np.random.Generator, seed: int, calls: dict) -> dict:
+    """Phase 41's third part: each of ``CONTENDERS`` at ``scripts/
+    packed_bytes_ab.py``'s configuration through ``phase41_path`` over the
+    same host batches, from the same rows (``format_leaves``); then
+    ``FORMAT_ROUNDS`` interleaved rounds of ``CAPTURE_TIMED`` captured steps
+    each; bytes/adam against f32/adam bit for bit."""
+    base = flax_leaves(np.random.default_rng(seed + 41), "f32")
+    host = [FORMATS_SPEC.batch(rng, TRAIN_BATCH) for _ in range(4)]
+    runs = {}
+    for table, optimizer in CONTENDERS:
+        name = contender_name(table, optimizer)
+        leaves = format_leaves(base, table, optimizer)
+        trainer, packed, out = phase41_path(FORMATS_SPEC, table, leaves, rng, seed, calls,
+                                            optimizer, CONTENDER_PRECISION, host)
+        runs[name] = (trainer, packed, out)
+        out["row_bytes"] = trainer.state.packed[TABLES["f32"]][0].nbytes
+        out["round_ms"] = []
+    for _ in range(FORMAT_ROUNDS):
+        for name, (trainer, packed, out) in runs.items():
+            out["round_ms"].append(time_captured(trainer, packed, CAPTURE_TIMED, 1)[0])
+    bytes_equal_f32("[phase 41 formats]", runs["f32/adam"][0], runs["bytes/adam"][0])
+    results = {name: out for name, (_, _, out) in runs.items()}
+    ranked = sorted(results, key=lambda n: float(np.median(results[n]["round_ms"])))
+    print("[phase 41 formats] ms/step by contender (CUDA events, rounds "
+          + ", ".join(f"{n} {results[n]['row_bytes']} B rows: "
+                      + " / ".join(f"{ms:.3f}" for ms in [results[n]['ms_per_step'],
+                                                         *results[n]['round_ms']])
+                      for n in ranked) + ")")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"contenders": results, "ranked": ranked, "bytes_bit_equal_f32": True}
+
+
+def dlrm_phase(rng: np.random.Generator, seed: int) -> dict:
+    """Phase 41: DLRM served captured at 1, 256 and 4096 rows with the f32 and
+    int8 tables, then trained captured with the f32, int8 and classic tables
+    and with per-field unpacked tables (lazy Adam; rowwise Adagrad's one
+    recorded step adds the accumulator's 4-byte rows); the seven format
+    contenders; a stepped card-against-CPU check for per-field unpacked
+    Adam and for bf16 rows at batch 512; every recorded update kernel
+    against its plain version."""
+    t0 = time.perf_counter()
+    out, calls = {}, {}
+    requests = make_requests(rng, DLRM_REQUESTS, candidates=False)
+    zero_counts()
+    served = sum(serve_table(DLRM_SPEC, table, requests, seed, profiled=())
+                 for table in ("f32", "int8"))
+    check_launches("DLRM serving", {k: 0 for k in ALL_KERNELS}, {})
+    out["served"] = served
+    torch.cuda.empty_cache()
+    for offset, table in enumerate(("f32", "int8", "classic", "per_field")):
+        leaves = dlrm_leaves(np.random.default_rng(seed + 42 + offset), table)
+        trainer, _, out[f"dlrm_{table}"] = phase41_path(DLRM_SPEC, table, leaves, rng, seed, calls)
+        if table == "per_field":
+            if trainer.rows_injection is not False or trainer.state.packed:
+                raise AssertionError("[phase 41 dlrm per_field] want unpacked tables, injected "
+                                     "through injection_specs")
+            # rowwise Adagrad's [V] accumulators: B4 on 4-byte rows, one recorded step
+            rowwise = make_trainer(DLRM_SPEC, table, "cuda", leaves,
+                                   DLRM_SPEC.batch(rng, TRAIN_BATCH), seed,
+                                   table_optimizer="rowwise_adagrad")
+            with recording_update_kernels(calls):
+                rowwise.train_step(DLRM_SPEC.batch(rng, TRAIN_BATCH))
+            del rowwise
+        del trainer, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["formats"] = format_contenders(rng, seed, calls)
+    leaves = dlrm_leaves(np.random.default_rng(seed + 46), "per_field")
+    stepped_card_against_cpu(DLRM_SPEC, "per_field", leaves, rng, seed)
+    leaves = format_leaves(flax_leaves(np.random.default_rng(seed + 47), "f32"), "bf16", "adam")
+    stepped_card_against_cpu(FORMATS_SPEC, "bf16", leaves, rng, seed)
+    del leaves
+    torch.cuda.empty_cache()
+    out["against_plain"] = update_kernels_against_plain(calls)
+    del calls
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 41: DLRM and the table formats in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4667,6 +5150,10 @@ def main() -> int:
     # AUC, bf16, f32 and two vocab runs, each run's launches from zero
     criteo = criteo_phase(args.seed)
 
+    # 41. DLRM and the table formats: serving, captured training, the format
+    # contenders, card against CPU, each run's launches from zero
+    dlrm = dlrm_phase(rng, args.seed)
+
     n_scan = TRAIN_BATCH * N_SPARSE
     vocab_rows = N_SPARSE * VOCAB
     fm_shape = f"[{TRAIN_BATCH}, {FM_FIELDS}, {EMB}] f32"
@@ -4801,6 +5288,15 @@ def main() -> int:
     for entry in entries:  # phase 40's streaming Criteo runs, each counted from zero
         entry["criteo_launches"] = {run: criteo[run]["launches"].get(entry["name"], 0)
                                     for run in CRITEO_RUNS}
+    phase41_runs = {**{run: dlrm[run] for run in dlrm if run.startswith("dlrm_")},
+                    **dlrm["formats"]["contenders"]}
+    for entry in entries:  # phase 41's captured runs, each counted from zero
+        entry["phase41_launches"] = {run: out["launches"].get(entry["name"], 0)
+                                     for run, out in phase41_runs.items()}
+        checked = dlrm["against_plain"].get(entry["name"])
+        if checked is not None:
+            entry["phase41_max_abs_err"] = checked["max_abs_err"]
+            entry["phase41_calls"] = checked["calls"]
     print(json.dumps({"deepfm": {"f32_ms_per_step": fm_f32_ms, "int8_ms_per_step": fm_int8_ms,
                                  "table_share_ms": shares},
                       "din": {"f32_ms_per_step": din_f32_ms, "int8_ms_per_step": din_int8_ms,
@@ -4823,6 +5319,7 @@ def main() -> int:
     print(json.dumps({"zoo": zoo}))
     print(json.dumps({"files": files}))
     print(json.dumps({"criteo": criteo}))
+    print(json.dumps({"phase41": dlrm}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
-"""CTR family (port of ``pytorchrec_tpu/models/ctr.py``): LR, FM, DeepFM and
-DCN-v2.
+"""CTR family (port of ``pytorchrec_tpu/models/ctr.py``): LR, FM, DeepFM,
+DCN-v2 and DLRM.
 
 The embedding layouts of ``_CTRBase`` come over as they are, with the flax
 parameter names, so converted weights load 1:1 (``utils/convert.py``):
@@ -28,18 +28,21 @@ called, but ``self.param`` leaves at once, so a JAX DCN-v2 tree holds
 Fields arriving ``[B]`` are broadcast against candidate fields ``[B, N]``.
 
 Rows injection: ``sharded_table_specs(batch)`` (the sparse trainer's
-protocol) names the unified f32 tables a model reads, and
+protocol, unified tables only, as in the JAX package) names the unified f32
+tables a model reads, ``injection_specs(batch)`` every f32 table it reads in
+either layout (per-field: ``emb_<field>`` and ``lin_<field>``, each under
+its own batch key ``__rows__emb_<field>`` or ``__rows__lin_<field>``), and
 ``quantized_table_spec(batch)`` (the quantized trainer's) the unified
-quantized table, packed or classic, each with its ids ``[..., F_sparse]``
-and a batch key (``ROWS_KEY``, ``LIN_ROWS_KEY``); when the batch carries
-rows under that key, the model reads them in place of its own gather, so
-the trainer can gather the rows once and take the loss's gradient with
-respect to the rows themselves.
+quantized table, packed or classic; each comes with its ids and a batch key
+(``ROWS_KEY``, ``LIN_ROWS_KEY``); when the batch carries rows under that
+key, the model reads them in place of its own gather, so the trainer can
+gather the rows once and take the loss's gradient with respect to the rows
+themselves.
 
 The classic table's init keeps the JAX package's quirk: ``q`` and ``scale``
 come from two independent N(0, 0.01) draws, each rounded to nearest, so a
 row's initial values are not one draw's (the first quantized update
-re-establishes them). DLRM comes with later work.
+re-establishes them).
 """
 
 from __future__ import annotations
@@ -57,10 +60,10 @@ from pytorchrec_tpu_torch.models.base import (
     label_target,
     one_hot_first_target,
 )
-from pytorchrec_tpu_torch.ops.embedding import Embedding, normal_init
-from pytorchrec_tpu_torch.ops.interactions import CrossNetworkV2, fm_interaction
+from pytorchrec_tpu_torch.ops.embedding import INIT_STD, Embedding, normal_init
+from pytorchrec_tpu_torch.ops.interactions import CrossNetworkV2, dot_interaction, fm_interaction
 from pytorchrec_tpu_torch.ops.kernels.quantize import dequantize_rows, quantize_rows
-from pytorchrec_tpu_torch.ops.mlp import MLP, linear
+from pytorchrec_tpu_torch.ops.mlp import MLP, Linear, linear
 from pytorchrec_tpu_torch.ops.quantized_packed import pack_quantized_table, packed_gather_dequant
 from pytorchrec_tpu_torch.utils.device import resolve_device
 
@@ -199,29 +202,47 @@ class _CTRBase(RecModel):
             return rows.reshape(*ids.shape, self.emb_size)
         return self.unified_emb(ids)
 
+    @staticmethod
+    def _rows_key(kind: str, column) -> str:
+        """The batch key of a per-field table's injected rows (``kind``
+        ``"emb"`` or ``"lin"``)."""
+        return f"__rows__{kind}_{column.feature_name}"
+
+    def _field_rows(self, kind: str, sparse, batch: Optional[Batch] = None) -> list:
+        """Each per-field table's rows at its field's ids, ``[..., E]``
+        (``[..., 1]`` for the linear tables), or the rows the trainer
+        injected under its key."""
+        tables = self.field_embeddings if kind == "emb" else self.first_order
+        out = []
+        for column, table, ids in zip(self.sparse_columns, tables, sparse):
+            rows = batch.get(self._rows_key(kind, column)) if batch is not None else None
+            out.append(table(ids) if rows is None else rows.reshape(*ids.shape, table.features))
+        return out
+
+    def _sparse_vectors(self, sparse, batch: Optional[Batch] = None) -> torch.Tensor:
+        """The sparse fields' vectors ``[..., F_sparse, E]``, in either
+        layout."""
+        if self.unified_embedding:
+            return self._unified_vectors(sparse, batch)
+        return torch.stack(self._field_rows("emb", sparse, batch), dim=-2)
+
     def _embedded_concat(self, sparse, batch: Optional[Batch] = None) -> torch.Tensor:
         """All sparse-field embeddings concatenated: [..., F_sparse * E]."""
-        if self.unified_embedding:
-            vectors = self._unified_vectors(sparse, batch)
-            return vectors.reshape(*vectors.shape[:-2], -1)
-        return torch.cat([emb(ids) for emb, ids in zip(self.field_embeddings, sparse)], dim=-1)
+        vectors = self._sparse_vectors(sparse, batch)
+        return vectors.reshape(*vectors.shape[:-2], -1)
 
     def _field_vectors(self, sparse, dense, batch: Optional[Batch] = None) -> torch.Tensor:
         """Every field's vector -> ``[..., F, E]``: the sparse fields' rows,
         then each dense value times its factor vector (the FM input)."""
-        if self.unified_embedding:
-            vectors = [self._unified_vectors(sparse, batch)]
-        else:
-            vectors = [torch.stack([emb(ids) for emb, ids in zip(self.field_embeddings, sparse)],
-                                   dim=-2)]
+        vectors = [self._sparse_vectors(sparse, batch)]
         if dense:
             vectors.append(torch.stack(dense, dim=-1)[..., None] * self.dense_factors)
         return torch.cat(vectors, dim=-2)
 
     def _linear_term(self, sparse, dense, batch: Optional[Batch] = None) -> torch.Tensor:
         """``bias + sum of the sparse fields' linear rows + sum_i dense_i *
-        dense_linear_i``; the unified rows may come injected under
-        ``LIN_ROWS_KEY``."""
+        dense_linear_i``; the rows may come injected (``LIN_ROWS_KEY``, or
+        each field's key)."""
         total = self.bias
         if self.unified_embedding:
             ids = self._unified_ids(sparse)
@@ -230,8 +251,8 @@ class _CTRBase(RecModel):
                 lin_rows = self.unified_lin(ids)
             total = total + lin_rows.reshape(ids.shape).sum(dim=-1)
         else:
-            for emb, ids in zip(self.first_order, sparse):
-                total = total + emb(ids)[..., 0]
+            for rows in self._field_rows("lin", sparse, batch):
+                total = total + rows[..., 0]
         for i, values in enumerate(dense):
             total = total + values * self.dense_linear[i]
         return total
@@ -246,11 +267,8 @@ class _CTRBase(RecModel):
         return self.quantized_embedding
 
     def _check_trainable_table(self, quantized: bool) -> None:
-        """The sparse trainer takes the unified f32 table, the quantized
-        trainer the unified quantized one."""
-        if not self.unified_embedding:
-            raise NotImplementedError("sparse training of per-field tables is not ported yet; "
-                                      "use unified_embedding=True")
+        """The sparse trainer takes the f32 tables, the quantized trainer the
+        unified quantized one."""
         if self.quantized_embedding and not quantized:
             raise ValueError("a quantized table trains under QuantizedEmbeddingTrainer")
         if quantized and not self.quantized_embedding:
@@ -272,8 +290,12 @@ class _CTRBase(RecModel):
     def sharded_table_specs(self, batch: Batch) -> Dict[str, dict]:
         """Rows-injection protocol: each unified f32 table the model reads
         (the linear table, the field table), with its flax path, its ids
-        ``[..., F_sparse]`` for ``batch`` and the batch key of its rows."""
+        ``[..., F_sparse]`` for ``batch`` and the batch key of its rows.
+        Unified tables only, as the JAX package asserts: per-field tables
+        raise ValueError (``injection_specs`` names them)."""
         self._check_trainable_table(quantized=False)
+        if not self.unified_embedding:
+            raise ValueError("sharded_table_specs needs unified_embedding=True")
         sparse, _, _ = _gather_fields(batch, self.sparse_columns, self.dense_columns)
         ids = self._unified_ids(sparse)
         specs = {}
@@ -285,10 +307,40 @@ class _CTRBase(RecModel):
                                 "rows_key": self.ROWS_KEY}
         return specs
 
+    def injection_specs(self, batch: Batch) -> Dict[str, dict]:
+        """Every f32 table the model reads, in the form of
+        ``sharded_table_specs``: the unified tables' specs, or each per-field
+        table (``emb_<field>/embedding``, ``lin_<field>/embedding``) with its
+        field's ids (broadcast against candidate fields, as the model gathers
+        them) and its own batch key."""
+        if self.unified_embedding:
+            return self.sharded_table_specs(batch)
+        sparse, _, _ = _gather_fields(batch, self.sparse_columns, self.dense_columns)
+        specs = {}
+        for column, ids in zip(self.sparse_columns, sparse):
+            kinds = ("lin",) * self._uses_linear + ("emb",) * self._uses_field_embeddings
+            for kind in kinds:
+                name = f"{kind}_{column.feature_name}"
+                specs[name] = {"path": f"{name}/embedding", "ids": ids,
+                               "rows_key": self._rows_key(kind, column)}
+        return specs
+
     def sparse_table_ids(self, batch: Batch) -> Dict[str, torch.Tensor]:
         """Sparse-trainer protocol: table path -> the flat ids that gather from
-        it (field after field, as in the JAX package)."""
+        it (unified: field after field; per-field: each field's own ids, as
+        in the JAX package)."""
         self._check_trainable_table(quantized=False)
+        if not self.unified_embedding:
+            ids_map = {}
+            for column in self.sparse_columns:
+                ids = column.get_feature_data(batch)
+                if ids is None:
+                    continue
+                if self._uses_linear:
+                    ids_map[f"lin_{column.feature_name}/embedding"] = ids
+                if self._uses_field_embeddings:
+                    ids_map[f"emb_{column.feature_name}/embedding"] = ids
+            return ids_map
         fields = [(c.get_feature_data(batch), off)
                   for c, off in zip(self.sparse_columns, self._offsets)]
         parts = [(ids + off).reshape(-1) for ids, off in fields if ids is not None]
@@ -385,3 +437,69 @@ class DeepFM(_CTRBase):
         flat = vectors.reshape(*vectors.shape[:-2], -1)  # [..., F * E]
         deep_term = self.deep_head(self.deep(flat, train=train, generator=generator))[..., 0]
         return self._finish(fm_term + deep_term, candidate_mode, batch)
+
+
+class _ZeroBiasLinear(Linear):
+    """``Linear`` drawn as flax's ``nn.Dense`` with its default bias init:
+    normal(0, 0.01) weight, zero bias, at construction and at each
+    ``Trainer.init_state`` (``init_parameters``)."""
+
+    def __init__(self, in_features: int, out_features: int, device,
+                 generator: Optional[torch.Generator]):
+        super().__init__(in_features, out_features, device=device)
+        with torch.no_grad():
+            self.init_parameters(generator)
+
+    def init_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        self.weight.normal_(0.0, INIT_STD, generator=generator)
+        self.bias.zero_()
+
+
+class DLRM(_CTRBase):
+    """DLRM (Naumov et al., arXiv 1906.00091): a bottom MLP over the dense
+    values, projected to ``emb_size`` (``bottom_proj``), joins the sparse
+    fields' vectors as one more field vector; the pairwise dot interaction
+    of all field vectors (``ops/interactions.py::dot_interaction``) and the
+    dense vector feed the top MLP and its head (``top_head``). No linear
+    term, so no linear tables. ``bottom_proj`` and ``top_head`` start with
+    zero biases, as the flax model's, and run through ``ops.mlp.Linear``, so
+    ``compile(matmul_precision=...)`` covers them; the Gram matrix stays f32.
+    Every table layout of the family: unified f32, per-field, int8 packed
+    and classic."""
+
+    _uses_linear = False
+
+    def __init__(self, *args, bottom_layers: Sequence[int] = (64,),
+                 top_layers: Sequence[int] = (256, 128), dropout: float = 0.0,
+                 self_interaction: bool = False, device=None,
+                 generator: Optional[torch.Generator] = None, **kwargs):
+        device = resolve_device(device)
+        super().__init__(*args, device=device, generator=generator, **kwargs)
+        self.self_interaction = self_interaction
+        n_dense = len(self.dense_columns)
+        fields = len(self.sparse_columns) + (1 if n_dense else 0)
+        top_in = fields * (fields + 1) // 2 if self_interaction else fields * (fields - 1) // 2
+        if n_dense:
+            self.bottom = MLP(n_dense, tuple(bottom_layers), activation="relu", dropout=dropout,
+                              device=device, generator=generator)
+            self.bottom_proj = _ZeroBiasLinear(self.bottom.out_features, self.emb_size, device,
+                                               generator)
+            top_in += self.emb_size
+        self.top = MLP(top_in, tuple(top_layers), activation="relu", dropout=dropout,
+                       device=device, generator=generator)
+        self.top_head = _ZeroBiasLinear(self.top.out_features, 1, device, generator)
+
+    def forward(self, batch: Batch, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Prediction:
+        sparse, dense, candidate_mode = _gather_fields(batch, self.sparse_columns,
+                                                       self.dense_columns)
+        vectors = self._sparse_vectors(sparse, batch)  # [..., F_sparse, E]
+        top_in = []
+        if dense:
+            dense_x = torch.stack(dense, dim=-1)  # [..., F_dense]
+            dense_vec = self.bottom_proj(self.bottom(dense_x, train=train, generator=generator))
+            vectors = torch.cat([vectors, dense_vec[..., None, :]], dim=-2)
+            top_in.append(dense_vec)
+        top_in.append(dot_interaction(vectors, self.self_interaction))
+        top = self.top(torch.cat(top_in, dim=-1), train=train, generator=generator)
+        return self._finish(self.top_head(top)[..., 0], candidate_mode, batch)

@@ -9,6 +9,7 @@ from pytorchrec_tpu_torch.ops.gru import MaskedGRU
 from pytorchrec_tpu_torch.ops.interactions import (
     CrossNetworkV2,
     cross_layer_v2,
+    dot_interaction,
     fm_interaction,
     fm_interaction_vector,
 )
@@ -27,6 +28,7 @@ __all__ = [
     "cross_layer_v2",
     "CrossNetworkV2",
     "DINAttentionPool",
+    "dot_interaction",
     "fm_interaction",
     "fm_interaction_vector",
     "get_position_ids",

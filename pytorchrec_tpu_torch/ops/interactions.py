@@ -1,6 +1,5 @@
 """Feature interactions (port of ``pytorchrec_tpu/ops/interactions.py``): the
-FM pairwise interaction and the DCN-v2 cross layers (``dot_interaction``
-comes with the DLRM slice).
+FM pairwise interaction, DLRM's dot interaction and the DCN-v2 cross layers.
 
 The JAX package's ``fm_interaction`` reaches its Pallas kernel only with
 ``use_pallas=True``, which its models never pass: a cost-model choice of the
@@ -35,6 +34,24 @@ def fm_interaction_vector(field_vectors: torch.Tensor) -> torch.Tensor:
     sum_of_fields = field_vectors.sum(dim=-2)
     sum_of_squares = torch.square(field_vectors).sum(dim=-2)
     return 0.5 * (torch.square(sum_of_fields) - sum_of_squares)
+
+
+def dot_interaction(field_vectors: torch.Tensor, self_interaction: bool = False) -> torch.Tensor:
+    """DLRM's pairwise dot interaction: ``[..., F, E] -> [..., F*(F-1)/2]``
+    (``F*(F+1)/2`` with ``self_interaction``, the diagonal kept).
+
+    The Gram matrix ``V V^T`` is one ``torch.bmm`` over the lead dims
+    flattened (candidate mode ``[B, N, F, E]`` too), in f32 whatever the
+    train step's matmul precision, as the JAX op's einsum is; then the lower
+    triangle in ``jnp.tril_indices`` order, row after row
+    (``torch.tril_indices`` gives the same order). Plain torch: the JAX
+    package computes it outside any Pallas kernel."""
+    *lead, f, e = field_vectors.shape
+    flat = field_vectors.reshape(-1, f, e)
+    gram = torch.bmm(flat, flat.transpose(1, 2)).reshape(-1, f * f)
+    rows, cols = torch.tril_indices(f, f, offset=0 if self_interaction else -1,
+                                    device=field_vectors.device)
+    return gram.index_select(1, rows * f + cols).reshape(*lead, -1)
 
 
 def cross_layer_v2(x0: torch.Tensor, xl: torch.Tensor, w: torch.Tensor,

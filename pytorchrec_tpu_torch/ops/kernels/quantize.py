@@ -61,7 +61,7 @@ import torch
 
 from pytorchrec_tpu_torch.ops.kernels import count_launch, launches_kernel
 from pytorchrec_tpu_torch.ops.kernels.build import library
-from pytorchrec_tpu_torch.ops.sparse_update import bytes_to_f32
+from pytorchrec_tpu_torch.ops.sparse_update import bytes_to_f32, mean_square_rows
 from pytorchrec_tpu_torch.utils.rng import fold_in, random_bits_u32
 
 _U32 = 0xFFFFFFFF
@@ -212,23 +212,6 @@ def table_rounding_salt(key, step: int, path: str) -> int:
     step and the table's flax path: the JAX package's salt, bit for bit."""
     base = random_bits_u32(fold_in(key, zlib.crc32(path.encode()) & 0x7FFFFFFF))
     return base ^ ((int(step) * 0x9E3779B9) & _U32)
-
-
-def _sum_in_column_order(x: torch.Tensor) -> torch.Tensor:
-    """``[n, e] -> [n]`` row sums from column 0 up, in order: the order of
-    XLA's CPU reduction (so the mean of g^2 matches the JAX package's bit
-    for bit) and of the kernel."""
-    total = x[:, 0]
-    for c in range(1, x.shape[1]):
-        total = total + x[:, c]
-    return total
-
-
-def mean_square_rows(g: torch.Tensor) -> torch.Tensor:
-    """``[n, e] -> [n]``: ``mean(g**2)`` along each row, summed from column 0
-    up and divided by ``e`` (the rowwise-Adagrad increment, as the JAX
-    package's CPU reduction and the kernel compute it)."""
-    return _divide(_sum_in_column_order(torch.square(g)), g.shape[1])
 
 
 def requantize_rows_chain(moved: torch.Tensor, g: torch.Tensor, rng_bits: torch.Tensor,

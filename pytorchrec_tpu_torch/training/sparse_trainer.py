@@ -1,39 +1,64 @@
 """Sparse-embedding trainer (port of
-``pytorchrec_tpu/training/sparse_trainer.py``): packed f32 tables with
-row-sparse lazy updates.
+``pytorchrec_tpu/training/sparse_trainer.py``): row-sparse lazy updates of
+embedding tables.
 
-``SparseEmbeddingTrainer(model, table_optimizer="adam", packed_tables=True)``
-keeps each embedding table as one ``[V, W]`` buffer of
-``table || moments || staging`` rows (``ops/sparse_update.py``): DCN-v2's
-field table, LR's linear table, FM's and DeepFM's both (the linear table's
-E is 1, so its rows use 4 of 64 columns under Adam, as in the JAX package).
+``SparseEmbeddingTrainer(model, table_optimizer="adam", rows_injection=None,
+packed_tables=False, packed_min_width=64, packed_bytes=False,
+packed_dtype=None, table_lr=None)`` keeps the dense parameters on the dense
+optimizer and updates each embedding table with row-sparse lazy Adam,
+Adagrad or rowwise Adagrad (``ops/sparse_update.py``). A table is stored in
+one of four formats:
+
+* unpacked (the default): the model's own ``[V, E]`` table, its moments in
+  ``state.table_moments`` (``sparse_lazy_adam``, ``sparse_adagrad``,
+  ``sparse_rowwise_adagrad``);
+* packed f32 (``packed_tables=True``): one ``[V, W]`` buffer of
+  ``table || moments || staging`` rows, ``W`` at least ``packed_min_width``
+  columns (``packed_sparse_update``); the model's table parameter becomes a
+  strided view of the buffer's first E columns, so serving and
+  ``unpacked_params`` read the trained table with no second copy. DeepFM's
+  linear table (E=1) uses 4 of its 64 columns under Adam, as in the JAX
+  package;
+* packed bf16 (``packed_dtype="bfloat16"``): the same rows stored in bf16,
+  the optimizer's arithmetic in f32;
+* byte rows (``packed_bytes=True``, which implies ``packed_tables``): the
+  f32 fields' bits in u8 rows (``packed_sparse_update_bytes``, bit-identical
+  to packed f32; ``packed_min_width`` then counts bytes).
+
+With bf16 or byte rows the model keeps no table of its own (an empty
+``[0, E]`` parameter, so that nothing reads a stale copy): scoring gathers
+the packed rows and injects their f32 values, and ``unpacked_params``
+unpacks them.
+
 A train step:
 
-1. gathers the packed rows of the batch's ids once for each table; their
-   first E columns go into the model as a leaf tensor that requires grad,
-   under the table's own batch key (the model's rows injection,
-   ``sharded_table_specs``), so no table takes part in autograd;
+1. gathers each table's rows at the batch's ids once; their f32 values go
+   into the model as a leaf tensor that requires grad, under the table's own
+   batch key, so no table takes part in autograd and no dense ``[V, E]``
+   gradient is ever made;
 2. runs the model, the loss and the backward, which gives the dense
    parameters their gradients and the injected rows theirs;
 3. steps the dense optimizer over the dense parameters only;
-4. runs ``packed_sparse_update`` (sort, permute, segmented scan, lazy Adam
-   or Adagrad, scatter-set) for each table with its pre-update rows, in
-   place on its packed buffer, which is never reallocated; Adam's bias
-   corrections come from the step's row of scalars (``StepScalars``), so
-   the step is the same eagerly and in a CUDA graph (``Trainer.fit_steps``).
+4. updates each table in place (its buffers are never reallocated) from its
+   per-occurrence row grads; Adam's bias corrections come from the step's
+   row of scalars (``StepScalars``), so the step is the same eagerly and in
+   a CUDA graph (``Trainer.fit_steps``).
 
-The model's table parameter becomes a strided view of the buffer's first E
-columns (no grad), so serving and ``unpacked_params`` read the trained table
-with no second copy of it.
-
-Unpacked tables, byte rows (``packed_bytes``) and bf16 storage
-(``packed_dtype``) come with later work (A8) and raise until then.
+Rows injection: with ``rows_injection=True`` the tables are the ones the
+model's ``sharded_table_specs`` names (unified tables); ``None`` resolves at
+``init_state`` as the JAX trainer resolves it, to True where every table the
+model declares (``sparse_table_ids``) is named there and to False otherwise
+(per-field tables). Where the JAX step then patches the rows into a
+stop-gradient copy of each table, the port injects them all the same,
+through the model's ``injection_specs``, which also names per-field tables:
+each id's summed gradient is the same, summed in another order. Packed
+tables need rows injection, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -41,14 +66,24 @@ from torch import nn
 from pytorchrec_tpu_torch.ops.sparse_update import (
     PACKED_COLS,
     pack_table,
+    pack_table_bytes,
     packed_sparse_update,
+    packed_sparse_update_bytes,
+    sparse_adagrad,
+    sparse_lazy_adam,
+    sparse_rowwise_adagrad,
     unpack_table,
+    unpack_table_bytes,
 )
 from pytorchrec_tpu_torch.optim import build_optimizer
 from pytorchrec_tpu_torch.training.state import SparseTrainState, StepScalars
 from pytorchrec_tpu_torch.training.trainer import Batch, Trainer
 
 logger = logging.getLogger(__name__)
+
+# packed_dtype -> the rows' storage dtype (None: f32)
+_STORAGE = {"float32": None, torch.float32: None, "bfloat16": torch.bfloat16,
+            torch.bfloat16: torch.bfloat16}
 
 
 def resolve_table_lr(model, override: Optional[float], lr: float, rowwise_tables: bool) -> float:
@@ -81,26 +116,44 @@ def _module_path(path: str):
 
 
 class SparseEmbeddingTrainer(Trainer):
-    """Trainer with packed f32 tables and row-sparse table updates."""
+    """Trainer with row-sparse table updates over unpacked, packed f32,
+    packed bf16 or byte-row tables."""
 
     def __init__(self, model, device=None, table_optimizer: str = "adam",
-                 packed_tables: bool = False, packed_bytes: bool = False, packed_dtype=None,
+                 rows_injection: Optional[bool] = None, packed_tables: bool = False,
+                 packed_min_width: int = 64, packed_bytes: bool = False, packed_dtype=None,
                  table_lr: Optional[float] = None):
-        if not hasattr(model, "sharded_table_specs"):
-            raise TypeError(f"{type(model).__name__} does not implement sharded_table_specs()")
+        if not hasattr(model, "sparse_table_ids"):
+            raise TypeError(f"{type(model).__name__} does not implement sparse_table_ids()")
         if table_optimizer not in PACKED_COLS:
             raise ValueError(f"table_optimizer must be one of {sorted(PACKED_COLS)}, "
                              f"got {table_optimizer!r}")
-        if not packed_tables:
-            raise NotImplementedError("unpacked tables are not ported yet; pass packed_tables=True")
-        if packed_bytes or packed_dtype is not None:
-            raise NotImplementedError("byte-packed and bf16 packed tables are not ported yet")
+        if packed_bytes:  # byte rows are a packed layout
+            packed_tables = True
+        if packed_tables:
+            if rows_injection is False:
+                raise ValueError("packed_tables requires the rows-injection path")
+            rows_injection = True
+        if packed_dtype is not None:
+            if not packed_tables or packed_bytes:
+                raise ValueError("packed_dtype needs packed_tables=True (f32-exact byte rows are "
+                                 "the packed_bytes option)")
+            if packed_dtype not in _STORAGE:
+                raise ValueError(f"packed_dtype must be float32 or bfloat16, got {packed_dtype!r}")
+            packed_dtype = _STORAGE[packed_dtype]
         super().__init__(model, device)
         self.table_optimizer = table_optimizer
+        self.rows_injection = rows_injection
         self.packed_tables = packed_tables
+        self.packed_min_width = packed_min_width
+        self.packed_bytes = packed_bytes
+        self.packed_dtype = packed_dtype
         self._table_lr_override = table_lr
         self._table_lr: Optional[float] = None
         self._emb_dims: Dict[str, int] = {}
+        self._table_paths: Tuple[str, ...] = ()
+        # bf16 and byte rows: each table's [V, E] shape, the model's parameter being empty
+        self._table_shapes: Dict[str, Tuple[int, int]] = {}
 
     def compile(self, *args, lr: float = 1e-3, **kwargs) -> None:
         """As ``Trainer.compile``; the table optimizer's lr comes from
@@ -109,39 +162,140 @@ class SparseEmbeddingTrainer(Trainer):
         self._table_lr = resolve_table_lr(self.model, self._table_lr_override, lr,
                                           rowwise_tables=self.table_optimizer == "rowwise_adagrad")
 
+    # ------------------------------------------------------------------
+    # state
+    # ------------------------------------------------------------------
+
+    def _table_param(self, path: str) -> nn.Parameter:
+        module_name, param_name = _module_path(path)
+        return getattr(self.model.get_submodule(module_name), param_name)
+
+    def _set_table_param(self, path: str, value: torch.Tensor) -> None:
+        module_name, param_name = _module_path(path)
+        setattr(self.model.get_submodule(module_name), param_name,
+                nn.Parameter(value, requires_grad=False))
+
+    def init_state(self, sample_batch: Batch, seed: int = 2020) -> SparseTrainState:
+        """As ``Trainer.init_state``. A table that a bf16 or byte-row state
+        emptied is given back its ``[V, E]`` shape first, so the draws are
+        those of a fresh model."""
+        for path, shape in self._table_shapes.items():
+            self._set_table_param(path, torch.empty(shape, device=self.device))
+        self._table_shapes = {}
+        return super().init_state(sample_batch, seed)
+
+    def _injects_all(self, sample_batch: Batch, declared: set) -> bool:
+        """``rows_injection=None``'s resolution: every declared table takes
+        rows through ``sharded_table_specs`` (which per-field tables lack)."""
+        try:
+            specs = self.model.sharded_table_specs(sample_batch)
+        except ValueError:
+            return False
+        return declared <= {spec["path"] for spec in specs.values()}
+
+    def _injection_specs(self, batch: Batch) -> Dict[str, dict]:
+        """The trained tables' rows-injection specs for ``batch``."""
+        if self.rows_injection:
+            specs = self.model.sharded_table_specs(batch)
+        else:
+            specs = getattr(self.model, "injection_specs", self.model.sharded_table_specs)(batch)
+        return {name: spec for name, spec in specs.items() if spec["path"] in self._table_paths}
+
+    def _zero_moments(self, table: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if self.table_optimizer == "adam":
+            return {"m": torch.zeros_like(table), "v": torch.zeros_like(table)}
+        if self.table_optimizer == "rowwise_adagrad":
+            return {"acc": table.new_zeros((table.shape[0],))}
+        return {"acc": torch.zeros_like(table)}
+
     def _make_state(self, sample_batch: Batch, rng: torch.Generator) -> SparseTrainState:
         declared = set(self.model.sparse_table_ids(sample_batch))
-        paths = {spec["path"] for spec in self.model.sharded_table_specs(sample_batch).values()}
-        if declared - paths:
-            raise ValueError(f"tables {sorted(declared - paths)} cannot take injected rows")
-        packed, table_params = {}, set()
-        for path in sorted(paths):
-            module_name, param_name = _module_path(path)
-            module = self.model.get_submodule(module_name)
-            table = getattr(module, param_name).detach()
-            self._emb_dims[path] = table.shape[1]
-            packed[path] = pack_table(table, self.table_optimizer)
-            # the model reads the trained table through a view of the buffer
-            setattr(module, param_name, nn.Parameter(unpack_table(packed[path], table.shape[1]),
-                                                     requires_grad=False))
-            table_params.add(f"{module_name}.{param_name}")
-        dense = [p for name, p in self.model.named_parameters() if name not in table_params]
+        if self.rows_injection is None:
+            self.rows_injection = self._injects_all(sample_batch, declared)
+        self._table_paths = tuple(sorted(declared))
+        specs = self._injection_specs(sample_batch)
+        missing = declared - {spec["path"] for spec in specs.values()}
+        if missing:
+            raise ValueError(f"tables {sorted(missing)} cannot take injected rows")
+        packed, moments = {}, {}
+        for path in self._table_paths:
+            table = self._table_param(path).detach()
+            e = table.shape[1]
+            self._emb_dims[path] = e
+            if not self.packed_tables:
+                self._table_param(path).requires_grad_(False)
+                moments[path] = self._zero_moments(table)
+                continue
+            moments[path] = {}
+            if self.packed_bytes:
+                packed[path] = pack_table_bytes(table, self.table_optimizer, self.packed_min_width)
+            else:
+                packed[path] = pack_table(table, self.table_optimizer, self.packed_min_width,
+                                          self.packed_dtype)
+            if self.packed_bytes or self.packed_dtype is not None:
+                self._table_shapes[path] = tuple(table.shape)
+                self._set_table_param(path, table.new_empty((0, e)))
+            else:  # the model reads the trained table through a view of the buffer
+                self._set_table_param(path, unpack_table(packed[path], e))
+        tables = {".".join(_module_path(p)) for p in self._table_paths}
+        dense = [p for name, p in self.model.named_parameters() if name not in tables]
         optimizer = build_optimizer(self.optimizer_name, dense, self.lr, self.weight_decay)
-        scalars = StepScalars(adam_tables=sorted(packed) if self.table_optimizer == "adam" else ())
-        return SparseTrainState(optimizer=optimizer, rng=rng, scalars=scalars, packed=packed)
+        adam_tables = self._table_paths if self.table_optimizer == "adam" else ()
+        return SparseTrainState(optimizer=optimizer, rng=rng, scalars=StepScalars(adam_tables),
+                                packed=packed, table_moments=moments)
+
+    # ------------------------------------------------------------------
+    # steps
+    # ------------------------------------------------------------------
+
+    def _f32_rows(self, rows: torch.Tensor, path: str) -> torch.Tensor:
+        """The f32 table values of gathered packed rows: a strided view of
+        f32 or byte rows, a converted copy of bf16 rows."""
+        e = self._emb_dims[path]
+        if self.packed_bytes:
+            return unpack_table_bytes(rows, e)
+        return unpack_table(rows, e).to(torch.float32)
+
+    def _gather(self, path: str, ids: torch.Tensor) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+        """A table's rows at ``ids``: (the packed rows, None when unpacked;
+        their f32 table values)."""
+        if not self.packed_tables:
+            return None, self._table_param(path).index_select(0, ids)
+        rows = self.state.packed[path].index_select(0, ids)
+        return rows, self._f32_rows(rows, path)
+
+    def _update(self, path: str, ids: torch.Tensor, rows: Optional[torch.Tensor],
+                grads: torch.Tensor, bias_correction: Optional[torch.Tensor]) -> None:
+        """One table's row-sparse update, in place."""
+        state, lr, optimizer = self.state, self._table_lr, self.table_optimizer
+        if self.packed_tables:
+            update = packed_sparse_update_bytes if self.packed_bytes else packed_sparse_update
+            update(state.packed[path], rows, ids, grads, bias_correction, lr=lr,
+                   optimizer=optimizer)
+            return
+        table, moments = self._table_param(path), state.table_moments[path]
+        with torch.no_grad():
+            if optimizer == "adam":
+                sparse_lazy_adam(table, moments["m"], moments["v"], ids, grads, bias_correction,
+                                 lr=lr)
+            elif optimizer == "adagrad":
+                sparse_adagrad(table, moments["acc"], ids, grads, lr=lr)
+            else:
+                sparse_rowwise_adagrad(table, moments["acc"], ids, grads, lr=lr)
 
     def _step(self, batch: Dict[str, torch.Tensor], scalars: torch.Tensor) -> torch.Tensor:
-        """One step: packed gather, forward with injected rows, backward,
-        dense optimizer, packed sparse update, whose Adam bias corrections
-        come from the step's scalars. Returns the loss (a device scalar)."""
+        """One step: each table's gather, forward with injected rows,
+        backward, dense optimizer, each table's update, whose Adam bias
+        corrections come from the step's scalars. Returns the loss (a device
+        scalar)."""
         state = self.state
         injected = dict(batch)
         gathered = []
-        for spec in self.model.sharded_table_specs(batch).values():
+        for spec in self._injection_specs(batch).values():
             path = spec["path"]
             ids = spec["ids"].reshape(-1).to(torch.int32)
-            rows = state.packed[path].index_select(0, ids)
-            leaf = rows[:, :self._emb_dims[path]].detach().requires_grad_()
+            rows, values = self._gather(path, ids)
+            leaf = values.detach().requires_grad_()
             injected[spec["rows_key"]] = leaf
             gathered.append((path, ids, rows, leaf))
 
@@ -153,18 +307,69 @@ class SparseEmbeddingTrainer(Trainer):
         adam = self.table_optimizer == "adam"
         for path, ids, rows, leaf in gathered:
             bias_correction = state.scalars.bias_correction(scalars, path) if adam else None
-            packed_sparse_update(state.packed[path], rows, ids, leaf.grad, bias_correction,
-                                 lr=self._table_lr, optimizer=self.table_optimizer)
+            self._update(path, ids, rows, leaf.grad, bias_correction)
         return loss.detach()
 
+    # ------------------------------------------------------------------
+    # scoring, export and checkpoints
+    # ------------------------------------------------------------------
+
+    def _with_table_rows(self, batch: Batch) -> Batch:
+        """``batch`` with the f32 rows of each bf16 or byte-row table
+        injected (the model holds no copy of those tables)."""
+        if not self._table_shapes:
+            return batch
+        out = dict(batch)
+        for spec in self.model.sharded_table_specs(batch).values():
+            path = spec["path"]
+            if path in self._table_shapes:
+                ids = spec["ids"].reshape(-1)
+                out[spec["rows_key"]] = self._f32_rows(
+                    self.state.packed[path].index_select(0, ids), path)
+        return out
+
+    def _score_body(self, inputs) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        return self.model(self._with_table_rows(inputs.batch), train=False)
+
+    def _score_eager(self, batch: Batch) -> torch.Tensor:
+        with torch.inference_mode():
+            prediction, _ = self.model(self._with_table_rows(self._to_device(batch)), train=False)
+        return prediction
+
     def unpacked_params(self) -> Dict[str, torch.Tensor]:
-        """The model's state dict; each table is the ``[V, E]`` view of its
-        packed buffer's table columns."""
+        """The model's state dict with every table as f32 ``[V, E]``: the
+        model's own (unpacked), a view of its packed buffer's table columns
+        (packed f32), or the buffer's columns as f32 (bf16: a copy; bytes: a
+        view)."""
         self._assert_state()
-        return self.model.state_dict()
+        params = self.model.state_dict()
+        for path in self._table_shapes:
+            e = self._emb_dims[path]
+            packed = self.state.packed[path]
+            params[".".join(_module_path(path))] = (
+                unpack_table_bytes(packed, e) if self.packed_bytes
+                else unpack_table(packed, e).to(torch.float32))
+        return params
 
     def make_serving_fn(self) -> Callable[[Batch], torch.Tensor]:
-        """Scorer over the trained state: the model gathers from the table
-        columns of the packed buffers."""
+        """Scorer over the trained state: the model gathers from its tables
+        (unpacked, or a view of the packed f32 buffers), or takes the f32
+        rows of bf16 and byte rows injected."""
         self._assert_state()
         return super().make_serving_fn()
+
+    def _extra_checkpoint(self) -> Dict[str, Any]:
+        """A checkpoint's unpacked-table moments (host copies), by path."""
+        return {"table_moments": {path: {k: v.detach().to("cpu", copy=True)
+                                         for k, v in moments.items()}
+                                  for path, moments in self.state.table_moments.items()}}
+
+    def _load_extra_checkpoint(self, payload: Dict[str, Any]) -> None:
+        """The moments copied into the state's tensors, in place."""
+        saved, own = payload["table_moments"], self.state.table_moments
+        if {p: set(m) for p, m in saved.items()} != {p: set(m) for p, m in own.items()}:
+            raise KeyError(f"table moments {sorted(saved)}, the state has {sorted(own)}")
+        with torch.no_grad():
+            for path, moments in own.items():
+                for key, tensor in moments.items():
+                    tensor.copy_(saved[path][key])

@@ -5,8 +5,9 @@ PRNG key) through a jitted step. In the port the parameters live in the
 model (an ``nn.Module``) and are updated in place; the state holds what the
 model does not: the dense optimizer, the generator of dropout masks, the
 step counter, for packed tables the packed
-``table || moments || staging`` (f32) or ``q || scale || acc || staging``
-(quantized) buffers, and for the classic quantized tables (a ``q`` and a
+``table || moments || staging`` (f32, bf16 or bytes) or
+``q || scale || acc || staging`` (quantized) buffers, for unpacked f32
+tables their moments, and for the classic quantized tables (a ``q`` and a
 ``scale`` buffer of the model) their rowwise-Adagrad accumulators.
 
 ``step`` starts at 0 and counts finished train steps, as JAX's
@@ -91,6 +92,11 @@ class TrainState:
 class SparseTrainState(TrainState):
     # flax leaf path (``"unified_emb/embedding"``) -> [V, W] packed rows
     packed: Dict[str, torch.Tensor] = field(default_factory=dict)
+    # flax leaf path -> an unpacked table's moments, the JAX state's
+    # ``table_moments``: ``{"m", "v"}`` [V, E] (adam), ``{"acc"}`` [V, E]
+    # (adagrad) or [V] (rowwise_adagrad); ``{}`` for a packed table, whose
+    # moments ride in its rows
+    table_moments: Dict[str, Dict[str, torch.Tensor]] = field(default_factory=dict)
 
 
 @dataclass

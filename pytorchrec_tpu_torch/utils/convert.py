@@ -5,9 +5,12 @@ arrays (``{"cross/ws": ..., "deep/Dense_0/Dense_0/kernel": ...}``) and loads
 them into the port model's state dict:
 
 * dense kernels ``[in, out]`` become ``nn.Linear`` weights ``[out, in]``;
-* an f32 embedding leaf wider than the model's E is a packed
+* an embedding leaf wider than the model's E is a packed
   ``table || moments || staging`` row (``SparseEmbeddingTrainer`` with
-  ``packed_tables=True``); its first E columns are the table;
+  ``packed_tables=True``): f32, bf16 (``packed_dtype``; numpy's
+  ``ml_dtypes`` bfloat16 read through its uint16 bits, converted to f32
+  exactly) or u8 byte rows (``packed_bytes``, the f32 fields' bits); its
+  first E table columns are the table;
 * the uint8 packed quantized tables ``unified_q`` and the item table
   ``i_q`` (DIN's and TwoTower's), and the classic quantized leaves of a CTR
   model with ``table_packed=False`` (``unified_q`` int8 ``[V, E]`` or
@@ -40,19 +43,20 @@ them into the port model's state dict:
 Any other leaf the port does not know raises, as does a port parameter that
 no leaf fills.
 
-``params_from_jax(flat, trainer)`` loads into a packed trainer instead
+``params_from_jax(flat, trainer)`` loads into a trainer instead
 (``SparseEmbeddingTrainer`` or ``QuantizedEmbeddingTrainer``), right after
 its ``init_state``: each packed leaf (``unified_emb/embedding``,
 ``unified_lin/embedding``, DIN's and TwoTower's ``u_embeddings/embedding``
-and ``i_embeddings/embedding`` ``[V, W]`` f32, or ``unified_q`` / ``i_q``
-``[V, W]`` u8)
+and ``i_embeddings/embedding`` ``[V, W]`` f32, bf16 or u8 byte rows, or
+``unified_q`` / ``i_q`` ``[V, W]`` u8)
 loads whole into the trainer's packed
 buffer, moments, accumulator and staging columns included, in place; the
 dense leaves, and a classic quantized table's ``unified_q`` and
 ``unified_scale`` (the model's buffers, which the trainer updates), load
 into the model as above, in place. The classic accumulator
-(``state.table_acc``) is train state, not a leaf: it stays as
-``init_state`` left it, zero. The dense optimizer's state is
+(``state.table_acc``) and an unpacked table's moments
+(``state.table_moments``) are train state, not leaves: they stay as
+``init_state`` left them, zero. The dense optimizer's state is
 then still empty, as optax's ``init`` leaves it.
 
 The way back: ``flax_path(key)`` names a port state-dict key's flax leaf,
@@ -136,12 +140,33 @@ def leaves_of(target) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _host_array(value) -> np.ndarray:
-    return value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
+def _host_tensor(value) -> torch.Tensor:
+    """A writable, contiguous CPU copy of a leaf (a tensor or an array). A
+    JAX bf16 array comes to numpy as ``ml_dtypes``' bfloat16, which
+    ``torch.from_numpy`` refuses: its bits go through uint16."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().to("cpu", memory_format=torch.contiguous_format, copy=True)
+    array = np.asarray(value)
+    if array.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(array.view(np.uint16), order="C")).view(torch.bfloat16)
+    return torch.from_numpy(np.array(array, order="C"))
+
+
+def _table_columns(tensor: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """A table leaf as the model's f32 ``[V, E]`` table: a packed leaf's
+    first E columns, of f32 rows, of bf16 rows (converted, exactly) or of
+    byte rows (the fields' bits)."""
+    if tensor.dim() != 2 or want.dim() != 2 or want.dtype != torch.float32:
+        return tensor
+    if tensor.dtype == torch.uint8 and tensor.shape[1] % 4 == 0:
+        tensor = tensor.view(torch.float32)
+    if tensor.shape[1] > want.shape[1]:
+        tensor = tensor[:, :want.shape[1]]
+    return tensor.to(torch.float32, memory_format=torch.contiguous_format)
 
 
 def _load_packed(path: str, value, packed: torch.Tensor) -> None:
-    tensor = torch.from_numpy(np.array(_host_array(value), order="C"))
+    tensor = _host_tensor(value)
     if tuple(tensor.shape) != tuple(packed.shape) or tensor.dtype != packed.dtype:
         raise ValueError(f"flax leaf {path!r} is {tuple(tensor.shape)} {tensor.dtype}; the packed "
                          f"buffer is {tuple(packed.shape)} {packed.dtype}")
@@ -176,14 +201,13 @@ def load_leaves(flat: Mapping[str, Any], target):
             filled.add(key)
             continue
         want = state[key]
-        array = _host_array(value)
+        tensor = _host_tensor(value)
         if transform == "transpose":
-            array = array.T
-        elif transform == "table_columns" and array.ndim == 2 and array.shape[1] > want.shape[1]:
-            array = array[:, :want.shape[1]]
-        tensor = torch.from_numpy(np.array(array, order="C"))  # a writable copy
+            tensor = tensor.t().contiguous()
+        elif transform == "table_columns":
+            tensor = _table_columns(tensor, want)
         if tuple(tensor.shape) != tuple(want.shape) or tensor.dtype != want.dtype:
-            raise ValueError(f"flax leaf {path!r} is {tuple(array.shape)} {array.dtype}; "
+            raise ValueError(f"flax leaf {path!r} is {tuple(tensor.shape)} {tensor.dtype}; "
                              f"{key!r} wants {tuple(want.shape)} {want.dtype}")
         loaded[key] = tensor
     missing = sorted(set(state) - set(loaded) - filled)

@@ -215,11 +215,14 @@ def test_init_state_draws_from_the_seed():
 
 
 def test_trainer_surface_raises_on_what_is_not_ported():
-    model = _port_model()
+    # the unpacked default, byte rows and bf16 rows build and take a step
     for kwargs in ({}, {"packed_tables": True, "packed_bytes": True},
                    {"packed_tables": True, "packed_dtype": "bfloat16"}):
-        with pytest.raises(NotImplementedError):
-            TorchSparseTrainer(model, device="cpu", **kwargs)
+        trainer = TorchSparseTrainer(_port_model(), device="cpu", **kwargs)
+        trainer.compile()
+        trainer.init_state(_batches(1)[0], seed=0)
+        assert np.isfinite(float(trainer.train_step(_batches(1)[0]))) and trainer.state.step == 1
+    model = _port_model()
     trainer = TorchSparseTrainer(model, device="cpu", packed_tables=True)
     trainer.compile(metrics=("auc",))  # ported: evaluate reports them
     assert [m.name for m in trainer.metrics.metrics] == ["auc"]
