@@ -7,9 +7,11 @@ backward, on bf16-rounded operands with f32 results and f32 accumulation:
 on the card one bf16 cuBLAS GEMM with an f32 output (``torch.mm(...,
 out_dtype=torch.float32)``), on the CPU its plain emulation (each operand
 rounded to bf16 and back, then an f32 product). The products it covers are
-the linear layers built by ``ops/mlp.py::linear`` (``dense_linear``) and the
-GEMMs of ``CrossNetworkFunction``'s backward (``precision_mm``); B1's forward
-kernel stays f32. ``None``, ``"float32"`` and ``"highest"`` are full f32,
+the linear layers built by ``ops/mlp.py::linear`` (``dense_linear``), the
+GEMMs of ``CrossNetworkFunction``'s backward (``precision_mm``) and the
+expert banks' batched products of ``models/multitask.py``
+(``expert_product``: one bf16 batched GEMM over the expert axis, forward
+and backward); B1's forward kernel stays f32. ``None``, ``"float32"`` and ``"highest"`` are full f32,
 the trainer's default. The precision is set for the train step's body only
 (``matmul_precision``, a context of the thread that runs the forward, as
 ``jax.default_matmul_precision`` is): serving never runs under it. A
@@ -104,3 +106,43 @@ def dense_linear(x: torch.Tensor, weight: torch.Tensor,
     if _current.get() == BFLOAT16:
         return _BF16Linear.apply(x, weight, bias)
     return F.linear(x, weight, bias)
+
+
+def bf16_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of 3-D f32 tensors (a batch of products) on bf16-rounded
+    operands, an f32 result with f32 accumulation."""
+    if a.is_cuda:
+        return torch.bmm(a.bfloat16(), b.bfloat16(), out_dtype=torch.float32)
+    return torch.bmm(a.bfloat16().float(), b.bfloat16().float())
+
+
+class _BF16ExpertProduct(torch.autograd.Function):
+    """``einsum("...kd,kdh->...kh", h, w)`` with every product (the
+    backward's two included) a bf16 batched GEMM over the expert axis."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        k, d = h.shape[-2:]
+        hk = h.reshape(-1, k, d).transpose(0, 1)  # [K, N, D]
+        ctx.save_for_backward(hk, w)
+        ctx.lead = h.shape[:-2]
+        out = bf16_bmm(hk, w)  # [K, N, H]
+        return out.transpose(0, 1).reshape(*ctx.lead, k, w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        hk, w = ctx.saved_tensors
+        k, h = g.shape[-2:]
+        gk = g.reshape(-1, k, h).transpose(0, 1)  # [K, N, H]
+        dh = bf16_bmm(gk, w.transpose(1, 2))  # [K, N, D]
+        dw = bf16_bmm(hk.transpose(1, 2), gk)  # [K, D, H]
+        return dh.transpose(0, 1).reshape(*ctx.lead, k, w.shape[1]), dw
+
+
+def expert_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Each expert's product ``[..., K, D] x [K, D, H] -> [..., K, H]`` at
+    the current precision: at full f32 one ``torch.einsum`` (a batched
+    GEMM over K)."""
+    if _current.get() == BFLOAT16:
+        return _BF16ExpertProduct.apply(h, w)
+    return torch.einsum("...kd,kdh->...kh", h, w)

@@ -64,7 +64,6 @@ from pytorchrec_tpu_torch.ops.quantized_packed import (
     unpack_quantized_table,
 )
 from pytorchrec_tpu_torch.ops.sparse_update import dedup_row_grads
-from pytorchrec_tpu_torch.optim import build_optimizer
 from pytorchrec_tpu_torch.training.sparse_trainer import resolve_table_lr
 from pytorchrec_tpu_torch.training.state import QuantizedTrainState, StepScalars
 from pytorchrec_tpu_torch.training.trainer import Batch, Trainer
@@ -167,8 +166,7 @@ class QuantizedEmbeddingTrainer(Trainer):
                 self._buffer(spec["scale"]).copy_(scale)
                 table_acc[name] = acc
             self._specs[name] = info
-        optimizer = build_optimizer(self.optimizer_name, self.model.parameters(), self.lr,
-                                    self.weight_decay)
+        optimizer = self._build_optimizer(self.model.named_parameters())
         key = split(prng_key(rng.initial_seed()))[1]
         scalars = StepScalars(salted_tables=[info["q_path"] for info in self._specs.values()],
                               rng_key=key)

@@ -75,7 +75,6 @@ from pytorchrec_tpu_torch.ops.sparse_update import (
     unpack_table,
     unpack_table_bytes,
 )
-from pytorchrec_tpu_torch.optim import build_optimizer
 from pytorchrec_tpu_torch.training.state import SparseTrainState, StepScalars
 from pytorchrec_tpu_torch.training.trainer import Batch, Trainer
 
@@ -238,8 +237,8 @@ class SparseEmbeddingTrainer(Trainer):
             else:  # the model reads the trained table through a view of the buffer
                 self._set_table_param(path, unpack_table(packed[path], e))
         tables = {".".join(_module_path(p)) for p in self._table_paths}
-        dense = [p for name, p in self.model.named_parameters() if name not in tables]
-        optimizer = build_optimizer(self.optimizer_name, dense, self.lr, self.weight_decay)
+        optimizer = self._build_optimizer((name, p) for name, p in self.model.named_parameters()
+                                          if name not in tables)
         adam_tables = self._table_paths if self.table_optimizer == "adam" else ()
         return SparseTrainState(optimizer=optimizer, rng=rng, scalars=StepScalars(adam_tables),
                                 packed=packed, table_moments=moments)

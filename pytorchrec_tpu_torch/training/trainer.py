@@ -4,8 +4,9 @@ weights and checkpoints.
 
 ``Trainer(model, device=None, packed_transfer=None)`` places the model on
 the card (or on the CPU when asked). ``compile(optimizer, loss, lr,
-weight_decay, matmul_precision)`` picks the dense optimizer, the loss and
-the train step's matmul precision (``ops/precision.py``: ``"bfloat16"``
+weight_decay, grad_clip_norm, matmul_precision, **optimizer_kwargs)`` picks
+the dense optimizer (``optim/optimizers.py``), the loss and the train
+step's matmul precision (``ops/precision.py``: ``"bfloat16"``
 runs the step's dense products on bf16 operands with f32 results; serving
 stays f32);
 ``init_state(sample_batch, seed)`` draws every parameter from a
@@ -43,8 +44,9 @@ layout once, and from the second epoch on ``fit`` only replays. The
 parameters, optimizer state and tables are updated in place, so a replay
 reads and writes them where the capture found them. A capture or a replay
 that fails raises; nothing returns to eager steps. On the CPU the same step
-bodies run eagerly over the same buffers. ``train_step`` stays the eager
-single step on both.
+bodies run eagerly over the same buffers, as they do on the card while
+autograd's anomaly mode is on (``utils/profiling.py::
+enable_nan_debugging``). ``train_step`` stays the eager single step on both.
 
 Scoring is the JAX trainer's jitted ``_eval_step`` and ``make_serving_fn``:
 ``model(batch, train=False)`` under ``torch.inference_mode()``, one CUDA
@@ -91,11 +93,12 @@ from pytorchrec_tpu_torch.data.prefetch import PackedBatch, device_put_prefetch
 from pytorchrec_tpu_torch.data.schema import TrainMode
 from pytorchrec_tpu_torch.loss import get_loss
 from pytorchrec_tpu_torch.metric import MetricList
+from pytorchrec_tpu_torch.metric.metrics import MSE, LogLoss, TaskSlice
 from pytorchrec_tpu_torch.models.base import RecModel
 from pytorchrec_tpu_torch.ops.embedding import INIT_STD
 from pytorchrec_tpu_torch.ops.kernels import add_tally, capture_tally
 from pytorchrec_tpu_torch.ops.precision import check_precision, matmul_precision as precision_scope
-from pytorchrec_tpu_torch.optim import OPTIMIZERS, build_optimizer
+from pytorchrec_tpu_torch.optim import build_optimizer, get_optimizer
 from pytorchrec_tpu_torch.training.callbacks import Callback, CallbackList, History
 from pytorchrec_tpu_torch.training.checkpoint import atomic_save
 from pytorchrec_tpu_torch.training.state import TrainState
@@ -282,25 +285,51 @@ class Trainer:
     def compile(self, optimizer: str = "adam", loss: Union[str, Callable] = "bce",
                 metrics: Sequence[str] = ("ndcg@10", "hit@10"), lr: float = 1e-3,
                 weight_decay: float = 0.0, user_sample_n: int = 100,
-                matmul_precision: Optional[str] = None) -> None:
-        """Choose the dense optimizer (by name), the loss (by name, or
-        ``fn(prediction, target) -> scalar``), the metrics ``evaluate``
-        reports (``metric/metrics.py``; ``user_sample_n`` is the width of a
-        candidate row) and the train step's matmul precision (None,
-        ``"float32"`` or ``"highest"``: full f32; ``"bfloat16"``; anything
-        else raises). The captured train steps are dropped, as the JAX
+                grad_clip_norm: Optional[float] = None,
+                matmul_precision: Optional[str] = None, **optimizer_kwargs) -> None:
+        """Choose the dense optimizer (a name of ``optim.OPTIMIZERS``, with
+        ``grad_clip_norm``'s global-norm clip before it and
+        ``optimizer_kwargs`` such as ``b1``, ``b2`` and ``eps``), the loss (by
+        name, or ``fn(prediction, target) -> scalar``), the metrics
+        ``evaluate`` reports (``metric/metrics.py``; ``user_sample_n`` is the
+        width of a candidate row) and the train step's matmul precision
+        (None, ``"float32"`` or ``"highest"``: full f32; ``"bfloat16"``;
+        anything else raises). A model whose prediction columns hold
+        log-probabilities (``log_prob_task_columns``: ESMM's log pCTCVR)
+        takes no sigmoid-based task slice on them (``logloss/<t>``,
+        ``mse/<t>``): those raise here, as in the JAX trainer; ``auc/<t>``
+        ranks them. The captured train steps are dropped, as the JAX
         trainer drops its traced step: the next step captures anew."""
-        if optimizer not in OPTIMIZERS:
-            raise NotImplementedError(f"optimizer {optimizer!r} is not ported yet; ported: "
-                                      f"{sorted(OPTIMIZERS)}")
+        get_optimizer(optimizer)  # an unknown name raises here
         precision = check_precision(matmul_precision)
+        metric_list = MetricList(list(metrics), user_sample_n=user_sample_n)
+        log_prob_columns = getattr(self.model, "log_prob_task_columns", ())
+        bad = [m.name for m in metric_list.metrics
+               if isinstance(m, TaskSlice) and m.task in log_prob_columns
+               and isinstance(m.inner, (LogLoss, MSE))]
+        if bad:
+            raise ValueError(f"{bad}: task column(s) {sorted(log_prob_columns)} of "
+                             f"{type(self.model).__name__} are log-probabilities; only "
+                             f"auc/<t> (rank-monotone) is meaningful there")
         self.optimizer_name, self.lr, self.weight_decay = optimizer, lr, weight_decay
+        self.grad_clip_norm, self.optimizer_kwargs = grad_clip_norm, dict(optimizer_kwargs)
         self.loss_fn = get_loss(loss) if isinstance(loss, str) else loss
-        self.metrics = MetricList(list(metrics), user_sample_n=user_sample_n)
+        self.metrics = metric_list
         self.matmul_precision = precision
         self._layouts.clear()
         self._layout = None
         self._compiled = True
+
+    def _build_optimizer(self, named: Iterable[Tuple[str, torch.nn.Parameter]]
+                         ) -> torch.optim.Optimizer:
+        """The compiled dense optimizer over ``named`` (state-dict key,
+        parameter) pairs; each key's flax path goes beside its parameter
+        (adamw's decay mask)."""
+        named = list(named)
+        return build_optimizer(self.optimizer_name, [p for _, p in named], self.lr,
+                               self.weight_decay, grad_clip_norm=self.grad_clip_norm,
+                               paths=[flax_path(name) for name, _ in named],
+                               **self.optimizer_kwargs)
 
     def _assert_compiled(self) -> None:
         if not self._compiled:
@@ -313,8 +342,8 @@ class Trainer:
         return self.state
 
     def _make_state(self, sample_batch: Batch, rng: torch.Generator) -> TrainState:
-        return TrainState(optimizer=build_optimizer(
-            self.optimizer_name, self.model.parameters(), self.lr, self.weight_decay), rng=rng)
+        return TrainState(optimizer=self._build_optimizer(self.model.named_parameters()),
+                          rng=rng)
 
     def init_state(self, sample_batch: Batch, seed: int = 2020) -> TrainState:
         """Draw every parameter from ``torch.Generator(seed)``
@@ -474,13 +503,20 @@ class Trainer:
                 self._steps(inputs, n)
         return _StepGraph(graph, dict(tally), inputs)
 
+    def _captures(self) -> bool:
+        """Whether steps run as CUDA graphs: on the card, unless autograd's
+        anomaly mode is on (``utils/profiling.py::enable_nan_debugging``),
+        whose checks read values back to the host and cannot be captured;
+        then every step runs eagerly."""
+        return self.device.type == "cuda" and not torch.is_anomaly_enabled()
+
     def _run(self, inputs: _StepInputs, n: int) -> None:
         """n steps over the loaded rows of the current layout: on the card
-        the replay of their graph (captured at first use), on the CPU the
-        same body eagerly."""
+        the replay of their graph (captured at first use), on the CPU (or
+        under anomaly mode) the same body eagerly."""
         state, layout = self.state, self._layout
         self._write_scalars(inputs.scalars[:n], state.step + 1)
-        if self.device.type == "cpu":
+        if not self._captures():
             self._steps(inputs, n)
         elif not layout.warm:
             self._warm_up(inputs, n)
@@ -505,7 +541,7 @@ class Trainer:
         inputs = self._inputs_for(first, k)
         layout = self._layout
         done, pending = 0, [first]
-        if self.device.type == "cuda" and not layout.warm:
+        if self._captures() and not layout.warm:
             inputs.load(0, first)
             self._run(inputs, 1)
             losses[0].copy_(inputs.losses[0])

@@ -28,6 +28,13 @@ them into the port model's state dict:
   ``LayerNorm_0/{scale,bias}``; their tables (``p_embeddings`` too) and
   ``out/kernel``, ``prediction_head/kernel`` and NCF's ``mlp`` take the
   rules above;
+* the multi-task family's (SharedBottom, MMoE, PLE, ESMM): the expert
+  banks' stacked ``experts/w_<i>`` ``[K, D, H]`` and ``experts/b_<i>``
+  ``[K, H]`` (PLE's ``cgc_<lv>/...``) pass through unchanged; the gates
+  (``gate_<t>/kernel``, ``gate_<lv>_t<t>/kernel``,
+  ``gate_<lv>_shared/kernel``), towers (``tower_<t>``, ``bottom``,
+  ``ctr_tower``, ``cvr_tower``: ``<name>/Dense_<i>/Dense_0/...``) and heads
+  (``head_<t>``, ``ctr_head``, ``cvr_head``) take the dense rules;
 * TwoTower's leaves need no rule of their own: ``u_embeddings/embedding``
   and ``i_embeddings/embedding`` (plain ``[V, E]`` or packed ``[V, 4E]``),
   ``i_q``, the towers ``user_mlp/Dense_<i>/Dense_0/{kernel,bias}`` and
@@ -89,6 +96,7 @@ _RULES = (
     (r"(\w+)/embedding", r"\1.embedding", "table_columns"),
     (r"cross/(ws|bs)", r"cross.\1", None),
     (r"attention/([wb]\d+)", r"attention.\1", None),
+    (r"(experts|cgc_\d+)/([wb]_\d+)", r"\1.\2", None),
     (r"(block_shared|block_\d+)/(Q|K|W1|W2)/kernel", r"\1.\2.weight", "transpose"),
     (r"(block_shared|block_\d+)/(W1|W2)/bias", r"\1.\2.bias", None),
     (r"(block_shared|block_\d+)/(LayerNorm_0)/(scale|bias)", r"\1.\2.\3", None),

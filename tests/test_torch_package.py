@@ -65,7 +65,12 @@ def test_every_training_module_is_walked():
             "pytorchrec_tpu_torch.data.process.dataset_info",
             "pytorchrec_tpu_torch.data.process.datasets.synthetic",
             "pytorchrec_tpu_torch.data.readers.base", "pytorchrec_tpu_torch.data.readers.history",
-            "pytorchrec_tpu_torch.data.readers.svdpp"} <= modules
+            "pytorchrec_tpu_torch.data.readers.svdpp", "pytorchrec_tpu_torch.console_main",
+            "pytorchrec_tpu_torch.tasks", "pytorchrec_tpu_torch.tasks.builder",
+            "pytorchrec_tpu_torch.tasks.task", "pytorchrec_tpu_torch.tasks.repeat",
+            "pytorchrec_tpu_torch.tasks.grid_search", "pytorchrec_tpu_torch.tasks.results",
+            "pytorchrec_tpu_torch.models.multitask",
+            "pytorchrec_tpu_torch.utils.argument"} <= modules
 
 
 def test_importing_every_port_module_loads_no_jax():
@@ -293,5 +298,38 @@ def test_new_exports():
 
 
 def test_unported_losses_raise():
-    with pytest.raises(NotImplementedError):
-        get_loss("top1")
+    """Every loss of the JAX registry is ported (top1 and esmm last); a name
+    outside it raises, as the JAX registry's lookup does."""
+    assert get_loss("top1") is not None and get_loss("esmm") is not None
+    with pytest.raises(ValueError, match="unknown loss"):
+        get_loss("top2")
+
+
+def test_task_layer_exports():
+    """The task layer's surface: the top-level names load on first use (as
+    the JAX package's do), the registries and the multi-task family are
+    exported, and importing the top level alone loads no task module."""
+    import pytorchrec_tpu_torch
+    from pytorchrec_tpu_torch import loss, models, optim, tasks
+    from pytorchrec_tpu_torch.utils import profiling
+
+    assert {"Task", "RepeatTask", "GridSearch", "Trainer", "SparseEmbeddingTrainer",
+            "QuantizedEmbeddingTrainer", "SplitMode", "TrainMode"} <= set(dir(pytorchrec_tpu_torch))
+    assert pytorchrec_tpu_torch.Task is tasks.Task
+    with pytest.raises(AttributeError):
+        pytorchrec_tpu_torch.NoSuchName
+    assert {"SharedBottom", "MMoE", "PLE", "ESMM", "ExpertBank", "MODELS", "model_name_list",
+            "get_model_type", "get_data_reader_name"} <= set(models.__all__)
+    assert {"Task", "RepeatTask", "GridSearch", "TASKS", "task_name_list", "get_task_type",
+            "build_model", "build_reader", "create_params_list"} <= set(tasks.__all__)
+    assert {"OPTIMIZERS", "build_optimizer", "get_optimizer",
+            "optimizer_name_list"} <= set(optim.__all__)
+    assert {"top1_loss", "esmm_loss", "loss_name_list"} <= set(loss.__all__)
+    assert callable(profiling.TorchProfiler) and callable(profiling.enable_nan_debugging)
+    run = subprocess.run([sys.executable, "-c",
+                          "import sys, pytorchrec_tpu_torch\n"
+                          "assert 'pytorchrec_tpu_torch.tasks' not in sys.modules\n"
+                          "print(pytorchrec_tpu_torch.Task.__module__)"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr
+    assert run.stdout.strip() == "pytorchrec_tpu_torch.tasks.task"
