@@ -357,7 +357,7 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    ``stepped_card_against_cpu`` at batch 512 for DLRM's per-field
    unpacked Adam and for DCN-v2's bf16 rows; every recorded B2, B3, B4 and
    B8 call against its plain version (B2 rtol 1e-5, the others
-   bit-exact);
+   bit-exact), B2 and B4 timed, B4 beside ``index_copy_`` of its kept rows;
 42. the normal entry point (``tasks_phase``), in a temporary work dir:
    ``generate_synthetic_ctr`` at bench.py's Criteo shape (1,048,576 rows,
    26 fields of 100,000 ids, 13 dense) with the conversion funnel, split
@@ -380,6 +380,22 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    repeats) and ``GridSearch`` (2 lr values) through ``console_main`` on
    a 131,072-row cut, each TSV read back; one ``fit`` under
    ``TorchProfiler``, whose trace must hold CUDA kernels;
+43. the serving export (``serving_bundle_phase``): the ops library
+   (``csrc/serving_ops.cpp`` with the kernels) and the server
+   (``native/serving/aoti_serving.cpp``) built with ``g++`` and ``nvcc``
+   beside phase 2; four bundles (``export_serving_bundle``: the
+   AOTInductor package, the ops library, the kept inputs and the live
+   scorer's scores) from models trained 5 captured steps: DCN-v2 with
+   the packed int8 table at 32768 rows (B1's fused form, the in-graph
+   dequantize), DCN-v2 f32 under the dense ``Trainer`` at 1 row (B1's rows
+   tile), DeepFM f32 packed at 32768 rows (B6's forward) and DIN f32
+   packed at ``[1024, 100]`` (B5); the server scores each as a subprocess
+   (no Python): exit 0, within the manifest's tolerance, each kernel
+   launched 51 times (1 checked + 50 timed runs, one a request); each
+   scorer's ``load_serving`` against the live one (rtol 1e-6), one launch;
+   the server's median and p90 ms beside the captured ``make_serving_fn``
+   request's at the same shape (inputs on the card, and as numpy), the
+   package's bytes and the export and compile seconds;
 
 then a ``two_tower`` JSON line (ms/step,
 fused and exact ms a request, recall, index build ms), a ``classic_int8``
@@ -403,7 +419,9 @@ beside, the serving ones from captured requests; ``fit_launches``: phase
 37's runs; ``zoo_launches``: phase 38's captured runs; ``files_launches``:
 phase 39's runs; ``criteo_launches``: phase 40's runs;
 ``phase41_launches``: phase 41's captured runs; ``phase42_launches``:
-phase 42's runs). Each path
+phase 42's runs; ``phase43_launches``: phase 43's bundles, the server's
+count and the Python process's), after a ``serving_bundle`` line (phase
+43's times, bytes, seconds and launches). Each path
 (serving, each training run) zeroes every launch count just before it and
 reads them just after.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -413,6 +431,7 @@ Needs one CUDA card; no JAX and nothing of the JAX package is imported.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import copy
 import csv
@@ -464,7 +483,7 @@ from pytorchrec_tpu_torch.ops import quantized_packed as quantized_packed_module
 from pytorchrec_tpu_torch.ops import sparse_update as sparse_update_module
 from pytorchrec_tpu_torch.ops.embedding import Embedding
 from pytorchrec_tpu_torch.ops.precision import bf16_mm
-from pytorchrec_tpu_torch.ops.kernels.build import build
+from pytorchrec_tpu_torch.ops.kernels.build import build, serving_ops_library
 from pytorchrec_tpu_torch.ops.kernels.cross import (
     FUSED_MAX_WIDTH,
     cross_network,
@@ -526,7 +545,12 @@ from pytorchrec_tpu_torch.ops.sparse_update import (
     pack_table_bytes,
     packed_sparse_update,
 )
-from pytorchrec_tpu_torch.serving import build_item_index, make_retrieve_fn
+from pytorchrec_tpu_torch.serving import (
+    build_item_index,
+    export_serving_bundle,
+    make_retrieve_fn,
+    shim_binary_path,
+)
 from pytorchrec_tpu_torch.tasks import Task
 from pytorchrec_tpu_torch.serving import retrieval as retrieval_module
 from pytorchrec_tpu_torch.training import (
@@ -4664,8 +4688,8 @@ def update_kernels_against_plain(calls: dict) -> dict:
     order), B3, B4 and B8 bit-exact. B2 and B4, whose row widths here are
     new, are timed too (``time_cuda``, median of 3 rounds) beside their
     bytes' bound: B2 reads x and writes its sums, B4 reads the ids and each
-    kept row and writes it. Returns each kernel's max abs error and the
-    calls checked."""
+    kept row and writes it; B4 also beside ``index_copy_`` of the kept rows.
+    Returns each kernel's max abs error and the calls checked."""
     tag = "[phase 41 kernels]"
     out = {}
     with torch.no_grad():
@@ -4689,11 +4713,17 @@ def update_kernels_against_plain(calls: dict) -> dict:
                     raise AssertionError(f"{tag} scatter_set_rows {shapes} {table.dtype} differs "
                                          f"from its plain version")
                 err = 0.0
-                kept = int((ids < table.shape[0]).sum())
+                keep = ids < table.shape[0]
+                kept = int(keep.sum())
+                kept_ids, kept_rows = ids[keep].long(), rows[keep]
                 row_bytes = table.shape[1] * table.element_size()
                 note = f"{row_bytes}-byte {table.dtype} rows, {kept} kept"
+                # index_copy_ of the kept rows (filtered beforehand, untimed)
                 timing = {"ms": float(np.median([time_cuda(lambda: scatter_set_rows(*args))
                                                   for _ in range(3)])),
+                          "library_ms": float(np.median([time_cuda(
+                              lambda: table.index_copy_(0, kept_ids, kept_rows))
+                              for _ in range(3)])),
                           "bound_ms": 1e3 * (4 * ids.numel() + 2 * kept * row_bytes)
                           / PEAK_BYTES_S}
             elif name == "requantize_rows":
@@ -4713,6 +4743,8 @@ def update_kernels_against_plain(calls: dict) -> dict:
             out[name]["calls"].append({"shapes": shapes, "note": note, **timing})
             times = (f"; {timing['ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms (bytes)"
                      if timing else "")
+            if "library_ms" in timing:
+                times += f", index_copy_ {timing['library_ms']:.4f} ms"
             print(f"{tag} {name} kernel vs plain {shapes} ({note}): max abs err {err:.3e}{times}")
     return out
 
@@ -5242,6 +5274,171 @@ def tasks_phase(rng: np.random.Generator, seed: int) -> dict:
     print(f"phase 42: the entry point's runs in {out['seconds']:.1f} s")
     return out
 
+# phase 43: the serving export, scored by the Python-free server
+BUNDLE_NAMES = ("dcnv2_int8", "dcnv2_f32_dense", "deepfm_f32", "din_f32")
+BUNDLE_REPS = 50  # server runs (and captured requests) timed after the checked one
+BUNDLE_STEPS = 5  # captured train steps before the export: a warm-up, then 2 replays of 2
+BUNDLE_TRAIN_ROWS = 4096  # the dense Trainer's training batch (the 1-row bundle's model)
+LOAD_RTOL, LOAD_ATOL = 1e-6, 1e-9  # load_serving against the live scorer
+SERVER_TIMEOUT_S = 600
+
+
+def bundle_trainer(name: str, rng: np.random.Generator, seed: int):
+    """(trainer, spec, table, request) of one phase-43 bundle, its model
+    trained ``BUNDLE_STEPS`` captured steps from weights made from ``seed``."""
+    if name == "dcnv2_int8":
+        spec, table, rows = DCNV2_SPEC, "int8", TRAIN_BATCH
+    elif name == "deepfm_f32":
+        spec, table, rows = DEEPFM_SPEC, "f32", TRAIN_BATCH
+    elif name == "din_f32":
+        spec, table, rows = DIN_SPEC, "f32", None
+    else:  # dcnv2_f32_dense: the dense Trainer over the model's own f32 table, 1 row
+        spec, table, rows = DCNV2_SPEC, "f32", 1
+    if name == "dcnv2_f32_dense":
+        host = [make_train_batch(rng, BUNDLE_TRAIN_ROWS) for _ in range(2)]
+        trainer = Trainer(make_ctr(DCNv2, "f32", "cuda", seed), device="cuda")
+        trainer.compile(optimizer="adam", lr=TRAIN_LR, loss="bce", metrics=())
+        trainer.init_state(host[0], seed=seed)
+        per_step = {cross_network: 1}
+    else:
+        host = [spec.batch(rng, spec.train_rows) for _ in range(2)]
+        trainer = make_trainer(spec, table, "cuda", spec.leaves(rng, table), host[0], seed,
+                               metrics=())
+        per_step = spec.per_step[table]
+    before = counts()
+    trainer.fit_steps((host[i % 2] for i in range(BUNDLE_STEPS)), steps=BUNDLE_STEPS,
+                      log_every=BUNDLE_STEPS, steps_per_call=2)
+    check_launches(f"[phase 43 {name}] fit_steps({BUNDLE_STEPS})", before,
+                   {k: n * BUNDLE_STEPS for k, n in per_step.items()})
+    if not torch.isfinite(trainer.step_losses).all():
+        raise AssertionError(f"[phase 43 {name}] losses {trainer.step_losses.tolist()}")
+    if rows is None:
+        request = make_din_requests(rng)[-1][1]  # [1024, 100] candidates
+    else:
+        request = make_requests(rng, (rows,), candidates=False)[0][1]
+    return trainer, spec, request
+
+
+def timed_ms(fn, label: str, want: dict, repeats: int = BUNDLE_REPS) -> dict:
+    """``repeats`` calls of ``fn``, each to a synchronize, on the host clock,
+    each launching what ``want`` says: median and p90 ms."""
+    times = []
+    for _ in range(repeats):
+        before = counts()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        check_launches(label, before, want)
+    return {"median_ms": float(np.median(times)), "p90_ms": float(np.percentile(times, 90))}
+
+
+def run_server(shim: str, bundle: str, label: str) -> dict:
+    """The server on ``bundle`` as a subprocess (no Python in it): exit 0,
+    scores within the manifest's tolerance and each op's launches equal to
+    (1 + BUNDLE_REPS) times its launches a request (the server checks both
+    and prints its RESULT line)."""
+    run = subprocess.run([shim, bundle, "--reps", str(BUNDLE_REPS)], capture_output=True,
+                         text=True, timeout=SERVER_TIMEOUT_S)
+    print("\n".join(f"{label} server: {line}" for line in run.stdout.splitlines()))
+    if run.returncode != 0 or "SERVING VERIFICATION PASSED" not in run.stdout:
+        raise AssertionError(f"{label} the server exited {run.returncode}: {run.stderr[-2000:]}")
+    return json.loads(next(line for line in run.stdout.splitlines()
+                           if line.startswith("RESULT "))[len("RESULT "):])
+
+
+def serving_bundle_phase(rng: np.random.Generator, seed: int, builds) -> dict:
+    """Phase 43: four bundles exported on the card, each path's launches
+    from zero: DCN-v2 with packed int8 tables at 32768 rows (B1's fused form,
+    the in-graph dequantize), DCN-v2 f32 under the dense ``Trainer`` at 1
+    row (B1's rows tile), DeepFM f32 packed at 32768 rows (B6's forward) and
+    DIN f32 packed at ``[1024, 100]`` (B5). Each model is trained
+    ``BUNDLE_STEPS`` captured steps; ``export_serving_bundle`` writes the
+    AOTInductor package, the ops library, the kept inputs and the live
+    scorer's scores; the server scores it with no Python (``run_server``);
+    ``load_serving`` of ``export_serving``'s file scores the same request
+    within LOAD_RTOL of the live scorer and launches the kernel once; the
+    captured ``make_serving_fn`` request at the same shape (device-resident
+    inputs, as the server's) is timed beside the server. ``builds`` is the
+    future of the ops library's and the server's build, started in phase 2."""
+    t0 = time.perf_counter()
+    build_s = builds.result()
+    shim = shim_binary_path()
+    out = {"build_s": build_s}
+    forward = dict(zip(BUNDLE_NAMES, (cross_network, cross_network, fm_interaction,
+                                      din_attention_pool)))
+    forms = {}
+    for name, kernel in forward.items():
+        tag = f"[phase 43 {name}]"
+        zero_counts()
+        trainer, spec, request = bundle_trainer(name, rng, seed)
+        shape = tuple(np.asarray(request[spec.scored_key]).shape)
+        if kernel is cross_network:
+            rows = int(np.prod(shape))
+            forms[name] = plan_name(rows, DIM)
+        with tempfile.TemporaryDirectory() as tmp:
+            bundle = os.path.join(tmp, "bundle")
+            export_serving_bundle(trainer, request, bundle)
+            with open(os.path.join(bundle, "export.json")) as f:
+                exported = json.load(f)
+            per_request = exported["launches_per_request"]
+            if per_request != {kernel.__name__: 1}:
+                raise AssertionError(f"{tag} the program launches {per_request} a request")
+            server = run_server(shim, bundle, tag)
+            if server["launches"] != {kernel.__name__: 1 + BUNDLE_REPS}:
+                raise AssertionError(f"{tag} server launches {server['launches']}")
+            package_bytes = os.path.getsize(os.path.join(bundle, "model.pt2"))
+            path = os.path.join(tmp, "program.pt2")
+            trainer.export_serving(path, request)
+            loaded = Trainer.load_serving(path)
+            live = trainer.make_serving_fn()
+            want = live(request)
+            before = counts()
+            got = loaded(request)
+            torch.cuda.synchronize()
+            check_launches(f"{tag} load_serving", before, {kernel: 1})
+            load_err = close(got, want, rtol=LOAD_RTOL, atol=LOAD_ATOL)
+            if tuple(got.shape) != shape:
+                raise AssertionError(f"{tag} load_serving scores {tuple(got.shape)}, want {shape}")
+        on_card = {k: torch.as_tensor(v).cuda() for k, v in request.items()}
+        live(on_card)  # the signature's eager request; the next captures
+        live(on_card)
+        captured = timed_ms(lambda: live(on_card), f"{tag} captured request", {kernel: 1})
+        # the request as a server receives it: numpy, copied in by the scorer
+        captured_host = timed_ms(lambda: live(request), f"{tag} captured host request",
+                                 {kernel: 1})
+        launches = names(counts())
+        out[name] = {"shape": list(shape), "server": server, "captured": captured,
+                     "captured_host_inputs": captured_host,
+                     "package_bytes": package_bytes, "export_s": exported["export_s"],
+                     "compile_s": exported["compile_s"], "load_serving_max_abs_err": load_err,
+                     "python_launches": launches, "form": forms.get(name)}
+        print(f"{tag} {shape}: server median {server['median_ms']:.4f} ms, p90 "
+              f"{server['p90_ms']:.4f} ms; captured make_serving_fn median "
+              f"{captured['median_ms']:.4f} ms, p90 {captured['p90_ms']:.4f} ms (numpy inputs: "
+              f"{captured_host['median_ms']:.4f}, {captured_host['p90_ms']:.4f}; host clock, "
+              f"{BUNDLE_REPS} each); server max |diff| {server['max_abs_diff']:.3e}, "
+              f"load_serving max abs err {load_err:.3e}; package {package_bytes / 1e6:.1f} MB, "
+              f"export {exported['export_s']:.1f} s, AOTI compile {exported['compile_s']:.1f} s"
+              f"{'; B1 ' + forms[name] if name in forms else ''}; launches {launches}")
+        del trainer, live, loaded, on_card
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 43: 4 bundles in {out['seconds']:.1f} s (ops library and server built in "
+          f"{build_s['ops_library_s']:.1f} and {build_s['server_s']:.1f} s beside phase 2)")
+    return out
+
+
+def build_serving() -> dict:
+    """The ops library for the card and the server, built (phase 2, beside
+    the kernels): each one's seconds."""
+    t0 = time.perf_counter()
+    serving_ops_library(True)
+    t1 = time.perf_counter()
+    shim_binary_path()
+    return {"ops_library_s": t1 - t0, "server_s": time.perf_counter() - t1}
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5259,7 +5456,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"torch device 0: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # 2. build
+    # 2. build (the ops library and the server of phase 43 beside the kernels)
+    serving_builds = concurrent.futures.ThreadPoolExecutor(1).submit(build_serving)
     t0 = time.perf_counter()
     paths = build("cross", "seg_scan", "scatter", "requantize", "fm", "din_attention",
                   "retrieval_topk", "quantize")
@@ -5568,6 +5766,11 @@ def main() -> int:
     # profiler, each run's launches from zero
     tasks = tasks_phase(rng, args.seed)
 
+    # 43. the serving export: four bundles scored by the Python-free server,
+    # load_serving and the captured scorer beside it, each path's launches
+    # from zero
+    bundles = serving_bundle_phase(rng, args.seed, serving_builds)
+
     n_scan = TRAIN_BATCH * N_SPARSE
     vocab_rows = N_SPARSE * VOCAB
     fm_shape = f"[{TRAIN_BATCH}, {FM_FIELDS}, {EMB}] f32"
@@ -5742,6 +5945,12 @@ def main() -> int:
         entry["phase42_launches"] = {run: launches.get(entry["name"], 0)
                                      for run, launches in phase42_runs.items()}
     print(json.dumps({"tasks": tasks}))
+    for entry in entries:  # phase 43's bundles: the server's launches and the Python side's
+        entry["phase43_launches"] = {
+            name: {"server": bundles[name]["server"]["launches"].get(entry["name"], 0),
+                   "python": bundles[name]["python_launches"].get(entry["name"], 0)}
+            for name in BUNDLE_NAMES}
+    print(json.dumps({"serving_bundle": bundles}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -24,10 +24,12 @@ measurements behind it. Both forms are bound by operations at the training
 shape: ``2*B*D^2*L`` f32 FMA-operations, 0.54 ms on the H100 at
 (B=32768, D=429, L=3) against 0.034 ms of memory.
 
-``cross_network`` dispatches by device (``ops/kernels/__init__.py``): a CUDA
+``cross_network`` dispatches by device through the op
+``torch.ops.pytorchrec.cross_network`` (``ops/kernels/__init__.py``): a CUDA
 tensor launches the planned form and raises if a launch fails; a CPU tensor
-runs ``cross_network_plain``. Choosing between the two hand-written forms by
-shape is the kernel's own plan: the plain version never runs on the card.
+runs ``cross_network_plain``; ``torch.export`` keeps the op in its graph.
+Choosing between the two hand-written forms by shape is the kernel's own
+plan: the plain version never runs on the card.
 ``cross_network.launches`` counts wrapper calls that launched a form,
 however many CUDA launches the plan takes.
 
@@ -49,7 +51,7 @@ from typing import Optional
 
 import torch
 
-from pytorchrec_tpu_torch.ops.kernels import count_launch, launches_kernel
+from pytorchrec_tpu_torch.ops.kernels import count_launch, define_op, launches_kernel
 from pytorchrec_tpu_torch.ops.kernels.build import library
 from pytorchrec_tpu_torch.ops.precision import current_precision, precision_mm
 
@@ -273,10 +275,13 @@ def _launch(x0: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor) -> torch.Tenso
     return out
 
 
+CROSS_OP = define_op("cross_network", _launch, cross_network_plain,
+                     lambda x0, ws, bs: torch.empty_like(x0))
+
+
 def _forward(x0: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor) -> torch.Tensor:
-    if launches_kernel(x0, ws, bs):
-        return _launch(x0, ws, bs)
-    return cross_network_plain(x0, ws, bs)
+    launches_kernel(x0, ws, bs)  # one kind of device
+    return CROSS_OP(x0, ws, bs)
 
 
 def cross_network_backward(x0: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor,

@@ -32,6 +32,8 @@ card every call launches the kernel, at any N, with no padding.
 
 Dispatch by device (``ops/kernels/__init__.py``): a CUDA tensor launches the
 kernel and raises if the launch fails; a CPU tensor runs the plain version.
+The forward is the op ``torch.ops.pytorchrec.din_attention_pool``, which
+``torch.export`` keeps in its graph.
 ``din_attention_pool.launches`` counts launches; an empty batch launches
 nothing.
 
@@ -50,7 +52,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from pytorchrec_tpu_torch.ops.kernels import count_launch, launches_kernel
+from pytorchrec_tpu_torch.ops.kernels import count_launch, define_op, launches_kernel
 from pytorchrec_tpu_torch.ops.kernels.build import library
 
 ACTIVATIONS = {"sigmoid": 0, "relu": 1}  # the kernel's codes
@@ -195,10 +197,14 @@ def _launch(his, tgt, valid, params, activation) -> torch.Tensor:
     return out
 
 
+DIN_OP = define_op("din_attention_pool", _launch, din_attention_pool_plain,
+                   lambda his, tgt, valid, params, activation:
+                   his.new_empty((his.shape[0], tgt.shape[1], his.shape[2])))
+
+
 def _forward(his, tgt, valid, params, activation) -> torch.Tensor:
-    if launches_kernel(his, tgt, valid, *params):
-        return _launch(his, tgt, valid, params, activation)
-    return din_attention_pool_plain(his, tgt, valid, params, activation)
+    launches_kernel(his, tgt, valid, *params)  # one kind of device
+    return DIN_OP(his, tgt, valid, list(params), activation)
 
 
 class DINAttentionFunction(torch.autograd.Function):

@@ -17,6 +17,8 @@ reads 81.8 MB (0.024 ms on the H100), the backward reads and writes 163.6 MB
 
 Dispatch by device (``ops/kernels/__init__.py``): a CUDA tensor launches the
 kernel and raises if the launch fails; a CPU tensor runs the plain version.
+The forward is the op ``torch.ops.pytorchrec.fm_interaction``, which
+``torch.export`` keeps in its graph.
 ``fm_interaction.launches`` and ``fm_interaction_backward.launches`` count
 kernel launches; an empty input launches nothing.
 
@@ -33,7 +35,7 @@ import functools
 
 import torch
 
-from pytorchrec_tpu_torch.ops.kernels import count_launch, launches_kernel
+from pytorchrec_tpu_torch.ops.kernels import count_launch, define_op, launches_kernel
 from pytorchrec_tpu_torch.ops.kernels.build import library
 
 
@@ -101,10 +103,12 @@ def _launch_forward(v: torch.Tensor) -> torch.Tensor:
     return out
 
 
+FM_OP = define_op("fm_interaction", _launch_forward, fm_interaction_plain,
+                  lambda v: v.new_empty((v.shape[0],)))
+
+
 def _forward(v: torch.Tensor) -> torch.Tensor:
-    if launches_kernel(v):
-        return _launch_forward(v)
-    return fm_interaction_plain(v)
+    return FM_OP(v)
 
 
 def _launch_backward(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

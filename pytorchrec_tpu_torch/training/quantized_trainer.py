@@ -35,6 +35,10 @@ A train step:
    rowwise Adagrad and requantization in B3, scatter-set) with the
    pre-update rows.
 
+Export (``Trainer.export_serving``, ``serving/bundle.py``): the program
+bakes the model's own buffers (the packed u8 rows, or the classic ``q`` and
+``scale``) and dequantizes in the graph, as the JAX package exports them.
+
 The state's key is the JAX state's (``split(PRNGKey(seed))[1]``), kept on
 the host (``utils/rng.py``), so the port draws the JAX package's rounding
 bits from the same seed. A checkpoint holds it and the classic

@@ -57,8 +57,9 @@ tables need rows injection, as in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import logging
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 from torch import nn
@@ -349,6 +350,29 @@ class SparseEmbeddingTrainer(Trainer):
                 unpack_table_bytes(packed, e) if self.packed_bytes
                 else unpack_table(packed, e).to(torch.float32))
         return params
+
+    @contextlib.contextmanager
+    def _serving_model(self) -> Iterator[nn.Module]:
+        """The model with each packed table as a contiguous f32 ``[V, E]``
+        copy (the export's plain gather model, as the JAX trainer exports
+        its unpacked tables): a packed f32 table is a strided view of its
+        ``[V, W]`` buffer, which the program would otherwise save whole, and
+        bf16 and byte rows leave the model an empty table. The model's own
+        tables are put back after."""
+        if not self.packed_tables:
+            yield self.model
+            return
+        self._assert_state()
+        own = {path: self._table_param(path) for path in self.state.packed}
+        try:
+            for path, packed in self.state.packed.items():
+                self._set_table_param(path, self._f32_rows(packed, path)
+                                      .clone(memory_format=torch.contiguous_format))
+            yield self.model
+        finally:
+            for path, table in own.items():
+                module_name, param_name = _module_path(path)
+                setattr(self.model.get_submodule(module_name), param_name, table)
 
     def make_serving_fn(self) -> Callable[[Batch], torch.Tensor]:
         """Scorer over the trained state: the model gathers from its tables

@@ -60,6 +60,19 @@ in place are what a replay reads, so a graph scores the current state;
 scorer) runs the same model call eagerly, without static inputs, for
 comparison.
 
+Export, the twin of the JAX trainer's ``export_serving``/``load_serving``:
+``export_program(sample_batch)`` runs ``torch.export`` on the eager scorer
+(``model(batch, train=False)`` under ``torch.no_grad()``, over the current
+parameters, not through a captured graph), with shapes fixed to the sample
+batch's. The scoring kernels stay ops of the graph
+(``torch.ops.pytorchrec``). The program takes only the batch keys whose
+values reach the scores, in sorted key order (the label is dropped), as
+``jax.export`` keeps its inputs. ``export_serving`` saves it with
+``torch.export.save``, the kept keys beside it; ``load_serving`` reads it
+back without the model code and returns a scorer on the device it was
+exported on. ``serving/bundle.py`` compiles the same program with
+AOTInductor for the Python-free server.
+
 Weights and checkpoints restore in place. ``save_weights`` writes the
 leaves of ``utils/convert.py::leaves_of`` (keyed by flax path: the dense
 parameters, each packed table's whole rows, a classic table's ``q`` and
@@ -80,6 +93,9 @@ Batches are dicts of numpy arrays or tensors.
 
 from __future__ import annotations
 
+import contextlib
+import json
+import os
 from collections import OrderedDict
 from itertools import chain, islice
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
@@ -110,6 +126,41 @@ Batch = Dict[str, Any]
 
 PREFETCH = 2  # batches the prefetch thread packs ahead (the JAX trainer's size)
 MAX_LAYOUTS = 4  # batch layouts whose static inputs and graphs a trainer keeps
+
+
+SERVING_META = "pytorchrec_serving.json"  # an exported program's kept keys and device
+
+
+class ServingModule(torch.nn.Module):
+    """``model``'s eager scores over batch columns given in ``keys``' order:
+    the module ``Trainer.export_program`` exports."""
+
+    def __init__(self, model: RecModel, keys: Sequence[str]):
+        super().__init__()
+        self.model = model
+        self.keys = tuple(keys)
+
+    def forward(self, *columns: torch.Tensor) -> torch.Tensor:
+        prediction, _ = self.model(dict(zip(self.keys, columns)), train=False)
+        return prediction
+
+
+def _export_scorer(model: RecModel, batch: Dict[str, torch.Tensor],
+                   keys: Sequence[str]) -> "torch.export.ExportedProgram":
+    return torch.export.export(ServingModule(model, keys), tuple(batch[k] for k in keys))
+
+
+def _kept_keys(program: "torch.export.ExportedProgram", keys: Sequence[str]) -> List[str]:
+    """The keys whose placeholders reach the program's output."""
+    nodes = list(program.graph.nodes)
+    live, stack = set(), [n for n in nodes if n.op == "output"]
+    while stack:
+        for arg in stack.pop().all_input_nodes:
+            if arg not in live:
+                live.add(arg)
+                stack.append(arg)
+    reaching = {n.name for n in live if n.op == "placeholder"}
+    return [k for k, name in zip(keys, program.graph_signature.user_inputs) if name in reaching]
 
 
 class _StepInputs:
@@ -747,6 +798,57 @@ class Trainer:
             return self._eval_step(batch)[0]
 
         serve.eager = self._score_eager
+        return serve
+
+    # ------------------------------------------------------------------
+    # export: torch.export of the eager scorer
+    # ------------------------------------------------------------------
+
+    @contextlib.contextmanager
+    def _serving_model(self) -> Iterator[RecModel]:
+        """The model as an exported scorer reads it: here, as it is."""
+        yield self.model
+
+    def export_program(self, sample_batch: Batch
+                       ) -> Tuple["torch.export.ExportedProgram", List[str]]:
+        """``(program, keys)``: the eager scorer over the current parameters,
+        exported with ``sample_batch``'s shapes, and the batch keys it takes
+        in order (see the module docstring)."""
+        self._assert_state()
+        batch = self._to_device(sample_batch)
+        keys = sorted(batch)
+        with self._serving_model() as model, torch.no_grad():
+            program = _export_scorer(model, batch, keys)
+            kept = _kept_keys(program, keys)
+            if kept != keys:
+                program = _export_scorer(model, batch, kept)
+        return program, kept
+
+    def export_serving(self, filepath: str, sample_batch: Batch) -> None:
+        """Export the scorer (``export_program``) to ``filepath``: a program
+        with the parameters baked in, loadable without the model code
+        (``load_serving``). Shapes are fixed to the sample batch's."""
+        program, keys = self.export_program(sample_batch)
+        os.makedirs(os.path.dirname(filepath) or ".", exist_ok=True)
+        meta = json.dumps({"keys": keys, "device": str(self.device)})
+        torch.export.save(program, filepath, extra_files={SERVING_META: meta})
+
+    @staticmethod
+    def load_serving(filepath: str) -> Callable[[Batch], torch.Tensor]:
+        """Load an ``export_serving`` file -> ``serve(batch) -> scores`` on the
+        device it was exported on (``serve.keys``: the batch keys it reads)."""
+        from pytorchrec_tpu_torch.ops.kernels import cross, din_attention, fm  # noqa: F401 (ops)
+
+        extra = {SERVING_META: ""}
+        program = torch.export.load(filepath, extra_files=extra)
+        meta = json.loads(extra[SERVING_META])
+        module, keys, device = program.module(), meta["keys"], torch.device(meta["device"])
+
+        def serve(batch: Batch) -> torch.Tensor:
+            with torch.no_grad():
+                return module(*(torch.as_tensor(batch[k]).to(device) for k in keys))
+
+        serve.keys = keys
         return serve
 
     # ------------------------------------------------------------------

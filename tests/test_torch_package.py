@@ -70,7 +70,8 @@ def test_every_training_module_is_walked():
             "pytorchrec_tpu_torch.tasks.task", "pytorchrec_tpu_torch.tasks.repeat",
             "pytorchrec_tpu_torch.tasks.grid_search", "pytorchrec_tpu_torch.tasks.results",
             "pytorchrec_tpu_torch.models.multitask",
-            "pytorchrec_tpu_torch.utils.argument"} <= modules
+            "pytorchrec_tpu_torch.utils.argument",
+            "pytorchrec_tpu_torch.serving.bundle"} <= modules
 
 
 def test_importing_every_port_module_loads_no_jax():
@@ -115,6 +116,30 @@ def test_no_port_source_names_jax_or_the_jax_package():
     assert {p.stem for p in (PORT / "csrc").glob("*.cu")} == kernels
     smoke = (ROOT / "chip_smoke.py").read_text()
     assert all(f'"{kernel}"' in smoke for kernel in kernels)  # chip_smoke builds every one
+
+
+def test_no_cpp_source_includes_jax_or_pjrt():
+    """The port's C++ and CUDA sources include nothing of JAX, XLA or PJRT,
+    nor of the JAX package's native code."""
+    pattern = re.compile(r'^\s*#\s*include\s+[<"]([^>"]+)[>"]', re.MULTILINE)
+    sources = [p for p in PORT.rglob("*") if p.suffix in (".cpp", ".h", ".cu", ".cuh")]
+    assert {p.name for p in sources} >= {"serving_ops.cpp", "serving_plans.h",
+                                         "aoti_serving.cpp", "cross.cu", "fastrec.cpp"}
+    offenders = {str(p.relative_to(ROOT)): hit for p in sources
+                 for hit in pattern.findall(p.read_text())
+                 if re.search(r"jax|xla|pjrt|pytorchrec_tpu/", hit, re.IGNORECASE)}
+    assert not offenders
+
+
+def test_serving_exports():
+    from pytorchrec_tpu_torch import serving
+    from pytorchrec_tpu_torch.ops import kernels
+
+    assert {"export_serving_bundle", "shim_binary_path", "build_item_index",
+            "make_retrieve_fn"} <= set(serving.__all__)
+    assert {"NAMESPACE", "SCHEMAS", "define_op"} <= set(kernels.__all__)
+    assert callable(Trainer.export_serving) and callable(Trainer.load_serving)
+    assert callable(Trainer.export_program)
 
 
 def _small_model(device):
