@@ -357,7 +357,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    ``stepped_card_against_cpu`` at batch 512 for DLRM's per-field
    unpacked Adam and for DCN-v2's bf16 rows; every recorded B2, B3, B4 and
    B8 call against its plain version (B2 rtol 1e-5, the others
-   bit-exact), B2 and B4 timed, B4 beside ``index_copy_`` of its kept rows;
+   bit-exact), B2 and B4 timed, B4 beside its plain version,
+   ``index_copy_`` of its kept rows and its plan (``time_scatter``);
 42. the normal entry point (``tasks_phase``), in a temporary work dir:
    ``generate_synthetic_ctr`` at bench.py's Criteo shape (1,048,576 rows,
    26 fields of 100,000 ids, 13 dense) with the conversion funnel, split
@@ -396,6 +397,22 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    the server's median and p90 ms beside the captured ``make_serving_fn``
    request's at the same shape (inputs on the card, and as numpy), the
    package's bytes and the export and compile seconds;
+44. B4's sweep (``b4_sweep``, run right after phase 6, from generators of
+   its own so that the later phases draw what they drew before): the
+   scatter-set against its plain version, bit-exact and one launch a call
+   (none at n = 0), at every row width of the main paths and every branch
+   of ``scatter_plan`` (``B4_CHECKS``: 4 to 2400-byte rows of f32, u8,
+   int8 and bf16; tables at byte offsets 1, 2, 4 and 8, for the 1-, 2-, 4-
+   and 8-byte units; unsorted unique ids with negative and too-large ones;
+   n = 0, 1 and one past a block); then each main-path width at its
+   recorded call's shape (``B4_WIDTHS``: 4- and 16-byte classic rows and
+   the 64-byte per-field rows with their unique ids first and the padding
+   after, the packed update's 128- to 256-byte rows and DIN's 384-byte and
+   1 KB rows with each segment's last slot kept) timed beside its plain
+   version, ``index_copy_`` of its kept rows (filtered beforehand,
+   untimed), its bytes' bound and its sectors' bound (each 32-byte sector
+   that a kept row writes counted whole), with its plan, grid and
+   registers;
 
 then a ``two_tower`` JSON line (ms/step,
 fused and exact ms a request, recall, index build ms), a ``classic_int8``
@@ -420,7 +437,7 @@ beside, the serving ones from captured requests; ``fit_launches``: phase
 phase 39's runs; ``criteo_launches``: phase 40's runs;
 ``phase41_launches``: phase 41's captured runs; ``phase42_launches``:
 phase 42's runs; ``phase43_launches``: phase 43's bundles, the server's
-count and the Python process's), after a ``serving_bundle`` line (phase
+count and the Python process's; B4's ``sweep``: phase 44), after a ``serving_bundle`` line (phase
 43's times, bytes, seconds and launches). Each path
 (serving, each training run) zeroes every launch count just before it and
 reads them just after.
@@ -526,7 +543,12 @@ from pytorchrec_tpu_torch.ops.kernels.retrieval_topk import (
     bin_max_scores,
     bin_max_scores_plain,
 )
-from pytorchrec_tpu_torch.ops.kernels.scatter import scatter_set_rows, scatter_set_rows_plain
+from pytorchrec_tpu_torch.ops.kernels.scatter import (
+    scatter_launch_info,
+    scatter_plan,
+    scatter_set_rows,
+    scatter_set_rows_plain,
+)
 from pytorchrec_tpu_torch.ops.kernels.seg_scan import (
     seg_scan_launch_info,
     segmented_sum_scan,
@@ -1628,24 +1650,201 @@ def check_and_time_scatter(rng: np.random.Generator, gen: torch.Generator, table
     if not torch.equal(table, want):
         raise AssertionError("scatter_set_rows kernel differs from its plain version")
     del want
-    kept = int(last.sum())
-    print(f"scatter_set_rows kernel vs plain  n={n} ({kept} rows kept) into "
-          f"[{vocab_rows}, {width}] {table.dtype}: bit-exact")
-    keep = safe < vocab_rows
-    kept_ids, kept_rows = safe[keep].long(), rows[keep]
+    print(f"scatter_set_rows kernel vs plain  n={n} ({int(last.sum())} rows of {row_bytes} bytes "
+          f"kept) into [{vocab_rows}, {width}] {table.dtype}: bit-exact")
+    return 0.0, time_scatter("", table, rows, safe)
+
+
+def written_sectors(ids: torch.Tensor, row_bytes: int) -> int:
+    """The 32-byte sectors that rows of ``row_bytes`` bytes at these unique
+    ids cover: each row's span, less the sectors that neighbouring rows
+    (in id order) share."""
+    ids = torch.sort(ids)[0]
+    first, last = ids * row_bytes // 32, ((ids + 1) * row_bytes - 1) // 32
+    return int((last - first + 1).sum() - (first[1:] == last[:-1]).sum())
+
+
+def time_scatter(tag: str, table: torch.Tensor, rows: torch.Tensor, ids: torch.Tensor) -> dict:
+    """B4 on these arguments (``time_cuda``, median of 3 interleaved rounds)
+    beside its plain version (which filters the ids inside) and
+    ``index_copy_`` of the kept rows (filtered beforehand, untimed); its
+    bytes' bound (the ids read, each kept row read and written) and its
+    sectors' bound (the ids and kept rows read, each 32-byte sector a kept
+    row writes counted whole); its plan, grid and registers. The same
+    table takes every call, so a table that fits the 50 MB L2 stays there,
+    as in a step."""
+    n, row_bytes = ids.shape[0], table.shape[1] * table.element_size()
+    keep = (ids >= 0) & (ids < table.shape[0])
+    kept_ids, kept_rows = ids[keep].long(), rows[keep]
+    kept = kept_ids.shape[0]
     runs = {"ms": [], "plain_ms": [], "library_ms": []}
     for _ in range(3):
-        runs["ms"].append(time_cuda(lambda: scatter_set_rows(table, rows, safe)))
-        runs["plain_ms"].append(time_cuda(lambda: scatter_set_rows_plain(table, rows, safe)))
+        runs["ms"].append(time_cuda(lambda: scatter_set_rows(table, rows, ids)))
+        runs["plain_ms"].append(time_cuda(lambda: scatter_set_rows_plain(table, rows, ids)))
         runs["library_ms"].append(time_cuda(lambda: table.index_copy_(0, kept_ids, kept_rows)))
-    nbytes = 2 * kept * row_bytes + 4 * n
     timing = {k: float(np.median(v)) for k, v in runs.items()}
-    timing.update(bound_ms=1e3 * nbytes / PEAK_BYTES_S, bound_by="bytes")
-    print(f"scatter_set_rows at n={n}, {kept} kept rows of {row_bytes} bytes: kernel "
-          f"{timing['ms']:.4f} ms, plain "
-          f"{timing['plain_ms']:.4f} ms, index_copy_ {timing['library_ms']:.4f} ms, bound "
-          f"{timing['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB); rounds {runs}")
-    return 0.0, timing
+    nbytes = 2 * kept * row_bytes + 4 * n
+    sectors = written_sectors(kept_ids, row_bytes)
+    launch = scatter_launch_info(table, rows, n)
+    timing.update(bound_ms=1e3 * nbytes / PEAK_BYTES_S, bound_by="bytes",
+                  sector_bound_ms=1e3 * (4 * n + kept * row_bytes + 32 * sectors) / PEAK_BYTES_S,
+                  kept=kept, row_bytes=row_bytes, table_mb=table.numel() * table.element_size() / 1e6,
+                  plan=launch)
+    print(f"{tag}{' ' if tag else ''}scatter_set_rows at n={n}, {kept} kept rows of {row_bytes} "
+          f"bytes into {list(table.shape)} {table.dtype} ({timing['table_mb']:.1f} MB): kernel "
+          f"{timing['ms']:.4f} ms, plain {timing['plain_ms']:.4f} ms, index_copy_ "
+          f"{timing['library_ms']:.4f} ms ({timing['library_ms'] / timing['ms']:.2f}x the "
+          f"kernel's time), bound {timing['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB; "
+          f"{100 * timing['bound_ms'] / timing['ms']:.0f}% of it), sectors' bound "
+          f"{timing['sector_bound_ms']:.4f} ms ({sectors} sectors written); plan "
+          f"{launch['unit']}-byte units, {launch['units']} a row, {launch['lanes']} lanes of "
+          f"{launch['lane_units']}, {launch['group_rows']} rows a group, {launch['block_slots']} "
+          f"slots a block, {launch['blocks']} blocks, {launch['registers']} registers, "
+          f"{launch['local_bytes']} B local; rounds {runs}")
+    return timing
+
+
+# Phase 44, B4 against plain at every branch of scatter_plan: (label, dtype,
+# width, table rows, the table's byte offset, slots, ids). "sorted" ids keep
+# each segment's last slot and route the others past V, as the packed update
+# does; "unsorted" ones are unique and shuffled, with negative and too large
+# ids among them.
+B4_CHECKS = (
+    *((f"[V, {width}] {str(dtype)[6:]}", dtype, width, 100_000, 0, 300_000, "sorted")
+      for dtype, width in ((torch.float32, 1), (torch.float32, 4), (torch.float32, 13),
+                           (torch.float32, 16), (torch.float32, 48), (torch.float32, 64),
+                           (torch.float32, 256), (torch.uint8, 7), (torch.uint8, 16),
+                           (torch.uint8, 128), (torch.uint8, 192), (torch.uint8, 384),
+                           (torch.int8, 16), (torch.bfloat16, 64))),
+    ("[V, 600] float32, a lane looping", torch.float32, 600, 20_000, 0, 60_000, "sorted"),
+    ("8-byte units: [V, 4] float32 at byte 8", torch.float32, 4, 100_000, 8, 300_000, "sorted"),
+    ("4-byte units: [V, 4] float32 at byte 4", torch.float32, 4, 100_000, 4, 300_000, "sorted"),
+    ("4-byte units: [V, 64] float32 at byte 4", torch.float32, 64, 100_000, 4, 300_000, "sorted"),
+    ("2-byte units: [V, 8] bfloat16 at byte 2", torch.bfloat16, 8, 100_000, 2, 300_000,
+     "sorted"),
+    ("1-byte units: [V, 16] uint8 at byte 1", torch.uint8, 16, 100_000, 1, 300_000, "sorted"),
+    ("unsorted [V, 1] float32", torch.float32, 1, 100_000, 0, 50_000, "unsorted"),
+    ("unsorted [V, 16] int8", torch.int8, 16, 100_000, 0, 50_000, "unsorted"),
+    ("unsorted [V, 64] float32", torch.float32, 64, 100_000, 0, 50_000, "unsorted"),
+    ("unsorted [V, 384] uint8", torch.uint8, 384, 100_000, 0, 50_000, "unsorted"),
+    ("n = 0", torch.float32, 64, 1000, 0, 0, "unsorted"),
+    ("n = 1, [V, 1] float32", torch.float32, 1, 1000, 0, 1, "sorted"),
+    ("n = 1, [V, 256] float32", torch.float32, 256, 1000, 0, 1, "sorted"),
+    ("n = 1025, a block of 1024 slots and one", torch.float32, 1, 100_000, 0, 1025, "unsorted"),
+    ("n = 257, a block of 256 slots and one", torch.float32, 16, 100_000, 0, 257, "unsorted"),
+    ("n = 17, a block of 16 slots and one", torch.float32, 256, 100_000, 0, 17, "unsorted"),
+)
+# Phase 44's timed widths, the main paths' rows at the shapes of their calls
+# in phases 6, 17 and 41: (label, dtype, width, table rows, the ids' source,
+# their routing). "unique": each id once in order, then padding at V (the
+# classic update); "field": one field's ids so, the padding at V + slot (the
+# unpacked update); "last": each sorted segment's last slot kept, the others
+# at V + slot (the packed update).
+B4_WIDTHS = (
+    ("4 B: classic scales, rowwise accumulators", torch.float32, 1, N_SPARSE * VOCAB, "bench",
+     "unique"),
+    ("16 B: classic int8 rows", torch.int8, EMB, N_SPARSE * VOCAB, "bench", "unique"),
+    ("64 B: per-field f32 tables and moments", torch.float32, EMB, VOCAB, "field", "field"),
+    ("128 B: int8 packed rows", torch.uint8, Q_W, N_SPARSE * VOCAB, "bench", "last"),
+    ("128 B: bf16 packed rows", torch.bfloat16, PACKED_W, N_SPARSE * VOCAB, "bench", "last"),
+    ("192 B: byte rows (an f32 view)", torch.float32, 48, N_SPARSE * VOCAB, "bench", "last"),
+    ("256 B: f32 packed rows", torch.float32, PACKED_W, N_SPARSE * VOCAB, "bench", "last"),
+    ("384 B: DIN int8 rows", torch.uint8, DIN_Q_W, DIN_ITEMS, "din", "last"),
+    ("1 KB: DIN f32 packed rows", torch.float32, DIN_PACKED_W, DIN_ITEMS, "din", "last"),
+)
+B4_SEED = 44  # offset of phase 44's generators from --seed
+
+
+def routed_ids(ids: np.ndarray, v: int, routing: str) -> np.ndarray:
+    """The int32 ids a B4 call gets from these raw ids (``B4_WIDTHS``)."""
+    if routing == "last":
+        ordered, _, last = segments(ids)
+        return np.where(last, ordered, v + np.arange(ordered.shape[0])).astype(np.int32)
+    unique = np.unique(ids)
+    pad = np.arange(unique.shape[0], ids.shape[0])
+    return np.concatenate([unique, np.full_like(pad, v) if routing == "unique"
+                           else v + pad]).astype(np.int32)
+
+
+def b4_values(gen: torch.Generator, dtype: torch.dtype, shape) -> torch.Tensor:
+    if dtype.is_floating_point:
+        return torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    low = -128 if dtype == torch.int8 else 0
+    return torch.randint(low, low + 256, shape, dtype=dtype, device="cuda", generator=gen)
+
+
+def b4_check_ids(rng: np.random.Generator, v: int, n: int, order: str) -> np.ndarray:
+    """``B4_CHECKS``' ids: sorted and routed as the packed update does, or
+    unique and shuffled with one slot in 50 negative or at V and above."""
+    if order == "sorted":
+        return routed_ids(rng.integers(0, v, n), v, "last")
+    ids = rng.permutation(v)[:n].astype(np.int64)
+    bad = np.array([-1, -7, -2**31, v, v + 3, 2**31 - 1])
+    spots = np.arange(0, n, 50)
+    ids[spots] = bad[np.arange(spots.shape[0]) % bad.shape[0]]
+    return ids.astype(np.int32)
+
+
+def b4_sweep(seed: int) -> dict:
+    """Phase 44: B4 against plain at ``B4_CHECKS`` (bit-exact, one launch a
+    call and none at n = 0), then each of ``B4_WIDTHS`` checked and timed
+    (``time_scatter``). Its generators are its own (``B4_SEED``)."""
+    tag = "[phase 44 B4]"
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + B4_SEED)
+    gen = torch.Generator(device="cuda").manual_seed(seed + B4_SEED)
+    plans = set()
+    for label, dtype, width, v, offset, n, order in B4_CHECKS:
+        size = v * width * dtype.itemsize
+        buffer = torch.empty(size + 16, dtype=torch.uint8, device="cuda")
+        table = buffer[offset:offset + size].view(dtype).view(v, width)
+        table.copy_(b4_values(gen, dtype, (v, width)))
+        rows = b4_values(gen, dtype, (n, width))
+        ids = torch.from_numpy(b4_check_ids(rng, v, n, order)).cuda()
+        plan = scatter_plan(width * dtype.itemsize, table.data_ptr() | rows.data_ptr())
+        want = scatter_set_rows_plain(table.clone(), rows, ids)
+        before = scatter_set_rows.launches
+        scatter_set_rows(table, rows, ids)
+        torch.cuda.synchronize()
+        launched = scatter_set_rows.launches - before
+        if not torch.equal(table, want) or launched != (1 if n else 0):
+            raise AssertionError(f"{tag} {label}: differs from plain or launched {launched} times")
+        plans.add((plan.unit, plan.lanes, plan.lane_units))
+        print(f"{tag} {label}, V={v}, n={n}, {order} ids: bit-exact, {launched} launch; plan "
+              f"{plan.unit}-byte units, {plan.units} a row, {plan.lanes} lanes of "
+              f"{plan.lane_units}, {plan.group_rows} rows a group")
+        del buffer, table, rows, want
+    units = sorted({unit for unit, _, _ in plans})
+    if units != [1, 2, 4, 8, 16] or not {1, 32} <= {lanes for _, lanes, _ in plans}:
+        raise AssertionError(f"{tag} the checks reach units {units} and plans {sorted(plans)}")
+    batch = make_train_batch(rng)
+    sources = {"bench": unified_ids(batch), "field": batch["c_0"].astype(np.int64),
+               "din": din_item_ids(make_din_batch(rng))}
+    widths = {}
+    for label, dtype, width, v, source, routing in B4_WIDTHS:
+        ids = torch.from_numpy(routed_ids(sources[source], v, routing)).cuda()
+        table = b4_values(gen, dtype, (v, width))
+        rows = b4_values(gen, dtype, (ids.shape[0], width))
+        want = scatter_set_rows_plain(table.clone(), rows, ids)
+        scatter_set_rows(table, rows, ids)
+        torch.cuda.synchronize()
+        if not torch.equal(table, want):
+            raise AssertionError(f"{tag} {label}: differs from plain")
+        del want
+        widths[label] = {"shape": f"n={ids.shape[0]} into [{v}, {width}] {str(dtype)[6:]}",
+                         **time_scatter(f"{tag} {label}:", table, rows, ids)}
+        del table, rows
+        torch.cuda.empty_cache()
+    for label, t in widths.items():
+        print(f"{tag} {label:44s} kernel {t['ms']:.4f} ms, index_copy_ {t['library_ms']:.4f}, "
+              f"bound {t['bound_ms']:.4f} (sectors {t['sector_bound_ms']:.4f}), "
+              f"{t['plan']['lanes']} lanes of {t['plan']['lane_units']} x "
+              f"{t['plan']['unit']} B, {t['plan']['registers']} registers")
+    seconds = time.perf_counter() - t0
+    print(f"phase 44: B4 at {len(B4_CHECKS)} checks and {len(widths)} timed widths in "
+          f"{seconds:.1f} s")
+    return {"checks": len(B4_CHECKS), "plans_checked": sorted(plans), "widths": widths,
+            "seconds": seconds}
 
 
 def check_cross_grad(rng: np.random.Generator, gen: torch.Generator) -> float:
@@ -1951,6 +2150,10 @@ def check_and_time_b8(rng: np.random.Generator, gen: torch.Generator, seed: int)
         scatter_set_rows(s_table.view(-1, 1), s_new.view(-1, 1), safe)
 
     parts["scatters_ms"] = float(np.median([time_cuda(scatters) for _ in range(3)]))
+    for name, table, new in (("q", q_table, q_new), ("scale", s_table.view(-1, 1),
+                                                       s_new.view(-1, 1))):
+        print(f"classic update's {name} scatter-set launch: "
+              f"{scatter_launch_info(table, new, safe.shape[0])}")
     parts["update_ms"] = float(np.median([time_cuda(
         lambda: classic_quantized_update(q_table, s_table, acc, ids, dvec, TRAIN_LR, word),
         iters=10, warmup=2) for _ in range(3)]))
@@ -4713,19 +4916,9 @@ def update_kernels_against_plain(calls: dict) -> dict:
                     raise AssertionError(f"{tag} scatter_set_rows {shapes} {table.dtype} differs "
                                          f"from its plain version")
                 err = 0.0
-                keep = ids < table.shape[0]
-                kept = int(keep.sum())
-                kept_ids, kept_rows = ids[keep].long(), rows[keep]
-                row_bytes = table.shape[1] * table.element_size()
-                note = f"{row_bytes}-byte {table.dtype} rows, {kept} kept"
-                # index_copy_ of the kept rows (filtered beforehand, untimed)
-                timing = {"ms": float(np.median([time_cuda(lambda: scatter_set_rows(*args))
-                                                  for _ in range(3)])),
-                          "library_ms": float(np.median([time_cuda(
-                              lambda: table.index_copy_(0, kept_ids, kept_rows))
-                              for _ in range(3)])),
-                          "bound_ms": 1e3 * (4 * ids.numel() + 2 * kept * row_bytes)
-                          / PEAK_BYTES_S}
+                # beside index_copy_ of the kept rows (filtered beforehand, untimed)
+                timing = time_scatter(tag, table, rows, ids)
+                note = f"{timing['row_bytes']}-byte {table.dtype} rows, {timing['kept']} kept"
             elif name == "requantize_rows":
                 got, want = requantize_rows(*args), requantize_rows_plain(*args)
                 if not torch.equal(got, want):
@@ -5503,6 +5696,9 @@ def main() -> int:
     grad_err = check_cross_grad(rng, gen)
     torch.cuda.empty_cache()
 
+    # 44. B4 at every plan and main-path width (generators of its own)
+    b4 = b4_sweep(args.seed)
+
     # 7. f32 training, with launch counts from zero
     leaves = flax_leaves(np.random.default_rng(args.seed + 3), "f32")
     f32_launches, f32_ms, _ = train(DCNV2_SPEC, "f32", leaves, rng, args.seed)
@@ -5838,7 +6034,8 @@ def main() -> int:
                               f"[{DIN_ITEMS}, {DIN_PACKED_W}]",
                      **din_update_timing["scatter_f32"]},
          "din_int8": {"shape": f"n={n_din} rows of {DIN_Q_W} u8 into [{DIN_ITEMS}, {DIN_Q_W}]",
-                      **din_update_timing["scatter_int8"]}},
+                      **din_update_timing["scatter_int8"]},
+         "sweep": b4},
         {"name": "fm_interaction", "route": "cuda",
          "source": "pytorchrec_tpu_torch/csrc/fm.cu",
          "replaces": "pytorchrec_tpu/ops/kernels/fm.py:24",

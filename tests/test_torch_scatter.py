@@ -2,9 +2,11 @@
 
 The same numpy table, rows and ids go through ``dma_scatter_set`` (interpret
 mode) and the port's ``scatter_set_rows``, which on CPU tensors runs the
-plain version, in place. Ids are routed as the packed update routes them:
-each sorted segment's last slot keeps its id, the others go to ``V + slot``
-and drop. Bit-exact: nothing is computed.
+plain version, in place, at every row width of the main paths. Ids are
+routed as the packed update routes them: each sorted segment's last slot
+keeps its id, the others go to ``V + slot`` and drop. Bit-exact: nothing is
+computed. ``scatter_plan``, the kernel's lanes and units for a row width
+and the rows' addresses, is checked here too: the card's kernel runs it.
 """
 
 import jax.numpy as jnp
@@ -13,7 +15,14 @@ import pytest
 import torch
 
 from pytorchrec_tpu.ops.kernels.dma_scatter import dma_scatter_set
-from pytorchrec_tpu_torch.ops.kernels.scatter import scatter_set_rows
+from pytorchrec_tpu_torch.ops.kernels.scatter import (
+    MAX_LANE_UNITS,
+    MAX_LANES,
+    THREADS,
+    UNITS,
+    scatter_plan,
+    scatter_set_rows,
+)
 
 
 def _safe_ids(rng, v, n):
@@ -29,8 +38,13 @@ def _arrays(rng, dtype, v, n, w):
     return rng.normal(size=(v, w)).astype(dtype), rng.normal(size=(n, w)).astype(dtype)
 
 
+# the main paths' rows: f32 4 B (scales, rowwise accumulators), 16 B, 64 B
+# (per-field tables), 96 B and 256 B (packed); u8 16 B (classic int8),
+# 128 B, 192 B (byte rows) and 384 B (DIN int8); odd widths
 @pytest.mark.parametrize("dtype,w", [(np.float32, 64), (np.float32, 24), (np.uint8, 128),
-                                     (np.uint8, 13)])
+                                     (np.uint8, 13), (np.float32, 1), (np.float32, 4),
+                                     (np.float32, 16), (np.uint8, 16), (np.uint8, 192),
+                                     (np.uint8, 384)])
 def test_plain_scatter_matches_dma_scatter(dtype, w):
     rng = np.random.default_rng(w)
     v, n = 512, 5000
@@ -76,3 +90,49 @@ def test_negative_ids_drop_too():
 def test_wrapper_rejects_bad_inputs(table, rows, ids):
     with pytest.raises((ValueError, TypeError)):
         scatter_set_rows(table, rows, ids)
+
+
+# (row bytes, the addresses' alignment): the main paths' rows at 16-byte
+# aligned addresses, odd widths, and tables at byte offsets 8, 4, 2 and 1
+PLAN_CASES = [(4, 256), (16, 256), (64, 256), (128, 256), (192, 256), (256, 256), (384, 256),
+              (1024, 256), (96, 256), (52, 256), (7, 256), (12, 256), (2400, 256), (4096, 256),
+              (16, 8), (16, 4), (256, 4), (16, 2), (16, 1), (52, 4), (384, 1), (1, 1)]
+
+
+@pytest.mark.parametrize("row_bytes,alignment", PLAN_CASES)
+def test_scatter_plan(row_bytes, alignment):
+    plan = scatter_plan(row_bytes, alignment)
+    # the widest unit that divides the row and both addresses
+    assert row_bytes % plan.unit == 0 and alignment % plan.unit == 0
+    assert all(row_bytes % u or alignment % u for u in UNITS if u > plan.unit)
+    assert plan.units * plan.unit == row_bytes
+    # lanes: a power of two up to 32, every unit covered (lane l copies units
+    # l, l + lanes, ...), no lane without one
+    assert plan.lanes & (plan.lanes - 1) == 0 and 1 <= plan.lanes <= MAX_LANES
+    assert plan.lane_units == -(-plan.units // plan.lanes)
+    assert plan.lanes <= plan.units
+    largest = plan.units & -plan.units  # the largest power of two dividing the units
+    if plan.units // largest <= MAX_LANE_UNITS or largest >= MAX_LANES:
+        assert plan.units % plan.lanes == 0  # no lane idles
+        assert plan.lanes == min(largest, MAX_LANES)
+    else:
+        assert plan.lane_units <= MAX_LANE_UNITS or plan.lanes == MAX_LANES
+    assert plan.lanes * plan.groups == THREADS
+    assert plan.group_rows == (4 if plan.lane_units == 1 else
+                               2 if plan.lane_units <= MAX_LANE_UNITS else 1)
+    assert plan.block_slots == plan.groups * plan.group_rows
+    if row_bytes in (4, 16) and alignment % 16 == 0:
+        assert (plan.lanes, plan.lane_units, plan.group_rows) == (1, 1, 4)  # a thread a row
+
+
+@pytest.mark.parametrize("row_bytes,lanes,lane_units", [(64, 4, 1), (128, 8, 1), (192, 4, 3),
+                                                        (256, 16, 1), (384, 8, 3),
+                                                        (1024, 32, 2)])
+def test_scatter_plan_at_main_path_widths(row_bytes, lanes, lane_units):
+    plan = scatter_plan(row_bytes, 0)
+    assert (plan.unit, plan.lanes, plan.lane_units) == (16, lanes, lane_units)
+
+
+def test_scatter_plan_rejects_empty_rows():
+    with pytest.raises(ValueError):
+        scatter_plan(0, 16)

@@ -170,23 +170,63 @@ def test_look_back_scan_on_the_int8_rows_slice():
     _scan_and_compare(x, heads)
 
 
+def _scatter_ids(rng, v: int, n: int, order: str) -> np.ndarray:
+    """"sorted": each segment's last slot keeps its id, the others go past V
+    (the packed update's routing); "unsorted": unique and shuffled, one slot
+    in 50 negative or at V and above."""
+    if order == "sorted":
+        ids = np.sort(rng.integers(0, v, n)).astype(np.int64)
+        last = np.concatenate([ids[1:] != ids[:-1], [True]])
+        return np.where(last, ids, v + np.arange(n)).astype(np.int32)
+    ids = rng.permutation(v)[:n].astype(np.int64)
+    bad = np.array([-1, -7, -2**31, v, v + 3, 2**31 - 1])
+    spots = np.arange(0, n, 50)
+    ids[spots] = bad[np.arange(spots.shape[0]) % bad.shape[0]]
+    return ids.astype(np.int32)
+
+
+# (dtype, width, the table's byte offset, slots, ids): every branch of
+# scatter_plan at the main paths' widths (a thread a row at 4 and 16 bytes;
+# 4, 8 and 16 lanes of one unit; 4 and 8 lanes of 3; 32 lanes of 2; a lane
+# looping at 2400 bytes; odd widths), tables at byte offsets 8, 4, 2 and 1
+# (8-, 4-, 2- and 1-byte units), unsorted ids with bad ones, n = 0, 1 and
+# one past a block
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,w", [(torch.float32, 64), (torch.float32, 13),
-                                     (torch.uint8, 128), (torch.uint8, 7)])
-def test_scatter_kernel_is_bit_exact(dtype, w):
+@pytest.mark.parametrize("dtype,w,offset,n,order", [
+    (torch.float32, 64, 0, 300_000, "sorted"), (torch.float32, 13, 0, 300_000, "sorted"),
+    (torch.uint8, 128, 0, 300_000, "sorted"), (torch.uint8, 7, 0, 300_000, "sorted"),
+    (torch.float32, 1, 0, 300_000, "sorted"), (torch.float32, 4, 0, 300_000, "sorted"),
+    (torch.float32, 16, 0, 300_000, "sorted"), (torch.float32, 48, 0, 300_000, "sorted"),
+    (torch.float32, 256, 0, 300_000, "sorted"), (torch.float32, 600, 0, 60_000, "sorted"),
+    (torch.uint8, 16, 0, 300_000, "sorted"), (torch.uint8, 192, 0, 300_000, "sorted"),
+    (torch.uint8, 384, 0, 300_000, "sorted"), (torch.int8, 16, 0, 300_000, "sorted"),
+    (torch.bfloat16, 64, 0, 300_000, "sorted"),
+    (torch.float32, 4, 8, 300_000, "sorted"), (torch.float32, 4, 4, 300_000, "sorted"),
+    (torch.float32, 64, 4, 300_000, "sorted"), (torch.bfloat16, 8, 2, 300_000, "sorted"),
+    (torch.uint8, 16, 1, 300_000, "sorted"), (torch.uint8, 384, 1, 30_000, "sorted"),
+    (torch.float32, 1, 0, 50_000, "unsorted"), (torch.int8, 16, 0, 50_000, "unsorted"),
+    (torch.float32, 64, 0, 50_000, "unsorted"), (torch.uint8, 384, 0, 50_000, "unsorted"),
+    (torch.float32, 64, 0, 0, "unsorted"), (torch.float32, 1, 0, 1, "sorted"),
+    (torch.float32, 256, 0, 1, "sorted"), (torch.float32, 1, 0, 1025, "unsorted"),
+    (torch.float32, 16, 0, 257, "unsorted"), (torch.float32, 256, 0, 17, "unsorted")])
+def test_scatter_kernel_is_bit_exact(dtype, w, offset, n, order):
     _need_card()
-    rng = np.random.default_rng(w)
-    v, n = 100_000, 300_000
-    ids = np.sort(rng.integers(0, v, n)).astype(np.int32)
-    last = np.concatenate([ids[1:] != ids[:-1], [True]])
-    safe = torch.from_numpy(np.where(last, ids, v + np.arange(n)).astype(np.int32)).cuda()
-    table = torch.from_numpy(rng.integers(0, 255, (v, w)).astype(np.uint8)).cuda().to(dtype)
+    from pytorchrec_tpu_torch.ops.kernels.scatter import scatter_plan
+    rng = np.random.default_rng(w + n + offset)
+    v = 20_000 if w * dtype.itemsize > 1024 else 100_000
+    size = v * w * dtype.itemsize
+    buffer = torch.empty(size + 16, dtype=torch.uint8, device="cuda")
+    table = buffer[offset:offset + size].view(dtype).view(v, w)
+    table.copy_(torch.from_numpy(rng.integers(0, 255, (v, w)).astype(np.uint8)).to(dtype))
     rows = torch.from_numpy(rng.integers(0, 255, (n, w)).astype(np.uint8)).cuda().to(dtype)
+    safe = torch.from_numpy(_scatter_ids(rng, v, n, order)).cuda()
+    plan = scatter_plan(w * dtype.itemsize, table.data_ptr() | rows.data_ptr())
+    assert offset == 0 or plan.unit == offset
     want = scatter_set_rows_plain(table.clone(), rows, safe)
     before = scatter_set_rows.launches
     scatter_set_rows(table, rows, safe)
     torch.cuda.synchronize()
-    assert scatter_set_rows.launches == before + 1
+    assert scatter_set_rows.launches == before + (1 if n else 0)
     assert torch.equal(table, want)
 
 
