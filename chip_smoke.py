@@ -413,6 +413,26 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    untimed), its bytes' bound and its sectors' bound (each 32-byte sector
    that a kept row writes counted whole), with its plan, grid and
    registers;
+45. value-based RL (``rl_phase``): DQN at ``scripts/rl_sparse_ab.py``'s
+   width (a ``[1048576, 64]`` item table, GRU hidden 64, batch 4096 of
+   point-wise rows with 20-step states and 4 next candidates, reward = the
+   label, MSE, Adam lr 1e-3, bf16 matmuls, ``update_freq=10``; weights from
+   ``--seed``, rows N(0, 0.1)) under ``RLTrainer`` (dense Adam), and
+   ``SparseRLTrainer`` with the unpacked table (lazy Adam: B2 and 3 B4 a
+   step), the packed f32 rows (B2 and B4 a step) and the int8 ``i_q`` (B2,
+   B3 and B4 a step): one recorded eager step, eager ms/step, 21 captured
+   ``fit_steps`` (4 a replay; the syncs of steps 10 and 20 inside
+   replays) with launch counts from zero, the run's peak memory, the captured
+   ms/step over 20 more, and the target sync's own time and share of a
+   step; B2, B3 and B4 against their plain versions on the recorded
+   arguments (B2 rtol 1e-5, the others bit-exact); the cadence with
+   ``update_freq=3`` in captured calls of 1, 3, 1, 3 and 1 steps, bit-equal
+   to eager steps after each call and the target equal to the network
+   after steps 3, 6 and 9 only; the card against the CPU at 65,536 items
+   and batch 512 for the packed f32 and int8 tables; ``console_main`` on
+   ``FILES_ML``'s MovieLens-1M shape for ``dqn --trainer sparse`` and
+   ``lsrl`` (dense), 300 batch-"epochs" of 4096 with dev NDCG@10 and Hit@10
+   every 100, each run's launches from zero;
 
 then a ``two_tower`` JSON line (ms/step,
 fused and exact ms a request, recall, index build ms), a ``classic_int8``
@@ -426,7 +446,8 @@ seconds), a ``files`` line (phase 39's seconds, rows, ms/step, scoring ms,
 metrics and launches), a ``criteo`` line (phase 40's runs), a ``phase41``
 line (its runs' launches and ms/step, the contenders' ranking, the plain
 checks), a ``tasks`` line (phase 42's runs: ms/step, dev and test metrics,
-launches, seconds; the optimizers, the harnesses and the trace) and a
+launches, seconds; the optimizers, the harnesses and the trace), an ``rl``
+line (phase 45's runs, plain checks, cadence and CLI runs) and a
 ``{"kernels": [...]}`` line with
 every kernel at its main-path shape (``launches``: for B1–B4 the DCN-v2 int8
 training run's, for the FM kernels the DeepFM f32 training run's, for the
@@ -437,7 +458,8 @@ beside, the serving ones from captured requests; ``fit_launches``: phase
 phase 39's runs; ``criteo_launches``: phase 40's runs;
 ``phase41_launches``: phase 41's captured runs; ``phase42_launches``:
 phase 42's runs; ``phase43_launches``: phase 43's bundles, the server's
-count and the Python process's; B4's ``sweep``: phase 44), after a ``serving_bundle`` line (phase
+count and the Python process's; B4's ``sweep``: phase 44;
+``phase45_launches``: phase 45's runs), after a ``serving_bundle`` line (phase
 43's times, bytes, seconds and launches). Each path
 (serving, each training run) zeroes every launch count just before it and
 reads them just after.
@@ -492,8 +514,10 @@ from pytorchrec_tpu_torch.models import (
     MMoE,
     SASRec,
     TwoTower,
+    ValueRLModel,
 )
 from pytorchrec_tpu_torch.models import ctr as ctr_module
+from pytorchrec_tpu_torch.models.rl import DQNQNet
 from pytorchrec_tpu_torch.ops import attention as attention_module
 from pytorchrec_tpu_torch.ops import interactions as interactions_module
 from pytorchrec_tpu_torch.ops import quantized_packed as quantized_packed_module
@@ -580,7 +604,9 @@ from pytorchrec_tpu_torch.training import (
     EarlyStopping,
     ModelCheckpoint,
     QuantizedEmbeddingTrainer,
+    RLTrainer,
     SparseEmbeddingTrainer,
+    SparseRLTrainer,
     TerminateOnNaN,
     Trainer,
 )
@@ -1106,6 +1132,8 @@ class ModelSpec:
     loss: str = "bce"
     lr: float = TRAIN_LR
     after_train: Optional[Callable] = None  # (trainer, host batches, tag): more of the path
+    trainer: Optional[Callable] = None  # (model, table, device) -> its trainer, where not the
+    # sparse or quantized trainer that the table format names
 
 
 DCNV2_SPEC = ModelSpec(
@@ -2898,7 +2926,9 @@ def make_trainer(spec: ModelSpec, table: str, device: str, leaves: dict, sample:
     (BCE and 1e-3 but for the two-tower model); weights from ``leaves``
     (flax layout); ``metrics`` for ``evaluate``."""
     model = spec.make(table, device, seed)
-    if table in SPARSE_FORMATS:
+    if spec.trainer is not None:
+        trainer = spec.trainer(model, table, device)
+    elif table in SPARSE_FORMATS:
         trainer = SparseEmbeddingTrainer(model, device=device, table_optimizer=table_optimizer,
                                          **SPARSE_FORMATS[table])
     else:
@@ -2913,8 +2943,9 @@ def make_trainer(spec: ModelSpec, table: str, device: str, leaves: dict, sample:
 def trained_tables(trainer) -> dict:
     """The tables a trainer updates in place, by name: each packed buffer;
     for a classic table its ``q`` and ``scale`` buffers and its
-    accumulator; an unpacked table and its moments."""
-    tables = dict(trainer.state.packed)
+    accumulator; an unpacked table and its moments (none for the dense
+    ``RLTrainer``)."""
+    tables = dict(getattr(trainer.state, "packed", {}))
     for path, moments in getattr(trainer.state, "table_moments", {}).items():
         if moments:
             tables[path] = trainer.model.get_parameter(path.replace("/", "."))
@@ -4885,7 +4916,7 @@ def recording_update_kernels(calls: dict):
         yield
 
 
-def update_kernels_against_plain(calls: dict) -> dict:
+def update_kernels_against_plain(calls: dict, tag: str = "[phase 41 kernels]") -> dict:
     """Each recorded call against its plain version on the same arguments:
     B2 rtol 1e-5 and atol 1e-5 of the largest |sum| (f32 sums in another
     order), B3, B4 and B8 bit-exact. B2 and B4, whose row widths here are
@@ -4893,7 +4924,6 @@ def update_kernels_against_plain(calls: dict) -> dict:
     bytes' bound: B2 reads x and writes its sums, B4 reads the ids and each
     kept row and writes it; B4 also beside ``index_copy_`` of the kept rows.
     Returns each kernel's max abs error and the calls checked."""
-    tag = "[phase 41 kernels]"
     out = {}
     with torch.no_grad():
         for key, (args, kwargs) in calls.items():
@@ -5633,6 +5663,358 @@ def build_serving() -> dict:
     return {"ops_library_s": t1 - t0, "server_s": time.perf_counter() - t1}
 
 
+# phase 45: value-based RL, scripts/rl_sparse_ab.py's DQN at full width
+# under the four trainers, the sync cadence in captured windows, the card
+# against the CPU and the entry point on MovieLens-1M's shape
+RL_ITEMS = 1_048_576
+RL_EMB = 64  # E = GRU hidden
+RL_BATCH, RL_STATE, RL_NEXT = 4096, 20, 4
+RL_UPDATE_FREQ = 10
+RL_LR = 1e-3
+RL_STEPS = 20  # captured steps timed a run, after the warm-up
+RL_RUN_STEPS = 21  # captured fit_steps a run with launches from zero: a warm-up, then 20
+RL_K = 4  # steps a replay
+RL_EAGER_STEPS = 5
+RL_ROW_SCALE = 10.0  # table rows N(0, 0.1), as DIN's (din_leaves says why)
+RL_PACKED_W = 4 * RL_EMB  # f32 table || m || v || staging under Adam
+RL_Q_W = packed_q_width(RL_EMB, 8, 1)  # 384 bytes
+RL_TABLES = {"dense": "i_embedding/embedding", "unpacked": "i_embedding/embedding",
+             "packed": "i_embedding/embedding", "int8": "i_q"}
+# a train step's launches: the eval net's update ids go through B2 once and
+# B4 once a scattered buffer (unpacked Adam: the table, m and v)
+RL_PER_STEP = {"dense": {}, "unpacked": {segmented_sum_scan: 1, scatter_set_rows: 3},
+               "packed": {segmented_sum_scan: 1, scatter_set_rows: 1},
+               "int8": {segmented_sum_scan: 1, requantize_rows: 1, scatter_set_rows: 1}}
+RL_CPU_ITEMS, RL_CPU_BATCH = 65_536, 512
+RL_CADENCE_FREQ = 3
+RL_CADENCE_WINDOWS = (1, 3, 1, 3, 1)  # steps a call: the warm-up, then windows of 3 and 1
+RL_CLI_EPOCHS, RL_CLI_DEV_FREQ, RL_CLI_BATCH = 300, 100, 4096
+RL_CLI_ARGV = ["--epoch", str(RL_CLI_EPOCHS), "--dev_freq", str(RL_CLI_DEV_FREQ),
+               "--batch_size", str(RL_CLI_BATCH), "--loss", "mse", "--lr", str(RL_LR),
+               "--metrics", "ndcg@10,hit@10", "--verbose", "0", "--reader",
+               f"neg_sample_n={DIN_LOO - 1}", "--reader", f"max_state_len={RL_STATE}",
+               "--reader", f"rl_sample_len={RL_NEXT}", "--reader", "neg_sample_mode=fast",
+               "--model", f"emb_size={RL_EMB}", "--model", f"hidden_size={RL_EMB}",
+               "--device", "cuda"]
+# name -> (console_main's extra arguments, a step's launches)
+RL_CLI_RUNS = {"cli_dqn_sparse": (["--model_name", "dqn", "--trainer", "sparse"],
+                                  RL_PER_STEP["unpacked"]),
+               "cli_lsrl_auto": (["--model_name", "lsrl"], {})}
+
+
+def make_rl(table: str, device, seed: int, items: int = RL_ITEMS,
+            update_freq: int = RL_UPDATE_FREQ) -> ValueRLModel:
+    """DQN at ``scripts/rl_sparse_ab.py``'s width: a ``[items, 64]`` item
+    table (int8: the packed u8 ``i_q``), GRU hidden 64, reward = label."""
+    col = CategoricalColumnWithIdentity
+    qnet = DQNQNet(iid_column=col(feature_name="iid", category_num=items),
+                   state_column=col(feature_name="state", category_num=items),
+                   state_len_column=col(feature_name="state_len", category_num=RL_STATE + 1),
+                   next_state_column=col(feature_name="next_state", category_num=items),
+                   next_state_len_column=col(feature_name="next_state_len",
+                                             category_num=RL_STATE + 1),
+                   rl_sample_column=col(feature_name="rl_sample", category_num=items),
+                   emb_size=RL_EMB, hidden_size=RL_EMB, quantized_table=table == "int8",
+                   device=device, generator=torch.Generator(device=device).manual_seed(seed))
+    return ValueRLModel(qnet, reward_column=LABEL, gamma=0.9, update_freq=update_freq)
+
+
+def make_rl_batch(rng: np.random.Generator, rows: int, items: int = RL_ITEMS) -> dict:
+    """A training batch as ``scripts/rl_sparse_ab.py`` draws it."""
+    return {"iid": rng.integers(0, items, size=rows).astype(np.int32),
+            "state": rng.integers(1, items, size=(rows, RL_STATE)).astype(np.int32),
+            "state_len": rng.integers(1, RL_STATE + 1, size=rows).astype(np.int32),
+            "next_state": rng.integers(1, items, size=(rows, RL_STATE)).astype(np.int32),
+            "next_state_len": rng.integers(1, RL_STATE + 1, size=rows).astype(np.int32),
+            "rl_sample": rng.integers(0, items, size=(rows, RL_NEXT)).astype(np.int32),
+            "label": rng.integers(0, 2, size=rows).astype(np.int32)}
+
+
+def rl_leaves(rng: np.random.Generator, table: str, items: int = RL_ITEMS) -> dict:
+    """Random DQN parameters in the flax leaf layout: the GRU uniform(-1/8,
+    1/8), ``out`` N(0, 0.01), the item rows N(0, 0.1) as a plain ``[V, 64]``
+    table (the dense and unpacked trainers), the packed ``[V, 256]`` f32
+    leaf or the ``[V, 384]`` u8 ``i_q``."""
+    bound = np.float32(1.0 / RL_EMB ** 0.5)
+    leaves = {f"rnn/{name}": rng.uniform(-bound, bound, shape).astype(np.float32)
+              for name, shape in (("w_ih", (RL_EMB, 3 * RL_EMB)), ("w_hh", (RL_EMB, 3 * RL_EMB)),
+                                  ("b_ih", (3 * RL_EMB,)), ("b_hh", (3 * RL_EMB,)))}
+    leaves["out/kernel"] = normal_leaf(rng, RL_EMB, RL_EMB)
+    leaves["out/bias"] = normal_leaf(rng, RL_EMB)
+    rows = normal_leaf(rng, items, RL_EMB) * np.float32(RL_ROW_SCALE)
+    if table == "int8":
+        leaves["i_q"] = packed_q_leaf(rows, RL_Q_W)
+    elif table == "packed":
+        leaves["i_embedding/embedding"] = packed_f32_leaf(rows, RL_PACKED_W)
+    else:
+        leaves["i_embedding/embedding"] = rows
+    return leaves
+
+
+def rl_trainer(model: ValueRLModel, table: str, device: str):
+    """The trainer of a phase-45 table format."""
+    if table == "dense":
+        return RLTrainer(model, device=device)
+    return SparseRLTrainer(model, device=device, packed_tables=table == "packed")
+
+
+def rl_table_ids(path: str, batch: dict) -> np.ndarray:
+    """The eval network's update ids: candidates, then the state."""
+    return np.concatenate([batch["iid"].reshape(-1), batch["state"].reshape(-1)])
+
+
+RL_SPEC = ModelSpec(
+    name="dqn", make=make_rl, leaves=rl_leaves, batch=make_rl_batch, table_ids=rl_table_ids,
+    tables=RL_TABLES, q_name="i", forward_kernel=None, plain_forward=None, per_step=RL_PER_STEP,
+    train_rows=RL_BATCH, cpu_rows=RL_CPU_BATCH, cpu_request=None, emb=RL_EMB, scored_key="iid",
+    loss="mse", lr=RL_LR, trainer=rl_trainer)
+
+
+def rl_synced(trainer) -> bool:
+    """Whether the target network equals the network, bit for bit."""
+    own = trainer.model.state_dict()
+    return all(torch.equal(t, own[k]) for k, t in trainer.state.target.state_dict().items())
+
+
+def rl_sync_ms(trainer) -> dict:
+    """The target sync alone (``torch.where`` over every target tensor, which
+    a step runs whatever its flag), CUDA events, beside its bytes' bound:
+    each target tensor and its source read, the target written."""
+    row = torch.from_numpy(trainer.state.scalars.host_rows(RL_UPDATE_FREQ, 1)[0]).cuda()
+    ms = float(np.median([time_cuda(lambda: trainer._sync_target(row), iters=20, warmup=2)
+                          for _ in range(3)]))
+    nbytes = sum(t.nbytes for t in trainer.state.target.state_dict().values())
+    return {"ms": ms, "bound_ms": 1e3 * 3 * nbytes / PEAK_BYTES_S, "target_mb": nbytes / 1e6}
+
+
+def rl_run(table: str, rng: np.random.Generator, seed: int, calls: dict, card: str) -> dict:
+    """One full-width training run: the trainer from ``rl_leaves``, one eager
+    step whose update kernels' arguments are recorded (``calls``), eager
+    ms/step (CUDA events over device-resident batches), then
+    ``RL_RUN_STEPS`` captured ``fit_steps`` (``RL_K`` a replay; the syncs of
+    steps 10 and 20 fall inside replays) with launch counts from zero and
+    the captured ms/step over ``RL_STEPS`` more, the sync's own time and its
+    share of a captured step, and the run's peak memory above what the
+    process held before it (the earlier phases' tensors and graphs)."""
+    tag = f"[phase 45 dqn {table}]"
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    host = [make_rl_batch(rng, RL_BATCH) for _ in range(4)]
+    leaves = rl_leaves(rng, table)
+    trainer = make_trainer(RL_SPEC, table, "cuda", leaves, host[0], seed, metrics=(),
+                           matmul_precision="bfloat16")
+    del leaves
+    addresses = {path: t.data_ptr() for path, t in trained_tables(trainer).items()}
+    with recording_update_kernels(calls):
+        first = float(trainer.train_step(host[0]))
+    device_batches = [trainer._to_device(b) for b in host]
+    eager_ms, eager_host_ms = time_eager(trainer, device_batches, RL_EAGER_STEPS)
+    packer = trainer.batch_packer(host[0])
+    packed = [tuple(t.cuda() for t in packer.pack(b)) for b in host]
+    zero_counts()
+    trainer.fit_steps((packed[i % 4] for i in range(RL_RUN_STEPS)), steps=RL_RUN_STEPS,
+                      log_every=RL_RUN_STEPS, steps_per_call=RL_K)
+    torch.cuda.synchronize()
+    check_launches(f"{tag} fit_steps({RL_RUN_STEPS}, steps_per_call={RL_K})",
+                   {k: 0 for k in ALL_KERNELS},
+                   {k: n * RL_RUN_STEPS for k, n in RL_PER_STEP[table].items()})
+    launches = names(counts())
+    losses = trainer.step_losses.cpu()
+    if not torch.isfinite(losses).all() or not np.isfinite(first):
+        raise AssertionError(f"{tag} losses {first}, {losses.tolist()}")
+    if {path: t.data_ptr() for path, t in trained_tables(trainer).items()} != addresses:
+        raise AssertionError(f"{tag} a table was reallocated")
+    steps_done = trainer.state.step
+    if rl_synced(trainer) != (steps_done % RL_UPDATE_FREQ == 0):
+        raise AssertionError(f"{tag} after step {steps_done} the target is "
+                             f"{'' if rl_synced(trainer) else 'not '}the network")
+    ms, host_ms = time_captured(trainer, packed, RL_STEPS, RL_K)
+    sync = rl_sync_ms(trainer)
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+    out = {"launches": launches, "first_loss": first, "last_loss": float(losses[-1]),
+           "eager_ms_per_step": eager_ms, "eager_host_ms_per_step": eager_host_ms,
+           "ms_per_step": ms, "host_ms_per_step": host_ms, "sync_ms": sync["ms"],
+           "sync_share": sync["ms"] / ms, "sync_bound_ms": sync["bound_ms"],
+           "target_mb": sync["target_mb"], "peak_mb": peak_mb, "held_before_mb": base / 1e6,
+           "tables": {path: [list(t.shape), str(t.dtype).replace("torch.", "")]
+                      for path, t in trained_tables(trainer).items()}}
+    print(f"{tag} {type(trainer).__name__} at batch {RL_BATCH}, {RL_ITEMS} items, E={RL_EMB}, "
+          f"S={RL_STATE}, N={RL_NEXT}: {RL_RUN_STEPS} captured steps, launches {launches}; "
+          f"losses {first:.6f} -> {out['last_loss']:.6f}; eager {eager_ms:.3f} ms/step (host "
+          f"{eager_host_ms:.3f}), captured {ms:.3f} ms/step (host {host_ms:.3f}; CUDA events "
+          f"over {RL_STEPS} steps, {RL_K} a replay); the target sync {sync['ms']:.4f} ms "
+          f"({100 * out['sync_share']:.2f}% of a captured step; bound {sync['bound_ms']:.4f} ms "
+          f"for {sync['target_mb']:.1f} MB of target); the run's peak memory {peak_mb:.1f} "
+          f"MB above the {base / 1e6:.1f} MB held before it; tables {out['tables']}; {card}")
+    del trainer, packed, device_batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rl_cadence(rng: np.random.Generator, seed: int) -> dict:
+    """The sync cadence inside captured windows: DQN with the packed f32
+    table at ``RL_CPU_ITEMS`` items and batch ``RL_CPU_BATCH``,
+    ``update_freq=3``, two trainers from one state over the same 9 batches:
+    eager ``train_step``s, whose target must equal the network bit for bit
+    after steps 3, 6 and 9 and only then, and captured calls of 1 (the
+    warm-up), 3, 1, 3 and 1 steps, each call's state against the eager
+    trainer's after the same step (the syncs of steps 3 and 6 fall inside
+    replays of the 3-step graph)."""
+    tag = "[phase 45 cadence]"
+    spec = dataclasses.replace(
+        RL_SPEC, make=functools.partial(make_rl, items=RL_CPU_ITEMS,
+                                        update_freq=RL_CADENCE_FREQ))
+    host = [make_rl_batch(rng, RL_CPU_BATCH, RL_CPU_ITEMS) for _ in range(sum(RL_CADENCE_WINDOWS))]
+    leaves = rl_leaves(rng, "packed", RL_CPU_ITEMS)
+    eager, captured = (make_trainer(spec, "packed", "cuda", leaves, host[0], seed, metrics=())
+                       for _ in range(2))
+    snapshots, synced = {}, []
+    for step, batch in enumerate(host, start=1):
+        eager.train_step(batch)
+        if rl_synced(eager):
+            synced.append(step)
+        snapshots[step] = (copy.deepcopy(eager.model.state_dict()),
+                           copy.deepcopy(eager.state.target.state_dict()))
+    want = [s for s in range(1, len(host) + 1) if s % RL_CADENCE_FREQ == 0]
+    if synced != want:
+        raise AssertionError(f"{tag} eager: the target equals the network after steps {synced}, "
+                             f"want {want}")
+    done, checked = 0, []
+    zero_counts()
+    for k in RL_CADENCE_WINDOWS:
+        captured.fit_steps(iter(host[done:done + k]), steps=k, log_every=k, steps_per_call=k)
+        done += k
+        params, target = snapshots[done]
+        for label, got, expected in (("network", captured.model.state_dict(), params),
+                                     ("target", captured.state.target.state_dict(), target)):
+            for key, value in expected.items():
+                if not torch.equal(got[key], value):
+                    raise AssertionError(f"{tag} after the window ending at step {done}: the "
+                                         f"{label}'s {key} differs from the eager trainer's")
+        if rl_synced(captured) != (done % RL_CADENCE_FREQ == 0):
+            raise AssertionError(f"{tag} after step {done}: synced {rl_synced(captured)}")
+        checked.append(done)
+    check_launches(f"{tag} {len(host)} captured steps", {k: 0 for k in ALL_KERNELS},
+                   {k: n * len(host) for k, n in RL_PER_STEP["packed"].items()})
+    print(f"{tag} update_freq={RL_CADENCE_FREQ}: eager target = network after steps {synced} "
+          f"only; captured calls of {list(RL_CADENCE_WINDOWS)} steps bit-equal to the eager "
+          f"trainer (network and target) after steps {checked}")
+    del eager, captured, snapshots
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"eager_synced_after": synced, "windows": list(RL_CADENCE_WINDOWS),
+            "checked_after": checked}
+
+
+def rl_cli_runs(seed: int, work_dir: str, card: str) -> dict:
+    """``console_main.main`` in process on ``FILES_ML``'s MovieLens-1M shape
+    (generated once; the ``value_rl`` reader's split, negative, history,
+    next-state and candidate files made by the pipeline): DQN under
+    ``--trainer sparse`` (unpacked lazy Adam) and LSRL (both state branches
+    and the user table) under ``auto`` (the dense ``RLTrainer``), MSE,
+    ``RL_CLI_EPOCHS`` batch-"epochs" of ``RL_CLI_BATCH`` with dev NDCG@10 and
+    Hit@10 every ``RL_CLI_DEV_FREQ``; each run's launches from zero, every
+    loss finite, the dev and test metrics, the files written, the run's
+    seconds and its captured ms/step (``time_captured`` over device-resident
+    batches of the fit's layout)."""
+    t0 = time.perf_counter()
+    generate_synthetic_ml("RL-ML1M", **FILES_ML)
+    out = {"generate_s": time.perf_counter() - t0}
+    for name, (extra, per_step) in RL_CLI_RUNS.items():
+        tag = f"[phase 45 {name}]"
+        runs = []
+        zero_counts()
+        t0 = time.perf_counter()
+        with recorded_tasks(runs):
+            code = console_main.main(["--dataset", "RL-ML1M", "--random_seed", str(seed),
+                                      *RL_CLI_ARGV, *extra])
+        seconds = time.perf_counter() - t0
+        if code != 0 or len(runs) != 1:
+            raise AssertionError(f"{tag} console_main returned {code} after {len(runs)} tasks")
+        (task, (best_epoch, dev, test)), = runs
+        check_launches(f"{tag} {RL_CLI_EPOCHS} steps", {k: 0 for k in ALL_KERNELS},
+                       {k: n * RL_CLI_EPOCHS for k, n in per_step.items()})
+        launches = names(counts())
+        losses = task.trainer.step_losses
+        if len(losses) != RL_CLI_EPOCHS or not bool(torch.isfinite(losses).all()):
+            raise AssertionError(f"{tag} {len(losses)} losses, finite "
+                                 f"{bool(torch.isfinite(losses).all())}")
+        metrics = [dev.get(m) for m in ("ndcg@10", "hit@10")] + \
+            [test.get(m) for m in ("ndcg@10", "hit@10")]
+        if not all(m is not None and np.isfinite(m) for m in metrics):
+            raise AssertionError(f"{tag} dev {dev}, test {test}")
+        files = [os.path.join(work_dir, "Log", f"{task.filename}{suffix}")
+                 for suffix in (".csv", ".test.csv")]
+        files.append(os.path.join(work_dir, "Model", f"{task.filename}.pt"))
+        missing = [f for f in files if not os.path.getsize(f)]
+        if missing:
+            raise AssertionError(f"{tag} empty files {missing}")
+        reader, trainer = task.data_reader, task.trainer
+        packer = trainer.batch_packer(reader.get_batch("train", np.arange(RL_CLI_BATCH)))
+        packed = [tuple(t.cuda() for t in packer.pack(reader.get_batch(
+            "train", np.arange(i * RL_CLI_BATCH, (i + 1) * RL_CLI_BATCH)))) for i in range(4)]
+        ms, host_ms = time_captured(trainer, packed, CAPTURE_TIMED, 1)
+        history = task.history.history
+        out[name] = {"trainer": type(trainer).__name__, "best_epoch": best_epoch, "dev": dev,
+                     "test": test, "dev_history": {m: history.get(m) for m in ("ndcg@10",
+                                                                             "hit@10")},
+                     "first_loss": float(losses[0]), "last_loss": float(losses[-1]),
+                     "rows": {s: reader.get_dataset_size(s) for s in ("train", "dev", "test")},
+                     "seconds": seconds, "ms_per_step": ms, "host_ms_per_step": host_ms,
+                     "launches": launches}
+        print(f"{tag} {type(trainer).__name__}: {RL_CLI_EPOCHS} steps of {RL_CLI_BATCH} in "
+              f"{seconds:.1f} s (reader build included), losses {float(losses[0]):.5f} -> "
+              f"{float(losses[-1]):.5f}; dev {out[name]['dev_history']} (every "
+              f"{RL_CLI_DEV_FREQ} steps), best epoch {best_epoch}, test {test}; launches "
+              f"{launches}; captured {ms:.3f} ms/step (host {host_ms:.3f}); {card}")
+        del task, runs, reader, trainer, packed
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def rl_phase(rng: np.random.Generator, seed: int) -> dict:
+    """Phase 45 (see the module docstring): ``rl_run`` for each trainer, each
+    run's launches from zero; B2, B3 and B4 against their plain versions on
+    the first eager steps' recorded arguments; ``rl_cadence``; the card
+    against the CPU at ``RL_CPU_ITEMS`` items for the packed f32 and the int8
+    tables (``stepped_card_against_cpu``); ``rl_cli_runs`` in a temporary
+    work dir."""
+    t0 = time.perf_counter()
+    out, calls, card = {}, {}, card_line()
+    for table in RL_TABLES:
+        out[table] = rl_run(table, rng, seed, calls, card)
+    out["against_plain"] = update_kernels_against_plain(calls, tag="[phase 45 kernels]")
+    out["cadence"] = rl_cadence(rng, seed)
+    cut = dataclasses.replace(RL_SPEC, make=functools.partial(make_rl, items=RL_CPU_ITEMS),
+                              batch=functools.partial(make_rl_batch, items=RL_CPU_ITEMS))
+    for table in ("packed", "int8"):
+        leaves = rl_leaves(np.random.default_rng(seed + 45), table, RL_CPU_ITEMS)
+        print(f"[phase 45 dqn {table}] card against CPU at {RL_CPU_ITEMS} items, batch "
+              f"{RL_CPU_BATCH}")
+        stepped_card_against_cpu(cut, table, leaves, rng, seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+    previous = os.environ.get("PYTORCHREC_TPU_WORK_DIR")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.environ["PYTORCHREC_TPU_WORK_DIR"] = tmp
+            out["cli"] = rl_cli_runs(seed, tmp, card)
+    finally:
+        if previous is None:
+            os.environ.pop("PYTORCHREC_TPU_WORK_DIR", None)
+        else:
+            os.environ["PYTORCHREC_TPU_WORK_DIR"] = previous
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 45: {len(RL_TABLES)} trainers, the kernels against plain, the cadence, 2 card "
+          f"against CPU checks and {len(RL_CLI_RUNS)} CLI runs in {out['seconds']:.1f} s; "
+          f"{card}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5967,6 +6349,12 @@ def main() -> int:
     # from zero
     bundles = serving_bundle_phase(rng, args.seed, serving_builds)
 
+    # 45. value-based RL: DQN at full width under the four trainers, the
+    # kernels against plain on RL's arguments, the sync cadence in captured
+    # windows, card against CPU and the entry point, each run's launches
+    # from zero
+    rl = rl_phase(rng, args.seed)
+
     n_scan = TRAIN_BATCH * N_SPARSE
     vocab_rows = N_SPARSE * VOCAB
     fm_shape = f"[{TRAIN_BATCH}, {FM_FIELDS}, {EMB}] f32"
@@ -6148,6 +6536,16 @@ def main() -> int:
                    "python": bundles[name]["python_launches"].get(entry["name"], 0)}
             for name in BUNDLE_NAMES}
     print(json.dumps({"serving_bundle": bundles}))
+    phase45_runs = {**{table: rl[table]["launches"] for table in RL_TABLES},
+                    **{run: rl["cli"][run]["launches"] for run in RL_CLI_RUNS}}
+    for entry in entries:  # phase 45's runs, each counted from zero
+        entry["phase45_launches"] = {run: launches.get(entry["name"], 0)
+                                     for run, launches in phase45_runs.items()}
+        checked = rl["against_plain"].get(entry["name"])
+        if checked is not None:
+            entry["phase45_max_abs_err"] = checked["max_abs_err"]
+            entry["phase45_calls"] = checked["calls"]
+    print(json.dumps({"rl": rl}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -21,6 +21,7 @@ __version__ = "0.1.0"
 # the top-level API, imported on first use
 _LAZY = {
     "Trainer": ("pytorchrec_tpu_torch.training", "Trainer"),
+    "RLTrainer": ("pytorchrec_tpu_torch.training", "RLTrainer"),
     "SparseEmbeddingTrainer": ("pytorchrec_tpu_torch.training", "SparseEmbeddingTrainer"),
     "QuantizedEmbeddingTrainer": ("pytorchrec_tpu_torch.training", "QuantizedEmbeddingTrainer"),
     "Task": ("pytorchrec_tpu_torch.tasks", "Task"),

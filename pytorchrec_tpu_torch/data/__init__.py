@@ -2,7 +2,7 @@
 numpy frames (``process/io.py``), the processing pipeline (``process``:
 splits, negatives, histories), the synthetic generators and the raw
 formatters (``process/datasets``), the readers (``readers``:
-simple, CTR, history, SVD++) and the dataset description (``schema.py``);
+simple, CTR, history, SVD++, value RL) and the dataset description (``schema.py``);
 the fixed-shape epoch batches over a reader (``loader.py``), the packed
 batch transfer (``packing.py``) and the lookahead prefetch
 (``prefetch.py``); the streaming source over sharded files
@@ -16,6 +16,7 @@ from pytorchrec_tpu_torch.data.readers import (
     READERS,
     SVDPPDataReader,
     SimpleDataReader,
+    ValueRLDataReader,
     data_reader_name_list,
     get_data_reader_type,
 )
@@ -32,7 +33,7 @@ from pytorchrec_tpu_torch.data.process.io import frames_from_feather, read_frame
 
 __all__ = ["BatchPacker", "CTRDataReader", "DataReader", "DatasetDescription", "FeatureMeta",
            "HistoryDataReader", "PackedBatch", "PinnedRing", "READERS", "SVDPPDataReader",
-           "SimpleDataReader", "SplitMode", "TrainMode", "batch_signature",
+           "SimpleDataReader", "SplitMode", "TrainMode", "ValueRLDataReader", "batch_signature",
            "data_reader_name_list", "device_put_prefetch", "eval_batches",
            "frames_from_feather", "generate_synthetic_ctr", "generate_synthetic_ml",
            "get_data_reader_type", "num_train_batches", "prefetch", "read_frame",

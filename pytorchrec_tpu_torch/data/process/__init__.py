@@ -2,7 +2,7 @@
 over numpy frames (``io.py``): splits, dev/test negatives, histories and
 next-state arrays, dataset discovery, the synthetic generators and raw
 formatters (``datasets/``) and pandas' text reading without pandas
-(``text.py``). The RL samples come with the RL models."""
+(``text.py``), and the value-RL candidate sets (``rl_sample.py``)."""
 
 from pytorchrec_tpu_torch.data.process.splits import (
     check_leave_k_out_split,
@@ -21,6 +21,10 @@ from pytorchrec_tpu_torch.data.process.history import (
     generate_interaction_next_state_list,
 )
 from pytorchrec_tpu_torch.data.process.dataset_info import check_dataset_info
+from pytorchrec_tpu_torch.data.process.rl_sample import (
+    check_rl_next_item_sample,
+    generate_rl_next_item_sample,
+)
 
 __all__ = [
     "generate_sequential_split",
@@ -34,4 +38,6 @@ __all__ = [
     "generate_interaction_next_state_list",
     "check_interaction_next_state_list",
     "check_dataset_info",
+    "generate_rl_next_item_sample",
+    "check_rl_next_item_sample",
 ]

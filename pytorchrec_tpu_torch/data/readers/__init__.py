@@ -1,7 +1,7 @@
 """Reader registry (port of ``pytorchrec_tpu/data/readers/__init__.py``):
 name -> reader class. ``"ctr"`` is the feature-loading variant of the simple
 reader (DeepFM/DCN-style models need the dense and sparse feature columns
-carried through). The RL reader comes with the RL models.
+carried through); ``"value_rl"`` is the value-based RL family's.
 """
 
 from __future__ import annotations
@@ -9,6 +9,7 @@ from __future__ import annotations
 from pytorchrec_tpu_torch.data.readers.base import DataReader
 from pytorchrec_tpu_torch.data.readers.history import HistoryDataReader
 from pytorchrec_tpu_torch.data.readers.svdpp import SVDPPDataReader
+from pytorchrec_tpu_torch.data.readers.value_rl import ValueRLDataReader
 from pytorchrec_tpu_torch.utils.registry import Registry
 
 # "simple" is the base reader
@@ -27,6 +28,7 @@ READERS.register("simple", SimpleDataReader)
 READERS.register("history", HistoryDataReader)
 READERS.register("svdpp", SVDPPDataReader)
 READERS.register("ctr", CTRDataReader)
+READERS.register("value_rl", ValueRLDataReader)
 
 data_reader_name_list = list(READERS.names())
 
@@ -41,6 +43,7 @@ __all__ = [
     "HistoryDataReader",
     "SVDPPDataReader",
     "CTRDataReader",
+    "ValueRLDataReader",
     "READERS",
     "data_reader_name_list",
     "get_data_reader_type",

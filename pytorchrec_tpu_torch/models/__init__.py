@@ -1,12 +1,10 @@
 """Model zoo and its registry (port of ``pytorchrec_tpu/models/__init__.py``):
 ``MODELS`` maps each of the JAX package's 24 names to (model factory, data
 reader name), ``model_name_list`` lists them, ``get_model_type`` and
-``get_data_reader_name`` look one up.
-
-The seven value-based RL names (``dqn``, ``deers``, ``lsrl*``) and their
-``value_rl`` reader stay in the registry, so the names and the CLI's
-choices are the JAX package's; building one raises
-``NotImplementedError`` naming the modules still to port.
+``get_data_reader_name`` look one up. The seven value-based RL names
+(``dqn``, ``deers``, ``lsrl*``) map to their Q-network factories
+(``models/rl.py``) and the ``value_rl`` reader; ``tasks/builder.py`` wraps
+the network in a ``ValueRLModel``.
 """
 
 from pytorchrec_tpu_torch.models.base import RecModel
@@ -16,22 +14,22 @@ from pytorchrec_tpu_torch.models.funk_svd import FunkSVD
 from pytorchrec_tpu_torch.models.gru4rec import GRU4Rec
 from pytorchrec_tpu_torch.models.multitask import ESMM, MMoE, PLE, ExpertBank, SharedBottom
 from pytorchrec_tpu_torch.models.ncf import NCF
+from pytorchrec_tpu_torch.models.rl import (
+    BranchQNet,
+    DQNQNet,
+    QNet,
+    ValueRLModel,
+    make_deers_qnet,
+    make_lsrl_l_qnet,
+    make_lsrl_lps_qnet,
+    make_lsrl_ps_qnet,
+    make_lsrl_psns_qnet,
+    make_lsrl_qnet,
+)
 from pytorchrec_tpu_torch.models.sasrec import SASRec
 from pytorchrec_tpu_torch.models.svdpp import SVDPP
 from pytorchrec_tpu_torch.models.two_tower import TwoTower
 from pytorchrec_tpu_torch.utils.registry import Registry
-
-RL_MISSING = ("models/rl.py, training/rl_trainer.py, data/readers/value_rl.py and "
-              "data/process/rl_sample.py")
-
-
-def _rl_model(name: str):
-    def build(*args, **kwargs):
-        raise NotImplementedError(f"RL model {name!r} is not ported yet: it needs {RL_MISSING}")
-
-    build.__name__ = f"rl_{name}"
-    return build
-
 
 MODELS: Registry = Registry("model")
 
@@ -54,8 +52,13 @@ _MODEL_TO_READER = {
     "mmoe": (MMoE, "ctr"),
     "ple": (PLE, "ctr"),
     "esmm": (ESMM, "ctr"),
-    **{name: (_rl_model(name), "value_rl")
-       for name in ("dqn", "deers", "lsrl", "lsrl_l", "lsrl_ps", "lsrl_lps", "lsrl_psns")},
+    "dqn": (DQNQNet, "value_rl"),
+    "deers": (make_deers_qnet, "value_rl"),
+    "lsrl": (make_lsrl_qnet, "value_rl"),
+    "lsrl_l": (make_lsrl_l_qnet, "value_rl"),
+    "lsrl_ps": (make_lsrl_ps_qnet, "value_rl"),
+    "lsrl_lps": (make_lsrl_lps_qnet, "value_rl"),
+    "lsrl_psns": (make_lsrl_psns_qnet, "value_rl"),
 }
 
 for _name, (_factory, _reader) in _MODEL_TO_READER.items():
@@ -72,6 +75,7 @@ def get_data_reader_name(model_name: str) -> str:
     return MODELS.get(model_name)[1]
 
 
-__all__ = ["RecModel", "DCNv2", "DeepFM", "DIN", "DLRM", "ESMM", "ExpertBank", "FM", "FunkSVD",
-           "GRU4Rec", "LR", "MMoE", "NCF", "PLE", "SASRec", "SVDPP", "SharedBottom", "TwoTower",
+__all__ = ["RecModel", "BranchQNet", "DCNv2", "DeepFM", "DIN", "DLRM", "DQNQNet", "ESMM",
+           "ExpertBank", "FM", "FunkSVD", "GRU4Rec", "LR", "MMoE", "NCF", "PLE", "QNet", "SASRec",
+           "SVDPP", "SharedBottom", "TwoTower", "ValueRLModel",
            "MODELS", "model_name_list", "get_model_type", "get_data_reader_name"]

@@ -9,7 +9,12 @@ strings through it.
 * The multi-task models take ``task_labels`` (default ``("label",
   "conversion")``) as targets and leave them out of the fields; a dataset
   without them raises.
-* The RL names raise ``NotImplementedError`` (``models/__init__.py``).
+* The value-based RL names build their Q-network over the ``value_rl``
+  reader's state, next-state and candidate columns (the uid column for the
+  long branch of ``lsrl``, ``lsrl_l`` and ``lsrl_lps``, the negative
+  streams for ``deers``, ``lsrl`` and ``lsrl_psns``) inside a
+  ``ValueRLModel`` whose reward is the rating column; ``gamma`` and
+  ``update_freq`` are hyperparameters of the wrapper.
 
 ``device`` (None: the card) is where the model is built.
 """
@@ -21,7 +26,8 @@ from typing import Any, Dict
 from pytorchrec_tpu_torch.data.readers import get_data_reader_type
 from pytorchrec_tpu_torch.data.readers.base import DataReader
 from pytorchrec_tpu_torch.feature_column import CategoricalColumnWithIdentity, NumericColumn
-from pytorchrec_tpu_torch.models import RL_MISSING, get_data_reader_name, get_model_type
+from pytorchrec_tpu_torch.models import get_data_reader_name, get_model_type
+from pytorchrec_tpu_torch.models.rl import QNet, ValueRLModel
 from pytorchrec_tpu_torch.utils import constants as C
 
 # interaction columns that are labels or bookkeeping, never model inputs
@@ -37,9 +43,6 @@ def is_rl_model(model_name: str) -> bool:
 
 def build_reader(model_name: str, dataset: str, **reader_kwargs) -> DataReader:
     """Construct the reader family registered for ``model_name``."""
-    if is_rl_model(model_name):
-        raise NotImplementedError(f"the value_rl reader of {model_name!r} is not ported yet: it "
-                                  f"needs {RL_MISSING}")
     reader_type = get_data_reader_type(get_data_reader_name(model_name))
     return reader_type(dataset, **reader_kwargs)
 
@@ -50,9 +53,9 @@ def build_model(model_name: str, reader: DataReader, device=None, **hparams) -> 
     name = model_name.lower()
     columns = reader.get_feature_column_dict()
     factory = get_model_type(name)
-    if name in RL_MODELS:
-        return factory()  # raises NotImplementedError
     hparams = dict(hparams, device=device)
+    if name in RL_MODELS:
+        return _build_rl_model(name, factory, columns, **hparams)
 
     if name in ("funksvd", "ncf", "two_tower"):
         return factory(uid_column=columns[C.UID], iid_column=columns[C.IID],
@@ -93,6 +96,34 @@ def build_model(model_name: str, reader: DataReader, device=None, **hparams) -> 
                        label_column=columns[C.LABEL],
                        task_columns=tuple(columns[t] for t in task_labels), **hparams)
     raise ValueError(f"no build recipe for model {model_name!r}")
+
+
+def _build_rl_model(name: str, factory, columns: Dict[str, Any], gamma: float = 0.9,
+                    update_freq: int = 10, **hparams) -> ValueRLModel:
+    if name == "dqn":
+        qnet: QNet = factory(
+            iid_column=columns[C.IID], state_column=columns[C.POS_STATE],
+            state_len_column=columns[C.POS_STATE_LEN],
+            next_state_column=columns[C.POS_NEXT_STATE],
+            next_state_len_column=columns[C.POS_NEXT_STATE_LEN],
+            rl_sample_column=columns[C.RL_SAMPLE], **hparams)
+    else:
+        kwargs: Dict[str, Any] = dict(
+            iid_column=columns[C.IID], pos_state_column=columns[C.POS_STATE],
+            pos_state_len_column=columns[C.POS_STATE_LEN],
+            pos_next_state_column=columns[C.POS_NEXT_STATE],
+            pos_next_state_len_column=columns[C.POS_NEXT_STATE_LEN],
+            rl_sample_column=columns[C.RL_SAMPLE])
+        if name in ("lsrl", "lsrl_l", "lsrl_lps"):  # the long branch reads the uid
+            kwargs["uid_column"] = columns[C.UID]
+        if name in ("deers", "lsrl", "lsrl_psns"):  # the neg branch reads the neg states
+            kwargs.update(neg_state_column=columns[C.NEG_STATE],
+                          neg_state_len_column=columns[C.NEG_STATE_LEN],
+                          neg_next_state_column=columns[C.NEG_NEXT_STATE],
+                          neg_next_state_len_column=columns[C.NEG_NEXT_STATE_LEN])
+        qnet = factory(**kwargs, **hparams)
+    return ValueRLModel(qnet, reward_column=columns[C.REWARD], gamma=gamma,
+                        update_freq=update_freq)
 
 
 def default_reader_kwargs(model_name: str, **overrides) -> Dict[str, Any]:

@@ -12,8 +12,11 @@ for f32 models and ``QuantizedEmbeddingTrainer(packed_tables=
 model.table_packed)`` for models with quantized tables; ``"quantized"``
 the latter for any model; ``"sparse"`` ``SparseEmbeddingTrainer(
 packed_tables=True)``; ``"dense"`` the dense ``Trainer``, which raises on a
-quantized model. ``trainer_kwargs`` reach the sparse and quantized trainers
-and raise where the route is the dense one.
+quantized model. A ``ValueRLModel`` goes to ``RLTrainer`` under ``"auto"``
+with an f32 network (``"dense"`` too) and to ``SparseRLTrainer`` under
+``"auto"`` with a quantized one, and under ``"sparse"`` and ``"quantized"``
+with any. ``trainer_kwargs`` reach the sparse and quantized trainers and
+raise where the route is a dense one.
 
 ``device`` (None: the card; ``"cpu"`` where asked) is where the trainer
 runs. ``mesh`` is taken for the JAX signature and raises on anything but
@@ -36,9 +39,12 @@ from pytorchrec_tpu_torch.training import (
     EarlyStopping,
     ModelCheckpoint,
     QuantizedEmbeddingTrainer,
+    RLTrainer,
     SparseEmbeddingTrainer,
+    SparseRLTrainer,
     Trainer,
 )
+from pytorchrec_tpu_torch.models.rl import ValueRLModel
 from pytorchrec_tpu_torch.utils import constants as C
 from pytorchrec_tpu_torch.utils.argument import ArgumentDescription, WithArguments
 
@@ -165,13 +171,22 @@ class Task(ITask):
         self.mesh = mesh
 
         tkw = dict(trainer_kwargs or {})  # e.g. {"table_lr": 0.02}
-        quantized = bool(getattr(model, "quantized_table", False)
-                         or getattr(model, "quantized_embedding", False))
+        inner = getattr(model, "qnet", model)  # the RL wrapper holds the network
+        quantized = bool(getattr(inner, "quantized_table", False)
+                         or getattr(inner, "quantized_embedding", False))
         if trainer == "dense" and quantized:
             raise ValueError("trainer='dense' on a model with quantized byte-row tables: the "
                              "dense trainer cannot differentiate them; use trainer='auto', "
                              "'sparse' or 'quantized'")
-        if trainer == "quantized" or (trainer == "auto" and quantized):
+        if isinstance(model, ValueRLModel):
+            use_sparse = trainer in ("sparse", "quantized") or (trainer == "auto" and quantized)
+            if not use_sparse and tkw:
+                raise ValueError(f"trainer_kwargs {sorted(tkw)} given but routing resolved to the "
+                                 f"dense RLTrainer (trainer={trainer!r}); pass trainer='sparse' "
+                                 f"or drop the kwargs")
+            self.trainer = (SparseRLTrainer(model, device=device, **tkw) if use_sparse
+                            else RLTrainer(model, device=device))
+        elif trainer == "quantized" or (trainer == "auto" and quantized):
             tkw.setdefault("packed_tables", bool(getattr(model, "table_packed", True)))
             self.trainer = QuantizedEmbeddingTrainer(model, device=device, **tkw)
         elif trainer == "sparse":

@@ -7,12 +7,15 @@ model does not: the dense optimizer, the generator of dropout masks, the
 step counter, for packed tables the packed
 ``table || moments || staging`` (f32, bf16 or bytes) or
 ``q || scale || acc || staging`` (quantized) buffers, for unpacked f32
-tables their moments, and for the classic quantized tables (a ``q`` and a
-``scale`` buffer of the model) their rowwise-Adagrad accumulators.
+tables their moments, for the classic quantized tables (a ``q`` and a
+``scale`` buffer of the model) their rowwise-Adagrad accumulators, and for
+the RL trainers the target network (``RLTrainState``,
+``SparseRLTrainState``).
 
 ``step`` starts at 0 and counts finished train steps, as JAX's
 ``state.step``; it is the host's count. What a step computes from it (the
-1-based step, Adam's bias corrections, the rounding salts) a step reads from
+1-based step, Adam's bias corrections, the rounding salts, the RL target's
+sync flag) a step reads from
 its row of ``StepScalars``, which the host fills before each call, so that a
 CUDA graph of the step reads each step's values at replay.
 """
@@ -24,6 +27,7 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from pytorchrec_tpu_torch.ops.kernels.quantize import table_rounding_salt
 from pytorchrec_tpu_torch.ops.sparse_update import bias_corrections
@@ -35,12 +39,14 @@ class StepScalars:
     column 0 the 1-based step; for each table that ``adam_tables`` names,
     its two bias corrections ``1 - b1**step`` and ``1 - b2**step`` (f32
     bits); for each table that ``salted_tables`` names, its rounding salt
-    (uint32 bits) from the state's key ``rng_key``. ``host_rows`` computes
-    each value as the eager step always has (``bias_corrections``, numpy
-    f32; ``table_rounding_salt``), so the device reads the same bits."""
+    (uint32 bits) from the state's key ``rng_key``; with ``sync_every``
+    (the RL trainers' ``update_freq``) the target network's sync flag,
+    ``step % sync_every == 0``. ``host_rows`` computes each value as the
+    eager step always has (``bias_corrections``, numpy f32;
+    ``table_rounding_salt``), so the device reads the same bits."""
 
     def __init__(self, adam_tables: Sequence[str] = (), salted_tables: Sequence[str] = (),
-                 rng_key: Optional[np.ndarray] = None):
+                 rng_key: Optional[np.ndarray] = None, sync_every: int = 0):
         if salted_tables and rng_key is None:
             raise ValueError("salted tables need the state's rng_key")
         self.rng_key = rng_key
@@ -51,6 +57,10 @@ class StepScalars:
             self._bias_col[path], width = width, width + 2
         for path in salted_tables:
             self._salt_col[path], width = width, width + 1
+        self.sync_every = sync_every
+        self._sync_col = None
+        if sync_every > 0:
+            self._sync_col, width = width, width + 1
         self.width = width
 
     def host_rows(self, first_step: int, k: int) -> np.ndarray:
@@ -65,6 +75,8 @@ class StepScalars:
             for path, col in self._salt_col.items():
                 salt = table_rounding_salt(self.rng_key, step, path)
                 rows[i, col] = np.uint32(salt).view(np.int32)
+            if self._sync_col is not None:
+                rows[i, self._sync_col] = step % self.sync_every == 0
         return rows
 
     def bias_correction(self, row: torch.Tensor, path: str) -> torch.Tensor:
@@ -78,6 +90,13 @@ class StepScalars:
         a view of its row."""
         col = self._salt_col[path]
         return row[col:col + 1]
+
+    def sync_flag(self, row: torch.Tensor) -> torch.Tensor:
+        """A step's target-sync flag: a 0-d bool tensor on the row's
+        device."""
+        if self._sync_col is None:
+            raise ValueError("these step scalars carry no sync flag (sync_every=0)")
+        return row[self._sync_col] != 0
 
 
 @dataclass
@@ -109,3 +128,20 @@ class QuantizedTrainState(SparseTrainState):
     # classic tables (``packed_tables=False``): table name (``"unified"``) ->
     # the f32 [V] rowwise-Adagrad accumulator, the JAX state's ``table_acc``
     table_acc: Dict[str, torch.Tensor] = field(default_factory=dict)
+
+
+@dataclass
+class RLTrainState(TrainState):
+    # the target network: a copy of the model (``ValueRLModel.make_target``)
+    # that each step whose sync flag is set copies the model into, in place
+    target: Optional[nn.Module] = None
+
+
+@dataclass
+class SparseRLTrainState(SparseTrainState):
+    # ``packed``: the packed f32 tables, or the int8 ``i_q`` (the model's
+    # own buffer); ``table_moments``: the unpacked tables' moments
+    target: Optional[nn.Module] = None
+    # the JAX state's PRNG key (``split(PRNGKey(seed))[1]``), numpy
+    # uint32[2]: it salts the int8 table's rounding bits
+    rng_key: Optional[np.ndarray] = None

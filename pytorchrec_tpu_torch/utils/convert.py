@@ -28,6 +28,14 @@ them into the port model's state dict:
   ``LayerNorm_0/{scale,bias}``; their tables (``p_embeddings`` too) and
   ``out/kernel``, ``prediction_head/kernel`` and NCF's ``mlp`` take the
   rules above;
+* the value-based RL family's (DQN, DEERS, LSRL and its ablations):
+  ``i_embedding/embedding`` (DQN's item table) beside ``i_embeddings``, the
+  masked GRUs ``pos_rnn/...`` and ``neg_rnn/...`` beside ``rnn/...``, the
+  fuse layer ``fuse/Dense_0/{kernel,bias}`` (a single ``Dense``:
+  ``fuse.linear``, transposed), the branch MLPs and ``out``,
+  ``prediction`` by the dense rules; a packed RL table leaf loads as the
+  other families' do, and into an RL trainer's target network its first E
+  columns (the target keeps a ``[V, E]`` table);
 * the multi-task family's (SharedBottom, MMoE, PLE, ESMM): the expert
   banks' stacked ``experts/w_<i>`` ``[K, D, H]`` and ``experts/b_<i>``
   ``[K, H]`` (PLE's ``cgc_<lv>/...``) pass through unchanged; the gates
@@ -91,6 +99,8 @@ UNREAD_LEAVES = frozenset({"bias", "dense_factors", "dense_linear"})
 _RULES = (
     (r"(\w+)/Dense_(\d+)/Dense_0/kernel", r"\1.layers.\2.linear.weight", "transpose"),
     (r"(\w+)/Dense_(\d+)/Dense_0/bias", r"\1.layers.\2.linear.bias", None),
+    (r"(\w+)/Dense_0/kernel", r"\1.linear.weight", "transpose"),
+    (r"(\w+)/Dense_0/bias", r"\1.linear.bias", None),
     (r"(\w+)/kernel", r"\1.weight", "transpose"),
     (r"(\w+)/bias", r"\1.bias", None),
     (r"(\w+)/embedding", r"\1.embedding", "table_columns"),
@@ -100,7 +110,7 @@ _RULES = (
     (r"(block_shared|block_\d+)/(Q|K|W1|W2)/kernel", r"\1.\2.weight", "transpose"),
     (r"(block_shared|block_\d+)/(W1|W2)/bias", r"\1.\2.bias", None),
     (r"(block_shared|block_\d+)/(LayerNorm_0)/(scale|bias)", r"\1.\2.\3", None),
-    (r"rnn/(w_ih|w_hh|b_ih|b_hh)", r"rnn.\1", None),
+    (r"(rnn|pos_rnn|neg_rnn)/(w_ih|w_hh|b_ih|b_hh)", r"\1.\2", None),
     (r"(unified_q|unified_scale|i_q|implicit_i_q|mf_i_q|mlp_i_q)", r"\1", None),
     (r"(bias|dense_factors|dense_linear|global_bias)", r"\1", None),
 )
@@ -118,6 +128,7 @@ def flax_path(key: str) -> str:
     """The flax leaf path of port state-dict key ``key`` (the inverse of
     the rules above; ``_port_key`` of it gives ``key`` back)."""
     path = re.sub(r"\.layers\.(\d+)\.linear\.", r"/Dense_\1/Dense_0/", key)
+    path = re.sub(r"^(\w+)\.linear\.", r"\1/Dense_0/", path)
     path = re.sub(r"[./]weight$", "/kernel", path).replace(".", "/")
     if _port_key(path)[0] != key:
         raise KeyError(f"no flax leaf for port key {key!r}")
@@ -184,10 +195,16 @@ def _load_packed(path: str, value, packed: torch.Tensor) -> None:
 
 def params_from_jax(flat: Mapping[str, np.ndarray], target):
     """Load ``flat`` into ``target``, a model (on whatever device it lives)
-    or a packed trainer right after its ``init_state``; return ``target``."""
+    or a packed trainer right after its ``init_state``; return ``target``.
+    An RL trainer's target network (``state.target``) takes the same
+    leaves, as JAX's ``target_params`` start as a copy of the params."""
     if not isinstance(target, nn.Module) and (target.state is None or target.state.step != 0):
         raise ValueError("load into a trainer right after init_state(), before any step")
-    return load_leaves(flat, target)
+    load_leaves(flat, target)
+    rl_target = getattr(getattr(target, "state", None), "target", None)
+    if rl_target is not None:
+        load_leaves(flat, rl_target)
+    return target
 
 
 def load_leaves(flat: Mapping[str, Any], target):

@@ -1,5 +1,5 @@
 """The port's readers against the JAX package's (every case of
-``tests/test_readers.py`` but the RL reader's), on the CPU.
+``tests/test_readers.py``, the RL reader's included), on the CPU.
 
 Each package generates the same synthetic dataset in a work dir of its own
 (its readers then make their own split, negative and history files there)
@@ -52,6 +52,10 @@ CASES = {
                                                         neg_sample_n=49)),
     "svdpp": ("SVDPPDataReader", ML, dict(limit=12)),
     "svdpp_pair": ("SVDPPDataReader", ML, dict(limit=30, train_mode="pair_wise")),
+    "value_rl": ("ValueRLDataReader", ML, dict(max_state_len=6, rl_sample_len=4)),
+    "value_rl_neg_pair": ("ValueRLDataReader", ML, dict(max_state_len=5, use_neg_state=True,
+                                                        rl_sample_len=5,
+                                                        train_mode="pair_wise")),
     "ctr": ("CTRDataReader", CTR, dict(split_mode="sequential_split", warm_n=1)),
     "ctr_loo": ("CTRDataReader", CTR, dict(warm_n=2, neg_sample_n=9)),
 }
@@ -195,6 +199,10 @@ def test_history_and_svdpp_columns(readers):
         assert batch[C.POS_HIS].shape == (4, port.max_his_len)
         assert (batch[C.POS_HIS_LEN] >= 1).all()
         assert (C.NEG_HIS in batch) == port.use_neg_his
+    if isinstance(port, data.ValueRLDataReader):
+        assert batch[C.POS_NEXT_STATE].shape == (4, port.max_next_state_len)
+        assert batch[C.RL_SAMPLE].shape == (4, port.rl_sample_len)
+        assert (C.NEG_NEXT_STATE in batch) == port.use_neg_next_state
     if isinstance(port, data.SVDPPDataReader) and port.train_mode == data.TrainMode.POINT_WISE:
         # the lookup holds the whole train split (pair-wise drops its negatives after)
         uid = int(batch[C.UID][0])
@@ -206,11 +214,10 @@ def test_history_and_svdpp_columns(readers):
 
 
 def test_registry_and_modes():
-    assert data.data_reader_name_list == ["ctr", "history", "simple", "svdpp"]
+    assert data.data_reader_name_list == ["ctr", "history", "simple", "svdpp", "value_rl"]
     assert data.get_data_reader_type("History") is data.HistoryDataReader
     assert data.READERS.get("simple") is data.SimpleDataReader is data.DataReader
-    with pytest.raises(ValueError):
-        data.get_data_reader_type("value_rl")  # comes with the RL models
+    assert data.get_data_reader_type("value_rl") is data.ValueRLDataReader
 
 
 NO_PANDAS = r"""
@@ -232,6 +239,8 @@ readers = {
     "history": data.HistoryDataReader("NoPandas", neg_sample_n=9, max_his_len=5),
     "svdpp": data.SVDPPDataReader("NoPandas", neg_sample_n=9, limit=8),
     "ctr": data.CTRDataReader("NoPandasCTR", split_mode="sequential_split", warm_n=1),
+    "value_rl": data.ValueRLDataReader("NoPandas", neg_sample_n=9, max_state_len=5,
+                                       use_neg_state=True, rl_sample_len=4),
 }
 readers["simple"].train_neg_sample()
 columns = readers["ctr"].get_feature_column_dict()

@@ -47,7 +47,9 @@ from pytorchrec_tpu_torch.data import SplitMode, TrainMode
 from pytorchrec_tpu_torch.tasks import GridSearch, RepeatTask, Task
 from pytorchrec_tpu_torch.training import (
     QuantizedEmbeddingTrainer,
+    RLTrainer,
     SparseEmbeddingTrainer,
+    SparseRLTrainer,
     Trainer,
 )
 from pytorchrec_tpu_torch.utils import params_from_jax
@@ -254,16 +256,69 @@ def test_builder_leaves_match_jax(tmp_path, monkeypatch):
         tasks.build_model("mmoe", readers["port"]["simple"], device="cpu")
 
 
+RL_READER = dict(neg_sample_n=9, max_state_len=5, rl_sample_len=4)
+RL_ARGV = ["--dataset", "BuildML", "--epoch", "6", "--batch_size", "16", "--dev_freq", "3",
+           "--loss", "mse", "--metrics", "ndcg@5,hit@5", "--verbose", "0", "--reader",
+           "neg_sample_n=9", "--reader", "max_state_len=5", "--reader", "rl_sample_len=4",
+           "--model", "emb_size=4", "--model", "hidden_size=4", "--device", "cpu"]
+
+
 @pytest.mark.parametrize("name", ["dqn", "deers", "lsrl", "lsrl_l", "lsrl_ps", "lsrl_lps",
                                   "lsrl_psns"])
-def test_rl_names_raise(name):
+def test_rl_names_build_and_run(name, tmp_path, monkeypatch):
+    """Each value-based RL name builds from both packages' ``value_rl``
+    readers with JAX's leaf paths and shapes, and the CLI trains it on the
+    CPU (6 batch-"epochs", dev metrics every 3) and writes its log."""
     assert tasks.is_rl_model(name) and models.get_data_reader_name(name) == "value_rl"
-    with pytest.raises(NotImplementedError, match="rl_trainer"):
-        tasks.build_reader(name, "AnyData")
-    with pytest.raises(NotImplementedError, match="models/rl.py"):
-        models.get_model_type(name)()
-    with pytest.raises(NotImplementedError):  # the CLI takes the name; the build raises
-        console_main.main(["--model_name", name, "--dataset", "x", "--device", "cpu"])
+    built = {}
+    for tag, generate, package in (("jax", jax_generate_ml, jax_tasks),
+                                   ("port", data.generate_synthetic_ml, tasks)):
+        monkeypatch.setenv(WORK_DIR, str(tmp_path / tag))
+        generate("BuildML", n_users=30, n_items=80, seed=1)
+        built[tag] = package.build_reader(
+            name, "BuildML", **package.default_reader_kwargs(name, **RL_READER))
+    assert isinstance(built["port"], data.ValueRLDataReader)
+    assert built["port"].use_neg_next_state == (name in ("deers", "lsrl", "lsrl_psns"))
+    jax_model = jax_tasks.build_model(name, built["jax"], emb_size=4, hidden_size=4,
+                                      update_freq=5)
+    params = jax_model.init(jax.random.PRNGKey(0), built["jax"].get_batch("train", np.arange(2)))
+    port_model = tasks.build_model(name, built["port"], device="cpu", emb_size=4, hidden_size=4,
+                                   update_freq=5)
+    assert type(port_model).__name__ == type(jax_model).__name__ == "ValueRLModel"
+    assert port_model.update_freq == 5 and port_model.gamma == jax_model.gamma
+    got = {k: tuple(v.shape) for k, v in leaves_of(port_model.qnet).items()}
+    assert got == {k: v.shape for k, v in _flat(params["params"]).items()}
+    assert console_main.main(["--model_name", name, *RL_ARGV]) == 0
+    logs = os.listdir(tmp_path / "port" / "Log")
+    assert any(f.endswith(".csv") and not f.endswith(".test.csv") for f in logs), logs
+    assert any(f.endswith(".test.csv") for f in logs), logs
+
+
+def test_rl_trainer_routing(tmp_path, monkeypatch):
+    """A ``ValueRLModel``: ``auto`` gives ``RLTrainer`` for an f32 network
+    and ``SparseRLTrainer`` for a quantized one; ``sparse`` and
+    ``quantized`` give ``SparseRLTrainer`` (with the kwargs); kwargs on the
+    dense route raise."""
+    monkeypatch.setenv(WORK_DIR, str(tmp_path))
+    data.generate_synthetic_ml("BuildML", n_users=30, n_items=80, seed=1)
+    reader = tasks.build_reader("dqn", "BuildML", **RL_READER)
+
+    def routed(route, trainer_kwargs=None, **model_kwargs):
+        model = tasks.build_model("dqn", reader, device="cpu", emb_size=4, **model_kwargs)
+        return Task(reader, model, trainer=route, trainer_kwargs=trainer_kwargs,
+                    device="cpu").trainer
+
+    assert type(routed("auto")) is RLTrainer and type(routed("dense")) is RLTrainer
+    assert type(routed("auto", quantized_table=True)) is SparseRLTrainer
+    t = routed("sparse", trainer_kwargs={"packed_tables": True})
+    assert type(t) is SparseRLTrainer and t.packed_tables
+    t = routed("quantized", trainer_kwargs={"table_lr": 0.02}, quantized_table=True)
+    assert type(t) is SparseRLTrainer and t._table_lr_override == 0.02
+    assert type(routed("sparse")) is SparseRLTrainer and not routed("sparse").packed_tables
+    with pytest.raises(ValueError, match="trainer_kwargs"):
+        routed("auto", trainer_kwargs={"table_lr": 0.02})
+    with pytest.raises(ValueError, match="dense"):
+        routed("dense", quantized_table=True)
 
 
 # ---------------------------------------------------------------------------
