@@ -433,6 +433,18 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    ``FILES_ML``'s MovieLens-1M shape for ``dqn --trainer sparse`` and
    ``lsrl`` (dense), 300 batch-"epochs" of 4096 with dev NDCG@10 and Hit@10
    every 100, each run's launches from zero;
+46. the mesh (``mesh_phase``): a world of one over NCCL (a ``file://``
+   store in a temporary dir, a ``(1, 1)`` mesh, the group destroyed at the
+   phase's end) at ``bench.py``'s width, DCN-v2 under the dense ``Trainer``
+   (B1), the packed f32 rows (B1, B2, B4), the int8 packed rows (B1-B4)
+   and the classic int8 table (B1, B2, B4, B8), each run on the mesh and
+   without one from the same leaves and batches (device-resident dicts,
+   no packed transfer, one step a graph): one eager step (the mesh run's
+   kernel arguments recorded), 21 captured ``fit_steps`` with launches from
+   zero (the mesh run's equal to the other's), losses and tables held to
+   rtol 1e-6, then captured ms/step of each over 20 more (CUDA events); B1,
+   B2, B3, B4 and B8 against their plain versions on the recorded
+   arguments;
 
 then a ``two_tower`` JSON line (ms/step,
 fused and exact ms a request, recall, index build ms), a ``classic_int8``
@@ -447,7 +459,9 @@ metrics and launches), a ``criteo`` line (phase 40's runs), a ``phase41``
 line (its runs' launches and ms/step, the contenders' ranking, the plain
 checks), a ``tasks`` line (phase 42's runs: ms/step, dev and test metrics,
 launches, seconds; the optimizers, the harnesses and the trace), an ``rl``
-line (phase 45's runs, plain checks, cadence and CLI runs) and a
+line (phase 45's runs, plain checks, cadence and CLI runs), a ``mesh`` line
+(phase 46's pairs: ms/step with and without the mesh, the largest
+differences, launches) and a
 ``{"kernels": [...]}`` line with
 every kernel at its main-path shape (``launches``: for B1–B4 the DCN-v2 int8
 training run's, for the FM kernels the DeepFM f32 training run's, for the
@@ -459,7 +473,8 @@ phase 39's runs; ``criteo_launches``: phase 40's runs;
 ``phase41_launches``: phase 41's captured runs; ``phase42_launches``:
 phase 42's runs; ``phase43_launches``: phase 43's bundles, the server's
 count and the Python process's; B4's ``sweep``: phase 44;
-``phase45_launches``: phase 45's runs), after a ``serving_bundle`` line (phase
+``phase45_launches``: phase 45's runs; ``phase46_launches``: phase 46's
+runs, with and without the mesh), after a ``serving_bundle`` line (phase
 43's times, bytes, seconds and launches). Each path
 (serving, each training run) zeroes every launch count just before it and
 reads them just after.
@@ -475,6 +490,7 @@ import contextlib
 import copy
 import csv
 import dataclasses
+import datetime
 import functools
 import gc
 import json
@@ -518,6 +534,7 @@ from pytorchrec_tpu_torch.models import (
 )
 from pytorchrec_tpu_torch.models import ctr as ctr_module
 from pytorchrec_tpu_torch.models.rl import DQNQNet
+from pytorchrec_tpu_torch.parallel import initialize_distributed, make_mesh
 from pytorchrec_tpu_torch.ops import attention as attention_module
 from pytorchrec_tpu_torch.ops import interactions as interactions_module
 from pytorchrec_tpu_torch.ops import quantized_packed as quantized_packed_module
@@ -6015,6 +6032,137 @@ def rl_phase(rng: np.random.Generator, seed: int) -> dict:
     return out
 
 
+MESH_TABLES = ("dense", "f32", "int8", "classic")  # phase 46: the dense Trainer, then the formats
+MESH_RUN_STEPS = 21  # captured fit_steps a run with launches from zero: a warm-up, then 20
+MESH_TIMED = 20  # captured steps timed a run, after them
+MESH_RTOL = 1e-6
+
+
+def mesh_trainer(table: str, mesh, leaves: dict, sample: dict, seed: int):
+    """Phase 46's trainer of ``table`` (``MESH_TABLES``) at bench.py's width,
+    on ``mesh`` or (None) without one, from ``leaves``: the dense
+    ``Trainer`` (its unified f32 table under the dense Adam) or the format's
+    table trainer, the packed transfer off on both."""
+    model = make_ctr(DCNv2, "f32" if table == "dense" else table, "cuda", seed)
+    if table == "dense":
+        trainer = Trainer(model, mesh=mesh, packed_transfer=False)
+    elif table == "f32":
+        trainer = SparseEmbeddingTrainer(model, mesh=mesh, packed_tables=True)
+    else:
+        trainer = QuantizedEmbeddingTrainer(model, mesh=mesh, packed_tables=table == "int8")
+    trainer.packed_transfer = False
+    trainer.compile(optimizer="adam", lr=TRAIN_LR, loss="bce", metrics=())
+    trainer.init_state(sample, seed=seed)
+    return params_from_jax(leaves, trainer)
+
+
+def mesh_run(table: str, mesh, leaves: dict, host: list, seed: int,
+             calls: Optional[dict]) -> dict:
+    """One phase-46 run: one eager step (its kernel arguments recorded into
+    ``calls`` where given), ``MESH_RUN_STEPS`` captured steps with launches
+    from zero, then the captured ms/step over ``MESH_TIMED`` more. Returns
+    the launches, the losses, host copies of the trained tables and the
+    dense parameters, and the times."""
+    per_step = ({cross_network: 1} if table == "dense" else DCNV2_SPEC.per_step[table])
+    tag = f"[phase 46 dcnv2 {table} {'mesh' if mesh is not None else 'no mesh'}]"
+    trainer = mesh_trainer(table, mesh, leaves, host[0], seed)
+    batches = [trainer._to_device(b) for b in host]
+    with contextlib.ExitStack() as stack:
+        if calls is not None:
+            stack.enter_context(recording_update_kernels(calls))
+            stack.enter_context(recording(interactions_module, "cross_network", calls))
+        first = float(trainer.train_step(batches[0]))
+    zero_counts()
+    trainer.fit_steps((batches[i % len(batches)] for i in range(MESH_RUN_STEPS)),
+                      steps=MESH_RUN_STEPS, log_every=MESH_RUN_STEPS)
+    torch.cuda.synchronize()
+    check_launches(f"{tag} fit_steps({MESH_RUN_STEPS})", {k: 0 for k in ALL_KERNELS},
+                   {k: n * MESH_RUN_STEPS for k, n in per_step.items()})
+    launches = names(counts())
+    losses = torch.cat([torch.tensor([first]), trainer.step_losses.cpu()])
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"{tag} losses {losses.tolist()}")
+    state = {path: t.detach().cpu().clone() for path, t in trained_tables(trainer).items()}
+    state.update({name: p.detach().cpu().clone() for name, p in trainer.model.named_parameters()
+                  if p.requires_grad})
+    ms, host_ms = time_captured(trainer, batches, MESH_TIMED, 1)
+    print(f"{tag} {type(trainer).__name__} at batch {TRAIN_BATCH}: {MESH_RUN_STEPS} captured "
+          f"steps, launches {launches}; losses {first:.6f} -> {float(losses[-1]):.6f}; "
+          f"captured {ms:.3f} ms/step (host {host_ms:.3f}; CUDA events over {MESH_TIMED} steps, "
+          f"one a replay)")
+    del trainer, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "losses": losses, "state": state, "ms_per_step": ms,
+            "host_ms_per_step": host_ms}
+
+
+def largest_difference(got: torch.Tensor, want: torch.Tensor, rtol: float) -> float:
+    """The largest |got - want| (f32 values; an int8 or u8 tensor's bytes
+    equal), raising where one passes ``rtol * |want|`` (and 1e-30 of atol)
+    or a tensor is not bit-comparable."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{got.dtype} {tuple(got.shape)} against {want.dtype} "
+                             f"{tuple(want.shape)}")
+    if not got.is_floating_point():
+        if not torch.equal(got, want):
+            raise AssertionError(f"{int((got != want).sum())} of {got.numel()} bytes differ")
+        return 0.0
+    return close(got.float(), want.float(), rtol=rtol, atol=1e-30)
+
+
+def mesh_phase(rng: np.random.Generator, seed: int) -> dict:
+    """Phase 46 (see the module docstring): for each of ``MESH_TABLES`` a run
+    without the mesh and one on a ``(1, 1)`` mesh of a world of one over
+    NCCL, from the same leaves and batches; their launches equal, their
+    losses and tables within ``MESH_RTOL``; the kernels against their plain
+    versions on the mesh runs' recorded arguments."""
+    t0 = time.perf_counter()
+    card, out, calls = card_line(), {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_distributed(init_method=f"file://{tmp}/store", world_size=1, rank=0,
+                               timeout=datetime.timedelta(seconds=120))
+        try:
+            mesh = make_mesh(data=1, model=1)
+            for table in MESH_TABLES:
+                leaves = flax_leaves(rng, "f32" if table == "dense" else table)
+                host = [make_train_batch(rng) for _ in range(4)]
+                alone = mesh_run(table, None, leaves, host, seed, None)
+                meshed = mesh_run(table, mesh, leaves, host, seed, calls)
+                del leaves
+                if meshed["launches"] != alone["launches"]:
+                    raise AssertionError(f"[phase 46 {table}] launches {meshed['launches']} on the "
+                                         f"mesh, {alone['launches']} without")
+                loss_diff = largest_difference(meshed["losses"], alone["losses"], MESH_RTOL)
+                table_diff = max(largest_difference(t, alone["state"][k], MESH_RTOL)
+                                 for k, t in meshed["state"].items())
+                out[table] = {"launches": meshed["launches"],
+                              "ms_per_step": meshed["ms_per_step"],
+                              "no_mesh_ms_per_step": alone["ms_per_step"],
+                              "host_ms_per_step": meshed["host_ms_per_step"],
+                              "no_mesh_host_ms_per_step": alone["host_ms_per_step"],
+                              "loss_max_abs_diff": loss_diff, "state_max_abs_diff": table_diff}
+                print(f"[phase 46 {table}] mesh {meshed['ms_per_step']:.3f} ms/step, no mesh "
+                      f"{alone['ms_per_step']:.3f}; losses within {loss_diff:.3e}, tables and "
+                      f"dense parameters within {table_diff:.3e}; launches {meshed['launches']} "
+                      f"both; {card}")
+                del alone, meshed
+        finally:
+            torch.distributed.destroy_process_group()
+    x0, ws, bs = calls.pop("cross_network")
+    with torch.no_grad():
+        cross_err = close(cross_network(x0, ws, bs), cross_network_plain(x0, ws, bs))
+    print(f"[phase 46 kernels] cross_network kernel vs plain x0 {list(x0.shape)}: max abs err "
+          f"{cross_err:.3e}")
+    out["against_plain"] = update_kernels_against_plain(calls, tag="[phase 46 kernels]")
+    out["against_plain"]["cross_network"] = {"max_abs_err": cross_err,
+                                             "calls": [{"shapes": [list(x0.shape)]}]}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 46: {len(MESH_TABLES)} pairs of runs, with and without the mesh, and the "
+          f"kernels against plain in {out['seconds']:.1f} s; {card}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6355,6 +6503,10 @@ def main() -> int:
     # from zero
     rl = rl_phase(rng, args.seed)
 
+    # 46. the mesh: a world of one over NCCL, each training path on the mesh
+    # and without it, captured, launches from zero, the kernels against plain
+    mesh46 = mesh_phase(rng, args.seed)
+
     n_scan = TRAIN_BATCH * N_SPARSE
     vocab_rows = N_SPARSE * VOCAB
     fm_shape = f"[{TRAIN_BATCH}, {FM_FIELDS}, {EMB}] f32"
@@ -6546,6 +6698,13 @@ def main() -> int:
             entry["phase45_max_abs_err"] = checked["max_abs_err"]
             entry["phase45_calls"] = checked["calls"]
     print(json.dumps({"rl": rl}))
+    for entry in entries:  # phase 46's runs, each counted from zero, mesh and none alike
+        entry["phase46_launches"] = {table: mesh46[table]["launches"].get(entry["name"], 0)
+                                     for table in MESH_TABLES}
+        checked = mesh46["against_plain"].get(entry["name"])
+        if checked is not None:
+            entry["phase46_max_abs_err"] = checked["max_abs_err"]
+    print(json.dumps({"mesh": {k: v for k, v in mesh46.items() if k != "against_plain"}}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

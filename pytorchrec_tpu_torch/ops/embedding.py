@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pytorchrec_tpu_torch.parallel.embedding_engine import masked_psum_lookup
 from pytorchrec_tpu_torch.utils.device import resolve_device
 
 # weight-init policy of the whole framework: normal(0, 0.01) for every
@@ -42,6 +43,11 @@ class Embedding(nn.Module):
         self.features = features
         self.embedding = nn.Parameter(
             normal_init((num_embeddings, features), device, generator))
+        # the mesh, where ``embedding`` holds this rank's rows of a table
+        # row-sharded over its model axis (a trainer's ``mesh=``)
+        self.mesh = None
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if self.mesh is not None:
+            return masked_psum_lookup(self.embedding, ids, self.mesh)
         return F.embedding(ids, self.embedding)

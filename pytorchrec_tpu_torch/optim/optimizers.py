@@ -149,14 +149,22 @@ def _adagrad(params: list, lr: float, weight_decay: float = 0.0, eps: float = 1e
     return Adagrad(_groups(params), lr=lr, weight_decay=weight_decay, eps=eps)
 
 
-def clip_by_global_norm(params: List[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm(params: List[torch.Tensor], max_norm: float,
+                        sum_squares: Optional[Callable[[List[torch.Tensor]], torch.Tensor]] = None
+                        ) -> None:
     """``optax.clip_by_global_norm`` on the gradients of ``params``, in
     place: with ``n = sqrt(sum of every g²)``, each ``g`` becomes
-    ``g / n * max_norm`` where ``n >= max_norm``. No host sync."""
-    grads = [p.grad for p in params if p.grad is not None]
-    if not grads:
+    ``g / n * max_norm`` where ``n >= max_norm``. No host sync.
+    ``sum_squares(params)`` gives the sum of every g² where it is not the
+    local one (a mesh adds its table shards' squares over the model
+    group)."""
+    params = [p for p in params if p.grad is not None]
+    if not params:
         return
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    grads = [p.grad for p in params]
+    total = (sum(torch.sum(g * g) for g in grads) if sum_squares is None
+             else sum_squares(params))
+    norm = torch.sqrt(total)
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, (g / norm) * max_norm))
@@ -177,11 +185,14 @@ def get_optimizer(name: str) -> Callable[..., torch.optim.Optimizer]:
 
 def build_optimizer(name: str, params: Iterable[torch.nn.Parameter], lr: float,
                     weight_decay: float = 0.0, grad_clip_norm: Optional[float] = None,
-                    paths: Optional[Sequence[str]] = None, **kwargs) -> torch.optim.Optimizer:
+                    paths: Optional[Sequence[str]] = None,
+                    sum_squares: Optional[Callable[[List[torch.Tensor]], torch.Tensor]] = None,
+                    **kwargs) -> torch.optim.Optimizer:
     """The optimizer ``name`` over ``params`` (the dense parameters), their
     flax ``paths`` beside them (adamw's decay mask reads them), and with
-    ``grad_clip_norm`` the global-norm clip before each step. ``kwargs``
-    reach the optimizer (``b1``, ``b2``, ``eps``)."""
+    ``grad_clip_norm`` the global-norm clip before each step (its sum of
+    squares ``sum_squares`` where given: ``clip_by_global_norm``).
+    ``kwargs`` reach the optimizer (``b1``, ``b2``, ``eps``)."""
     params = list(params)
     optimizer = get_optimizer(name)(params, lr=lr, weight_decay=weight_decay,
                                     paths=None if paths is None else list(paths), **kwargs)
@@ -189,5 +200,6 @@ def build_optimizer(name: str, params: Iterable[torch.nn.Parameter], lr: float,
         max_norm = float(grad_clip_norm)
         optimizer.register_step_pre_hook(
             lambda opt, args, kwargs_: clip_by_global_norm(
-                [p for group in opt.param_groups for p in group["params"]], max_norm))
+                [p for group in opt.param_groups for p in group["params"]], max_norm,
+                sum_squares))
     return optimizer

@@ -1,0 +1,199 @@
+"""The ``(data, model)`` mesh on ``torch.distributed`` (port of
+``pytorchrec_tpu/parallel/mesh.py``).
+
+JAX's mesh is a grid of devices inside one program; here each device is one
+process (a rank), and the mesh is the two sets of process groups a rank
+takes part in. Rank ``r`` of a world of ``data * model`` sits at
+``(r // model, r % model)``, as ``np.asarray(devices).reshape(data, model)``
+places device ``r`` in the JAX mesh: a model group is a run of ``model``
+consecutive ranks, a data group the ranks ``model`` apart. The data axis
+splits each batch (dense data parallelism: gradients averaged over the data
+group); the model axis splits the embedding tables' rows
+(``parallel/sharding.py``), whose lookups are summed over the model group
+(``parallel/embedding_engine.py``).
+
+``initialize_distributed`` starts the process group: NCCL on the card, gloo
+where the caller passes ``device="cpu"``. ``make_mesh`` builds every group
+on every rank, in one order, so no rank waits on a group another rank never
+creates, and runs one collective on each group at once, so that each group's
+communicator exists before a CUDA graph captures a step that uses it.
+
+Unlike the JAX mesh, which may take fewer devices than there are, the mesh
+covers the whole world: ``data * model`` is the world size.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
+
+import torch
+import torch.distributed as dist
+
+from pytorchrec_tpu_torch.utils.device import resolve_device
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+
+
+def _rank_device(device) -> torch.device:
+    """This rank's device: ``cuda:<local rank>`` unless ``device`` says
+    otherwise (``"cpu"``). The local rank is ``LOCAL_RANK`` where a launcher
+    set it, else the rank modulo the cards."""
+    if device is not None:
+        device = resolve_device(device)
+        if device.type == "cpu" or device.index is not None:
+            return device
+    resolve_device("cuda")  # no card: raises
+    local = os.environ.get("LOCAL_RANK")
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    index = int(local) if local is not None else rank % torch.cuda.device_count()
+    return torch.device("cuda", index)
+
+
+def initialize_distributed(device=None, **kwargs) -> None:
+    """Start the default process group (``init_process_group(**kwargs)``:
+    ``init_method``, ``world_size``, ``rank``, ``timeout``, ...) with NCCL on
+    the card or gloo for ``device="cpu"``; nothing when a group exists."""
+    if dist.is_initialized():
+        return
+    kwargs.setdefault("backend", "gloo" if resolve_device(device).type == "cpu" else "nccl")
+    dist.init_process_group(**kwargs)
+    if kwargs["backend"] == "nccl":
+        torch.cuda.set_device(_rank_device(device))
+
+
+@dataclass
+class Mesh:
+    """This rank's place in the ``(data, model)`` grid, its two process
+    groups and its device."""
+
+    data: int
+    model: int
+    rank: int
+    device: torch.device
+    data_group: Any = None
+    model_group: Any = None
+
+    @property
+    def world(self) -> int:
+        return self.data * self.model
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {DATA_AXIS: self.data, MODEL_AXIS: self.model}
+
+    # -- collectives (every rank of the group reaches each, in one order) --
+
+    def sum_over_data(self, tensor: torch.Tensor) -> torch.Tensor:
+        """``tensor`` summed over the data group, in place."""
+        dist.all_reduce(tensor, group=self.data_group)
+        return tensor
+
+    def sum_over_model(self, tensor: torch.Tensor) -> torch.Tensor:
+        """``tensor`` summed over the model group, in place."""
+        dist.all_reduce(tensor, group=self.model_group)
+        return tensor
+
+    def _gather(self, tensor: torch.Tensor, group, size: int) -> torch.Tensor:
+        parts = [torch.empty_like(tensor) for _ in range(size)]
+        dist.all_gather(parts, tensor.contiguous(), group=group)
+        return torch.cat(parts)
+
+    def gather_data(self, tensor: torch.Tensor) -> torch.Tensor:
+        """The data group's tensors concatenated along dim 0, in data index
+        order: a batch's slices back in batch order."""
+        return self._gather(tensor, self.data_group, self.data)
+
+    def gather_model(self, tensor: torch.Tensor) -> torch.Tensor:
+        """The model group's tensors concatenated along dim 0, in model
+        index order: a table's row shards back in row order."""
+        return self._gather(tensor, self.model_group, self.model)
+
+    def barrier(self) -> None:
+        """Every rank of the world reaches this point."""
+        if self.device.type == "cuda":
+            dist.barrier(device_ids=[self.device.index])
+        else:
+            dist.barrier()
+
+
+def make_mesh(data: Optional[int] = None, model: int = 1, device=None) -> Mesh:
+    """The ``(data, model)`` mesh of this rank over the initialised world
+    (``initialize_distributed`` first). ``data=None`` takes every rank the
+    model axis leaves. ``device`` is ``"cpu"`` for a gloo world; by default
+    the rank's card."""
+    if not dist.is_initialized():
+        raise RuntimeError("initialize_distributed() first: the mesh is made of its ranks")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if data is None:
+        if world % model:
+            raise ValueError(f"model={model} does not divide the world of {world} ranks")
+        data = world // model
+    if data * model != world:
+        raise ValueError(f"a ({data}, {model}) mesh needs {data * model} ranks; the world has "
+                         f"{world}")
+    device = _rank_device(device)
+    if (device.type == "cpu") != (dist.get_backend() == "gloo"):
+        raise ValueError(f"device {device} on a {dist.get_backend()} world")
+    mesh = Mesh(data=data, model=model, rank=rank, device=device)
+    for i in range(data):  # runs of consecutive ranks
+        ranks = [i * model + j for j in range(model)]
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            mesh.model_group = group
+    for j in range(model):  # ranks model apart
+        ranks = [i * model + j for i in range(data)]
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            mesh.data_group = group
+    probe = torch.zeros((1,), device=device)
+    mesh.sum_over_model(probe)
+    mesh.sum_over_data(probe)
+    return mesh
+
+
+@dataclass(frozen=True)
+class DataSharding:
+    """Batch arrays split along dim 0 over the data axis: data index ``i``
+    of ``d`` keeps rows ``[i * B / d, (i + 1) * B / d)``."""
+
+    size: int
+    index: int
+
+    def rows(self, n: int) -> slice:
+        if n % self.size:
+            raise ValueError(f"a batch of {n} rows does not split over {self.size} data ranks")
+        step = n // self.size
+        return slice(self.index * step, (self.index + 1) * step)
+
+    def local(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """This data index's rows of every array of ``batch``."""
+        out = {}
+        for key, value in batch.items():
+            out[key] = value[self.rows(len(value))]
+        return out
+
+
+@dataclass(frozen=True)
+class Replicated:
+    """A tensor every rank holds whole."""
+
+
+def data_sharding(mesh: Mesh) -> DataSharding:
+    """Batch arrays: leading dim split over the data axis."""
+    return DataSharding(mesh.data, mesh.data_index)
+
+
+def replicated(mesh: Mesh) -> Replicated:
+    return Replicated()
+

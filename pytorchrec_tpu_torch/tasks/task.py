@@ -19,8 +19,11 @@ with any. ``trainer_kwargs`` reach the sparse and quantized trainers and
 raise where the route is a dense one.
 
 ``device`` (None: the card; ``"cpu"`` where asked) is where the trainer
-runs. ``mesh`` is taken for the JAX signature and raises on anything but
-None: multi-device runs are not ported. The best model's file is
+runs. ``mesh`` (a ``parallel.Mesh``; anything else raises ``TypeError``)
+goes to the trainer the task routes to, which then runs on the mesh's
+device: every rank runs the same task, and rank 0 alone writes the best
+model and the CSV logs (the value-based RL trainers take no mesh yet). The
+best model's file is
 ``Model/<filename>.pt``, written by ``torch.save``
 (``training/checkpoint.py``), where the JAX task writes msgpack.
 """
@@ -45,6 +48,7 @@ from pytorchrec_tpu_torch.training import (
     Trainer,
 )
 from pytorchrec_tpu_torch.models.rl import ValueRLModel
+from pytorchrec_tpu_torch.parallel.mesh import Mesh
 from pytorchrec_tpu_torch.utils import constants as C
 from pytorchrec_tpu_torch.utils.argument import ArgumentDescription, WithArguments
 
@@ -144,8 +148,8 @@ class Task(ITask):
         trainer_kwargs=None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("a mesh (multi-device runs) is not ported yet")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.Mesh, got {type(mesh).__name__}")
         if trainer not in TRAINER_ROUTES:
             raise ValueError(f"trainer must be one of {TRAINER_ROUTES}, got {trainer!r}")
         self.debug = debug
@@ -184,20 +188,20 @@ class Task(ITask):
                 raise ValueError(f"trainer_kwargs {sorted(tkw)} given but routing resolved to the "
                                  f"dense RLTrainer (trainer={trainer!r}); pass trainer='sparse' "
                                  f"or drop the kwargs")
-            self.trainer = (SparseRLTrainer(model, device=device, **tkw) if use_sparse
-                            else RLTrainer(model, device=device))
+            self.trainer = (SparseRLTrainer(model, device=device, mesh=mesh, **tkw) if use_sparse
+                            else RLTrainer(model, device=device, mesh=mesh))
         elif trainer == "quantized" or (trainer == "auto" and quantized):
             tkw.setdefault("packed_tables", bool(getattr(model, "table_packed", True)))
-            self.trainer = QuantizedEmbeddingTrainer(model, device=device, **tkw)
+            self.trainer = QuantizedEmbeddingTrainer(model, device=device, mesh=mesh, **tkw)
         elif trainer == "sparse":
             tkw.setdefault("packed_tables", True)
-            self.trainer = SparseEmbeddingTrainer(model, device=device, **tkw)
+            self.trainer = SparseEmbeddingTrainer(model, device=device, mesh=mesh, **tkw)
         else:
             if tkw:
                 raise ValueError(f"trainer_kwargs {sorted(tkw)} given but routing resolved to the "
                                  f"dense Trainer (trainer={trainer!r}); pass trainer='sparse' or "
                                  f"'quantized', or drop the kwargs")
-            self.trainer = Trainer(model, device=device)
+            self.trainer = Trainer(model, device=device, mesh=mesh)
 
     @classmethod
     def from_config(cls, model_name: str, dataset: str,
@@ -238,7 +242,8 @@ class Task(ITask):
         csv_logger = CSVLogger(os.path.join(C.log_dir(), f"{self.filename}.csv"))
         early_stopping = EarlyStopping(monitor=self.monitor, mode=self.monitor_mode,
                                        patience=self.patience)
-        callbacks = ([model_checkpoint, early_stopping] if self.debug
+        callbacks = ([model_checkpoint, early_stopping]
+                     if self.debug or not self.trainer.writes_files
                      else [model_checkpoint, csv_logger, early_stopping])
 
         history = self.trainer.fit(self.data_reader, batch_size=self.batch_size,
@@ -252,7 +257,7 @@ class Task(ITask):
             self.trainer.load_best_weights()
 
         test_cb_list = None
-        if not self.debug:
+        if not self.debug and self.trainer.writes_files:
             test_cb_list = CallbackList(
                 [CSVLogger(os.path.join(C.log_dir(), f"{self.filename}.test.csv"))],
                 trainer=self.trainer)

@@ -16,8 +16,12 @@ and, for the quantized trainer, its accumulators and rounding key. A restore
 copies them into the trainer's tensors (``Trainer.load_checkpoint_state``),
 so CUDA graphs captured before it go on reading the restored values.
 
-One process: ``PreemptionGuard`` acts on its own signal. The multi-process
-consensus of the JAX package comes with the multi-device layer.
+On a mesh (``parallel/mesh.py``) every rank takes the host copies (a
+collective: the sharded tables are gathered) and rank 0 alone writes
+(``Trainer.writes_files``). ``PreemptionGuard`` acts on its own signal in
+one process; in a world of several it acts on the ranks' consensus, an
+``all_reduce`` MAX of their flags every ``sync_every`` batches and at each
+epoch's end, so that every rank stops, and saves, at the same step.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from pytorchrec_tpu_torch.training.callbacks import Callback
 
@@ -74,9 +79,12 @@ class CheckpointManager:
     def save(self, step: int, trainer) -> None:
         """Save ``trainer``'s state as ``step``: the host copies are taken
         here, the file is written now or, asynchronously, by the writer
-        thread. A failed earlier write raises here."""
+        thread. A failed earlier write raises here. On a mesh every rank
+        takes the copies and rank 0 writes."""
         self._collect()
         payload = trainer.checkpoint_state()
+        if not getattr(trainer, "writes_files", True):
+            return
         if self._writer is None:
             self._write(step, payload)
         else:
@@ -157,20 +165,26 @@ class PreemptionGuard(CheckpointCallback):
     epoch) boundary the guard saves the full train state synchronously and
     stops the loop, so a restart with ``maybe_resume`` continues exactly
     where the preempted run left off. The previous handlers come back at
-    ``on_train_end``. Its batch hook makes ``fit`` sync each step. One
-    process: the flag is this process's own."""
+    ``on_train_end``. Its batch hook makes ``fit`` sync each step. In one
+    process the flag is its own, read after every batch; in a world of
+    several ranks (one signalled, say) the ranks' consensus is read every
+    ``sync_every`` batches and at each epoch's end, and every rank must
+    reach those points the same number of times."""
 
     def __init__(self, directory: str, max_to_keep: int = 3, every_epochs: int = 0,
-                 signals=None):
+                 signals=None, sync_every: int = 10):
         # every_epochs=0: save only on preemption (pass >0 for periodic too)
         super().__init__(directory, every_epochs=every_epochs or 10**9,
                          max_to_keep=max_to_keep)
         self.signals = tuple(signals) if signals else (signal.SIGTERM,)
+        self.sync_every = sync_every
         self.preempted = False
         self._previous = {}
+        self._batches_seen = 0
 
     def on_train_begin(self, logs=None):
         self.preempted = False
+        self._batches_seen = 0
         for sig in self.signals:
             self._previous[sig] = signal.signal(sig, self._on_signal)
 
@@ -179,18 +193,34 @@ class PreemptionGuard(CheckpointCallback):
                        "step boundary", signum)
         self.preempted = True
 
+    @staticmethod
+    def _world() -> int:
+        return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
     def _consensus_preempted(self) -> bool:
-        """Whether any process was preempted: this one's flag."""
-        return self.preempted
+        """Whether any process was preempted: this one's flag, or in a world
+        of several the ``all_reduce`` MAX of every rank's (a collective)."""
+        if self._world() == 1:
+            return self.preempted
+        flag = torch.tensor([int(self.preempted)], dtype=torch.int32, device=self.trainer.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
 
     def _save_and_stop(self):
         self.ckpt.save(int(self.trainer.state.step), self.trainer)
         self.ckpt.wait()  # on disk before the process can be killed
+        if self._world() > 1:
+            dist.barrier()  # every rank sees the file before it stops
         self.trainer.stop_training = True
         logger.warning("preemption checkpoint saved at step %d", int(self.trainer.state.step))
 
     def on_train_batch_end(self, batch: int, logs=None):
-        if not self.trainer.stop_training and self._consensus_preempted():
+        if self.trainer.stop_training:
+            return
+        self._batches_seen += 1
+        if self._world() > 1 and self._batches_seen % self.sync_every:
+            return  # between the ranks' sync points
+        if self._consensus_preempted():
             self._save_and_stop()
 
     def on_epoch_end(self, epoch: int, logs=None):

@@ -4,10 +4,10 @@ embedding tables.
 
 ``SparseEmbeddingTrainer(model, table_optimizer="adam", rows_injection=None,
 packed_tables=False, packed_min_width=64, packed_bytes=False,
-packed_dtype=None, table_lr=None)`` keeps the dense parameters on the dense
-optimizer and updates each embedding table with row-sparse lazy Adam,
-Adagrad or rowwise Adagrad (``ops/sparse_update.py``). A table is stored in
-one of four formats:
+packed_dtype=None, table_lr=None, mesh=None)`` keeps the dense parameters
+on the dense optimizer and updates each embedding table with row-sparse
+lazy Adam, Adagrad or rowwise Adagrad (``ops/sparse_update.py``). A table
+is stored in one of four formats:
 
 * unpacked (the default): the model's own ``[V, E]`` table, its moments in
   ``state.table_moments`` (``sparse_lazy_adam``, ``sparse_adagrad``,
@@ -53,6 +53,18 @@ stop-gradient copy of each table, the port injects them all the same,
 through the model's ``injection_specs``, which also names per-field tables:
 each id's summed gradient is the same, summed in another order. Packed
 tables need rows injection, as in the JAX package.
+
+On a mesh (``mesh=``, ``Trainer``'s) each table the rule shards
+(``parallel/sharding.py``) keeps this rank's rows in every format, its
+moments with them. A step's gather is ``masked_psum_lookup``'s: the rows
+this rank owns, zeros elsewhere, summed over the model group. The update
+gathers the row grads (each scaled by ``1/d``: they come from the rank's
+mean loss over ``B/d`` rows) and their ids over the data group, in batch
+order, so the stable sort orders the ids this rank owns as one process
+would; the ids of other shards become one past the shard's last row, which
+every update drops, and the unchanged update (B2 and B4 for packed rows,
+the unpacked lazy Adam, Adagrad and rowwise Adagrad) runs on the shard from
+its own pre-update rows. A replicated table takes every id.
 """
 
 from __future__ import annotations
@@ -76,6 +88,7 @@ from pytorchrec_tpu_torch.ops.sparse_update import (
     unpack_table,
     unpack_table_bytes,
 )
+from pytorchrec_tpu_torch.parallel.sharding import RowShard, param_shardings
 from pytorchrec_tpu_torch.training.state import SparseTrainState, StepScalars
 from pytorchrec_tpu_torch.training.trainer import Batch, Trainer
 
@@ -122,7 +135,7 @@ class SparseEmbeddingTrainer(Trainer):
     def __init__(self, model, device=None, table_optimizer: str = "adam",
                  rows_injection: Optional[bool] = None, packed_tables: bool = False,
                  packed_min_width: int = 64, packed_bytes: bool = False, packed_dtype=None,
-                 table_lr: Optional[float] = None):
+                 table_lr: Optional[float] = None, mesh=None):
         if not hasattr(model, "sparse_table_ids"):
             raise TypeError(f"{type(model).__name__} does not implement sparse_table_ids()")
         if table_optimizer not in PACKED_COLS:
@@ -141,7 +154,7 @@ class SparseEmbeddingTrainer(Trainer):
             if packed_dtype not in _STORAGE:
                 raise ValueError(f"packed_dtype must be float32 or bfloat16, got {packed_dtype!r}")
             packed_dtype = _STORAGE[packed_dtype]
-        super().__init__(model, device)
+        super().__init__(model, device, mesh=mesh)
         self.table_optimizer = table_optimizer
         self.rows_injection = rows_injection
         self.packed_tables = packed_tables
@@ -218,10 +231,16 @@ class SparseEmbeddingTrainer(Trainer):
         if missing:
             raise ValueError(f"tables {sorted(missing)} cannot take injected rows")
         packed, moments = {}, {}
+        specs = (param_shardings({p: self._table_param(p) for p in self._table_paths}, self.mesh)
+                 if self.mesh is not None else {})
         for path in self._table_paths:
             table = self._table_param(path).detach()
             e = table.shape[1]
             self._emb_dims[path] = e
+            if isinstance(specs.get(path), RowShard):  # this rank's rows, looked up over the mesh
+                table = self._record_shard(path, specs[path], table)
+                self._set_table_param(path, table)
+                self.model.get_submodule(_module_path(path)[0]).mesh = self.mesh
             if not self.packed_tables:
                 self._table_param(path).requires_grad_(False)
                 moments[path] = self._zero_moments(table)
@@ -237,6 +256,7 @@ class SparseEmbeddingTrainer(Trainer):
                 self._set_table_param(path, table.new_empty((0, e)))
             else:  # the model reads the trained table through a view of the buffer
                 self._set_table_param(path, unpack_table(packed[path], e))
+        self._shard_tables(skip=self._table_paths)
         tables = {".".join(_module_path(p)) for p in self._table_paths}
         optimizer = self._build_optimizer((name, p) for name, p in self.model.named_parameters()
                                           if name not in tables)
@@ -263,6 +283,18 @@ class SparseEmbeddingTrainer(Trainer):
             return None, self._table_param(path).index_select(0, ids)
         rows = self.state.packed[path].index_select(0, ids)
         return rows, self._f32_rows(rows, path)
+
+    def _table_values(self, path: str, ids: torch.Tensor) -> torch.Tensor:
+        """A table's f32 rows at the global ``ids``; a sharded table's
+        through the model group (``Trainer._table_rows``)."""
+        packed, table = self.state.packed.get(path), self._table_param(path).detach()
+
+        def gather(at: torch.Tensor) -> torch.Tensor:
+            if packed is None:
+                return table.index_select(0, at)
+            return self._f32_rows(packed.index_select(0, at), path)
+
+        return self._table_rows(self._shards.get(path), ids, gather)
 
     def _update(self, path: str, ids: torch.Tensor, rows: Optional[torch.Tensor],
                 grads: torch.Tensor, bias_correction: Optional[torch.Tensor]) -> None:
@@ -294,7 +326,10 @@ class SparseEmbeddingTrainer(Trainer):
         for spec in self._injection_specs(batch).values():
             path = spec["path"]
             ids = spec["ids"].reshape(-1).to(torch.int32)
-            rows, values = self._gather(path, ids)
+            if self.mesh is None:
+                rows, values = self._gather(path, ids)
+            else:
+                rows, values = None, self._table_values(path, ids)
             leaf = values.detach().requires_grad_()
             injected[spec["rows_key"]] = leaf
             gathered.append((path, ids, rows, leaf))
@@ -303,11 +338,16 @@ class SparseEmbeddingTrainer(Trainer):
         loss = self.loss_fn(prediction, target)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss = self._average_over_data(loss)
         state.optimizer.step()
         adam = self.table_optimizer == "adam"
         for path, ids, rows, leaf in gathered:
             bias_correction = state.scalars.bias_correction(scalars, path) if adam else None
-            self._update(path, ids, rows, leaf.grad, bias_correction)
+            grads = leaf.grad
+            if self.mesh is not None:
+                ids, rows, grads = self._update_inputs(self._shards.get(path), ids, grads,
+                                                       state.packed.get(path))
+            self._update(path, ids, rows, grads, bias_correction)
         return loss.detach()
 
     # ------------------------------------------------------------------
@@ -323,18 +363,8 @@ class SparseEmbeddingTrainer(Trainer):
         for spec in self.model.sharded_table_specs(batch).values():
             path = spec["path"]
             if path in self._table_shapes:
-                ids = spec["ids"].reshape(-1)
-                out[spec["rows_key"]] = self._f32_rows(
-                    self.state.packed[path].index_select(0, ids), path)
+                out[spec["rows_key"]] = self._table_values(path, spec["ids"].reshape(-1))
         return out
-
-    def _score_body(self, inputs) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        return self.model(self._with_table_rows(inputs.batch), train=False)
-
-    def _score_eager(self, batch: Batch) -> torch.Tensor:
-        with torch.inference_mode():
-            prediction, _ = self.model(self._with_table_rows(self._to_device(batch)), train=False)
-        return prediction
 
     def unpacked_params(self) -> Dict[str, torch.Tensor]:
         """The model's state dict with every table as f32 ``[V, E]``: the
@@ -382,8 +412,9 @@ class SparseEmbeddingTrainer(Trainer):
         return super().make_serving_fn()
 
     def _extra_checkpoint(self) -> Dict[str, Any]:
-        """A checkpoint's unpacked-table moments (host copies), by path."""
-        return {"table_moments": {path: {k: v.detach().to("cpu", copy=True)
+        """A checkpoint's unpacked-table moments (host copies, whole), by
+        path."""
+        return {"table_moments": {path: {k: self._full_rows(path, v)
                                          for k, v in moments.items()}
                                   for path, moments in self.state.table_moments.items()}}
 
@@ -395,4 +426,4 @@ class SparseEmbeddingTrainer(Trainer):
         with torch.no_grad():
             for path, moments in own.items():
                 for key, tensor in moments.items():
-                    tensor.copy_(saved[path][key])
+                    tensor.copy_(self._local_rows(path, saved[path][key]))

@@ -2,8 +2,9 @@
 init_state, train_step, fit, fit_steps, evaluate, predict, serving, and
 weights and checkpoints.
 
-``Trainer(model, device=None, packed_transfer=None)`` places the model on
-the card (or on the CPU when asked). ``compile(optimizer, loss, lr,
+``Trainer(model, device=None, packed_transfer=None, mesh=None)`` places the
+model on the card (or on the CPU when asked; on a mesh, on its rank's
+device: see the end of this docstring). ``compile(optimizer, loss, lr,
 weight_decay, grad_clip_norm, matmul_precision, **optimizer_kwargs)`` picks
 the dense optimizer (``optim/optimizers.py``), the loss and the train
 step's matmul precision (``ops/precision.py``: ``"bfloat16"``
@@ -89,6 +90,32 @@ is a host copy, as the JAX trainer keeps it. Files hold only what
 ``torch.load(weights_only=True)`` reads.
 
 Batches are dicts of numpy arrays or tensors.
+
+On a mesh (``mesh=``, ``parallel/mesh.py``; one process a rank, every rank
+running the same calls on the same batches) the trainer is the JAX
+trainer's sharded one, with its collectives written out:
+
+* ``init_state`` draws the whole state from the seed, as one process does,
+  and each rank keeps its rows of every table the rule shards over the
+  model axis (``parallel/sharding.py``; the ``Embedding`` module then looks
+  up through ``masked_psum_lookup``) and of that table's optimizer state;
+* every rank reads the same global batch, and data index i keeps rows
+  ``[i B/d, (i+1) B/d)`` of it (``data_sharding``); the packed transfer is
+  off by default, as in the JAX trainer;
+* after the backward each dense gradient and the step's loss are averaged
+  over the data group (one ``all_reduce``); the model group already holds
+  equal dense gradients. ``grad_clip_norm``'s global norm adds the table
+  shards' squares over the model group;
+* ``evaluate``, ``predict`` and the scorer score each data index's rows and
+  gather the scores over the data group, so every rank returns the same;
+* the weights, ``checkpoint_state`` and ``leaves_of`` gather each sharded
+  table over the model group, rank 0 alone writes a file (``writes_files``,
+  the one-process format) and every rank waits for it; a load on the same
+  mesh keeps each rank's rows. Every rank must reach each save.
+
+On the card the captured step holds the collectives with the rest of the
+step; ``make_mesh`` made each group's communicator first. A rank's dropout
+masks are drawn for its rows alone, so they differ from one process's.
 """
 
 from __future__ import annotations
@@ -98,7 +125,8 @@ import json
 import os
 from collections import OrderedDict
 from itertools import chain, islice
-from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, Iterable, Iterator, List, Mapping, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -111,14 +139,17 @@ from pytorchrec_tpu_torch.loss import get_loss
 from pytorchrec_tpu_torch.metric import MetricList
 from pytorchrec_tpu_torch.metric.metrics import MSE, LogLoss, TaskSlice
 from pytorchrec_tpu_torch.models.base import RecModel
-from pytorchrec_tpu_torch.ops.embedding import INIT_STD
+from pytorchrec_tpu_torch.ops.embedding import INIT_STD, Embedding
 from pytorchrec_tpu_torch.ops.kernels import add_tally, capture_tally
 from pytorchrec_tpu_torch.ops.precision import check_precision, matmul_precision as precision_scope
 from pytorchrec_tpu_torch.optim import build_optimizer, get_optimizer
+from pytorchrec_tpu_torch.parallel.embedding_engine import owned_ids
+from pytorchrec_tpu_torch.parallel.mesh import Mesh, data_sharding
+from pytorchrec_tpu_torch.parallel.sharding import RowShard, param_shardings
 from pytorchrec_tpu_torch.training.callbacks import Callback, CallbackList, History
 from pytorchrec_tpu_torch.training.checkpoint import atomic_save
 from pytorchrec_tpu_torch.training.state import TrainState
-from pytorchrec_tpu_torch.utils.convert import flax_path, leaves_of, load_leaves
+from pytorchrec_tpu_torch.utils.convert import _port_key, flax_path, leaves_of, load_leaves
 from pytorchrec_tpu_torch.utils.device import resolve_device
 from pytorchrec_tpu_torch.utils.graphs import GraphCache, StaticInputs, collector_paused
 
@@ -299,11 +330,20 @@ def init_parameters(model: torch.nn.Module, generator: torch.Generator) -> None:
 
 
 class Trainer:
-    """Owns one model on one device, its optimizer and its step counter."""
+    """Owns one model on one device (a mesh's rank), its optimizer and its
+    step counter."""
 
     trains_quantized_tables = False
 
-    def __init__(self, model: RecModel, device=None, packed_transfer: Optional[bool] = None):
+    def __init__(self, model: RecModel, device=None, packed_transfer: Optional[bool] = None,
+                 mesh: Optional[Mesh] = None):
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.Mesh, got {type(mesh).__name__}")
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's rank device {mesh.device}")
+            device = mesh.device
+        self.mesh = mesh
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # everything runs in full f32, as the JAX reference does: no TF32
@@ -312,7 +352,11 @@ class Trainer:
             torch.backends.cudnn.allow_tf32 = False
         self.model = model.to(self.device)
         # one device: the packed transfer is the default, as in the JAX trainer
-        self.packed_transfer = True if packed_transfer is None else bool(packed_transfer)
+        self.packed_transfer = mesh is None if packed_transfer is None else bool(packed_transfer)
+        # the sharded leaves by flax path (this rank's rows), and each one's
+        # whole shape and dtype (a tensor on the meta device)
+        self._shards: Dict[str, RowShard] = {}
+        self._full_shapes: Dict[str, torch.Tensor] = {}
         self.state: Optional[TrainState] = None
         self.best_params: Optional[Dict[str, torch.Tensor]] = None  # host copies, by flax path
         self.stop_training = False
@@ -380,6 +424,7 @@ class Trainer:
         return build_optimizer(self.optimizer_name, [p for _, p in named], self.lr,
                                self.weight_decay, grad_clip_norm=self.grad_clip_norm,
                                paths=[flax_path(name) for name, _ in named],
+                               sum_squares=self._sum_squares if self._shards else None,
                                **self.optimizer_kwargs)
 
     def _assert_compiled(self) -> None:
@@ -393,6 +438,7 @@ class Trainer:
         return self.state
 
     def _make_state(self, sample_batch: Batch, rng: torch.Generator) -> TrainState:
+        self._shard_tables()
         return TrainState(optimizer=self._build_optimizer(self.model.named_parameters()),
                           rng=rng)
 
@@ -408,6 +454,7 @@ class Trainer:
         self._layouts.clear()
         self._layout = None
         self._scores.clear()
+        self._unshard()
         generator = torch.Generator(device=self.device).manual_seed(seed)
         init_parameters(self.model, generator)
         self.state = self._make_state(sample_batch, generator)
@@ -432,6 +479,7 @@ class Trainer:
         loss = self.loss_fn(prediction, target)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss = self._average_over_data(loss)
         state.optimizer.step()
         return loss.detach()
 
@@ -450,7 +498,7 @@ class Trainer:
         state = self._assert_state()
         scalars = torch.empty((1, state.scalars.width), dtype=torch.int32, device=self.device)
         with precision_scope(self.matmul_precision):
-            loss = self._step(self._to_device(batch),
+            loss = self._step(self._to_device(self._local_batch(batch)),
                               self._write_scalars(scalars, state.step + 1)[0])
         state.step += 1
         return loss
@@ -498,6 +546,8 @@ class Trainer:
             layout = self._adopt(("packed", item.packer.signature), lambda: _Layout(item.packer))
         elif isinstance(item, tuple):
             layout = self._layout
+            if self.mesh is not None:
+                raise ValueError("a mesh splits dict batches: pass dicts, not packed pairs")
             if layout is None or layout.packer is None:
                 raise ValueError("a packed batch needs its layout's packer: pass a dict batch "
                                  "first, or pack with trainer.batch_packer(example)")
@@ -613,7 +663,9 @@ class Trainer:
     def _feed(self, batches: Iterable) -> Iterator:
         """The items ``_call`` takes: with the packed transfer, the batches
         packed on the prefetch thread (a ring to close when done), else the
-        batches themselves."""
+        batches themselves; on a mesh each batch's rows of this data index."""
+        if self.mesh is not None:
+            batches = map(self._local_batch, batches)
         if self.packed_transfer:
             return device_put_prefetch(iter(batches), PREFETCH,
                                        pin_memory=self.device.type == "cuda")
@@ -767,24 +819,33 @@ class Trainer:
     # scoring: one CUDA graph a request signature
     # ------------------------------------------------------------------
 
+    def _with_table_rows(self, batch: Batch) -> Batch:
+        """``batch`` with the rows of each table the model cannot gather
+        itself injected: none here (the sparse trainer's bf16 and byte
+        rows, a mesh's sharded quantized tables)."""
+        return batch
+
     def _score_body(self, inputs: StaticInputs) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        return self.model(inputs.batch, train=False)
+        return self.model(self._with_table_rows(inputs.batch), train=False)
 
     def _eval_step(self, batch: Batch) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """``(prediction, target)`` of one batch on the device (target None
         without a label), fresh tensors: on the card the replay of the
         batch signature's graph (see the module docstring), on the CPU the
-        same body eagerly over the same static inputs."""
-        signature = request_signature(batch)
+        same body eagerly over the same static inputs. On a mesh each data
+        index scores its rows, and the scores are gathered."""
+        local = self._local_batch(batch)
         packed = self.packed_transfer
-        return self._scores.run(
-            signature, lambda inputs: inputs.load(batch, batch.values()),
-            lambda: _score_inputs(batch, self.device, packed), self._score_body)
+        prediction, target = self._scores.run(
+            request_signature(local), lambda inputs: inputs.load(local, local.values()),
+            lambda: _score_inputs(local, self.device, packed), self._score_body)
+        return self._gathered(prediction), None if target is None else self._gathered(target)
 
     def _score_eager(self, batch: Batch) -> torch.Tensor:
         with torch.inference_mode():
-            prediction, _ = self.model(self._to_device(batch), train=False)
-        return prediction
+            local = self._to_device(self._local_batch(batch))
+            prediction, _ = self.model(self._with_table_rows(local), train=False)
+        return self._gathered(prediction)
 
     def make_serving_fn(self) -> Callable[[Batch], torch.Tensor]:
         """Scorer over the model's current parameters: moves the batch to the
@@ -813,8 +874,12 @@ class Trainer:
                        ) -> Tuple["torch.export.ExportedProgram", List[str]]:
         """``(program, keys)``: the eager scorer over the current parameters,
         exported with ``sample_batch``'s shapes, and the batch keys it takes
-        in order (see the module docstring)."""
+        in order (see the module docstring). Not on a mesh: export what a
+        one-process trainer loads from its saved weights."""
         self._assert_state()
+        if self.mesh is not None:
+            raise ValueError("a mesh trainer's tables are sharded: load its saved weights into a "
+                             "one-process trainer and export there")
         batch = self._to_device(sample_batch)
         keys = sorted(batch)
         with self._serving_model() as model, torch.no_grad():
@@ -933,9 +998,13 @@ class Trainer:
 
     def save_weights(self, filepath: str) -> None:
         """The weights (``leaves_of``: host copies by flax path) to
-        ``filepath``, written whole or not at all (``atomic_save``)."""
+        ``filepath``, written whole or not at all (``atomic_save``); on a
+        mesh by rank 0, every rank waiting for it."""
         self._assert_state()
-        atomic_save(leaves_of(self), filepath)
+        leaves = leaves_of(self)
+        if self.writes_files:
+            atomic_save(leaves, filepath)
+        self._barrier()
 
     def load_weights(self, filepath: str) -> None:
         """Copy the weights in ``filepath`` into the trainer's tensors, in
@@ -971,7 +1040,8 @@ class Trainer:
         for param, path in self._dense_paths().items():
             entry = state.optimizer.state.get(param)
             if entry:
-                opt_state[path] = {k: v.detach().to("cpu", copy=True) for k, v in entry.items()}
+                opt_state[path] = {k: self._full_rows(path, v) if v.dim() else
+                                   v.detach().to("cpu", copy=True) for k, v in entry.items()}
         return {"params": leaves_of(self), "opt_state": opt_state, "step": int(state.step),
                 "rng_state": state.rng.get_state(), **self._extra_checkpoint()}
 
@@ -991,6 +1061,9 @@ class Trainer:
         with torch.no_grad():
             for param, path in paths.items():
                 entry, values = state.optimizer.state.get(param), saved.get(path)
+                if values is not None:
+                    values = {k: self._local_rows(path, v) if v.dim() else v
+                              for k, v in values.items()}
                 if entry:
                     for key, tensor in entry.items():
                         if values is None:
@@ -1014,8 +1087,12 @@ class Trainer:
 
     def save_checkpoint(self, filepath: str) -> None:
         """The whole train state (``checkpoint_state``) to ``filepath``,
-        written whole or not at all."""
-        atomic_save(self.checkpoint_state(), filepath)
+        written whole or not at all; on a mesh by rank 0, every rank waiting
+        for it."""
+        payload = self.checkpoint_state()
+        if self.writes_files:
+            atomic_save(payload, filepath)
+        self._barrier()
 
     def restore_checkpoint(self, filepath: str) -> None:
         """Restore ``save_checkpoint``'s file into this trainer's state, in
@@ -1024,3 +1101,159 @@ class Trainer:
             raise RuntimeError("init_state() first: a checkpoint restores into the state's "
                                "tensors")
         self.load_checkpoint_state(torch.load(filepath, map_location="cpu", weights_only=True))
+
+    # ------------------------------------------------------------------
+    # the mesh: sharded tables, the batch's rows, the collectives
+    # ------------------------------------------------------------------
+
+    @property
+    def writes_files(self) -> bool:
+        """Whether this process writes what a save makes: the one process,
+        or rank 0 of a mesh."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+    def _local_batch(self, batch: Batch) -> Batch:
+        """On a mesh, this data index's rows of a global batch."""
+        if self.mesh is None:
+            return batch
+        if not isinstance(batch, dict):
+            raise ValueError("a mesh splits dict batches: pass dicts, not packed pairs")
+        return data_sharding(self.mesh).local(batch)
+
+    def _gathered(self, scores: torch.Tensor) -> torch.Tensor:
+        """On a mesh, the data group's scores in batch order."""
+        return scores if self.mesh is None else self.mesh.gather_data(scores)
+
+    def _set_leaf(self, path: str, value: torch.Tensor) -> None:
+        """Put ``value`` in the model where flax path ``path`` lives: a
+        buffer, or a parameter."""
+        module_name, _, name = _port_key(path)[0].rpartition(".")
+        module = self.model.get_submodule(module_name)
+        if name in module._buffers:
+            module.register_buffer(name, value)
+        else:
+            setattr(module, name, torch.nn.Parameter(value))
+
+    def _record_shard(self, path: str, shard: RowShard, full: torch.Tensor) -> torch.Tensor:
+        """Note that ``path`` holds this rank's rows of ``full``; returns
+        them (a copy)."""
+        self._shards[path] = shard
+        self._full_shapes[path] = torch.empty_like(full, device="meta")
+        return shard.local(full.detach()).clone()
+
+    def _shard_tables(self, skip: Iterable[str] = ()) -> None:
+        """On a mesh, each ``Embedding`` table the rule shards
+        (``param_shardings``; the tables in ``skip`` aside) keeps this
+        rank's rows, and its module looks up through the model group."""
+        if self.mesh is None:
+            return
+        skip = set(skip)
+        params = {flax_path(k): p for k, p in self.model.named_parameters()}
+        specs = param_shardings({k: p for k, p in params.items() if k not in skip}, self.mesh)
+        for path, spec in specs.items():
+            if not isinstance(spec, RowShard):
+                continue
+            module_name, _, name = _port_key(path)[0].rpartition(".")
+            module = self.model.get_submodule(module_name)
+            if not isinstance(module, Embedding) or name != "embedding":
+                raise ValueError(f"{path} is sharded but is not an Embedding's table")
+            self._set_leaf(path, self._record_shard(path, spec, params[path]))
+            module.mesh = self.mesh
+
+    def _unshard(self) -> None:
+        """Give every sharded leaf back its whole shape (its values to be
+        drawn anew) and its module the plain lookup."""
+        for path, whole in self._full_shapes.items():
+            module = self.model.get_submodule(_port_key(path)[0].rpartition(".")[0])
+            if isinstance(module, Embedding):
+                module.mesh = None
+            self._set_leaf(path, torch.empty_like(whole, device=self.device))
+        self._shards, self._full_shapes = {}, {}
+
+    def _sum_squares(self, params: List[torch.Tensor]) -> torch.Tensor:
+        """The global norm's sum of squares on a mesh: the replicated
+        gradients' squares, plus the table shards' summed over the model
+        group."""
+        sharded = {id(p) for name, p in self.model.named_parameters()
+                   if flax_path(name) in self._shards}
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        own = sum((torch.sum(p.grad * p.grad) for p in params if id(p) not in sharded), zero)
+        shards = sum((torch.sum(p.grad * p.grad) for p in params if id(p) in sharded), zero)
+        return own + self.mesh.sum_over_model(shards.clone())
+
+    def _average_over_data(self, loss: torch.Tensor) -> torch.Tensor:
+        """On a mesh, every dense gradient and the loss averaged over the
+        data group, in one ``all_reduce``; returns the averaged loss."""
+        if self.mesh is None:
+            return loss
+        params = [p for group in self.state.optimizer.param_groups for p in group["params"]
+                  if p.grad is not None]
+        flat = torch.cat([loss.detach().reshape(1)] + [p.grad.reshape(-1) for p in params])
+        self.mesh.sum_over_data(flat)
+        flat /= self.mesh.data
+        at = 1
+        for p in params:
+            n = p.grad.numel()
+            p.grad.copy_(flat[at:at + n].view_as(p.grad))
+            at += n
+        return flat[0]
+
+    def _table_rows(self, shard: Optional[RowShard], ids: torch.Tensor,
+                    gather: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+        """On a mesh, a table's f32 rows at the global ``ids`` for the
+        trainer to inject (no gradient flows into the table): ``gather(rows)``
+        of a whole table, or of a shard its owned rows, zeros elsewhere,
+        summed over the model group (``masked_psum_lookup``'s forward)."""
+        if shard is None:
+            return gather(ids)
+        local, owned = owned_ids(ids, shard.offset, shard.rows_per_shard)
+        values = gather(local.clamp(max=shard.rows_per_shard - 1))
+        return self.mesh.sum_over_model(torch.where(owned[:, None], values, 0.0))
+
+    def _update_inputs(self, shard: Optional[RowShard], ids: torch.Tensor, grads: torch.Tensor,
+                       packed: Optional[torch.Tensor]
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+        """On a mesh, a table update's ``(ids, rows, grads)`` for this rank:
+        the global batch's ids and row grads (scaled by ``1/d``: each comes
+        from a rank's mean loss over ``B/d`` rows), gathered over the data
+        group in batch order, so the update's stable sort orders them as one
+        process would; a shard's ids as its rows, those of other shards one
+        past its last row, which every update drops; and the ``packed``
+        rows at them before the update (None: an unpacked table)."""
+        mesh = self.mesh
+        ids = mesh.gather_data(ids)
+        grads = mesh.gather_data(grads * (1.0 / mesh.data))
+        if shard is not None:
+            ids, _ = owned_ids(ids, shard.offset, shard.rows_per_shard)
+        rows = None if packed is None else packed.index_select(
+            0, ids.clamp(max=packed.shape[0] - 1))
+        return ids, rows, grads
+
+    def _full_rows(self, path: str, tensor: torch.Tensor) -> torch.Tensor:
+        """A host copy of ``tensor``, whole: gathered over the model group
+        where it holds this rank's rows of the sharded leaf ``path``."""
+        if path in self._shards:
+            tensor = self.mesh.gather_model(tensor.detach().to(self.device))
+        return tensor.detach().to("cpu", memory_format=torch.contiguous_format, copy=True)
+
+    def _local_rows(self, path: str, value):
+        """This rank's rows of a whole leaf ``path`` (or the leaf where it
+        is not sharded)."""
+        shard = self._shards.get(path)
+        return value if shard is None else shard.local(value)
+
+    def _full_leaves(self, leaves: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """``leaves_of``'s host copies with every sharded leaf whole."""
+        if not self._shards:
+            return leaves
+        return {path: self._full_rows(path, value) for path, value in leaves.items()}
+
+    def _local_leaves(self, flat: Mapping[str, Any]) -> Mapping[str, Any]:
+        """Whole leaves (``load_leaves``'s) cut to this rank's rows."""
+        if not self._shards:
+            return flat
+        return {path: self._local_rows(path, value) for path, value in flat.items()}

@@ -81,7 +81,9 @@ to ``[in, out]``), and ``load_leaves(flat, target)`` loads such leaves, or
 JAX's, at any step: every value is copied into the tensor that holds it
 (``copy_``), so no tensor is reallocated and a CUDA graph that captured it
 reads the loaded values. ``Trainer.save_weights``, ``load_weights`` and the
-checkpoints store and read these leaves.
+checkpoints store and read these leaves. A trainer on a mesh gives each
+sharded table whole (gathered over its model group, so every rank of the
+group calls ``leaves_of`` together) and loads whole leaves into its rows.
 """
 
 from __future__ import annotations
@@ -156,7 +158,8 @@ def leaves_of(target) -> Dict[str, torch.Tensor]:
         elif _port_key(path)[1] == "transpose":
             value = value.t()
         out[path] = value.detach().to("cpu", memory_format=torch.contiguous_format, copy=True)
-    return out
+    # a trainer on a mesh: each sharded table whole (gathered over its model group)
+    return out if isinstance(target, nn.Module) else target._full_leaves(out)
 
 
 def _host_tensor(value) -> torch.Tensor:
@@ -212,6 +215,8 @@ def load_leaves(flat: Mapping[str, Any], target):
     model or a trainer with a state, in place; return ``target``."""
     model = target if isinstance(target, nn.Module) else target.model
     packed = _packed_of(target)
+    if not isinstance(target, nn.Module):  # a trainer on a mesh keeps its rows of each table
+        flat = target._local_leaves(flat)
     state = model.state_dict()
     loaded: Dict[str, torch.Tensor] = {}
     filled = set()

@@ -22,6 +22,7 @@ logs and every value of the CSV and TSV files rtol 1e-4 (f32 after N steps,
 import csv
 import json
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -52,6 +53,7 @@ from pytorchrec_tpu_torch.training import (
     SparseRLTrainer,
     Trainer,
 )
+from pytorchrec_tpu_torch.utils import constants as C
 from pytorchrec_tpu_torch.utils import params_from_jax
 from pytorchrec_tpu_torch.utils.argument import ArgumentDescription, WithArguments, str2bool
 from pytorchrec_tpu_torch.utils.convert import UNREAD_LEAVES, leaves_of
@@ -60,6 +62,7 @@ from pytorchrec_tpu_torch.utils.profiling import (
     disable_nan_debugging,
     enable_nan_debugging,
 )
+import torch_mesh_workers
 from test_torch_reader_fit import _spread
 
 WORK_DIR = "PYTORCHREC_TPU_WORK_DIR"
@@ -358,11 +361,39 @@ def test_trainer_routing(dirs, monkeypatch):
     with pytest.raises(ValueError, match="trainer must be"):
         routed("fast")
     model = tasks.build_model("dcnv2", reader, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         Task(reader, model, mesh=object(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Task.from_config("dcnv2", "TaskCtr", reader_kwargs=CTR_READER)
+
+
+def test_task_runs_on_a_mesh_as_in_one_process(tmp_path, monkeypatch):
+    """``Task.from_config("dcnv2", ..., mesh=make_mesh(2, 1))`` for one epoch
+    on two gloo ranks (``torch_mesh_workers.task_rank``): both ranks end at
+    the one process's step with its dev and test metrics, and rank 0 alone
+    wrote the best model and the logs."""
+    monkeypatch.setenv(WORK_DIR, str(tmp_path / "work"))
+    data.generate_synthetic_ctr("MeshCtr", **CTR)
+    tasks.build_reader("dcnv2", "MeshCtr", **CTR_READER)  # the split files, made once
+    kwargs = dict(epoch=1, batch_size=64, lr=0.01, metrics=["auc", "logloss"], verbose=0)
+    inputs = dict(dataset="MeshCtr", reader=CTR_READER, model=dict(emb_size=4), task=kwargs)
+    (tmp_path / "world").mkdir()
+    torch.save(inputs, tmp_path / "world" / "inputs.pt")
+    ranks = torch_mesh_workers.run_world(torch_mesh_workers.task_rank, 2, tmp_path / "world")
+    written = sorted(os.listdir(C.model_dir())), sorted(os.listdir(C.log_dir()))
+    for kind in ("Model", "Log"):
+        shutil.rmtree(tmp_path / "work" / kind)
+    task = Task.from_config("dcnv2", "MeshCtr", reader_kwargs=CTR_READER,
+                            model_kwargs=dict(emb_size=4), device="cpu", **kwargs)
+    best_epoch, dev, test = task.run()
+    assert (sorted(os.listdir(C.model_dir())), sorted(os.listdir(C.log_dir()))) == written
+    for got in ranks:
+        assert got["best_epoch"] == best_epoch and got["step"] == task.trainer.state.step
+        for want, logs in ((dev, got["dev"]), (test, got["test"])):
+            assert set(logs) == set(want)
+            for name, value in want.items():
+                np.testing.assert_allclose(logs[name], value, rtol=1e-4)
 
 
 # ---------------------------------------------------------------------------
