@@ -431,7 +431,7 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    after steps 3, 6 and 9 only; the card against the CPU at 65,536 items
    and batch 512 for the packed f32 and int8 tables; ``console_main`` on
    ``FILES_ML``'s MovieLens-1M shape for ``dqn --trainer sparse`` and
-   ``lsrl`` (dense), 300 batch-"epochs" of 4096 with dev NDCG@10 and Hit@10
+   ``lsrl`` (dense), 100 batch-"epochs" of 4096 with dev NDCG@10 and Hit@10
    every 100, each run's launches from zero;
 46. the mesh (``mesh_phase``): a world of one over NCCL (a ``file://``
    store in a temporary dir, a ``(1, 1)`` mesh, the group destroyed at the
@@ -445,6 +445,28 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    rtol 1e-6, then captured ms/step of each over 20 more (CUDA events); B1,
    B2, B3, B4 and B8 against their plain versions on the recorded
    arguments;
+47. the sharded trainer (``sharded_phase``): two ranks sharing ``cuda:0``
+   over gloo (NCCL takes one rank a card; processes spawned from this one
+   with a launcher's environment, a deadline), a ``(1, 2)`` mesh, over phase
+   40's shards: the Criteo twin's command line ``--mesh 1,2`` (26 x 100k
+   ids, E=16, batch 8192, 20 eager steps, Adam, bf16 matmuls, packed f32
+   tables: B1, B2, B4; its ``rank_device`` starts the group, gloo on
+   ``cuda:0``) and ``--mesh 1,2 --hot_mass 0.9 --vocab_cap 50000``
+   (hot/cold), the same with B2's plain version in the updates (a witness),
+   the model on the grid layout, and DLRM's int8 byte rows as
+   ``tests/test_sharded_quantized.py`` builds them (B2, B3, B4); each run's
+   launches from zero on each rank (a path kernel with none fails), its
+   host-clock ms/step (eager over gloo: a correctness run), its losses and
+   merged tables and dense parameters held to its one-process twin on the
+   card (rtol 1e-4, the plain-scan pair included; int8 q bytes at most one
+   apart; the held-out AUC within 0.01). Hot/cold's fragments put each
+   segment of row grads elsewhere in B2's input than one process does, and
+   B2's bits follow its tiles: its values that part are held to 4 times the
+   parting of one process with B2 against one process with the plain scan
+   (``SHARDED_WITNESS_FACTOR``), and its first step's B2 calls are checked
+   against plain and against themselves a row and a tile further down
+   (``scan_position_witness``). B1 and the update kernels against their
+   plain versions on each run's recorded arguments on each rank;
 
 then a ``two_tower`` JSON line (ms/step,
 fused and exact ms a request, recall, index build ms), a ``classic_int8``
@@ -461,7 +483,8 @@ checks), a ``tasks`` line (phase 42's runs: ms/step, dev and test metrics,
 launches, seconds; the optimizers, the harnesses and the trace), an ``rl``
 line (phase 45's runs, plain checks, cadence and CLI runs), a ``mesh`` line
 (phase 46's pairs: ms/step with and without the mesh, the largest
-differences, launches) and a
+differences, launches), a ``sharded`` line (phase 47's runs: launches by
+rank, ms/step, differences from the one-process twin, seconds) and a
 ``{"kernels": [...]}`` line with
 every kernel at its main-path shape (``launches``: for B1–B4 the DCN-v2 int8
 training run's, for the FM kernels the DeepFM f32 training run's, for the
@@ -474,7 +497,8 @@ phase 39's runs; ``criteo_launches``: phase 40's runs;
 phase 42's runs; ``phase43_launches``: phase 43's bundles, the server's
 count and the Python process's; B4's ``sweep``: phase 44;
 ``phase45_launches``: phase 45's runs; ``phase46_launches``: phase 46's
-runs, with and without the mesh), after a ``serving_bundle`` line (phase
+runs, with and without the mesh; ``phase47_launches``: phase 47's runs,
+rank 0's and rank 1's), after a ``serving_bundle`` line (phase
 43's times, bytes, seconds and launches). Each path
 (serving, each training run) zeroes every launch count just before it and
 reads them just after.
@@ -493,6 +517,7 @@ import dataclasses
 import datetime
 import functools
 import gc
+import io
 import json
 import os
 import subprocess
@@ -622,6 +647,7 @@ from pytorchrec_tpu_torch.training import (
     ModelCheckpoint,
     QuantizedEmbeddingTrainer,
     RLTrainer,
+    ShardedSparseEmbeddingTrainer,
     SparseEmbeddingTrainer,
     SparseRLTrainer,
     TerminateOnNaN,
@@ -632,7 +658,7 @@ from pytorchrec_tpu_torch.training.quantized_trainer import classic_quantized_up
 from pytorchrec_tpu_torch.training.trainer import request_signature
 from pytorchrec_tpu_torch.utils import params_from_jax
 from pytorchrec_tpu_torch.utils.convert import leaves_of
-from pytorchrec_tpu_torch.utils.profiling import TorchProfiler
+from pytorchrec_tpu_torch.utils.profiling import StepTimer, TorchProfiler
 from pytorchrec_tpu_torch.utils.rng import prng_key, split
 
 # bench.py's Criteo-shaped DCN-v2
@@ -2667,7 +2693,8 @@ def check_and_time_b7(gen: torch.Generator):
     duplicated rows (``items[i] == items[i + 128]``: the lower id wins),
     then kernel, plain, the per-super-chunk cuBLAS score GEMMs alone (f32
     out, no selection) and the exact chunked top-k timed at the serving
-    shape (CUDA events, median of 3 interleaved rounds) beside both bounds.
+    shape (CUDA events, median of 3 interleaved rounds; the plain version,
+    4.6 s a call there, in the first round only) beside both bounds.
     Returns (max abs error at the serving shape, timings by dtype)."""
     worst = 0.0
     main = {}
@@ -2713,10 +2740,11 @@ def check_and_time_b7(gen: torch.Generator):
                     torch.mm(q_cast, chunk.T)
 
         runs = {"ms": [], "plain_ms": [], "library_ms": []}
-        for _ in range(3):
+        for round_ in range(3):
             runs["ms"].append(time_cuda(lambda: bin_max_scores(q, items), iters=10, warmup=2))
-            runs["plain_ms"].append(time_cuda(lambda: bin_max_scores_plain(q, items), iters=1,
-                                              warmup=0))
+            if round_ == 0:  # 4.6 s a call at the serving shape: one round
+                runs["plain_ms"].append(time_cuda(lambda: bin_max_scores_plain(q, items),
+                                                  iters=1, warmup=0))
             runs["library_ms"].append(time_cuda(library, iters=10, warmup=2))
         timing = {k: float(np.median(r)) for k, r in runs.items()}
         work = b7_work(b, v, d, dtype)
@@ -4738,26 +4766,26 @@ def criteo_run(name: str, data: dict) -> dict:
     return out
 
 
-def criteo_phase(seed: int) -> dict:
-    """Phase 40 in a temporary work dir (``PYTORCHREC_TPU_WORK_DIR`` under
-    the process's ``TMPDIR``), removed at the end."""
+def criteo_phase(seed: int, work_dir: str) -> dict:
+    """Phase 40 in the work dir ``work_dir`` (``PYTORCHREC_TPU_WORK_DIR``, a
+    temporary dir under the process's ``TMPDIR`` that phase 47 reads again
+    and ``main`` removes)."""
     t0 = time.perf_counter()
     previous = os.environ.get("PYTORCHREC_TPU_WORK_DIR")
     out = {}
     try:
-        with tempfile.TemporaryDirectory() as tmp:
-            os.environ["PYTORCHREC_TPU_WORK_DIR"] = tmp
-            data = criteo_twin.prepare(CRITEO["rows"], CRITEO["hash_bucket"],
-                                       log=lambda message: print(f"[criteo] {message}"))
-            out["data"] = {k: data[k] for k in ("synth_s", "format_s")}
-            out["data"]["shards"] = len(data["shards"])
-            print(f"[criteo] {CRITEO['rows']} raw rows synthesized in {data['synth_s']:.2f} s, "
-                  f"formatted into {len(data['shards'])} .npz shards in {data['format_s']:.2f} s "
-                  f"(host clock)")
-            out["bf16_gemm"] = bf16_gemm_check()
-            out["capture"] = criteo_captured_against_eager(data, seed)
-            for name in CRITEO_RUNS:
-                out[name] = criteo_run(name, data)
+        os.environ["PYTORCHREC_TPU_WORK_DIR"] = work_dir
+        data = criteo_twin.prepare(CRITEO["rows"], CRITEO["hash_bucket"],
+                                   log=lambda message: print(f"[criteo] {message}"))
+        out["data"] = {k: data[k] for k in ("synth_s", "format_s")}
+        out["data"]["shards"] = len(data["shards"])
+        print(f"[criteo] {CRITEO['rows']} raw rows synthesized in {data['synth_s']:.2f} s, "
+              f"formatted into {len(data['shards'])} .npz shards in {data['format_s']:.2f} s "
+              f"(host clock)")
+        out["bf16_gemm"] = bf16_gemm_check()
+        out["capture"] = criteo_captured_against_eager(data, seed)
+        for name in CRITEO_RUNS:
+            out[name] = criteo_run(name, data)
     finally:
         if previous is None:
             os.environ.pop("PYTORCHREC_TPU_WORK_DIR", None)
@@ -5705,7 +5733,8 @@ RL_PER_STEP = {"dense": {}, "unpacked": {segmented_sum_scan: 1, scatter_set_rows
 RL_CPU_ITEMS, RL_CPU_BATCH = 65_536, 512
 RL_CADENCE_FREQ = 3
 RL_CADENCE_WINDOWS = (1, 3, 1, 3, 1)  # steps a call: the warm-up, then windows of 3 and 1
-RL_CLI_EPOCHS, RL_CLI_DEV_FREQ, RL_CLI_BATCH = 300, 100, 4096
+# 100 batch-"epochs" and one dev evaluation: the smoke's time limit
+RL_CLI_EPOCHS, RL_CLI_DEV_FREQ, RL_CLI_BATCH = 100, 100, 4096
 RL_CLI_ARGV = ["--epoch", str(RL_CLI_EPOCHS), "--dev_freq", str(RL_CLI_DEV_FREQ),
                "--batch_size", str(RL_CLI_BATCH), "--loss", "mse", "--lr", str(RL_LR),
                "--metrics", "ndcg@10,hit@10", "--verbose", "0", "--reader",
@@ -6163,6 +6192,502 @@ def mesh_phase(rng: np.random.Generator, seed: int) -> dict:
     return out
 
 
+# phase 47: the sharded trainer, two ranks sharing the card over gloo
+SHARDED_MESH = (1, 2)  # (data, model): NCCL takes one rank a card; gloo lets two share it
+SHARDED_STEPS = 20  # the Criteo runs' steps (batch CRITEO["batch"], bf16 matmuls)
+CRITEO_LR = 1e-3  # the Criteo twin's Adam lr (criteo_end_to_end.make_trainer)
+# The Criteo twin's command line as each rank runs it under a launcher (RANK,
+# WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT set: the twin's
+# rank_device picks gloo on cuda:0, the world outnumbering the cards), over
+# phase 40's shards (--formatted), with the command line's bf16 matmuls
+SHARDED_ARGV = ["--steps", str(SHARDED_STEPS), "--batch", str(CRITEO["batch"]),
+                "--hash_bucket", str(CRITEO["hash_bucket"]), "--formatted"]
+HOT_COLD_ARGV = ["--mesh", "1,2", "--hot_mass", "0.9", "--vocab_cap", "50000"]
+# run -> the twin's flags after SHARDED_ARGV, or None: a path of its own.
+# The plain-scan run is the hot/cold command line with B2's plain version in
+# the table updates, on the two ranks and in its one-process twin (a witness,
+# below)
+SHARDED_RUNS = {"criteo_1d": ["--mesh", "1,2"], "criteo_hot_cold": HOT_COLD_ARGV,
+                "criteo_hot_cold_plain_scan": HOT_COLD_ARGV, "grid_f32": None,
+                "dlrm_int8": None}
+PLAIN_SCAN_RUNS = ("criteo_hot_cold_plain_scan",)
+SHARDED_KERNELS = {"criteo_1d": (cross_network, segmented_sum_scan, scatter_set_rows),
+                   "criteo_hot_cold": (cross_network, segmented_sum_scan, scatter_set_rows),
+                   "criteo_hot_cold_plain_scan": (cross_network, scatter_set_rows),
+                   "grid_f32": (cross_network, segmented_sum_scan, scatter_set_rows),
+                   "dlrm_int8": (segmented_sum_scan, requantize_rows, scatter_set_rows)}
+SHARDED_RTOL = 1e-4  # ROADMAP's f32 after N steps, against the one-process run on the card
+# hot/cold's fragments hold their rows in frequency order where one process
+# holds them by id, so each segment of row grads sits elsewhere in B2's
+# input. B2 sums a tile (512 rows at E=16) by groups of rows and carries
+# across tiles: a segment's bits follow where those boundaries cut it. (The
+# 1-D run's shard 1 starts 13 x 8192 rows into one process's input, a whole
+# number of tiles, so it stays bit-equal.) Three witnesses: the plain-scan
+# pair (B2's plain version sums by offsets from a head, the same bits at any
+# place), held to SHARDED_RTOL, is the path less B2's rounding; each rank's
+# first hot/cold step's B2 calls against plain and against themselves moved
+# down a row and a tile (scan_position_witness); and one process with the
+# kernel against one process with the plain scan, B2's rounding alone after
+# the same steps. The hot/cold run's values that part from its one-process
+# twin's by more than SHARDED_RTOL are measured in shares of lr (tables and
+# dense leaves apart) and held to SHARDED_WITNESS_FACTOR times that last
+# witness's share, its losses to SHARDED_RTOL and its held-out AUC to
+# CRITEO_AUC_GAP
+SHARDED_WITNESS_FACTOR = 4.0
+# tests/test_sharded_quantized.py's DLRM: 3 fields of 120 ids, E=8, 5 steps of 64
+SHARDED_DLRM = dict(vocab=120, fields=3, emb=8, batch=64, steps=5, lr=0.05, seed=3)
+SHARDED_DEADLINE_S = 600.0  # the world's ranks are killed past it
+SCAN_OWNERS = tuple(m for m in (sparse_update_module, quantized_packed_module,
+                                quantized_trainer_module) if hasattr(m, "segmented_sum_scan"))
+
+
+@contextlib.contextmanager
+def plain_scan():
+    """Inside: the table updates run B2's plain version."""
+    with contextlib.ExitStack() as stack:
+        for owner in SCAN_OWNERS:
+            stack.enter_context(swapped(owner, "segmented_sum_scan", segmented_sum_scan_plain))
+        yield
+
+
+@contextlib.contextmanager
+def recording_first_scans(calls: list, count: int):
+    """Inside: B2 runs as before where the table updates call it, and its
+    first ``count`` calls' arguments are copied into ``calls``."""
+    kernel = getattr(SCAN_OWNERS[0], "segmented_sum_scan")
+
+    def record(x, is_start):
+        if len(calls) < count:
+            calls.append((layout_copy(x.detach()), is_start.clone()))
+        return kernel(x, is_start)
+
+    with contextlib.ExitStack() as stack:
+        for owner in SCAN_OWNERS:
+            stack.enter_context(swapped(owner, "segmented_sum_scan", record))
+        yield
+
+
+def moved_down(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """``x`` ``shift`` rows further down a zero buffer of its row stride and
+    offset within a row."""
+    stride, offset = x.stride(0), x.storage_offset() % x.stride(0)
+    rows = torch.zeros((x.shape[0] + shift, stride), dtype=x.dtype, device=x.device)
+    view = rows[:, offset:offset + x.shape[1]]
+    view[shift:] = x
+    return view
+
+
+def scan_position_witness(tag: str, label: str, x: torch.Tensor, is_start: torch.Tensor) -> dict:
+    """B2's bits against a segment's place: a recorded call against its
+    plain version (as ``update_kernels_against_plain``), then its sums with
+    every row moved down by one row and by one tile (rows of their own
+    segments in front). The plain version gives the same bits at any place;
+    the kernel gives them a tile down, and a row down it may not."""
+    with torch.no_grad():
+        want = segmented_sum_scan_plain(x, is_start)
+        got = segmented_sum_scan(x, is_start)
+        scale = max(float(want.abs().max()), 1e-30)
+        err = close(got, want, rtol=1e-5, atol=1e-5 * scale)
+        tile = seg_scan_launch_info(x)["tile_rows"]
+        out = {"call": label, "rows": int(x.shape[0]), "tile_rows": tile, "max_abs_err": err,
+               "rows_apart_from_plain": int((got != want).any(dim=1).sum())}
+        for shift in (1, tile):
+            moved = moved_down(x, shift)
+            heads = torch.cat([is_start.new_ones(shift), is_start])
+            if not torch.equal(segmented_sum_scan_plain(moved, heads)[shift:], want):
+                raise AssertionError(f"{tag} {label}: the plain scan moved {shift} rows differs")
+            kernel = segmented_sum_scan(moved, heads)[shift:]
+            out[f"moved_{shift}"] = {"rows_apart": int((kernel != got).any(dim=1).sum()),
+                                     "max_abs_diff": float((kernel - got).abs().max())}
+    print(f"{tag} {label} scan {list(x.shape)}: against plain max abs err {err:.3e} "
+          f"({out['rows_apart_from_plain']} rows' bits apart); moved a row "
+          f"{out['moved_1']['rows_apart']} rows apart (max {out['moved_1']['max_abs_diff']:.3e}), "
+          f"moved a tile ({tile} rows) {out[f'moved_{tile}']['rows_apart']}", flush=True)
+    if out[f"moved_{tile}"]["rows_apart"]:
+        raise AssertionError(f"{tag} {label}: B2 moved a whole tile changed its sums")
+    return out
+
+
+def sharded_dlrm(device) -> DLRM:
+    d = SHARDED_DLRM
+    sparse = tuple(CategoricalColumnWithIdentity(feature_name=f"c_{i}", category_num=d["vocab"])
+                   for i in range(d["fields"]))
+    return DLRM(sparse_columns=sparse, dense_columns=(NumericColumn(feature_name="d_0"),),
+                label_column=LABEL, emb_size=d["emb"], bottom_layers=(16,), top_layers=(16,),
+                unified_embedding=True, quantized_embedding=True, table_packed=True,
+                table_row_multiple=8, device=device)
+
+
+def sharded_dlrm_batches(rng: np.random.Generator) -> list:
+    d = SHARDED_DLRM
+    out = []
+    for _ in range(d["steps"]):
+        batch = {f"c_{i}": rng.integers(0, d["vocab"], size=d["batch"]).astype(np.int32)
+                 for i in range(d["fields"])}
+        batch["d_0"] = rng.normal(size=d["batch"]).astype(np.float32)
+        batch["label"] = rng.integers(0, 2, size=d["batch"]).astype(np.int32)
+        out.append(batch)
+    return out
+
+
+def sharded_dlrm_run(trainer, batches: list) -> tuple:
+    """DLRM's int8 run: init, the steps; (losses, ms a step on the host
+    clock)."""
+    d = SHARDED_DLRM
+    trainer.compile(optimizer="adam", lr=d["lr"], loss="bce", metrics=())
+    trainer.init_state(batches[0], seed=d["seed"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(trainer.train_step(b)) for b in batches]
+    return losses, (time.perf_counter() - t0) * 1e3 / len(batches)
+
+
+def sharded_grid_run(mesh, data: dict) -> tuple:
+    """The Criteo twin's model and batches on the grid layout (packed f32):
+    (trainer, losses, the median ms a step on the host clock)."""
+    batch = CRITEO["batch"]
+    sparse, _, _ = criteo_twin.vocab_transform(data["train"], batch, 0, VOCAB)
+    model = criteo_twin.make_model(sparse, mesh.device, mesh.model)
+    trainer = ShardedSparseEmbeddingTrainer(model, mesh=mesh, strategy="grid", packed_tables=True)
+    trainer.compile(optimizer="adam", lr=CRITEO_LR, loss="bce", metrics=("auc",),
+                    matmul_precision="bfloat16")
+    timer = StepTimer(batch_size=batch)
+    trainer.fit_steps(criteo_twin.fixed_shape(criteo_twin.train_source(data, batch).batches(),
+                                              batch), steps=SHARDED_STEPS, log_every=SHARDED_STEPS,
+                      callbacks=[timer])
+    return trainer, trainer.step_losses.cpu().numpy(), timer.stats()["p50_s"] * 1e3
+
+
+def sharded_cli_run(tag: str, rank: int, name: str) -> dict:
+    """A Criteo run through the twin's command line (``run_from_args`` of
+    ``parse_args``), as a launcher's rank runs it: the first starts the
+    process group from the environment, which must be gloo on ``cuda:0``
+    (``rank_device``); rank 0 alone prints, and its held-out AUC line is
+    passed on."""
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        out = criteo_twin.run_from_args(criteo_twin.parse_args(SHARDED_ARGV + SHARDED_RUNS[name]))
+    device, backend = out["trainer"].mesh.device, torch.distributed.get_backend()
+    if backend != "gloo" or device != torch.device("cuda", 0):
+        raise AssertionError(f"{tag} the command line's group: {backend} on {device}")
+    lines = printed.getvalue().splitlines()
+    if rank == 0 and not any(line.startswith("held-out AUC") for line in lines):
+        raise AssertionError(f"{tag} rank 0 printed {lines[-3:]}")
+    if rank and lines:
+        raise AssertionError(f"{tag} rank {rank} printed {lines[:3]}")
+    for line in lines[-2:]:
+        print(f"{tag} {line}", flush=True)
+    return out
+
+
+def sharded_run(name: str, rank: int, mesh, data: dict, inputs: dict, calls: dict,
+                scans: list) -> dict:
+    """One phase-47 run on this rank, launch counts from zero, the update
+    kernels' and B1's first arguments recorded into ``calls`` (the hot/cold
+    run's first B2 calls into ``scans`` too): its launches, losses,
+    host-clock ms a step (the median step of the Criteo and grid runs;
+    DLRM's mean after its init), held-out AUC (Criteo) and the merged
+    leaves (a collective)."""
+    tag = f"[phase 47 {name} rank {rank}]"
+    t0 = time.perf_counter()
+    zero_counts()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(recording_update_kernels(calls))
+        stack.enter_context(recording(interactions_module, "cross_network", calls))
+        if name in PLAIN_SCAN_RUNS:
+            stack.enter_context(plain_scan())
+        if name == "criteo_hot_cold":
+            stack.enter_context(recording_first_scans(scans, 2))  # the cold shard's, the hot's
+        if name == "grid_f32":
+            trainer, losses, ms = sharded_grid_run(mesh, data)
+            auc = None
+        elif name == "dlrm_int8":
+            trainer = ShardedSparseEmbeddingTrainer(sharded_dlrm(mesh.device), mesh=mesh,
+                                                    packed_tables=True)
+            losses, ms = sharded_dlrm_run(trainer, inputs["dlrm_batches"])
+            auc = None
+        else:
+            out = sharded_cli_run(tag, rank, name)
+            trainer, losses, auc = out["trainer"], out["step_losses"], out["heldout_auc"]
+            ms = out["p50_ms"]
+    launches = names(counts())
+    missing = [k.__name__ for k in SHARDED_KERNELS[name] if k.launches == 0]
+    if missing:
+        raise AssertionError(f"{tag} {missing} launched no time; launches {launches}")
+    if name in PLAIN_SCAN_RUNS and segmented_sum_scan.launches:
+        raise AssertionError(f"{tag} B2 launched inside the plain scan; launches {launches}")
+    if not np.isfinite(np.asarray(losses)).all():
+        raise AssertionError(f"{tag} losses {losses}")
+    t1 = time.perf_counter()
+    merged = trainer.merged_params()
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = {"run": t1 - t0, "merge": time.perf_counter() - t1}
+    print(f"{tag} {seconds['run']:.1f} s, the merged leaves {seconds['merge']:.1f} s", flush=True)
+    return {"launches": launches, "losses": np.asarray(losses), "host_ms_per_step": ms,
+            "heldout_auc": auc, "leaves": merged, "seconds": seconds}
+
+
+def sharded_rank(rank: int, world: int, tmp: str) -> None:
+    """A phase-47 rank (a process of its own, spawned by ``sharded_phase``
+    with a launcher's environment): every run of ``SHARDED_RUNS`` (the
+    Criteo command line starts the gloo group on ``cuda:0``; the grid and
+    DLRM runs take the (1, 2) mesh on it), then B1 and the update kernels
+    against their plain versions on each run's recorded arguments and B2's
+    position witness. Writes its results (``result_<rank>.pt``) or its
+    traceback (``error_<rank>.txt``)."""
+    import traceback
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+        os.environ.update({"PYTORCHREC_TPU_WORK_DIR": inputs["work_dir"], "RANK": str(rank),
+                           "WORLD_SIZE": str(world), "LOCAL_RANK": str(rank),
+                           **inputs["launcher"]})
+        build("cross", "seg_scan", "scatter", "requantize")  # the parent's libraries
+        t0 = time.perf_counter()
+        data, out, mesh, scans = criteo_twin.formatted(), {}, None, []
+        tag = f"[phase 47 kernels rank {rank}]"
+        print(f"{tag} up {time.time() - inputs['spawned_at']:.1f} s after the spawn", flush=True)
+        checked = {}
+        for name in inputs["runs"]:
+            if SHARDED_RUNS[name] is None and mesh is None:
+                mesh = make_mesh(*SHARDED_MESH, device="cuda:0")  # on the command line's group
+            calls = {}
+            out[name] = sharded_run(name, rank, mesh, data, inputs, calls, scans)
+            if rank:  # rank 0 keeps the merged leaves (the same on both)
+                out[name].pop("leaves")
+            cross = calls.pop("cross_network", None)  # none where only DLRM runs
+            for kernel, result in update_kernels_against_plain(calls, tag=f"{tag} {name}").items():
+                entry = checked.setdefault(kernel, {"max_abs_err": 0.0, "calls": []})
+                entry["max_abs_err"] = max(entry["max_abs_err"], result["max_abs_err"])
+                entry["calls"] += [{"run": name, **c} for c in result["calls"]]
+            if cross is not None:
+                x0, ws, bs = cross
+                with torch.no_grad():
+                    err = close(cross_network(x0, ws, bs), cross_network_plain(x0, ws, bs))
+                print(f"{tag} {name} cross_network kernel vs plain x0 {list(x0.shape)}: max abs "
+                      f"err {err:.3e}", flush=True)
+                entry = checked.setdefault("cross_network", {"max_abs_err": 0.0, "calls": []})
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                entry["calls"].append({"run": name, "shapes": [list(x0.shape)]})
+        out["against_plain"] = checked
+        out["scan_witness"] = [scan_position_witness(tag, label, *call)
+                               for label, call in zip(("cold shard", "hot fragment"), scans)]
+        t1 = time.perf_counter()
+        torch.save(out, os.path.join(tmp, f"result_{rank}.pt"))
+        print(f"{tag} runs and checks {t1 - t0:.1f} s, saved in {time.perf_counter() - t1:.1f} s",
+              flush=True)
+    except BaseException:
+        with open(os.path.join(tmp, f"error_{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def run_sharded_world(tmp: str) -> list:
+    """``sharded_rank`` on the ranks of ``SHARDED_MESH``, spawned; their
+    results in rank order. A rank that fails or outlives the deadline ends
+    the phase (every rank left is killed)."""
+    import torch.multiprocessing as mp
+
+    world = SHARDED_MESH[0] * SHARDED_MESH[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=sharded_rank, args=(rank, world, tmp)) for rank in range(world)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + SHARDED_DEADLINE_S
+    try:
+        for p in procs:
+            p.join(max(0.0, end - time.monotonic()))
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+    errors = []
+    for rank in range(world):
+        path = os.path.join(tmp, f"error_{rank}.txt")
+        if os.path.exists(path):
+            with open(path) as f:
+                errors.append(f"rank {rank}:\n{f.read()}")
+    if errors or alive or any(p.exitcode for p in procs):
+        raise AssertionError(f"[phase 47] ranks failed (alive {len(alive)}, exit codes "
+                             f"{[p.exitcode for p in procs]}):\n" + "\n".join(errors))
+    return [torch.load(os.path.join(tmp, f"result_{rank}.pt"), weights_only=False)
+            for rank in range(world)]
+
+
+def sharded_reference(name: str, data: dict, inputs: dict) -> dict:
+    """The run's one-process twin on the card (this process), from the same
+    seed and batches: the Criteo twin's packed trainer on the same flags
+    with its table rows rounded to 2 alike (the plain-scan run's under
+    ``plain_scan``; the grid run's twin is the 1-D run's), or the packed
+    ``QuantizedEmbeddingTrainer``. Its leaves (host copies, the packed
+    tables' first E columns)."""
+    if name == "dlrm_int8":
+        trainer = QuantizedEmbeddingTrainer(sharded_dlrm("cuda"), packed_tables=True)
+        losses, _ = sharded_dlrm_run(trainer, inputs["dlrm_batches"])
+    else:
+        args = criteo_twin.parse_args(SHARDED_ARGV + SHARDED_RUNS[name])
+        with plain_scan() if name in PLAIN_SCAN_RUNS else contextlib.nullcontext():
+            out = criteo_twin.run(steps=args.steps, batch=args.batch,
+                                  hash_bucket=args.hash_bucket, vocab_cap=args.vocab_cap,
+                                  data=data, device="cuda", verbose=0, log=lambda message: None,
+                                  table_row_multiple=2)
+        trainer, losses = out["trainer"], out["step_losses"]
+    leaves, packed, emb_dims = leaves_of(trainer), {}, getattr(trainer, "_emb_dims", {})
+    for path in trainer.state.packed:
+        if path in emb_dims:  # packed f32 rows: the table's columns (int8 rows stay whole)
+            packed[path] = leaves[path]
+            leaves[path] = leaves[path][:, :emb_dims[path]]
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": np.asarray(losses), "leaves": leaves, "packed": packed,
+            "heldout_auc": None if name == "dlrm_int8" else out["heldout_auc"]}
+
+
+def lr_shares(tag: str, got: dict, want: dict) -> dict:
+    """Where two Criteo runs' leaves part by more than ``SHARDED_RTOL``: the
+    largest difference in shares of lr, over the tables and over the dense
+    leaves (each leaf printed, a table's with its Adam ``sqrt(v_hat)``
+    there)."""
+    shares = {"table": 0.0, "dense": 0.0}
+    for path, value in want["leaves"].items():
+        mine, value = got["leaves"][path].float(), value.float()
+        apart = (mine - value).abs() > SHARDED_RTOL * value.abs()
+        if not bool(apart.any()):
+            continue
+        share = float((mine - value).abs()[apart].max()) / CRITEO_LR
+        group = "table" if path in want["packed"] else "dense"
+        shares[group] = max(shares[group], share)
+        note = ""
+        if group == "table":
+            e = value.shape[1]
+            v_hat = want["packed"][path][:, 2 * e:3 * e].float() / (1 - 0.999 ** SHARDED_STEPS)
+            window = v_hat.sqrt()[apart]
+            note = (f"; their sqrt(v_hat): median {float(window.median()):.3e}, max "
+                    f"{float(window.max()):.3e}")
+        print(f"{tag} {path}: {int(apart.sum())} of {value.numel()} values apart, at most "
+              f"{share:.4f} lr{note}", flush=True)
+    return shares
+
+
+def sharded_against_reference(name: str, got: dict, want: dict) -> dict:
+    """A run's losses and merged leaves against its one-process twin's:
+    f32 within ``SHARDED_RTOL`` (the hot/cold run's values that part from
+    it measured in shares of lr, ``lr_shares``, and held in
+    ``sharded_phase``); int8 rows' q bytes at most one apart (the
+    duplicate-id rule), their scale and accumulator fields within it; the
+    held-out AUC within ``CRITEO_AUC_GAP``."""
+    tag = f"[phase 47 {name}]"
+    loss_diff = close(torch.from_numpy(got["losses"]).float(),
+                      torch.from_numpy(want["losses"]).float(), rtol=SHARDED_RTOL, atol=1e-30)
+    if set(got["leaves"]) != set(want["leaves"]):
+        raise AssertionError(f"{tag} leaves {sorted(got['leaves'])} / {sorted(want['leaves'])}")
+    worst, q_apart, shares = 0.0, 0, None
+    if name == "criteo_hot_cold":
+        shares = lr_shares(tag, got, want)
+    else:
+        for path, value in want["leaves"].items():
+            mine = got["leaves"][path]
+            if value.dtype == torch.uint8:  # int8 rows: q || scale || acc || staging
+                e = SHARDED_DLRM["emb"]
+                q_apart = max(q_apart, int((mine[:, :e].view(torch.int8).int()
+                                            - value[:, :e].view(torch.int8).int()).abs().max()))
+                if q_apart > 1:
+                    raise AssertionError(f"{tag} {path}: q bytes {q_apart} apart")
+                mine = mine[:, e:e + 8].contiguous().view(torch.float32)
+                value = value[:, e:e + 8].contiguous().view(torch.float32)
+            worst = max(worst, largest_difference(mine.float().contiguous(),
+                                                  value.float().contiguous(), SHARDED_RTOL))
+    if got["heldout_auc"] is not None and not abs(got["heldout_auc"]
+                                                  - want["heldout_auc"]) <= CRITEO_AUC_GAP:
+        raise AssertionError(f"{tag} held-out AUC {got['heldout_auc']}, one process "
+                             f"{want['heldout_auc']}")
+    return {"loss_max_abs_diff": loss_diff, "leaves_max_abs_diff": worst,
+            "q_bytes_apart": q_apart, "lr_shares": shares,
+            "one_process_heldout_auc": want["heldout_auc"]}
+
+
+def sharded_phase(rng: np.random.Generator, seed: int, work_dir: str) -> dict:
+    """Phase 47 (see the module docstring): the sharded trainer on two ranks
+    sharing the card over gloo, over phase 40's shards in ``work_dir``:
+    each run's launches from zero on both ranks, its losses and merged
+    leaves against its one-process twin on the card, the kernels against
+    their plain versions on each rank's recorded arguments, B2's witnesses
+    and the hot/cold run held to them."""
+    import socket
+
+    t0 = time.perf_counter()
+    card = card_line()
+    previous = os.environ.get("PYTORCHREC_TPU_WORK_DIR")
+    os.environ["PYTORCHREC_TPU_WORK_DIR"] = work_dir
+    try:
+        data = criteo_twin.formatted()
+        with socket.socket() as free:  # the launcher's store: a free port here
+            free.bind(("localhost", 0))
+            port = free.getsockname()[1]
+        inputs = {"work_dir": work_dir, "runs": list(SHARDED_RUNS),
+                  "launcher": {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port)},
+                  "dlrm_batches": sharded_dlrm_batches(rng)}
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.save({**inputs, "spawned_at": time.time()}, os.path.join(tmp, "inputs.pt"))
+            ranks = run_sharded_world(tmp)
+        world_s = time.perf_counter() - t0
+        out = {"mesh": list(SHARDED_MESH), "backend": "gloo", "world_seconds": world_s}
+        references = {}
+        for name in SHARDED_RUNS:
+            twin = "criteo_1d" if name == "grid_f32" else name  # the grid's twin: the 1-D run's
+            if twin not in references:
+                t1 = time.perf_counter()
+                references[twin] = sharded_reference(twin, data, inputs)
+                print(f"[phase 47 {twin}] one-process twin in {time.perf_counter() - t1:.1f} s",
+                      flush=True)
+            checked = sharded_against_reference(name, ranks[0][name], references[twin])
+            out[name] = {"launches": [r[name]["launches"] for r in ranks],
+                         "host_ms_per_step": [r[name]["host_ms_per_step"] for r in ranks],
+                         "rank_seconds": [r[name]["seconds"] for r in ranks],
+                         "heldout_auc": ranks[0][name]["heldout_auc"], **checked}
+            print(f"[phase 47 {name}] launches {out[name]['launches']} (rank 0, rank 1); "
+                  f"{[round(ms, 3) for ms in out[name]['host_ms_per_step']]} ms/step (host "
+                  f"clock, eager, gloo: a correctness run); losses within "
+                  f"{checked['loss_max_abs_diff']:.3e}, leaves within "
+                  f"{checked['leaves_max_abs_diff']:.3e} of the one-process run (lr shares "
+                  f"{checked['lr_shares']}), q bytes {checked['q_bytes_apart']} apart; held-out "
+                  f"AUC {out[name]['heldout_auc']} (one process "
+                  f"{checked['one_process_heldout_auc']}); {card}", flush=True)
+        # B2's rounding alone: one process, the kernel against the plain scan
+        tag = "[phase 47 one process: B2 kernel against plain scan]"
+        witness = lr_shares(tag, references["criteo_hot_cold"],
+                            references[PLAIN_SCAN_RUNS[0]])
+        shares = out["criteo_hot_cold"]["lr_shares"]
+        out["scan_rounding_lr_shares"] = witness
+        print(f"{tag} lr shares {witness}; the hot/cold run against one process {shares} "
+              f"(bound {SHARDED_WITNESS_FACTOR} x the first); {card}", flush=True)
+        for group, share in shares.items():
+            if share > SHARDED_WITNESS_FACTOR * witness[group]:
+                raise AssertionError(f"[phase 47 criteo_hot_cold] {group} values {share:.4f} lr "
+                                     f"apart, {SHARDED_WITNESS_FACTOR} x B2's own rounding "
+                                     f"{witness[group]:.4f} lr")
+    finally:
+        if previous is None:
+            os.environ.pop("PYTORCHREC_TPU_WORK_DIR", None)
+        else:
+            os.environ["PYTORCHREC_TPU_WORK_DIR"] = previous
+    out["against_plain"] = [r["against_plain"] for r in ranks]
+    out["scan_witness"] = [r["scan_witness"] for r in ranks]
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 47: {len(SHARDED_RUNS)} sharded runs on two ranks of one card over gloo in "
+          f"{out['seconds']:.1f} s (the world {world_s:.1f} s); {card}", flush=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6481,7 +7006,8 @@ def main() -> int:
 
     # 40. the streaming Criteo path: the example's twin, raw TSV to held-out
     # AUC, bf16, f32 and two vocab runs, each run's launches from zero
-    criteo = criteo_phase(args.seed)
+    criteo_dir = tempfile.TemporaryDirectory()  # phase 40's shards, which phase 47 reads
+    criteo = criteo_phase(args.seed, criteo_dir.name)
 
     # 41. DLRM and the table formats: serving, captured training, the format
     # contenders, card against CPU, each run's launches from zero
@@ -6506,6 +7032,13 @@ def main() -> int:
     # 46. the mesh: a world of one over NCCL, each training path on the mesh
     # and without it, captured, launches from zero, the kernels against plain
     mesh46 = mesh_phase(rng, args.seed)
+
+    # 47. the sharded trainer: two ranks sharing the card over gloo, the
+    # Criteo twin's --mesh 1,2 and --hot_mass over phase 40's shards, the
+    # grid and DLRM's int8 rows, each run's launches from zero on each rank,
+    # against its one-process twin, the kernels against plain on each rank
+    sharded = sharded_phase(rng, args.seed, criteo_dir.name)
+    criteo_dir.cleanup()
 
     n_scan = TRAIN_BATCH * N_SPARSE
     vocab_rows = N_SPARSE * VOCAB
@@ -6705,6 +7238,15 @@ def main() -> int:
         if checked is not None:
             entry["phase46_max_abs_err"] = checked["max_abs_err"]
     print(json.dumps({"mesh": {k: v for k, v in mesh46.items() if k != "against_plain"}}))
+    for entry in entries:  # phase 47's runs, each counted from zero on each rank
+        entry["phase47_launches"] = {run: [n.get(entry["name"], 0)
+                                           for n in sharded[run]["launches"]]
+                                     for run in SHARDED_RUNS if run not in PLAIN_SCAN_RUNS}
+        checked = [r[entry["name"]]["max_abs_err"] for r in sharded["against_plain"]
+                   if entry["name"] in r]
+        if checked:
+            entry["phase47_max_abs_err"] = max(checked)
+    print(json.dumps({"sharded": {k: v for k, v in sharded.items() if k != "against_plain"}}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

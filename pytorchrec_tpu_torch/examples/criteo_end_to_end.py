@@ -8,9 +8,21 @@ with bf16 matmuls -> held-out AUC.
 
 runs on the card; ``--cpu`` runs it on the CPU. With real Criteo data,
 point ``--raw`` at the train.txt (relative to the work dir's ``RawData``)
-and skip ``--rows``. The flags and defaults are the JAX script's;
-``--mesh`` and ``--hot_mass`` (the sharded trainer) raise until the
-multi-device work is ported.
+and skip ``--rows``. The flags and defaults are the JAX script's.
+
+``--mesh d,m`` trains on a ``(d, m)`` mesh of ``d * m`` processes, each
+running the script: ``torchrun --nproc_per_node=<d*m> -m
+pytorchrec_tpu_torch.examples.criteo_end_to_end --mesh 1,2 ...`` (the
+launcher sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and the store's
+address). The trainer is ``ShardedSparseEmbeddingTrainer`` over the packed
+f32 tables (split over the model axis), DCN-v2's table rows rounded up to a
+multiple of m; ``--hot_mass f`` (with ``--vocab_cap``: the admission pass's
+``slot_counts()`` are the traffic counts) replicates the rows that carry
+that share of the lookups on every rank, the rest split (``strategy=
+"hot_cold"``). NCCL on the cards (``cuda:<LOCAL_RANK>``), gloo with
+``--cpu`` or where more ranks than cards share them (``rank_device``).
+Rank 0 alone formats the data (the others wait for it) and prints.
+``--formatted`` trains on the shards an earlier run left in the work dir.
 
 ``synth_raw_tsv`` draws what the JAX script's draws, in its order, and
 writes the same bytes. The model is DCN-v2 with the unified table (E=16,
@@ -29,6 +41,8 @@ import time
 from typing import Callable, Dict, Iterable, Iterator, Optional
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from pytorchrec_tpu_torch.data.process.datasets import format_criteo
 from pytorchrec_tpu_torch.data.streaming import StreamingBatchSource
@@ -39,7 +53,8 @@ from pytorchrec_tpu_torch.models import DCNv2
 from pytorchrec_tpu_torch.ops.kernels.cross import cross_network
 from pytorchrec_tpu_torch.ops.kernels.scatter import scatter_set_rows
 from pytorchrec_tpu_torch.ops.kernels.seg_scan import segmented_sum_scan
-from pytorchrec_tpu_torch.training import SparseEmbeddingTrainer
+from pytorchrec_tpu_torch.parallel import initialize_distributed, make_mesh
+from pytorchrec_tpu_torch.training import ShardedSparseEmbeddingTrainer, SparseEmbeddingTrainer
 from pytorchrec_tpu_torch.utils import constants as C
 from pytorchrec_tpu_torch.utils.profiling import StepTimer
 
@@ -92,13 +107,20 @@ def prepare(rows: int, hash_bucket: int, raw: Optional[str] = None,
     t0 = time.perf_counter()
     out = format_criteo(DATASET, raw_name, hash_bucket=hash_bucket,
                         rows_per_shard=rows_per_shard, chunk_rows=max(rows_per_shard // 2, 1))
-    format_s = time.perf_counter() - t0
+    data = formatted(out, synth_s, time.perf_counter() - t0)
+    log(f"{len(data['shards'])} shards; training on {len(data['train'])}, holding out "
+        f"{os.path.basename(data['heldout'])}")
+    return data
+
+
+def formatted(out: Optional[str] = None, synth_s: float = 0.0, format_s: float = 0.0) -> dict:
+    """The shards ``prepare`` wrote under ``out`` (the work dir's dataset by
+    default): the last one held out."""
+    out = out or os.path.join(C.dataset_dir(), DATASET)
     shard_dir = os.path.join(out, "shards")
     shards = [os.path.join(shard_dir, s) for s in sorted(os.listdir(shard_dir))]
     if len(shards) < 2:
-        raise ValueError(f"{rows} rows gave {len(shards)} shard; the example holds one out")
-    log(f"{len(shards)} shards; training on {len(shards) - 1}, holding out "
-        f"{os.path.basename(shards[-1])}")
+        raise ValueError(f"{len(shards)} shard under {shard_dir}; the example holds one out")
     return {"dir": out, "shards": shards, "train": shards[:-1], "heldout": shards[-1],
             "synth_s": synth_s, "format_s": format_s}
 
@@ -127,19 +149,32 @@ def vocab_transform(train_shards, batch: int, vocab_cap: int, hash_bucket: int,
     return sparse, VocabMapper(vocabs), {"rows": rows, "coverage": coverage}
 
 
-def make_model(sparse, device=None):
+def make_model(sparse, device=None, table_row_multiple: int = 1):
     """DCN-v2 over the 26 sparse and 13 dense fields: E=16, 3 cross layers,
-    MLP (256, 128), the unified table (D = 429)."""
+    MLP (256, 128), the unified table (D = 429), its rows rounded up to a
+    multiple of ``table_row_multiple``."""
     dense = tuple(NumericColumn(feature_name=f"d_{i}") for i in range(13))
     label = CategoricalColumnWithIdentity(feature_name="label", category_num=2)
     return DCNv2(sparse_columns=sparse, dense_columns=dense, label_column=label, emb_size=16,
-                 num_cross_layers=3, layers=(256, 128), unified_embedding=True, device=device)
+                 num_cross_layers=3, layers=(256, 128), unified_embedding=True,
+                 table_row_multiple=table_row_multiple, device=device)
 
 
-def make_trainer(model, device=None, matmul_precision: Optional[str] = "bfloat16"):
-    """The packed f32 sparse trainer, compiled as the JAX script compiles."""
-
-    trainer = SparseEmbeddingTrainer(model, device=device, packed_tables=True)
+def make_trainer(model, device=None, matmul_precision: Optional[str] = "bfloat16", mesh=None,
+                 hot_counts: Optional[np.ndarray] = None, hot_mass: float = 0.0):
+    """The packed f32 sparse trainer, compiled as the JAX script compiles;
+    on a mesh its sharded twin, hot/cold where ``hot_mass`` and the unified
+    table's ``hot_counts`` are given."""
+    if mesh is None:
+        trainer = SparseEmbeddingTrainer(model, device=device, packed_tables=True)
+    elif hot_mass > 0:
+        if hot_counts is None:
+            raise ValueError("--hot_mass needs --vocab_cap (the traffic counts)")
+        trainer = ShardedSparseEmbeddingTrainer(
+            model, mesh=mesh, strategy="hot_cold", packed_tables=True,
+            hot_counts={"unified": hot_counts, "unified_lin": hot_counts}, hot_rows=hot_mass)
+    else:
+        trainer = ShardedSparseEmbeddingTrainer(model, mesh=mesh, packed_tables=True)
     trainer.compile(optimizer="adam", lr=1e-3, loss="bce", metrics=("auc",),
                     matmul_precision=matmul_precision)
     return trainer
@@ -188,17 +223,34 @@ def path_launches() -> dict:
 def run(rows: int = 500_000, steps: int = 200, batch: int = 8192, hash_bucket: int = 100_000,
         vocab_cap: int = 0, raw: Optional[str] = None, device=None,
         matmul_precision: Optional[str] = "bfloat16", data: Optional[dict] = None,
-        verbose: int = 1, log: Callable = print) -> dict:
+        verbose: int = 1, log: Callable = print, mesh=None, hot_mass: float = 0.0,
+        table_row_multiple: Optional[int] = None) -> dict:
     """The whole script: ``prepare`` (unless ``data`` is given: shards
-    already made), the vocab pass, ``fit_steps`` with a ``StepTimer``, the
-    held-out AUC. Returns rows, shards, the table's rows and coverage, the
-    window losses, p50 ms/step, examples/s, the held-out AUC and the path's
-    kernel launches in this run."""
+    already made; on a ``mesh`` by rank 0, the others waiting), the vocab
+    pass, ``fit_steps`` with a ``StepTimer``, the held-out AUC. Returns
+    rows, shards, the table's rows and coverage, the window losses, p50
+    ms/step, examples/s, the held-out AUC and the path's kernel launches in
+    this run. On a mesh every rank calls it, and only rank 0 logs."""
+    if mesh is not None and mesh.rank != 0:
+        log, verbose = (lambda *args: None), 0
     if data is None:
-        data = prepare(rows, hash_bucket, raw, log)
+        if mesh is None or mesh.rank == 0:
+            data = prepare(rows, hash_bucket, raw, log)
+        if mesh is not None:
+            mesh.barrier()
+            data = data or formatted()
     sparse, transform, vocab = vocab_transform(data["train"], batch, vocab_cap, hash_bucket,
                                                log)
-    trainer = make_trainer(make_model(sparse, device), device, matmul_precision)
+    if table_row_multiple is None:
+        table_row_multiple = 1 if mesh is None else mesh.model
+    hot_counts = None if transform is None else np.concatenate(
+        [transform.vocabs[f"c_{i}"].slot_counts() for i in range(26)])
+    model = make_model(sparse, device if mesh is None else mesh.device, table_row_multiple)
+    trainer = make_trainer(model, device, matmul_precision, mesh, hot_counts, hot_mass)
+    if mesh is not None:
+        log(f"{'hot/cold' if hot_mass > 0 else '1-D'} sharded tables over the "
+            f"({mesh.data}, {mesh.model}) mesh" + (f": hot mass {hot_mass}" if hot_mass > 0
+                                                   else ""))
     before = path_launches()
     timer = StepTimer(batch_size=batch)
     t0 = time.perf_counter()
@@ -235,20 +287,58 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="if set, run a frequency-vocab admission pass: top-K ids per "
                              "feature own slots, the tail shares OOV buckets")
     parser.add_argument("--raw", default=None, help="existing raw TSV (skips synthesis)")
-    parser.add_argument("--mesh", default=None, help="d,m: the sharded trainer (not ported)")
+    parser.add_argument("--formatted", action="store_true",
+                        help="train on the shards an earlier run formatted in the work dir "
+                             "(skips synthesis and formatting)")
+    parser.add_argument("--mesh", default=None,
+                        help="d,m: the sharded trainer on a (data, model) mesh of d*m ranks")
     parser.add_argument("--hot_mass", type=float, default=0.0,
-                        help="hot rows replicated on every device (not ported)")
+                        help="with --mesh and --vocab_cap: replicate the rows carrying this "
+                             "share of the lookups on every rank (hot/cold)")
     parser.add_argument("--cpu", action="store_true")
     return parser.parse_args(argv)
 
 
+def rank_device(cpu: bool) -> dict:
+    """``initialize_distributed``'s device and backend for this rank, from the
+    launcher's environment: gloo on the CPU; NCCL on ``cuda:<LOCAL_RANK>``
+    with a card a rank; gloo with ranks sharing the cards where the world
+    has more ranks than there are cards (NCCL refuses two ranks on one)."""
+    cards = 0 if cpu else torch.cuda.device_count()
+    if cpu or not cards or int(os.environ.get("WORLD_SIZE", "1")) <= cards:
+        return {"device": "cpu" if cpu else None}
+    return {"device": f"cuda:{int(os.environ.get('LOCAL_RANK', '0')) % cards}",
+            "backend": "gloo"}
+
+
+def run_from_args(args: argparse.Namespace) -> dict:
+    """``run`` as the command line asks; with ``--mesh`` this rank's part,
+    the process group started from the launcher's environment on
+    ``rank_device``'s device and backend (unless one exists) and left for
+    the caller (``main`` ends the one it started). ``--hot_mass`` without
+    ``--mesh`` and ``--vocab_cap`` raises ValueError (the JAX script asserts
+    the counts and ignores the mass without a mesh)."""
+    if args.hot_mass > 0 and not (args.mesh and args.vocab_cap):
+        raise ValueError("--hot_mass needs --mesh and --vocab_cap (the traffic counts)")
+    common = dict(rows=args.rows, steps=args.steps, batch=args.batch,
+                  hash_bucket=args.hash_bucket, vocab_cap=args.vocab_cap, raw=args.raw,
+                  data=formatted() if args.formatted else None)
+    if not args.mesh:
+        return run(device="cpu" if args.cpu else None, **common)
+    place = rank_device(args.cpu)
+    initialize_distributed(**place)
+    d, m = map(int, args.mesh.split(","))
+    return run(mesh=make_mesh(data=d, model=m, device=place["device"]), hot_mass=args.hot_mass,
+               **common)
+
+
 def main(argv=None) -> int:
-    args = parse_args(argv)
-    if args.mesh or args.hot_mass > 0:
-        raise NotImplementedError("--mesh and --hot_mass need the sharded trainer, which is "
-                                  "not ported yet (ROADMAP.md A10)")
-    run(rows=args.rows, steps=args.steps, batch=args.batch, hash_bucket=args.hash_bucket,
-        vocab_cap=args.vocab_cap, raw=args.raw, device="cpu" if args.cpu else None)
+    started = not dist.is_initialized()
+    try:
+        run_from_args(parse_args(argv))
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
     return 0
 
 

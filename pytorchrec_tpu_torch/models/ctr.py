@@ -292,17 +292,29 @@ class _CTRBase(RecModel):
         (the linear table, the field table), with its flax path, its ids
         ``[..., F_sparse]`` for ``batch`` and the batch key of its rows.
         Unified tables only, as the JAX package asserts: per-field tables
-        raise ValueError (``injection_specs`` names them)."""
-        self._check_trainable_table(quantized=False)
+        raise ValueError (``injection_specs`` names them). With
+        ``quantized_embedding=True`` (and ``table_packed=True``, else
+        ValueError) the field table's spec names the packed byte-row buffer
+        ``unified_q`` and carries a ``"quantized"`` block (bits, column
+        groups, E), as the JAX model's does: the sharded trainer ships its
+        int8 rows and scales on the exchange."""
         if not self.unified_embedding:
             raise ValueError("sharded_table_specs needs unified_embedding=True")
+        if self.quantized_embedding and not self.table_packed:
+            raise ValueError("sharded quantized tables need table_packed=True (q||scale||acc "
+                             "byte rows: the owner's update reads them in the row)")
         sparse, _, _ = _gather_fields(batch, self.sparse_columns, self.dense_columns)
         ids = self._unified_ids(sparse)
         specs = {}
         if self._uses_linear:
             specs["unified_lin"] = {"path": "unified_lin/embedding", "ids": ids,
                                     "rows_key": self.LIN_ROWS_KEY}
-        if self._uses_field_embeddings:
+        if self._uses_field_embeddings and self.quantized_embedding:
+            specs["unified"] = {"path": "unified_q", "ids": ids, "rows_key": self.ROWS_KEY,
+                                "quantized": {"bits": self.table_bits,
+                                              "col_groups": self.scale_col_groups,
+                                              "emb_size": self.emb_size}}
+        elif self._uses_field_embeddings:
             specs["unified"] = {"path": "unified_emb/embedding", "ids": ids,
                                 "rows_key": self.ROWS_KEY}
         return specs

@@ -13,20 +13,28 @@ group); the model axis splits the embedding tables' rows
 (``parallel/embedding_engine.py``).
 
 ``initialize_distributed`` starts the process group: NCCL on the card, gloo
-where the caller passes ``device="cpu"``. ``make_mesh`` builds every group
+where the caller passes ``device="cpu"`` (or ``backend="gloo"``: gloo also
+carries CUDA tensors, so two ranks can share one card, ``device="cuda:0"``,
+where NCCL refuses two ranks on one device). ``make_mesh`` builds every group
 on every rank, in one order, so no rank waits on a group another rank never
 creates, and runs one collective on each group at once, so that each group's
 communicator exists before a CUDA graph captures a step that uses it.
 
 Unlike the JAX mesh, which may take fewer devices than there are, the mesh
 covers the whole world: ``data * model`` is the world size.
+
+The exchanges of ``parallel/embedding_engine.py`` name an axis as JAX's
+collectives do: ``"data"``, ``"model"``, or ``("data", "model")``, the
+whole grid flattened, whose index is the rank (``axis_size``,
+``axis_index``, ``psum``, ``all_gather``, ``all_to_all``). Every rank of the
+axis's group must reach each collective, in one order.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -75,6 +83,7 @@ class Mesh:
     device: torch.device
     data_group: Any = None
     model_group: Any = None
+    backend: str = "gloo"
 
     @property
     def world(self) -> int:
@@ -92,36 +101,59 @@ class Mesh:
     def shape(self) -> Dict[str, int]:
         return {DATA_AXIS: self.data, MODEL_AXIS: self.model}
 
-    # -- collectives (every rank of the group reaches each, in one order) --
+    # -- collectives over a named axis (JAX's axis names); every rank of the
+    # axis's group reaches each, in one order --
 
-    def sum_over_data(self, tensor: torch.Tensor) -> torch.Tensor:
-        """``tensor`` summed over the data group, in place."""
-        dist.all_reduce(tensor, group=self.data_group)
+    def _axis(self, axis) -> Tuple[Any, int, int]:
+        """(process group, size, this rank's index) of ``axis``: ``"data"``,
+        ``"model"`` or ``("data", "model")`` (the world, index = rank)."""
+        if axis == DATA_AXIS:
+            return self.data_group, self.data, self.data_index
+        if axis == MODEL_AXIS:
+            return self.model_group, self.model, self.model_index
+        if tuple(axis) == (DATA_AXIS, MODEL_AXIS):
+            return dist.group.WORLD, self.world, self.rank
+        raise ValueError(f"unknown mesh axis {axis!r}")
+
+    def axis_size(self, axis) -> int:
+        """``jax.lax.axis_size``: the ranks along ``axis``."""
+        return self._axis(axis)[1]
+
+    def axis_index(self, axis) -> int:
+        """``jax.lax.axis_index``: this rank's place along ``axis``."""
+        return self._axis(axis)[2]
+
+    def psum(self, tensor: torch.Tensor, axis) -> torch.Tensor:
+        """``tensor`` summed over ``axis``, in place."""
+        dist.all_reduce(tensor, group=self._axis(axis)[0])
         return tensor
 
-    def sum_over_model(self, tensor: torch.Tensor) -> torch.Tensor:
-        """``tensor`` summed over the model group, in place."""
-        dist.all_reduce(tensor, group=self.model_group)
-        return tensor
-
-    def _gather(self, tensor: torch.Tensor, group, size: int) -> torch.Tensor:
+    def all_gather(self, tensor: torch.Tensor, axis) -> torch.Tensor:
+        """``jax.lax.all_gather(..., tiled=True)``: the tensors along
+        ``axis`` concatenated on dim 0, in index order (over the data axis, a
+        batch's slices back in batch order; over the model axis, a table's
+        row shards back in row order)."""
+        group, size, _ = self._axis(axis)
         parts = [torch.empty_like(tensor) for _ in range(size)]
         dist.all_gather(parts, tensor.contiguous(), group=group)
         return torch.cat(parts)
 
-    def gather_data(self, tensor: torch.Tensor) -> torch.Tensor:
-        """The data group's tensors concatenated along dim 0, in data index
-        order: a batch's slices back in batch order."""
-        return self._gather(tensor, self.data_group, self.data)
-
-    def gather_model(self, tensor: torch.Tensor) -> torch.Tensor:
-        """The model group's tensors concatenated along dim 0, in model
-        index order: a table's row shards back in row order."""
-        return self._gather(tensor, self.model_group, self.model)
+    def all_to_all(self, tensor: torch.Tensor, axis) -> torch.Tensor:
+        """``jax.lax.all_to_all(split_axis=0, concat_axis=0, tiled=False)``
+        over ``axis``: ``tensor [n, ...]`` (n = the axis's size) sends its
+        row j to index j; row i of the result came from index i (source
+        first)."""
+        group, size, _ = self._axis(axis)
+        if tensor.shape[0] != size:
+            raise ValueError(f"all_to_all over {axis!r} of {size} ranks, given "
+                             f"{tuple(tensor.shape)}")
+        out = torch.empty_like(tensor, memory_format=torch.contiguous_format)
+        dist.all_to_all_single(out, tensor.contiguous(), group=group)
+        return out
 
     def barrier(self) -> None:
         """Every rank of the world reaches this point."""
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and self.backend == "nccl":
             dist.barrier(device_ids=[self.device.index])
         else:
             dist.barrier()
@@ -131,7 +163,7 @@ def make_mesh(data: Optional[int] = None, model: int = 1, device=None) -> Mesh:
     """The ``(data, model)`` mesh of this rank over the initialised world
     (``initialize_distributed`` first). ``data=None`` takes every rank the
     model axis leaves. ``device`` is ``"cpu"`` for a gloo world; by default
-    the rank's card."""
+    the rank's card (``"cuda:0"`` for ranks sharing a card over gloo)."""
     if not dist.is_initialized():
         raise RuntimeError("initialize_distributed() first: the mesh is made of its ranks")
     world, rank = dist.get_world_size(), dist.get_rank()
@@ -143,9 +175,10 @@ def make_mesh(data: Optional[int] = None, model: int = 1, device=None) -> Mesh:
         raise ValueError(f"a ({data}, {model}) mesh needs {data * model} ranks; the world has "
                          f"{world}")
     device = _rank_device(device)
-    if (device.type == "cpu") != (dist.get_backend() == "gloo"):
-        raise ValueError(f"device {device} on a {dist.get_backend()} world")
-    mesh = Mesh(data=data, model=model, rank=rank, device=device)
+    backend = dist.get_backend()
+    if device.type == "cpu" and backend != "gloo":
+        raise ValueError(f"device {device} on a {backend} world")
+    mesh = Mesh(data=data, model=model, rank=rank, device=device, backend=backend)
     for i in range(data):  # runs of consecutive ranks
         ranks = [i * model + j for j in range(model)]
         group = dist.new_group(ranks)
@@ -157,8 +190,8 @@ def make_mesh(data: Optional[int] = None, model: int = 1, device=None) -> Mesh:
         if rank in ranks:
             mesh.data_group = group
     probe = torch.zeros((1,), device=device)
-    mesh.sum_over_model(probe)
-    mesh.sum_over_data(probe)
+    mesh.psum(probe, MODEL_AXIS)
+    mesh.psum(probe, DATA_AXIS)
     return mesh
 
 

@@ -18,21 +18,24 @@ rows of each sharded leaf.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional, Union
+from typing import Any, Dict, Mapping, Optional, Union
 
 import torch
 
-from pytorchrec_tpu_torch.parallel.mesh import Mesh, Replicated, replicated
+from pytorchrec_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh, Replicated, replicated
 
 
 @dataclass(frozen=True)
 class RowShard:
     """Rows ``[offset, offset + rows_per_shard)`` of a ``rows``-row table:
-    this rank's shard."""
+    this rank's shard, one of those the mesh axis ``axis`` holds (the model
+    axis; the sharded trainer's grid layout splits rows over the whole
+    ``("data", "model")`` grid)."""
 
     rows: int
     rows_per_shard: int
     offset: int
+    axis: Any = MODEL_AXIS
 
     def local(self, tensor: torch.Tensor) -> torch.Tensor:
         """This shard's rows of a whole ``[rows, ...]`` tensor (a view)."""

@@ -16,10 +16,12 @@ from pytorchrec_tpu_torch.training.checkpoint import (
 )
 from pytorchrec_tpu_torch.training.quantized_trainer import QuantizedEmbeddingTrainer
 from pytorchrec_tpu_torch.training.rl_trainer import RLTrainer, SparseRLTrainer
+from pytorchrec_tpu_torch.training.sharded_sparse_trainer import ShardedSparseEmbeddingTrainer
 from pytorchrec_tpu_torch.training.sparse_trainer import SparseEmbeddingTrainer
 from pytorchrec_tpu_torch.training.state import (
     QuantizedTrainState,
     RLTrainState,
+    ShardedTrainState,
     SparseRLTrainState,
     SparseTrainState,
     TrainState,
@@ -29,5 +31,6 @@ from pytorchrec_tpu_torch.training.trainer import Trainer
 __all__ = ["Callback", "CallbackList", "CheckpointCallback", "CheckpointManager", "CSVLogger",
            "EarlyStopping", "History", "ModelCheckpoint", "PreemptionGuard", "Progbar",
            "ProgbarLogger", "QuantizedEmbeddingTrainer", "QuantizedTrainState", "RLTrainState",
-           "RLTrainer", "SparseEmbeddingTrainer", "SparseRLTrainState", "SparseRLTrainer",
+           "RLTrainer", "ShardedSparseEmbeddingTrainer", "ShardedTrainState",
+           "SparseEmbeddingTrainer", "SparseRLTrainState", "SparseRLTrainer",
            "SparseTrainState", "TerminateOnNaN", "TrainState", "Trainer"]

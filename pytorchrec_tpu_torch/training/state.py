@@ -145,3 +145,21 @@ class SparseRLTrainState(SparseTrainState):
     # the JAX state's PRNG key (``split(PRNGKey(seed))[1]``), numpy
     # uint32[2]: it salts the int8 table's rounding bits
     rng_key: Optional[np.ndarray] = None
+
+
+@dataclass
+class ShardedTrainState(SparseTrainState):
+    # ``packed`` / ``table_moments``: this rank's rows of each table (of its
+    # cold fragment under the hot/cold layout); a hot/cold table's moments
+    # add ``hot_m``/``hot_v`` or ``hot_acc`` for its hot fragment, as JAX's
+    # ``table_moments`` do
+    # flax leaf path -> the hot fragment (replicated on every rank): f32
+    # [H, E] rows, or packed [H, W] rows (f32, bf16 or int8 bytes); JAX's
+    # ``params["hot_tables"][...]``
+    hot: Dict[str, torch.Tensor] = field(default_factory=dict)
+    # the int8 dense-gradient compression's error-feedback residual by
+    # flax path (this data index's own); JAX's ``grad_residual`` row
+    grad_residual: Dict[str, torch.Tensor] = field(default_factory=dict)
+    # the JAX state's PRNG key, numpy uint32[2]: it salts the int8 tables'
+    # rounding bits
+    rng_key: Optional[np.ndarray] = None

@@ -144,7 +144,7 @@ from pytorchrec_tpu_torch.ops.kernels import add_tally, capture_tally
 from pytorchrec_tpu_torch.ops.precision import check_precision, matmul_precision as precision_scope
 from pytorchrec_tpu_torch.optim import build_optimizer, get_optimizer
 from pytorchrec_tpu_torch.parallel.embedding_engine import owned_ids
-from pytorchrec_tpu_torch.parallel.mesh import Mesh, data_sharding
+from pytorchrec_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, data_sharding
 from pytorchrec_tpu_torch.parallel.sharding import RowShard, param_shardings
 from pytorchrec_tpu_torch.training.callbacks import Callback, CallbackList, History
 from pytorchrec_tpu_torch.training.checkpoint import atomic_save
@@ -1126,7 +1126,7 @@ class Trainer:
 
     def _gathered(self, scores: torch.Tensor) -> torch.Tensor:
         """On a mesh, the data group's scores in batch order."""
-        return scores if self.mesh is None else self.mesh.gather_data(scores)
+        return scores if self.mesh is None else self.mesh.all_gather(scores, DATA_AXIS)
 
     def _set_leaf(self, path: str, value: torch.Tensor) -> None:
         """Put ``value`` in the model where flax path ``path`` lives: a
@@ -1183,7 +1183,7 @@ class Trainer:
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
         own = sum((torch.sum(p.grad * p.grad) for p in params if id(p) not in sharded), zero)
         shards = sum((torch.sum(p.grad * p.grad) for p in params if id(p) in sharded), zero)
-        return own + self.mesh.sum_over_model(shards.clone())
+        return own + self.mesh.psum(shards.clone(), MODEL_AXIS)
 
     def _average_over_data(self, loss: torch.Tensor) -> torch.Tensor:
         """On a mesh, every dense gradient and the loss averaged over the
@@ -1193,7 +1193,7 @@ class Trainer:
         params = [p for group in self.state.optimizer.param_groups for p in group["params"]
                   if p.grad is not None]
         flat = torch.cat([loss.detach().reshape(1)] + [p.grad.reshape(-1) for p in params])
-        self.mesh.sum_over_data(flat)
+        self.mesh.psum(flat, DATA_AXIS)
         flat /= self.mesh.data
         at = 1
         for p in params:
@@ -1212,7 +1212,7 @@ class Trainer:
             return gather(ids)
         local, owned = owned_ids(ids, shard.offset, shard.rows_per_shard)
         values = gather(local.clamp(max=shard.rows_per_shard - 1))
-        return self.mesh.sum_over_model(torch.where(owned[:, None], values, 0.0))
+        return self.mesh.psum(torch.where(owned[:, None], values, 0.0), MODEL_AXIS)
 
     def _update_inputs(self, shard: Optional[RowShard], ids: torch.Tensor, grads: torch.Tensor,
                        packed: Optional[torch.Tensor]
@@ -1225,8 +1225,8 @@ class Trainer:
         past its last row, which every update drops; and the ``packed``
         rows at them before the update (None: an unpacked table)."""
         mesh = self.mesh
-        ids = mesh.gather_data(ids)
-        grads = mesh.gather_data(grads * (1.0 / mesh.data))
+        ids = mesh.all_gather(ids, DATA_AXIS)
+        grads = mesh.all_gather(grads * (1.0 / mesh.data), DATA_AXIS)
         if shard is not None:
             ids, _ = owned_ids(ids, shard.offset, shard.rows_per_shard)
         rows = None if packed is None else packed.index_select(
@@ -1234,10 +1234,12 @@ class Trainer:
         return ids, rows, grads
 
     def _full_rows(self, path: str, tensor: torch.Tensor) -> torch.Tensor:
-        """A host copy of ``tensor``, whole: gathered over the model group
-        where it holds this rank's rows of the sharded leaf ``path``."""
-        if path in self._shards:
-            tensor = self.mesh.gather_model(tensor.detach().to(self.device))
+        """A host copy of ``tensor``, whole: gathered over its shard's axis
+        (the model group) where it holds this rank's rows of the sharded
+        leaf ``path``."""
+        shard = self._shards.get(path)
+        if shard is not None:
+            tensor = self.mesh.all_gather(tensor.detach().to(self.device), shard.axis)
         return tensor.detach().to("cpu", memory_format=torch.contiguous_format, copy=True)
 
     def _local_rows(self, path: str, value):
@@ -1245,6 +1247,11 @@ class Trainer:
         is not sharded)."""
         shard = self._shards.get(path)
         return value if shard is None else shard.local(value)
+
+    def _held_leaves(self) -> Dict[str, torch.Tensor]:
+        """Leaves (flax path -> tensor) the trainer holds outside the model,
+        which ``leaves_of`` gives and ``load_leaves`` loads: none here."""
+        return {}
 
     def _full_leaves(self, leaves: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """``leaves_of``'s host copies with every sharded leaf whole."""

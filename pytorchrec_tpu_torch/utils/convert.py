@@ -82,8 +82,11 @@ JAX's, at any step: every value is copied into the tensor that holds it
 (``copy_``), so no tensor is reallocated and a CUDA graph that captured it
 reads the loaded values. ``Trainer.save_weights``, ``load_weights`` and the
 checkpoints store and read these leaves. A trainer on a mesh gives each
-sharded table whole (gathered over its model group, so every rank of the
-group calls ``leaves_of`` together) and loads whole leaves into its rows.
+sharded table whole (gathered over its shard's axis, so every rank of the
+axis calls ``leaves_of`` together) and loads whole leaves into its rows. A
+trainer's leaves the model does not hold (``Trainer._held_leaves``: the
+sharded trainer's hot fragments, ``hot_tables/<path>``, JAX's names) are
+given and loaded beside the model's.
 """
 
 from __future__ import annotations
@@ -158,8 +161,12 @@ def leaves_of(target) -> Dict[str, torch.Tensor]:
         elif _port_key(path)[1] == "transpose":
             value = value.t()
         out[path] = value.detach().to("cpu", memory_format=torch.contiguous_format, copy=True)
-    # a trainer on a mesh: each sharded table whole (gathered over its model group)
-    return out if isinstance(target, nn.Module) else target._full_leaves(out)
+    if isinstance(target, nn.Module):
+        return out
+    for path, value in target._held_leaves().items():  # leaves the model does not hold
+        out[path] = value.detach().to("cpu", memory_format=torch.contiguous_format, copy=True)
+    # a trainer on a mesh: each sharded table whole (gathered over its shard's axis)
+    return target._full_leaves(out)
 
 
 def _host_tensor(value) -> torch.Tensor:
@@ -216,7 +223,11 @@ def load_leaves(flat: Mapping[str, Any], target):
     model = target if isinstance(target, nn.Module) else target.model
     packed = _packed_of(target)
     if not isinstance(target, nn.Module):  # a trainer on a mesh keeps its rows of each table
-        flat = target._local_leaves(flat)
+        flat = dict(target._local_leaves(flat))
+        for path, tensor in target._held_leaves().items():
+            if path not in flat:
+                raise KeyError(f"no flax leaf for {path!r}")
+            _load_packed(path, flat.pop(path), tensor)
     state = model.state_dict()
     loaded: Dict[str, torch.Tensor] = {}
     filled = set()

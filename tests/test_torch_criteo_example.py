@@ -225,7 +225,133 @@ def test_formatter_streaming_and_twin_need_no_pandas(tmp_path):
     assert run.stdout.count("held-out AUC:") == 2 and "mean coverage" in run.stdout
 
 
-def test_mesh_and_hot_mass_raise():
-    for flags in (["--mesh", "2,2"], ["--hot_mass", "0.5"]):
-        with pytest.raises(NotImplementedError, match="A10"):
+def test_mesh_and_hot_mass_raise(monkeypatch):
+    """The sharded flags are ported (no NotImplementedError): ``--mesh``
+    outside a launcher's environment and ``--hot_mass`` without ``--mesh``
+    and ``--vocab_cap`` raise ValueError before any work."""
+    for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    for flags in (["--mesh", "2,2"], ["--hot_mass", "0.5"], ["--mesh", "1,2", "--hot_mass", "0.5"]):
+        with pytest.raises(ValueError, match="RANK|--hot_mass needs"):
             twin.main(["--cpu", *flags])
+
+
+MESH_RUNS = {"1d": ["--mesh", "1,2"],  # formats the shards (rank 0), which the next reuses
+             "hot_mass": ["--mesh", "1,2", "--hot_mass", "0.9", "--vocab_cap", "50",
+                          "--formatted"]}
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory):
+    """The twin's command line with ``--mesh 1,2`` (and ``--hot_mass 0.9
+    --vocab_cap 50 --formatted``, on the first run's shards) on two gloo ranks, and its one-process twin (the same
+    arguments without ``--mesh``, the table rows rounded to 2 alike) over
+    the shards rank 0 wrote; once a test run (``shared_result``)."""
+    import torch_sharded_workers as SW
+
+    return SW.shared_result(tmp_path_factory, "criteo_mesh",
+                            lambda: _mesh_runs(tmp_path_factory.mktemp("criteo_mesh")))
+
+
+def _mesh_runs(tmp):
+    """``mesh_runs``' runs, in ``tmp``."""
+    import torch
+
+    import torch_mesh_workers as MW
+    import torch_sharded_workers as SW
+    from pytorchrec_tpu_torch.utils.convert import leaves_of
+
+    work = tmp / "work"
+    common = ["--rows", str(ROWS), "--steps", str(STEPS), "--batch", str(BATCH),
+              "--hash_bucket", str(HASH_BUCKET), "--cpu"]
+    runs = {name: common + extra for name, extra in MESH_RUNS.items()}
+    torch.save({"work_dir": str(work), "runs": runs}, tmp / "inputs.pt")
+    ranks = MW.run_world(SW.criteo_rank, 2, tmp)
+    previous = os.environ.get("PYTORCHREC_TPU_WORK_DIR")
+    os.environ["PYTORCHREC_TPU_WORK_DIR"] = str(work)
+    try:
+        one = {}
+        for name, argv in runs.items():
+            args = twin.parse_args(argv)
+            result = twin.run(steps=STEPS, batch=BATCH, hash_bucket=HASH_BUCKET,
+                              vocab_cap=args.vocab_cap, device="cpu", data=twin.formatted(),
+                              table_row_multiple=2, log=lambda *a: None, verbose=0)
+            one[name] = {"step_losses": result["step_losses"],
+                         "heldout_auc": result["heldout_auc"],
+                         "leaves": leaves_of(result["trainer"])}
+    finally:
+        if previous is None:
+            os.environ.pop("PYTORCHREC_TPU_WORK_DIR", None)
+        else:
+            os.environ["PYTORCHREC_TPU_WORK_DIR"] = previous
+    return ranks, one
+
+
+@pytest.mark.parametrize("name", sorted(MESH_RUNS))
+def test_mesh_flags_match_the_one_process_twin(mesh_runs, name):
+    """``--mesh 1,2`` (1-D) and ``--hot_mass`` (hot/cold) run, NotImplementedError
+    gone: the losses within rtol 1e-5, the merged tables and every dense
+    leaf within rtol 1e-4 / atol 1e-6 of the one-process twin's (the
+    packed table's first E columns), the held-out AUC within 1e-6; rank 0
+    alone prints, the AUC among its lines."""
+    ranks, one = mesh_runs
+    want = one[name]
+    for rank, result in enumerate(ranks):
+        got = result[name]
+        np.testing.assert_allclose(got["losses"], want["step_losses"], rtol=1e-5)
+        assert abs(got["auc"] - want["heldout_auc"]) <= 1e-6
+        assert set(got["leaves"]) == set(want["leaves"])
+        for path, value in want["leaves"].items():
+            if path.endswith("/embedding"):
+                value = value[:, :got["leaves"][path].shape[1]]
+            np.testing.assert_allclose(got["leaves"][path].numpy(), value.numpy(), rtol=1e-4,
+                                       atol=1e-6, err_msg=f"{name} rank {rank}: {path}")
+    assert "held-out AUC" in ranks[0][name]["printed"]
+    assert ranks[1][name]["printed"] == ""
+
+
+def test_rank_device_shares_cards_over_gloo(monkeypatch):
+    """``rank_device`` from the launcher's environment: gloo on the CPU
+    with ``--cpu``; NCCL (the default) with a card a rank; gloo on
+    ``cuda:<LOCAL_RANK % cards>`` where the world outnumbers the cards."""
+    monkeypatch.setattr(twin.torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    assert twin.rank_device(True) == {"device": "cpu"}
+    assert twin.rank_device(False) == {"device": "cuda:0", "backend": "gloo"}
+    monkeypatch.setattr(twin.torch.cuda, "device_count", lambda: 2)
+    assert twin.rank_device(False) == {"device": None}
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    assert twin.rank_device(False) == {"device": "cuda:1", "backend": "gloo"}
+
+
+def test_mesh_command_line_under_a_launcher(tmp_path):
+    """``python -m ...criteo_end_to_end --mesh 1,2 --cpu`` in two processes
+    with a launcher's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``MASTER_ADDR``, ``MASTER_PORT``), as ``torchrun --nproc_per_node=2``
+    starts them: the group starts from the environment, rank 0 formats and
+    prints the held-out AUC, rank 1 prints nothing, both exit 0."""
+    import socket
+
+    with socket.socket() as free:
+        free.bind(("localhost", 0))
+        port = free.getsockname()[1]
+    argv = [sys.executable, "-m", "pytorchrec_tpu_torch.examples.criteo_end_to_end",
+            "--rows", str(ROWS), "--steps", "3", "--batch", str(BATCH), "--hash_bucket",
+            str(HASH_BUCKET), "--mesh", "1,2", "--cpu"]
+    procs = []
+    for rank in range(2):
+        env = {**os.environ, "PYTORCHREC_TPU_WORK_DIR": str(tmp_path), "RANK": str(rank),
+               "WORLD_SIZE": "2", "LOCAL_RANK": str(rank), "MASTER_ADDR": "localhost",
+               "MASTER_PORT": str(port), "OMP_NUM_THREADS": "1"}
+        procs.append(subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    try:
+        outputs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for rank, (p, (out, err)) in enumerate(zip(procs, outputs)):
+        assert p.returncode == 0, f"rank {rank}: {err[-3000:]}"
+    assert "held-out AUC:" in outputs[0][0] and "1-D sharded tables" in outputs[0][0]
+    assert outputs[1][0] == ""

@@ -29,6 +29,7 @@ from pytorchrec_tpu_torch.data.process.history import _history_matrix, history_m
 from pytorchrec_tpu_torch.data.process.io import frames_from_feather
 from pytorchrec_tpu_torch.data.process.vt_negative_sample import first_appearance
 from pytorchrec_tpu_torch.utils import constants as C
+from torch_native_helpers import jax_native_dir, jax_native_private  # noqa: F401 (fixtures)
 
 DATASET = "Process"
 
@@ -158,7 +159,7 @@ def _history_inputs(seed, n=4000):
 
 @pytest.mark.parametrize("inclusive", [False, True])
 @pytest.mark.parametrize("k", [1, 5, 10, 64])
-def test_native_history_matches_numpy_and_jax(k, inclusive):
+def test_native_history_matches_numpy_and_jax(k, inclusive, jax_native_private):
     assert jax_native.available()
     uids, iids, events = _history_inputs(k + int(inclusive))
     got = history_matrix(uids, iids, events, k, inclusive)
@@ -170,7 +171,7 @@ def test_native_history_matches_numpy_and_jax(k, inclusive):
 
 
 @pytest.mark.parametrize("seed", [0, 42, (2020 << 20) + 3])
-def test_native_neg_sample_matches_jax(seed):
+def test_native_neg_sample_matches_jax(seed, jax_native_private):
     assert jax_native.available()
     rng = np.random.default_rng(1)
     n_users, hi = 40, 201

@@ -31,6 +31,7 @@ from pytorchrec_tpu_torch import data
 from pytorchrec_tpu_torch.data import adapter
 from pytorchrec_tpu_torch.data.process.history import pad_or_cut_array
 from pytorchrec_tpu_torch.utils import constants as C
+from torch_native_helpers import jax_native_dir, jax_native_private  # noqa: F401 (fixtures)
 
 ROOT = Path(__file__).resolve().parents[1]
 ML, CTR = "Synthetic-ML-Readers", "Synthetic-CTR-Readers"
@@ -79,8 +80,9 @@ def _make(package, generate_ml, generate_ctr, case):
 
 
 @pytest.fixture(params=list(CASES))
-def readers(request, tmp_path, monkeypatch):
-    """(port reader, JAX reader) of one case, each from a work dir of its own."""
+def readers(request, tmp_path, monkeypatch, jax_native_private):
+    """(port reader, JAX reader) of one case, each from a work dir of its own
+    (JAX's native library built in this process's own directory)."""
     built = {}
     for name, package, generate_ml, generate_ctr in (
             ("jax", jax_data, jax_generate_ml, jax_generate_ctr),
