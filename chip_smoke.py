@@ -467,6 +467,28 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    against plain and against themselves a row and a tile further down
    (``scan_position_witness``). B1 and the update kernels against their
    plain versions on each run's recorded arguments on each rank;
+48. two-tower on the mesh (``tt_mesh_phase``): four ranks sharing ``cuda:0``
+   over gloo (spawned as phase 47's), a ``(2, 2)`` mesh, the two-tower model
+   at phase 24's width (1M users and items, E=64, towers (256, 128),
+   cosine / 0.05, packed f32 tables, Adam at 1e-2, the softmax) on
+   ``make_tt_cpu_batch``'s rows at batch 4096 (planted duplicate positives,
+   logQ, accidental hits masked): one control step with local negatives,
+   then 10 eager steps of ``ShardedSparseEmbeddingTrainer`` (1-D) with
+   ``global_negatives_axis="data"``, B2 and B4 counted from zero on each
+   rank and held to their plain versions on the first step's calls; each
+   step's loss within rtol 1e-4 of the one-process ``SparseEmbeddingTrainer``
+   on the card (local negatives over the whole batch: the same pool), the
+   tables' and dense leaves' values outside rtol 1e-4 / atol 1e-6 within 4
+   times (in shares of lr) one process with B2 against one process with
+   B2's plain version, the control step's loss apart from it. Then rank 0's
+   merged weights in a one-process model on every rank, the bf16
+   ``[1M, 128]`` index sharded over ``"model"``, 4096 queries at k=100
+   through ``make_sharded_retrieve_fn`` fused (B7 once a call a rank, group
+   16) and exact, twice each (host clock): exact ids equal to one process's
+   ``make_retrieve_fn`` (scores rtol 1e-5, ids apart only at ties), fused
+   recall@100 at least 0.975 with each score the exact score of its id
+   (rtol 1e-4 / atol 1e-5); B7 against plain on each rank's shard at 64
+   queries;
 
 then a ``two_tower`` JSON line (ms/step,
 fused and exact ms a request, recall, index build ms), a ``classic_int8``
@@ -484,8 +506,9 @@ launches, seconds; the optimizers, the harnesses and the trace), an ``rl``
 line (phase 45's runs, plain checks, cadence and CLI runs), a ``mesh`` line
 (phase 46's pairs: ms/step with and without the mesh, the largest
 differences, launches), a ``sharded`` line (phase 47's runs: launches by
-rank, ms/step, differences from the one-process twin, seconds) and a
-``{"kernels": [...]}`` line with
+rank, ms/step, differences from the one-process twin, seconds), a
+``tt_mesh`` line (phase 48: losses, lr shares, launches by rank, host-clock
+ms, recall, seconds) and a ``{"kernels": [...]}`` line with
 every kernel at its main-path shape (``launches``: for B1–B4 the DCN-v2 int8
 training run's, for the FM kernels the DeepFM f32 training run's, for the
 pooling kernel the DIN f32 training run's, for B7 the two-tower serving
@@ -498,7 +521,8 @@ phase 42's runs; ``phase43_launches``: phase 43's bundles, the server's
 count and the Python process's; B4's ``sweep``: phase 44;
 ``phase45_launches``: phase 45's runs; ``phase46_launches``: phase 46's
 runs, with and without the mesh; ``phase47_launches``: phase 47's runs,
-rank 0's and rank 1's), after a ``serving_bundle`` line (phase
+rank 0's and rank 1's; ``phase48_launches``: phase 48's training run and
+fused requests, rank by rank), after a ``serving_bundle`` line (phase
 43's times, bytes, seconds and launches). Each path
 (serving, each training run) zeroes every launch count just before it and
 reads them just after.
@@ -559,7 +583,7 @@ from pytorchrec_tpu_torch.models import (
 )
 from pytorchrec_tpu_torch.models import ctr as ctr_module
 from pytorchrec_tpu_torch.models.rl import DQNQNet
-from pytorchrec_tpu_torch.parallel import initialize_distributed, make_mesh
+from pytorchrec_tpu_torch.parallel import DATA_AXIS, MODEL_AXIS, initialize_distributed, make_mesh
 from pytorchrec_tpu_torch.ops import attention as attention_module
 from pytorchrec_tpu_torch.ops import interactions as interactions_module
 from pytorchrec_tpu_torch.ops import quantized_packed as quantized_packed_module
@@ -637,6 +661,8 @@ from pytorchrec_tpu_torch.serving import (
     build_item_index,
     export_serving_bundle,
     make_retrieve_fn,
+    make_sharded_retrieve_fn,
+    shard_item_index,
     shim_binary_path,
 )
 from pytorchrec_tpu_torch.tasks import Task
@@ -657,7 +683,7 @@ from pytorchrec_tpu_torch.training import quantized_trainer as quantized_trainer
 from pytorchrec_tpu_torch.training.quantized_trainer import classic_quantized_update
 from pytorchrec_tpu_torch.training.trainer import request_signature
 from pytorchrec_tpu_torch.utils import params_from_jax
-from pytorchrec_tpu_torch.utils.convert import leaves_of
+from pytorchrec_tpu_torch.utils.convert import flax_path, leaves_of
 from pytorchrec_tpu_torch.utils.profiling import StepTimer, TorchProfiler
 from pytorchrec_tpu_torch.utils.rng import prng_key, split
 
@@ -1263,14 +1289,17 @@ def tt_leaves(rng: np.random.Generator, table: str) -> dict:
     return leaves
 
 
-def make_two_tower(table: str, device, seed: int, mask: bool = False) -> TwoTower:
+def make_two_tower(table: str, device, seed: int, mask: bool = False,
+                   global_negatives_axis: Optional[str] = None) -> TwoTower:
     """The two-tower model at ``scripts/retrieval_bench.py``'s scale, with
-    the f32 or the int8 item table."""
+    the f32 or the int8 item table (and cross-replica negatives over
+    ``global_negatives_axis`` on a mesh, phase 48)."""
     col = CategoricalColumnWithIdentity
     return TwoTower(uid_column=col(feature_name="uid", category_num=TT_USERS),
                     iid_column=col(feature_name="iid", category_num=TT_ITEMS),
                     emb_size=TT_EMB, layers=TT_LAYERS, normalize=True,
                     temperature=TT_TEMPERATURE, mask_accidental_hits=mask,
+                    global_negatives_axis=global_negatives_axis,
                     quantized_table=table == "int8", device=device,
                     generator=torch.Generator(device=device).manual_seed(seed))
 
@@ -6489,18 +6518,18 @@ def sharded_rank(rank: int, world: int, tmp: str) -> None:
             torch.distributed.destroy_process_group()
 
 
-def run_sharded_world(tmp: str) -> list:
-    """``sharded_rank`` on the ranks of ``SHARDED_MESH``, spawned; their
-    results in rank order. A rank that fails or outlives the deadline ends
-    the phase (every rank left is killed)."""
+def run_ranks(target, world: int, tmp: str, deadline_s: float, tag: str) -> list:
+    """``target(rank, world, tmp)`` on ``world`` spawned ranks; their results
+    (``result_<rank>.pt``) in rank order. A rank that fails (its traceback in
+    ``error_<rank>.txt``) or outlives the deadline ends the phase (every
+    rank left is killed)."""
     import torch.multiprocessing as mp
 
-    world = SHARDED_MESH[0] * SHARDED_MESH[1]
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=sharded_rank, args=(rank, world, tmp)) for rank in range(world)]
+    procs = [ctx.Process(target=target, args=(rank, world, tmp)) for rank in range(world)]
     for p in procs:
         p.start()
-    end = time.monotonic() + SHARDED_DEADLINE_S
+    end = time.monotonic() + deadline_s
     try:
         for p in procs:
             p.join(max(0.0, end - time.monotonic()))
@@ -6516,7 +6545,7 @@ def run_sharded_world(tmp: str) -> list:
             with open(path) as f:
                 errors.append(f"rank {rank}:\n{f.read()}")
     if errors or alive or any(p.exitcode for p in procs):
-        raise AssertionError(f"[phase 47] ranks failed (alive {len(alive)}, exit codes "
+        raise AssertionError(f"{tag} ranks failed (alive {len(alive)}, exit codes "
                              f"{[p.exitcode for p in procs]}):\n" + "\n".join(errors))
     return [torch.load(os.path.join(tmp, f"result_{rank}.pt"), weights_only=False)
             for rank in range(world)]
@@ -6638,7 +6667,8 @@ def sharded_phase(rng: np.random.Generator, seed: int, work_dir: str) -> dict:
                   "dlrm_batches": sharded_dlrm_batches(rng)}
         with tempfile.TemporaryDirectory() as tmp:
             torch.save({**inputs, "spawned_at": time.time()}, os.path.join(tmp, "inputs.pt"))
-            ranks = run_sharded_world(tmp)
+            ranks = run_ranks(sharded_rank, SHARDED_MESH[0] * SHARDED_MESH[1], tmp,
+                              SHARDED_DEADLINE_S, "[phase 47]")
         world_s = time.perf_counter() - t0
         out = {"mesh": list(SHARDED_MESH), "backend": "gloo", "world_seconds": world_s}
         references = {}
@@ -6685,6 +6715,401 @@ def sharded_phase(rng: np.random.Generator, seed: int, work_dir: str) -> dict:
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 47: {len(SHARDED_RUNS)} sharded runs on two ranks of one card over gloo in "
           f"{out['seconds']:.1f} s (the world {world_s:.1f} s); {card}", flush=True)
+    return out
+
+
+TT_MESH = (2, 2)  # (data, model): cross-replica negatives need a data axis > 1, the
+# sharded trainer a model axis > 1; four ranks share cuda:0 over gloo
+TT_MESH_STEPS = 10  # eager steps of each run (batch TT_BATCH, make_tt_cpu_batch's rows)
+TT_MESH_SEED = 48  # offset of the phase's generators
+TT_MESH_QUERIES = 4096  # retrieval queries, 2048 a data slice
+TT_MESH_B7_QUERIES = 64  # queries of B7's check against plain on a rank's shard
+TT_MESH_DEADLINE_S = 600.0
+# each step's loss against the one-process run: ROADMAP's f32 after N steps
+TT_MESH_LOSS_RTOL = 1e-4
+# tables and dense leaves after the first step, from the common starting
+# state: the values outside ROADMAP's f32 rule (rtol 1e-4 / atol 1e-6)
+# measured in shares of lr (phase 47's lr_shares), held to this many times
+# (phase 47's factor) the larger of two one-process witnesses' partings: B2's
+# kernel against its plain version (phase 47's), and the batches' rows in
+# another order (the same training: the loss is a mean over the rows and
+# each row's pool is every positive; every sum in another order). A value
+# whose gradient's RMS sqrt(v_hat) lies under ADAM_EPS_WINDOW is counted apart
+# and held within two steps (adam_values_agree's rule): there the step
+# lr * m_hat / (sqrt(v_hat) + eps) turns a gradient's last bits into a share of
+# lr. After the last step the partings are printed, not held: a value parted
+# so carries on through the forward, and a ReLU whose input sits near 0 flips
+# on a last bit, so from the second step on the runs part at random rows by
+# up to a step, while one step from one state agrees
+TT_MESH_PARITY = (1e-4, 1e-6)
+TT_MESH_WITNESS_FACTOR = 4.0
+# exact sharded retrieval against one process: scores rtol 1e-5, ids equal
+# but where neighbouring scores lie within it
+TT_MESH_EXACT_RTOL = 1e-5
+
+
+def tt_mesh_inputs(seed: int) -> tuple:
+    """Phase 48's leaves (``tt_leaves``: packed f32 tables), its training
+    batches (``make_tt_cpu_batch`` at ``TT_BATCH`` rows: planted duplicate
+    positives, logQ) and its queries, the same in every process."""
+    leaves = tt_leaves(np.random.default_rng(seed + TT_MESH_SEED), "f32")
+    rng = np.random.default_rng(seed + TT_MESH_SEED + 1)
+    batches = [make_tt_cpu_batch(rng, TT_BATCH) for _ in range(TT_MESH_STEPS)]
+    return leaves, batches, rng.integers(0, TT_USERS, size=TT_MESH_QUERIES)
+
+
+def tt_mesh_trainer(mesh, leaves: dict, sample: dict, seed: int, axis: Optional[str]):
+    """The two-tower model (accidental hits masked) under the sharded trainer
+    on ``mesh`` (1-D, packed f32 tables, Adam at ``TT_LR``, the softmax),
+    from ``leaves``; cross-replica negatives over ``axis`` (None: each
+    rank's own rows)."""
+    model = make_two_tower("f32", mesh.device, seed, mask=True, global_negatives_axis=axis)
+    trainer = ShardedSparseEmbeddingTrainer(model, mesh=mesh, strategy="1d", packed_tables=True)
+    trainer.compile(optimizer="adam", lr=TT_LR, loss="softmax", metrics=())
+    trainer.init_state(sample, seed=seed)
+    return params_from_jax(leaves, trainer)
+
+
+def tt_mesh_train(tag: str, mesh, leaves: dict, batches: list, seed: int, weights: str) -> dict:
+    """A rank's training half: the control step (local negatives on the
+    mesh), then ``TT_MESH_STEPS`` eager steps with cross-replica negatives,
+    launch counts from zero (B2 and B4 once a table a step), the update
+    kernels' first calls recorded and held to their plain versions, the
+    merged leaves after the first step and after the last (collectives;
+    rank 0 keeps them and saves the last to ``weights``)."""
+    control = tt_mesh_trainer(mesh, leaves, batches[0], seed, None)
+    control_loss = float(control.train_step(batches[0]))
+    del control
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = tt_mesh_trainer(mesh, leaves, batches[0], seed, DATA_AXIS)
+    calls, losses, ms, first = {}, [], [], None
+    zero_counts()
+    with recording_update_kernels(calls):
+        for batch in batches:
+            t0 = time.perf_counter()
+            losses.append(float(trainer.train_step(batch)))  # the float syncs
+            ms.append(1e3 * (time.perf_counter() - t0))
+            if first is None:  # a collective: every rank
+                first = trainer.merged_params()
+    launches = names(counts())
+    check_launches(f"{tag} training", {k: 0 for k in ALL_KERNELS},
+                   {segmented_sum_scan: 2 * len(batches), scatter_set_rows: 2 * len(batches)})
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{tag} losses {losses}")
+    merged = trainer.merged_params()
+    if mesh.rank == 0:
+        torch.save(merged, weights)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    against = update_kernels_against_plain(calls, tag=f"{tag} kernels")
+    print(f"{tag} {len(batches)} steps: losses {losses[0]:.6f} .. {losses[-1]:.6f}, control "
+          f"(local negatives) {control_loss:.6f}; host-clock ms/step (eager, gloo, four ranks "
+          f"on one card: a correctness figure) first {ms[0]:.1f}, median of the rest "
+          f"{float(np.median(ms[1:])):.1f}; launches {launches}", flush=True)
+    return {"losses": losses, "control_loss": control_loss, "launches": launches,
+            "host_ms_per_step": float(np.median(ms[1:])), "first_step_ms": ms[0],
+            "against_plain": against, "first": first if mesh.rank == 0 else None,
+            "last": merged if mesh.rank == 0 else None}
+
+
+def tt_mesh_retrieve(tag: str, mesh, queries: np.ndarray, seed: int, weights: str) -> dict:
+    """A rank's serving half: the merged weights into a one-process model,
+    the bf16 index built whole and sharded over the model axis, then the
+    queries through ``make_sharded_retrieve_fn`` fused (B7 once a call,
+    counted from zero) and exact (no kernel), twice each (host clock);
+    B7 against its plain version on this rank's shard at the first fused
+    call's first ``TT_MESH_B7_QUERIES`` queries."""
+    mesh.barrier()  # rank 0 has saved the weights
+    model = params_from_jax(torch.load(weights, weights_only=True),
+                            make_two_tower("f32", mesh.device, seed))
+    shard = shard_item_index(build_item_index(model, TT_ITEMS, batch_size=TT_INDEX_BATCH), mesh,
+                             MODEL_AXIS)
+    torch.cuda.empty_cache()
+    b7_queries, kernel = [], retrieval_module.bin_max_scores
+
+    def record(q, items, **kwargs):
+        if not b7_queries:
+            b7_queries.append(q[:TT_MESH_B7_QUERIES].detach().clone())
+        return kernel(q, items, **kwargs)
+
+    out = {}
+    for mode, kwargs, want in (("fused", dict(approx="fused", fused_group=DEFAULT_GROUP),
+                                {bin_max_scores: 1}), ("exact", dict(chunk_items=65536), {})):
+        retrieve = make_sharded_retrieve_fn(model, mesh, TT_ITEMS, **kwargs)
+        ms = []
+        for _ in range(2):
+            zero_counts()
+            with swapped(retrieval_module, "bin_max_scores", record):
+                t0 = time.perf_counter()
+                scores, ids = retrieve(shard, queries, TT_K)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+            check_launches(f"{tag} {mode} retrieval", {k: 0 for k in ALL_KERNELS}, want)
+        out[mode] = {"scores": scores.cpu(), "ids": ids.cpu(), "host_ms": ms,
+                     "launches": names(counts())}
+        print(f"{tag} {mode} sharded retrieval of {TT_MESH_QUERIES} queries, k={TT_K}: "
+              f"host-clock ms a request (gloo, four ranks on one card: a correctness figure) "
+              f"{ms[0]:.1f} then {ms[1]:.1f}", flush=True)
+    q = b7_queries[0]
+    with torch.no_grad():
+        got, plain = bin_max_scores(q, shard), bin_max_scores_plain(q, shard)
+    out["b7_max_abs_err"] = bins_agree(f"rank {mesh.rank} shard", q, shard, DEFAULT_TC,
+                                       DEFAULT_GROUP, got, plain)
+    out["b7_shape"] = [list(q.shape), list(shard.shape)]
+    return out
+
+
+def tt_mesh_rank(rank: int, world: int, tmp: str) -> None:
+    """A phase-48 rank (a process of its own, spawned by ``tt_mesh_phase``
+    with a launcher's environment): gloo on ``cuda:0``, the ``TT_MESH``
+    mesh, ``tt_mesh_train`` then ``tt_mesh_retrieve``. Writes its results
+    (``result_<rank>.pt``) or its traceback (``error_<rank>.txt``)."""
+    import traceback
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+        os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": str(rank),
+                           **inputs["launcher"]})
+        build("seg_scan", "scatter", "retrieval_topk")  # the parent's libraries
+        tag = f"[phase 48 rank {rank}]"
+        print(f"{tag} up {time.time() - inputs['spawned_at']:.1f} s after the spawn", flush=True)
+        t0 = time.perf_counter()
+        initialize_distributed(device="cuda:0", backend="gloo", init_method="env://",
+                               world_size=world, rank=rank,
+                               timeout=datetime.timedelta(seconds=TT_MESH_DEADLINE_S))
+        mesh = make_mesh(*TT_MESH, device="cuda:0")
+        leaves, batches, queries = tt_mesh_inputs(inputs["seed"])
+        weights = os.path.join(tmp, "weights.pt")
+        out = {"train": tt_mesh_train(tag, mesh, leaves, batches, inputs["seed"], weights)}
+        del leaves
+        t1 = time.perf_counter()
+        out["retrieve"] = tt_mesh_retrieve(tag, mesh, queries, inputs["seed"], weights)
+        out["seconds"] = {"train": t1 - t0, "retrieve": time.perf_counter() - t1}
+        torch.save(out, os.path.join(tmp, f"result_{rank}.pt"))
+    except BaseException:
+        with open(os.path.join(tmp, f"error_{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def tt_one_process(leaves: dict, batches: list, seed: int, reorder: bool = False) -> dict:
+    """The one-process twin on the card: ``SparseEmbeddingTrainer`` (packed
+    f32), local negatives over the whole batch, from the same leaves and
+    batches (with ``reorder``, each batch's rows in another order: the same
+    training, every sum in another order); its losses and leaves (the
+    tables' first E columns) after the first step and after the last, and
+    the first step's ``v_hat`` by leaf."""
+    if reorder:
+        order = np.random.default_rng(seed + TT_MESH_SEED + 2).permutation(TT_BATCH)
+        batches = [{k: v[order] for k, v in batch.items()} for batch in batches]
+    trainer = SparseEmbeddingTrainer(make_two_tower("f32", "cuda", seed, mask=True),
+                                     device="cuda", packed_tables=True)
+    trainer.compile(optimizer="adam", lr=TT_LR, loss="softmax", metrics=())
+    trainer.init_state(batches[0], seed=seed)
+    params_from_jax(leaves, trainer)
+    losses, out = [], {}
+    for step, batch in enumerate(batches):
+        losses.append(float(trainer.train_step(batch)))
+        if step == 0:
+            out["first"], out["first_v_hat"] = tt_leaves_of(trainer, v_hat=True)
+    out["last"], _ = tt_leaves_of(trainer)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": np.asarray(losses), **out}
+
+
+def tt_leaves_of(trainer, v_hat: bool = False) -> tuple:
+    """A one-process trainer's leaves by flax path (the packed tables' first E
+    columns), and with ``v_hat`` each value's bias-corrected Adam second
+    moment (the packed rows' v; the dense optimizer's ``exp_avg_sq``, kernels
+    in the flax layout)."""
+    leaves, moments = leaves_of(trainer), {}
+    correction = 1 - ADAM_BETA2 ** trainer.state.step
+    for path in trainer.state.packed:  # table || m || v || staging
+        if v_hat:
+            moments[path] = leaves[path][:, 2 * TT_EMB:3 * TT_EMB] / correction
+        leaves[path] = leaves[path][:, :TT_EMB]
+    if v_hat:
+        paths = {id(p): flax_path(name) for name, p in trainer.model.named_parameters()}
+        for p, state in trainer.state.optimizer.state.items():
+            v = state["exp_avg_sq"].detach().cpu() / correction
+            moments[paths[id(p)]] = v.t() if v.dim() == 2 else v
+    return leaves, moments
+
+
+def lr_parting(got: dict, want: dict, v_hat: Optional[dict] = None) -> dict:
+    """The largest difference, in shares of lr, over the values of two runs'
+    leaves outside ROADMAP's f32 rule (``TT_MESH_PARITY``), in the tables
+    and in the dense leaves (0 where none is), and how many values that is;
+    with ``v_hat``, the values in Adam's eps window apart (see
+    ``TT_MESH_PARITY``), counted with their largest difference."""
+    rtol, atol = TT_MESH_PARITY
+    if set(got) != set(want) or (v_hat is not None and set(v_hat) != set(want)):
+        raise AssertionError(f"leaves {sorted(got)} against {sorted(want)}")
+    shares = {"table": 0.0, "dense": 0.0, "values_apart": 0}
+    if v_hat is not None:
+        shares.update(window_values_apart=0, window_lr=0.0)
+    for path, value in want.items():
+        diff = (got[path].float() - value.float()).abs()
+        apart = diff > atol + rtol * value.float().abs()
+        if v_hat is not None:
+            window = v_hat[path].sqrt() < ADAM_EPS_WINDOW
+            if bool((apart & window).any()):
+                shares["window_values_apart"] += int((apart & window).sum())
+                shares["window_lr"] = max(shares["window_lr"],
+                                          float(diff[apart & window].max()) / TT_LR)
+            apart &= ~window
+        if bool(apart.any()):
+            group = "table" if path.endswith("embeddings/embedding") else "dense"
+            shares[group] = max(shares[group], float(diff[apart].max()) / TT_LR)
+            shares["values_apart"] += int(apart.sum())
+    return shares
+
+
+def exact_ids_agree(label: str, got, want) -> int:
+    """Sharded exact retrieval against one process's: scores within
+    ``TT_MESH_EXACT_RTOL`` position by position; ids equal but where the
+    score lies within that tolerance of a neighbouring position's (or at
+    the k-th, where an equal score past k may take the place). Returns the
+    count of such places."""
+    (gs, gi), (ws, wi) = ((s.float().cpu(), i.cpu()) for s, i in (got, want))
+    close(gs, ws, rtol=TT_MESH_EXACT_RTOL, atol=1e-30)
+    differ = gi != wi
+    tol = TT_MESH_EXACT_RTOL * ws.abs()
+    near = torch.zeros_like(differ)
+    near[:, 1:] |= (ws[:, 1:] - ws[:, :-1]).abs() <= tol[:, 1:]
+    near[:, :-1] |= (ws[:, :-1] - ws[:, 1:]).abs() <= tol[:, :-1]
+    near[:, -1] = True
+    if bool((differ & ~near).any()):
+        raise AssertionError(f"{label}: {int((differ & ~near).sum())} ids differ away from a tie")
+    return int(differ.sum())
+
+
+def tt_mesh_phase(seed: int) -> dict:
+    """Phase 48 (see the module docstring): two-tower training with
+    cross-replica negatives and corpus-sharded retrieval on four ranks
+    sharing the card over gloo, held to one process on the card."""
+    import socket
+
+    t0 = time.perf_counter()
+    card = card_line()
+    with socket.socket() as free:  # the launcher's store: a free port here
+        free.bind(("localhost", 0))
+        port = free.getsockname()[1]
+    inputs = {"seed": seed, "launcher": {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({**inputs, "spawned_at": time.time()}, os.path.join(tmp, "inputs.pt"))
+        ranks = run_ranks(tt_mesh_rank, TT_MESH[0] * TT_MESH[1], tmp, TT_MESH_DEADLINE_S,
+                          "[phase 48]")
+        merged = torch.load(os.path.join(tmp, "weights.pt"), weights_only=True)
+    world_s = time.perf_counter() - t0
+    leaves, batches, queries = tt_mesh_inputs(seed)
+    t1 = time.perf_counter()
+    one = tt_one_process(leaves, batches, seed)
+    with plain_scan():
+        plain_run = tt_one_process(leaves, batches, seed)
+    reordered_run = tt_one_process(leaves, batches, seed, reorder=True)
+    del leaves
+    reference_s = time.perf_counter() - t1
+    tag = "[phase 48]"
+
+    # training: every rank's losses equal (the data group's mean), each step
+    # within TT_MESH_LOSS_RTOL of one process's; the leaves after the first
+    # step within TT_MESH_WITNESS_FACTOR times the witnesses' parting (see
+    # TT_MESH_PARITY), after the last printed; the control step parts
+    train = [r["train"] for r in ranks]
+    for r, t in enumerate(train[1:], 1):
+        if t["losses"] != train[0]["losses"]:
+            raise AssertionError(f"{tag} rank {r} losses {t['losses']}, rank 0 {train[0]['losses']}")
+    losses = torch.tensor(train[0]["losses"], dtype=torch.float64)
+    loss_diff = close(losses, torch.from_numpy(one["losses"]).double(), rtol=TT_MESH_LOSS_RTOL,
+                      atol=1e-30)
+    first = {"sharded": lr_parting(train[0]["first"], one["first"], one["first_v_hat"]),
+             "b2_plain": lr_parting(plain_run["first"], one["first"], one["first_v_hat"]),
+             "rows_reordered": lr_parting(reordered_run["first"], one["first"],
+                                          one["first_v_hat"])}
+    last = {"sharded": lr_parting(train[0]["last"], one["last"]),
+            "b2_plain": lr_parting(plain_run["last"], one["last"]),
+            "rows_reordered": lr_parting(reordered_run["last"], one["last"])}
+    bound = {group: TT_MESH_WITNESS_FACTOR * max(first[w][group] for w in ("b2_plain",
+                                                                         "rows_reordered"))
+             for group in ("table", "dense")}
+    reordered_loss_diff = close(torch.from_numpy(reordered_run["losses"]).double(),
+                                torch.from_numpy(one["losses"]).double(),
+                                rtol=TT_MESH_LOSS_RTOL, atol=1e-30)
+    print(f"{tag} training against one process: losses within {loss_diff:.3e} (rtol "
+          f"{TT_MESH_LOSS_RTOL}; the reordered rows' {reordered_loss_diff:.3e}); values outside "
+          f"rtol {TT_MESH_PARITY[0]} / atol {TT_MESH_PARITY[1]}, in lr, after the first step: "
+          f"{first}, bound {bound}; after step {TT_MESH_STEPS} (not held): {last}; {card}",
+          flush=True)
+    for group, limit in bound.items():
+        if first["sharded"][group] > limit:
+            raise AssertionError(f"{tag} {group} values {first['sharded'][group]:.4g} lr apart "
+                                 f"from one process after the first step, the bound "
+                                 f"{limit:.4g} lr")
+    for name, shares in first.items():
+        if shares["window_lr"] > 2.01:
+            raise AssertionError(f"{tag} {name}: a value in Adam's eps window "
+                                 f"{shares['window_lr']:.4g} lr apart after the first step")
+    control_gap = abs(train[0]["control_loss"] - float(one["losses"][0]))
+    if not control_gap > TT_MESH_LOSS_RTOL * abs(float(one["losses"][0])):
+        raise AssertionError(f"{tag} the control step (local negatives) {train[0]['control_loss']} "
+                             f"does not part from one process's {one['losses'][0]}")
+    print(f"{tag} control step with local negatives on the mesh: loss "
+          f"{train[0]['control_loss']:.6f} against one process's {float(one['losses'][0]):.6f} "
+          f"(apart {control_gap:.4f}: the gather is active)", flush=True)
+
+    # retrieval: each rank's exact result against one process's exact path
+    # over the same weights and index; its fused result's recall and exact
+    # scores
+    model = params_from_jax(merged, make_two_tower("f32", "cuda", seed))
+    index = build_item_index(model, TT_ITEMS, batch_size=TT_INDEX_BATCH)
+    exact = make_retrieve_fn(model, chunk_items=65536).eager(index, queries, TT_K)
+    retrieval = []
+    for r, result in enumerate(ranks):
+        got = result["retrieve"]
+        ties = exact_ids_agree(f"{tag} rank {r} exact", (got["exact"]["scores"],
+                                                         got["exact"]["ids"]), exact)
+        fused_ids = got["fused"]["ids"]
+        recall = recall_at_k(fused_ids, exact[1].cpu())
+        if not recall >= TT_RECALL_MIN:
+            raise AssertionError(f"{tag} rank {r} fused recall@{TT_K} {recall}")
+        err = scores_exact(f"{tag} rank {r} fused", model, index, queries,
+                           got["fused"]["scores"].cuda(), fused_ids.cuda())
+        retrieval.append({"exact_ids_at_ties": ties, "fused_recall": recall,
+                          "fused_score_max_abs_err": err,
+                          "fused_host_ms": got["fused"]["host_ms"],
+                          "exact_host_ms": got["exact"]["host_ms"],
+                          "b7_max_abs_err": got["b7_max_abs_err"], "b7_shape": got["b7_shape"]})
+        print(f"{tag} rank {r}: exact ids equal to one process's but {ties} at ties; fused "
+              f"recall@{TT_K} {recall:.5f}", flush=True)
+    del model, index
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"mesh": list(TT_MESH), "backend": "gloo", "steps": TT_MESH_STEPS, "batch": TT_BATCH,
+           "losses": train[0]["losses"], "one_process_losses": one["losses"].tolist(),
+           "loss_max_abs_diff": loss_diff, "first_step_lr_shares": first,
+           "lr_share_bound": bound, "last_step_lr_shares": last,
+           "control_loss": train[0]["control_loss"],
+           "launches": [t["launches"] for t in train],
+           "host_ms_per_step": [t["host_ms_per_step"] for t in train],
+           "retrieval": retrieval,
+           "fused_launches": [r["retrieve"]["fused"]["launches"] for r in ranks],
+           "against_plain": [t["against_plain"] for t in train],
+           "rank_seconds": [r["seconds"] for r in ranks], "world_seconds": world_s,
+           "reference_seconds": reference_s}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 48: two-tower on a {TT_MESH} mesh, four ranks on one card over gloo, in "
+          f"{out['seconds']:.1f} s (the world {world_s:.1f} s, the one-process runs "
+          f"{reference_s:.1f} s); {card}", flush=True)
     return out
 
 
@@ -7040,6 +7465,12 @@ def main() -> int:
     sharded = sharded_phase(rng, args.seed, criteo_dir.name)
     criteo_dir.cleanup()
 
+    # 48. two-tower on a (2, 2) mesh: four ranks sharing the card over gloo,
+    # cross-replica negatives under the sharded trainer (B2, B4) against one
+    # process, corpus-sharded retrieval (B7 on each shard) against one
+    # process's exact path, the kernels against plain on each rank
+    tt_mesh = tt_mesh_phase(args.seed)
+
     n_scan = TRAIN_BATCH * N_SPARSE
     vocab_rows = N_SPARSE * VOCAB
     fm_shape = f"[{TRAIN_BATCH}, {FM_FIELDS}, {EMB}] f32"
@@ -7247,6 +7678,19 @@ def main() -> int:
         if checked:
             entry["phase47_max_abs_err"] = max(checked)
     print(json.dumps({"sharded": {k: v for k, v in sharded.items() if k != "against_plain"}}))
+    for entry in entries:  # phase 48's training run and fused requests, from zero on each rank
+        entry["phase48_launches"] = {
+            "train": [n.get(entry["name"], 0) for n in tt_mesh["launches"]],
+            "fused_request": [n.get(entry["name"], 0) for n in tt_mesh["fused_launches"]]}
+        checked = [r[entry["name"]]["max_abs_err"] for r in tt_mesh["against_plain"]
+                   if entry["name"] in r]
+        if entry["name"] == "bin_max_scores":
+            checked = [r["b7_max_abs_err"] for r in tt_mesh["retrieval"]]
+        if checked:
+            entry["phase48_max_abs_err"] = max(checked)
+    print(json.dumps({"tt_mesh": {
+        "note": "host-clock ms over gloo, four ranks sharing one card: correctness figures",
+        **{k: v for k, v in tt_mesh.items() if k != "against_plain"}}}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

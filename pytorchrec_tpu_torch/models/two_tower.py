@@ -23,9 +23,18 @@ positive first (the diagonal, then the row without it), for the softmax
 loss. There, a batch key ``Q_KEY`` holding each row's raw sampling
 probability subtracts ``log q`` from every column (the logQ correction), and
 ``mask_accidental_hits`` sets a column whose item is the row's own positive
-to -1e9 (off the diagonal). Cross-device negatives
-(``global_negatives_axis``) come with multi-device training and raise until
-then.
+to -1e9 (off the diagonal).
+
+Cross-replica negatives (``global_negatives_axis``, a mesh axis name such as
+``"data"``): inside a sharded trainer's forward (``parallel.mesh.bound``)
+each rank's positives ``[B, D]`` are gathered over the axis
+(``all_gather_grad``, whose backward hands every rank's cotangents back to
+the owner), so a rank scores its ``B`` users against all ``d·B`` in-batch
+positives: ``[B, dB + 1]``, the own positive first, then the whole pool
+with the own column (and, with ``mask_accidental_hits``, every column whose
+gathered id is the row's positive) at -1e9, so the softmax equals the one
+over the pool less those columns. ``log q`` is gathered too. Outside a bound
+mesh the training forward raises ``NameError``, as JAX's unbound axis does.
 
 Rows injection: ``sharded_table_specs`` (the sparse trainer's protocol) and
 ``quantized_table_spec`` (the quantized trainer's) name the tables with
@@ -51,6 +60,7 @@ from pytorchrec_tpu_torch.models.base import (
 from pytorchrec_tpu_torch.ops.embedding import Embedding
 from pytorchrec_tpu_torch.ops.mlp import MLP, linear
 from pytorchrec_tpu_torch.ops.quantized_packed import packed_gather_dequant, packed_table_init
+from pytorchrec_tpu_torch.parallel.mesh import all_gather_grad, bound_mesh
 from pytorchrec_tpu_torch.utils.device import resolve_device
 
 ACCIDENTAL_HIT_LOGIT = -1e9  # a masked column's logit: exp(-1e9) is 0 in the softmax
@@ -92,9 +102,6 @@ class TwoTower(RecModel):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if global_negatives_axis is not None:
-            raise NotImplementedError("cross-device negatives come with multi-device training; "
-                                      "pass global_negatives_axis=None")
         device = resolve_device(device)
         self.uid_column, self.iid_column = uid_column, iid_column
         self.label_column = label_column
@@ -104,6 +111,7 @@ class TwoTower(RecModel):
         self.temperature = temperature
         self.in_batch_negatives = in_batch_negatives
         self.mask_accidental_hits = mask_accidental_hits
+        self.global_negatives_axis = global_negatives_axis
         self.table_row_multiple = table_row_multiple
         self.quantized_table = quantized_table
         self.table_bits = table_bits
@@ -182,14 +190,16 @@ class TwoTower(RecModel):
             return prediction, label_target(self.label_column, batch)
 
         if train and self.in_batch_negatives:
-            # each row's positive against every in-batch positive: [B, B]
             pos_ids = i_ids[:, 0]
-            logits = self._scale(u_vec @ i_vec[:, 0, :].T)
             q = batch.get(self.Q_KEY)
+            if q is not None:  # cast to f32 first, so a float64 column does not promote
+                q = torch.as_tensor(q).to(device=u_vec.device, dtype=torch.float32)
+            if self.global_negatives_axis is not None:
+                return self._global_pool(u_vec, i_vec[:, 0, :], pos_ids, q)
+            # each row's positive against every in-batch positive: [B, B]
+            logits = self._scale(u_vec @ i_vec[:, 0, :].T)
             if q is not None:
-                # Yi et al. 2019 eq. 6, every column (the positive's too); q is
-                # cast to f32 first, so a float64 column does not promote
-                q = torch.as_tensor(q).to(device=logits.device, dtype=torch.float32)
+                # Yi et al. 2019 eq. 6, every column (the positive's too)
                 logits = logits - torch.log(q)[None, :]
             if self.mask_accidental_hits:
                 b = logits.shape[0]
@@ -202,6 +212,26 @@ class TwoTower(RecModel):
 
         # candidate scoring (eval / sampled-negative training)
         prediction = self._scale(torch.einsum("bd,bnd->bn", u_vec, i_vec))
+        return prediction, one_hot_first_target(prediction)
+
+    def _global_pool(self, u_vec: torch.Tensor, pos_vec: torch.Tensor, pos_ids: torch.Tensor,
+                     q: Optional[torch.Tensor]) -> Prediction:
+        """Each row's positive against every positive of the axis's ranks:
+        ``[B, dB + 1]``, the own column first, then the pool with the own
+        column and any accidental hits masked."""
+        axis = self.global_negatives_axis
+        mesh = bound_mesh(axis)
+        b = pos_vec.shape[0]
+        logits = self._scale(u_vec @ all_gather_grad(pos_vec, mesh, axis).T)  # [B, dB]
+        if q is not None:
+            logits = logits - torch.log(mesh.all_gather(q, axis))[None, :]
+        cols = torch.arange(logits.shape[1], device=logits.device)
+        my_col = mesh.axis_index(axis) * b + torch.arange(b, device=logits.device)
+        pos = logits.gather(1, my_col[:, None])
+        masked = cols[None, :] == my_col[:, None]
+        if self.mask_accidental_hits:
+            masked = masked | (mesh.all_gather(pos_ids, axis)[None, :] == pos_ids[:, None])
+        prediction = torch.cat([pos, logits.masked_fill(masked, ACCIDENTAL_HIT_LOGIT)], dim=-1)
         return prediction, one_hot_first_target(prediction)
 
     # --- sparse and quantized trainer protocols ---

@@ -1,5 +1,6 @@
 """Multi-device training (port of ``pytorchrec_tpu/parallel``): the
-``(data, model)`` mesh on ``torch.distributed`` (``mesh.py``), the
+``(data, model)`` mesh on ``torch.distributed`` and its axes by name inside
+``bound(mesh)``, with ``all_gather_grad`` (``mesh.py``), the
 parameter sharding rules (``sharding.py``), the sharded lookups and the
 all-to-all row-gradient exchanges (``embedding_engine.py``), the hot/cold
 layout (``hot_cold.py``) and int8 dense-gradient means
@@ -33,6 +34,9 @@ from pytorchrec_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
     Mesh,
+    all_gather_grad,
+    bound,
+    bound_mesh,
     data_sharding,
     initialize_distributed,
     make_mesh,
@@ -45,8 +49,9 @@ from pytorchrec_tpu_torch.parallel.sharding import (
     shard_params,
 )
 
-__all__ = ["DATA_AXIS", "HotColdLayout", "MODEL_AXIS", "Mesh", "RowShard", "all_to_all_lookup",
-           "all_to_all_rowgrad", "bucket_capacity", "build_layout", "compressed_pmean_flat",
+__all__ = ["DATA_AXIS", "HotColdLayout", "MODEL_AXIS", "Mesh", "RowShard", "all_gather_grad",
+           "all_to_all_lookup", "all_to_all_rowgrad", "bound", "bound_mesh", "bucket_capacity",
+           "build_layout", "compressed_pmean_flat",
            "compressed_wire_bytes", "data_sharding", "grid_lookup", "grid_rowgrad",
            "hot_cold_lookup", "initialize_distributed", "is_embedding_table",
            "make_hot_cold_lookup", "make_mesh", "make_sharded_lookup", "masked_psum_lookup",

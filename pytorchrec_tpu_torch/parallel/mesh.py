@@ -28,13 +28,25 @@ collectives do: ``"data"``, ``"model"``, or ``("data", "model")``, the
 whole grid flattened, whose index is the rank (``axis_size``,
 ``axis_index``, ``psum``, ``all_gather``, ``all_to_all``). Every rank of the
 axis's group must reach each collective, in one order.
+
+A model names a mesh axis as JAX's models do inside ``shard_map`` (the
+two-tower model's ``global_negatives_axis``): ``bound(mesh)`` makes the mesh
+reachable by axis name for the code it wraps (the sharded trainer wraps its
+forward passes in it), and ``bound_mesh(axis)`` returns it there and raises
+``NameError`` elsewhere, as JAX's unbound axis name does. ``all_gather_grad``
+is ``jax.lax.all_gather(..., tiled=True)`` with its transpose: forward the
+gather in index order, backward ``reduce_scatter_tensor`` (a sum) over the
+same group, so each slice's owner gets the cotangents of every rank that
+read it.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import os
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -157,6 +169,56 @@ class Mesh:
             dist.barrier(device_ids=[self.device.index])
         else:
             dist.barrier()
+
+
+_BOUND: contextvars.ContextVar[Optional[Mesh]] = contextvars.ContextVar("bound_mesh",
+                                                                         default=None)
+
+
+@contextlib.contextmanager
+def bound(mesh: Mesh) -> Iterator[Mesh]:
+    """Inside: ``mesh``'s axes are reachable by name (``bound_mesh``), as
+    inside JAX's ``shard_map`` over it."""
+    token = _BOUND.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _BOUND.reset(token)
+
+
+def bound_mesh(axis) -> Mesh:
+    """The mesh ``bound`` made reachable, which must have ``axis``; outside
+    one, ``NameError`` (JAX's unbound axis name)."""
+    mesh = _BOUND.get()
+    if mesh is None:
+        raise NameError(f"unbound axis name: {axis} (a model that names a mesh axis runs inside "
+                        "a sharded trainer's forward, parallel.mesh.bound)")
+    mesh._axis(axis)  # an axis the mesh does not have raises
+    return mesh
+
+
+class _AllGather(torch.autograd.Function):
+    """``Mesh.all_gather`` over ``axis`` forward; the cotangent summed over
+    the axis and scattered back to each slice's owner backward."""
+
+    @staticmethod
+    def forward(ctx, tensor: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:
+        ctx.mesh, ctx.axis = mesh, axis
+        return mesh.all_gather(tensor, axis)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        group, size, _ = ctx.mesh._axis(ctx.axis)
+        out = grad.new_empty((grad.shape[0] // size, *grad.shape[1:]))
+        dist.reduce_scatter_tensor(out, grad.contiguous(), group=group)
+        return out, None, None
+
+
+def all_gather_grad(tensor: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:
+    """``jax.lax.all_gather(tensor, axis, tiled=True)`` under autograd: the
+    tensors along ``axis`` concatenated on dim 0 in index order; backward,
+    each rank's slice of the summed cotangent (``psum_scatter``)."""
+    return _AllGather.apply(tensor, mesh, axis)
 
 
 def make_mesh(data: Optional[int] = None, model: int = 1, device=None) -> Mesh:

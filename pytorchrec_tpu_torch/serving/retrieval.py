@@ -19,8 +19,17 @@ bf16 by default), and ``make_retrieve_fn`` answers queries against it:
   accepted and unused.
 
 Every top-k puts equal scores at the lower column first, as ``lax.top_k``
-does (``top_k``). Returned ids are int32, as in JAX. The corpus-sharded
-functions come with multi-device serving.
+does (``top_k``). Returned ids are int32, as in JAX.
+
+Corpus-sharded retrieval over a mesh (``parallel/mesh.py``; every rank makes
+the same calls): ``shard_item_index`` pads the index with zero rows to a
+multiple of the corpus shards and keeps this rank's rows, and
+``make_sharded_retrieve_fn`` scores each rank's slice of the queries
+against its shard (B7 in fused mode, the exact chunked path otherwise, the
+pad rows masked by global id), gathers the ``[B_local, k]`` candidates over
+the corpus axes and ranks them with one exact top-k, then gathers the
+query slices: every rank returns the whole batch's ``(scores, ids)``. It
+runs eagerly (a gloo world cannot be captured).
 
 JAX jits the user tower and ``_fused_topk`` / ``_topk_scores`` with ``k``
 static. The port's twin is one CUDA graph per ``(item_index, B, k)``
@@ -41,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from pytorchrec_tpu_torch.ops.kernels.retrieval_topk import bin_max_scores, ordered_scores
+from pytorchrec_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
 from pytorchrec_tpu_torch.utils.graphs import GraphCache, StaticInputs
 
 Retrieve = Callable[[torch.Tensor, object, int], Tuple[torch.Tensor, torch.Tensor]]
@@ -127,6 +137,98 @@ def make_retrieve_fn(model, temperature: Optional[float] = None, chunk_items: in
             return scores(item_index, torch.as_tensor(u_ids).to(device), k)
 
     retrieve.eager, retrieve.graphs = eager, graphs
+    return retrieve
+
+
+def _mesh_axes(corpus_axis) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """(the corpus axes, the query axes: the mesh's others, in its order)."""
+    corpus = (corpus_axis,) if isinstance(corpus_axis, str) else tuple(corpus_axis)
+    if not corpus or not set(corpus) <= {DATA_AXIS, MODEL_AXIS} or len(set(corpus)) < len(corpus):
+        raise ValueError(f"corpus_axis must name mesh axes, got {corpus_axis!r}")
+    return corpus, tuple(a for a in (DATA_AXIS, MODEL_AXIS) if a not in corpus)
+
+
+def _place(mesh: Mesh, axes: Tuple[str, ...]) -> Tuple[int, int]:
+    """(how many slices ``axes`` make, this rank's slice), row-major over
+    ``axes`` as a gather over them orders its parts."""
+    size, index = 1, 0
+    for axis in axes:
+        n = mesh.axis_size(axis)
+        size, index = size * n, index * n + mesh.axis_index(axis)
+    return size, index
+
+
+def _gather(mesh: Mesh, tensor: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
+    """``[n, ...]``: ``tensor`` of each rank along ``axes``, in index order."""
+    if not axes:
+        return tensor[None]
+    return mesh.all_gather(tensor[None], axes[0] if len(axes) == 1 else axes)
+
+
+def shard_item_index(item_index: torch.Tensor, mesh: Mesh, corpus_axis="model") -> torch.Tensor:
+    """This rank's rows of ``item_index [V, D]`` padded with zero rows to a
+    multiple of the corpus shards (``corpus_axis``: ``"model"``, or
+    ``("data", "model")``: the whole mesh, the shard index the rank), a
+    copy on the index's device. ``make_sharded_retrieve_fn`` masks the pad
+    rows by global id, given the true ``num_items``."""
+    n, index = _place(mesh, _mesh_axes(corpus_axis)[0])
+    rows = -(-item_index.shape[0] // n)
+    shard = item_index[index * rows:(index + 1) * rows]
+    if shard.shape[0] < rows:  # the last shards' pad rows
+        return F.pad(shard, (0, 0, 0, rows - shard.shape[0]))
+    return shard.clone()
+
+
+def make_sharded_retrieve_fn(model, mesh: Mesh, num_items: int,
+                             temperature: Optional[float] = None, chunk_items: int = 65536,
+                             approx=False, recall_target: float = 0.99, fused_group: int = 16,
+                             corpus_axis="model") -> Retrieve:
+    """``retrieve(index_shard, u_ids, k) -> (scores [B, k] f32, item_ids
+    [B, k] int32)`` over a corpus sharded by ``shard_item_index``; every rank
+    calls it with the whole query batch and gets the whole result back.
+
+    The queries split over the axes the corpus leaves (``"data"`` under
+    ``corpus_axis="model"``; none, every rank all of them, where the corpus
+    takes the whole mesh). Each rank runs the user tower on its slice and
+    selects its shard's top ``k``: fused (B7's bin maxima, then the pad
+    rows' bins masked by global id ``>= num_items`` after the bin max, as
+    in JAX: a pad row can shadow a valid row of its bin in the last shard),
+    or exact (``_topk_scores`` with the pad rows masked before selection;
+    ``approx=True`` too, as in ``make_retrieve_fn``). The candidates are
+    gathered over the corpus axes in shard order and ranked by one exact
+    ``top_k``; the slices are gathered over the query axes."""
+    scale = temperature if temperature is not None else (
+        model.temperature if model.normalize else None)
+    corpus, query = _mesh_axes(corpus_axis)
+    device = _device_of(model)
+
+    def retrieve(index_shard: torch.Tensor, u_ids, k: int):
+        u_ids = torch.as_tensor(u_ids).to(device)
+        n_query, q_index = _place(mesh, query)
+        if u_ids.shape[0] % n_query:
+            raise ValueError(f"{u_ids.shape[0]} queries do not split over {n_query} query slices")
+        step = u_ids.shape[0] // n_query
+        base = _place(mesh, corpus)[1] * index_shard.shape[0]
+        with torch.inference_mode():
+            u_vec = model.user_vectors(u_ids[q_index * step:(q_index + 1) * step])
+            if approx == "fused":
+                vals, idx = bin_max_scores(u_vec, index_shard, group=fused_group)
+                ids = base + idx
+                vals = vals.masked_fill(ids >= num_items, float("-inf"))
+                if scale is not None:
+                    vals = vals / scale
+                scores, sel = top_k(vals, k)
+                ids = torch.gather(ids, 1, sel)
+            else:
+                scores, ids = _topk_scores(u_vec, index_shard, k, scale, chunk_items,
+                                           n_valid=num_items - base)
+                ids = base + ids
+            b = scores.shape[0]
+            scores, sel = top_k(_gather(mesh, scores, corpus).permute(1, 0, 2).reshape(b, -1), k)
+            ids = torch.gather(_gather(mesh, ids, corpus).permute(1, 0, 2).reshape(b, -1), 1, sel)
+            return (_gather(mesh, scores, query).reshape(-1, k),
+                    _gather(mesh, ids, query).reshape(-1, k))
+
     return retrieve
 
 

@@ -65,6 +65,13 @@ and a gloo world cannot be captured, so ``fit_steps`` and ``fit`` run the
 eager step body, on the card as on the CPU. Dropout draws per rank (JAX
 folds the data index into the step's key): parity runs use nets without
 dropout.
+
+The step's and the scoring's forward passes run inside
+``parallel.mesh.bound(mesh)``, as JAX's run inside ``shard_map``: a model
+that names a mesh axis reaches the mesh there (the two-tower model's
+``global_negatives_axis="data"``: its gather's backward sums the other
+ranks' cotangents into this rank's injected item rows before the ``1/d``
+scale and the exchange).
 """
 
 from __future__ import annotations
@@ -114,7 +121,7 @@ from pytorchrec_tpu_torch.parallel.hot_cold import (
     merge_table,
     split_table,
 )
-from pytorchrec_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
+from pytorchrec_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, bound
 from pytorchrec_tpu_torch.parallel.sharding import RowShard
 from pytorchrec_tpu_torch.training.sparse_trainer import SparseEmbeddingTrainer, _module_path
 from pytorchrec_tpu_torch.training.state import ShardedTrainState, StepScalars
@@ -408,9 +415,13 @@ class ShardedSparseEmbeddingTrainer(SparseEmbeddingTrainer):
         index scores its rows (rows injected over the mesh), the scores are
         gathered over the data group."""
         local = self._to_device(self._local_batch(batch))
-        with torch.inference_mode():
+        with torch.inference_mode(), bound(self.mesh):
             prediction, target = self.model(self._with_table_rows(local), train=False)
         return self._gathered(prediction), None if target is None else self._gathered(target)
+
+    def _score_eager(self, batch: Batch) -> torch.Tensor:
+        with bound(self.mesh):
+            return super()._score_eager(batch)
 
     def _mean_dense_grads(self, loss: torch.Tensor) -> torch.Tensor:
         """Every dense gradient and the loss averaged over the data group:
@@ -460,7 +471,8 @@ class ShardedSparseEmbeddingTrainer(SparseEmbeddingTrainer):
             injected[spec["rows_key"]] = leaf
             gathered.append((path, ids, leaf, aux))
 
-        prediction, target = self.model(injected, train=True, generator=state.rng)
+        with bound(self.mesh):
+            prediction, target = self.model(injected, train=True, generator=state.rng)
         loss = self.loss_fn(prediction, target)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()

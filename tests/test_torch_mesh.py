@@ -197,13 +197,15 @@ def test_preemption_guard_stops_every_rank_at_one_step(tmp_path):
 
 
 def test_dryrun_multichip_path_one_at_world_four(tmp_path):
-    """The port's twin of path 1 of ``__graft_entry__.dryrun_multichip(4)``:
-    a (2, 2) mesh, one sharded DCN-v2 step and one eval step on every
-    rank."""
+    """The port's twin of paths 1 and 7 of
+    ``__graft_entry__.dryrun_multichip(4)``: a (2, 2) mesh, one sharded
+    DCN-v2 step and one eval step on every rank, then 8 queries at k=5 over
+    a 100-item two-tower index sharded over the model axis."""
     results = W.run_world(W.dryrun_rank, 4, tmp_path)
     losses = [r["loss"] for r in results]
     assert all(np.isfinite(losses)) and len(set(losses)) == 1
     assert all(r["shape"] == (16,) for r in results)
+    assert all(r["ids_shape"] == (8, 5) for r in results)
 
 
 # ---------------------------------------------------------------------------

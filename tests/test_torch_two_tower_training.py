@@ -215,7 +215,9 @@ def test_five_int8_packed_train_steps_match_jax():
 
 def test_protocols_and_rows_injection():
     """Both protocols name the tables with their ids and keys; injected rows
-    give the scores of the model's own gathers; global negatives raise."""
+    give the scores of the model's own gathers; a model with global
+    negatives builds, and its training forward outside a bound mesh raises
+    as JAX's unbound axis name does."""
     batch = {k: torch.as_tensor(v) for k, v in _batches(3, n=1)[0].items()}
     model = _port_model()
     specs = model.sharded_table_specs(batch)
@@ -235,5 +237,6 @@ def test_protocols_and_rows_injection():
     quantized = _port_model(quantized_table=True)
     assert quantized.sharded_table_specs(batch)["i"]["path"] == Q
     assert [s["q"] for s in quantized.quantized_table_spec(batch).values()] == [Q]
-    with pytest.raises(NotImplementedError):
-        _port_model(global_negatives_axis="data")
+    global_negatives = _port_model(global_negatives_axis="data")
+    with pytest.raises(NameError), torch.no_grad():
+        global_negatives(batch, train=True)

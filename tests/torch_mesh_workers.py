@@ -280,8 +280,8 @@ def preemption_rank(rank: int, world: int, tmp: str) -> dict:
 def dryrun_rank(rank: int, world: int, tmp: str) -> dict:
     from pytorchrec_tpu_torch.parallel.dryrun import dryrun_multichip
 
-    loss, shape = dryrun_multichip(device="cpu")
-    return {"loss": loss, "shape": shape}
+    loss, shape, ids_shape = dryrun_multichip(device="cpu")
+    return {"loss": loss, "shape": shape, "ids_shape": ids_shape}
 
 
 def task_rank(rank: int, world: int, tmp: str) -> dict:

@@ -1,6 +1,7 @@
 """Spawned ranks for the sharded trainer's tests
 (``tests/test_torch_sharded_engine.py``,
-``tests/test_torch_sharded_trainer.py``); like ``torch_mesh_workers.py``
+``tests/test_torch_sharded_trainer.py``, ``tests/test_torch_sharded_two_tower.py``,
+``tests/test_torch_sharded_retrieval.py``); like ``torch_mesh_workers.py``
 this module imports torch, numpy and the port, never JAX.
 
 ``engine_rank`` runs the exchanges of ``parallel/embedding_engine.py`` on
@@ -8,7 +9,9 @@ each rank's slice of whole numpy inputs; ``scenarios_rank`` trains a list
 of scenarios (a model by name, the sharded trainer's arguments, the leaves
 to start from, the batches) on one mesh and returns each one's gathered
 state; ``one_process`` runs a scenario's twin in the calling process with
-no mesh.
+no mesh; ``tt_data4_rank`` runs the two-tower model's cross-replica forward
+and backward on a data axis of 4, ``retrieval_rank`` the corpus-sharded
+retrieval.
 """
 
 from __future__ import annotations
@@ -158,10 +161,44 @@ def dlrm(device, **kwargs):
                 unified_embedding=True, table_row_multiple=8, device=device, **kwargs)
 
 
-MODELS = {"funk_svd": funk_svd, "dcnv2": dcnv2, "dlrm": dlrm}
+def two_tower(device, **kwargs):
+    from pytorchrec_tpu_torch.models import TwoTower
+
+    return TwoTower(uid_column=CategoricalColumnWithIdentity(feature_name="uid",
+                                                             category_num=TT_USERS),
+                    iid_column=CategoricalColumnWithIdentity(feature_name="iid",
+                                                             category_num=TT_ITEMS),
+                    label_column=_label(), emb_size=8, layers=(16, 8), table_row_multiple=2,
+                    device=device, **kwargs)
+
+
+MODELS = {"funk_svd": funk_svd, "dcnv2": dcnv2, "dlrm": dlrm, "two_tower": two_tower}
+TT_USERS, TT_ITEMS, TT_CANDIDATES = 64, 120, 3  # the two-tower tables; iid [B, 3] positive first
+TT_Q_KEY = "__two_tower_q"  # TwoTower.Q_KEY
+
+
+def two_tower_batch(rng, rows: int, pointwise: bool = False) -> dict:
+    """``uid [B]`` and ``iid [B, 3]`` positive first, a raw sampling
+    probability a row under the logQ key, and duplicate positives planted
+    within each quarter of the batch and across its halves (accidental
+    hits for the mask, on one rank and across ranks); ``pointwise``:
+    ``iid [B]`` and a label."""
+    out = {"uid": rng.integers(0, TT_USERS, size=rows).astype(np.int32)}
+    if pointwise:
+        out["iid"] = rng.integers(0, TT_ITEMS, size=rows).astype(np.int32)
+        out["label"] = rng.integers(0, 2, size=rows).astype(np.int32)
+        return out
+    iid = rng.integers(0, TT_ITEMS, size=(rows, TT_CANDIDATES)).astype(np.int32)
+    iid[1, 0] = iid[0, 0]
+    iid[rows // 2 + 1, 0] = iid[2, 0]
+    out["iid"] = iid
+    out[TT_Q_KEY] = rng.uniform(1e-3, 1e-1, size=rows).astype(np.float32)
+    return out
 
 
 def batch(model: str, rng, rows: int) -> dict:
+    if model == "two_tower":
+        return two_tower_batch(rng, rows)
     if model == "funk_svd":
         out = {"uid": rng.integers(0, USERS, size=rows), "iid": rng.integers(0, ITEMS, size=rows)}
     elif model == "dcnv2":
@@ -181,7 +218,8 @@ def batch(model: str, rng, rows: int) -> dict:
 
 
 def _train(trainer, scenario: dict, leaves) -> dict:
-    trainer.compile(optimizer="adam", loss="bce", metrics=("auc",), lr=scenario["lr"])
+    trainer.compile(optimizer="adam", loss=scenario.get("loss", "bce"), metrics=("auc",),
+                    lr=scenario["lr"])
     batches = scenario["batches"]
     trainer.init_state(batches[0], seed=scenario.get("seed", 0))
     if leaves is not None:
@@ -221,10 +259,13 @@ def scenarios_rank(rank: int, world: int, tmp: str) -> dict:
 def one_process(scenario: dict, merged_leaves: dict) -> dict:
     """The scenario's one-process twin from the merged starting leaves:
     ``SparseEmbeddingTrainer`` with the same table format, or the packed
-    ``QuantizedEmbeddingTrainer`` for int8 rows."""
-    model = MODELS[scenario["model"]]("cpu", **scenario.get("model_kwargs", {}))
+    ``QuantizedEmbeddingTrainer`` for int8 rows; its model takes
+    ``one_process_model_kwargs`` where given (local negatives over the
+    whole batch for a model with cross-replica ones)."""
+    model_kwargs = scenario.get("one_process_model_kwargs", scenario.get("model_kwargs", {}))
+    model = MODELS[scenario["model"]]("cpu", **model_kwargs)
     kwargs = scenario["trainer_kwargs"]
-    if scenario.get("model_kwargs", {}).get("quantized_embedding"):
+    if model_kwargs.get("quantized_embedding") or model_kwargs.get("quantized_table"):
         trainer = QuantizedEmbeddingTrainer(model, device="cpu", packed_tables=True,
                                             table_lr=kwargs.get("table_lr"))
     else:
@@ -260,4 +301,91 @@ def criteo_rank(rank: int, world: int, tmp: str) -> dict:
         out[name] = {"printed": printed.getvalue(), "losses": result["step_losses"],
                      "auc": result["heldout_auc"], "launches": result["launches"],
                      "leaves": result["trainer"].merged_params()}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the two-tower model's forward on a data axis of 4
+# ---------------------------------------------------------------------------
+
+
+def tt_data4_rank(rank: int, world: int, tmp: str) -> dict:
+    """A (4, 1) mesh: the two-tower model with cross-replica negatives
+    (unnormalized) from JAX's leaves, this data index's rows of the batch
+    and of the injected rows, the forward inside ``bound(mesh)``, then the
+    backward of ``sum(prediction * w)``: the prediction, the rows'
+    gradients and the parameters' gradients summed over the ranks (flax
+    layout)."""
+    from pytorchrec_tpu_torch.parallel import bound
+    from pytorchrec_tpu_torch.utils.convert import _port_key, flax_path
+
+    inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    mesh = make_mesh(data=world, model=1, device="cpu")
+    rows = data_sharding(mesh).rows(len(inputs["batch"]["uid"]))
+    model = two_tower("cpu", global_negatives_axis="data", mask_accidental_hits=True,
+                      normalize=False)
+    params_from_jax(inputs["leaves"], model)
+    batch = {k: torch.from_numpy(v[rows].copy()) for k, v in inputs["batch"].items()}
+    cands = inputs["batch"]["iid"].shape[1]
+    injected = {k: torch.from_numpy(v.reshape(-1, cands if k.endswith("_i") else 1, v.shape[-1])
+                                    [rows].reshape(-1, v.shape[-1]).copy()).requires_grad_()
+                for k, v in inputs["rows"].items()}
+    with bound(mesh):
+        prediction, _ = model({**batch, **injected}, train=True)
+    (prediction * torch.from_numpy(inputs["w"][rows])).sum().backward()
+    grads = {}
+    for name, p in model.named_parameters():
+        if p.grad is None:  # the tables: their rows are injected
+            continue
+        g = mesh.psum(p.grad.clone(), "data")
+        path = flax_path(name)
+        grads[path] = (g.t() if _port_key(path)[1] == "transpose" else g).numpy()
+    return {"prediction": prediction.detach().numpy(),
+            "grad_rows": {k: v.grad.numpy() for k, v in injected.items()}, "grad_params": grads}
+
+
+
+# ---------------------------------------------------------------------------
+# corpus-sharded retrieval
+# ---------------------------------------------------------------------------
+
+
+def retrieval_model(n_items: int):
+    """``tests/test_two_tower.py::_make_model(n_items=..., normalize=False,
+    emb_size=16)``'s twin: 50 users, towers (16, 8), dot-product scores."""
+    from pytorchrec_tpu_torch.models import TwoTower
+
+    return TwoTower(uid_column=CategoricalColumnWithIdentity(feature_name="uid", category_num=50),
+                    iid_column=CategoricalColumnWithIdentity(feature_name="iid",
+                                                             category_num=n_items),
+                    label_column=_label(), emb_size=16, layers=(16, 8), normalize=False,
+                    device="cpu")
+
+
+def retrieval_rank(rank: int, world: int, tmp: str) -> dict:
+    """Every case of ``inputs.pt`` on the mesh ``inputs["mesh"]``: the index
+    (JAX's, as numpy) sharded over the case's corpus axis, then the exact
+    (chunks of 128 items) and the fused (B7, one chunk a super-chunk)
+    sharded retrieval of the same queries; each one's scores and ids, the
+    shard's rows and how many queries the user tower scored a call."""
+    from pytorchrec_tpu_torch.serving import make_sharded_retrieve_fn, shard_item_index
+
+    inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    mesh = make_mesh(*inputs["mesh"], device="cpu")
+    out = {}
+    for name, case in inputs["cases"].items():
+        model = params_from_jax(case["leaves"], retrieval_model(case["n_items"]))
+        scored = []
+        tower = model.user_vectors
+        model.user_vectors = lambda ids: (scored.append(ids.shape[0]), tower(ids))[1]
+        shard = shard_item_index(torch.from_numpy(case["index"]), mesh, case["corpus_axis"])
+        result = {"shard": shard.numpy()}
+        for mode, kwargs in (("exact", dict(chunk_items=128)),
+                             ("fused", dict(approx="fused", fused_group=1))):
+            retrieve = make_sharded_retrieve_fn(model, mesh, num_items=case["n_items"],
+                                                corpus_axis=case["corpus_axis"], **kwargs)
+            scores, ids = retrieve(shard, torch.from_numpy(inputs["uids"]), inputs["k"])
+            result[mode] = (scores.numpy(), ids.numpy())
+        result["scored"] = scored
+        out[name] = result
     return out
